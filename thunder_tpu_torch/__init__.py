@@ -1,0 +1,20 @@
+"""thunder_tpu_torch — the PyTorch / CUDA port of thunder_tpu.
+
+The JAX package ``thunder_tpu`` stays the reference; this package mirrors
+its layout (``ops/``, ``physics/``, ``geometry/``, ``pipeline/``,
+``recon/``, ``particle.py``, ``model.py``, ``optimiser.py``,
+``cli/thunder.py``) and keeps its array layouts at every public
+function: real space in FFT layout, Fourier space centered full-space,
+and a leading hemisphere axis of size 2 on stacked state.
+
+Four hand-written Hopper kernels (``csrc/``) carry the 3D-refinement
+round: slice projection, the likelihood epilogue, trilinear insertion
+and Fourier-shell sums.  Each sits beside a plain PyTorch version that
+runs for CPU tensors; see ``thunder_tpu_torch/_native.py`` for how they
+are built.
+
+Only numpy-only modules of ``thunder_tpu`` are imported (``io``,
+``constants``, ``config``, ``utils.logging``); nothing here imports jax.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,191 @@
+"""Fourier-slice projection (src/Projector.cpp) — and the host of
+kernel HK1 (``project_slices``).
+
+Pad the reference by ``pf`` in real space, divide by the interpolation
+kernel's FT (grid correction, Projector.cpp:524-606), FFT; per pose,
+gather a central slice by trilinear interpolation at rotated padded
+coordinates (Projector.cpp:337-374).  The padded spectrum is a full
+complex cube in centered layout, as in thunder_tpu.ops.projector; the
+port gathers float32 complex directly (the JAX package's bf16
+corner-row tables are a TPU gather layout).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from thunder_tpu_torch import _native
+from thunder_tpu_torch.device import COMPLEX, REAL
+from thunder_tpu_torch.ops.fourier import (
+    PackedRings,
+    centered_quad_dev,
+    fft3_centered,
+    pad_rl,
+    radial_grid_dev,
+)
+from thunder_tpu_torch.physics.kernels import tik_rl
+
+
+class Projectee(NamedTuple):
+    """A prepared, padded, grid-corrected reference spectrum."""
+
+    ft: torch.Tensor   # (pf*size,)*3 complex64, centered layout
+    size: int
+    pf: int
+    max_radius: int    # size // 2 - 1
+
+
+def prepare_projectee_3d(ref_rl: torch.Tensor, pf: int = 2) -> Projectee:
+    """Real-space 3D reference (FFT layout) -> padded corrected spectrum
+    (Projector.cpp:123-148)."""
+    size = ref_rl.shape[-1]
+    big = size * pf
+    padded = pad_rl(ref_rl, pf)
+    corr = tik_rl(radial_grid_dev(big, 3, ref_rl.device) / (pf * big))
+    return Projectee(fft3_centered(padded / corr).to(COMPLEX), size, pf,
+                     size // 2 - 1)
+
+
+def _zoom_dft_mat(size: int, big: int, crop: int, device) -> torch.Tensor:
+    """E[K, m] = exp(-2 pi i (K - crop//2)(m - size//2) / big): centered
+    real-space support -> the centered-spectrum band of the padded FFT."""
+    kk = torch.arange(crop, dtype=REAL, device=device) - crop // 2
+    mm = torch.arange(size, dtype=REAL, device=device) - size // 2
+    ang = (-2.0 * math.pi / big) * kk[:, None] * mm[None, :]
+    return torch.complex(torch.cos(ang), torch.sin(ang))
+
+
+def prepare_projectee_3d_cropped(ref_rl: torch.Tensor, pf: int,
+                                 crop: int) -> torch.Tensor:
+    """Central ``crop`` band of the padded, grid-corrected spectrum by
+    three per-axis zoom-DFT matmuls (never builds the (pf*size)^3 cube).
+    ref_rl (..., size, size, size) -> (..., crop, crop, crop) complex64."""
+    size = ref_rl.shape[-1]
+    big = size * pf
+    rc = torch.fft.fftshift(ref_rl, dim=(-3, -2, -1))
+    corr = tik_rl(torch.sqrt(centered_quad_dev(size, 3, ref_rl.device)) / (pf * big))
+    rc = (rc / corr).to(COMPLEX)
+    e = _zoom_dft_mat(size, big, crop, ref_rl.device)
+    t = torch.einsum("Km,...zym->...zyK", e, rc)
+    t = torch.einsum("Jm,...zmK->...zJK", e, t)
+    t = torch.einsum("Im,...mJK->...IJK", e, t)
+    return t.to(COMPLEX)
+
+
+# -- HK1 ----------------------------------------------------------------
+
+def project_slices_plain(table: torch.Tensor, rot: torch.Tensor,
+                         i_col: torch.Tensor, i_row: torch.Tensor, pf: int,
+                         cls: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of HK1 (the JAX package's _gather_trilinear_3d
+    arithmetic): table (K, n, n, n) complex64, rot (L, R, 3, 3),
+    cls (L,) or None (class 0) -> (L, R, P) complex64."""
+    n = table.shape[-1]
+    c = n // 2
+    fx = (i_col * pf).to(REAL)
+    fy = (i_row * pf).to(REAL)
+    x = rot[..., 0, 0:1] * fx + rot[..., 0, 1:2] * fy
+    y = rot[..., 1, 0:1] * fx + rot[..., 1, 1:2] * fy
+    z = rot[..., 2, 0:1] * fx + rot[..., 2, 1:2] * fy
+    flx, fly, flz = torch.floor(x), torch.floor(y), torch.floor(z)
+    wx, wy, wz = x - flx, y - fly, z - flz
+    ix = flx.to(torch.int64) + c
+    iy = fly.to(torch.int64) + c
+    iz = flz.to(torch.int64) + c
+    n_l = rot.shape[0]
+    k = (torch.zeros(n_l, dtype=torch.int64, device=table.device)
+         if cls is None else cls.to(torch.int64))
+    vi = (k * n ** 3).reshape((n_l,) + (1,) * (x.ndim - 1))
+    flat = table.reshape(-1)
+
+    def tap(dz, dy, dx, w):
+        xi = torch.clamp(ix + dx, 0, n - 1)
+        yi = torch.clamp(iy + dy, 0, n - 1)
+        zi = torch.clamp(iz + dz, 0, n - 1)
+        return flat[vi + (zi * n + yi) * n + xi] * w
+
+    out = tap(0, 0, 0, (1 - wz) * (1 - wy) * (1 - wx))
+    out = out + tap(0, 0, 1, (1 - wz) * (1 - wy) * wx)
+    out = out + tap(0, 1, 0, (1 - wz) * wy * (1 - wx))
+    out = out + tap(0, 1, 1, (1 - wz) * wy * wx)
+    out = out + tap(1, 0, 0, wz * (1 - wy) * (1 - wx))
+    out = out + tap(1, 0, 1, wz * (1 - wy) * wx)
+    out = out + tap(1, 1, 0, wz * wy * (1 - wx))
+    out = out + tap(1, 1, 1, wz * wy * wx)
+    return out.to(COMPLEX)
+
+
+def project_slices(table: torch.Tensor, rot: torch.Tensor,
+                   i_col: torch.Tensor, i_row: torch.Tensor, pf: int,
+                   cls: torch.Tensor | None = None) -> torch.Tensor:
+    """Trilinear central-slice gather: out[l, r, p] = sample of cube
+    cls[l] at rot[l, r] . (pf i_col[p], pf i_row[p], 0).
+
+    table (K, n, n, n) complex64 centered; rot (L, R, 3, 3) float32 (an
+    expanded leading dim of stride 0 shares one rotation block across
+    images); cls (L,) or None; pixels (P,) int32 -> (L, R, P) complex64.
+    CPU tensors take :func:`project_slices_plain`; CUDA tensors launch
+    csrc/project_slices.cu."""
+    if not table.is_cuda:
+        return project_slices_plain(table, rot, i_col, i_row, pf, cls)
+    _native.require(table.ndim == 4 and table.dtype == COMPLEX
+                    and table.is_contiguous(),
+                    "project_slices: table must be contiguous (K, n, n, n) complex64")
+    _native.require(rot.ndim == 4 and rot.shape[-2:] == (3, 3)
+                    and rot.dtype == REAL,
+                    "project_slices: rot must be (L, R, 3, 3) float32")
+    if not rot[0].is_contiguous():
+        rot = rot.contiguous()
+    n_l, n_r = rot.shape[:2]
+    n = table.shape[-1]
+    i_col = i_col.to(torch.int32).contiguous()
+    i_row = i_row.to(torch.int32).contiguous()
+    if cls is not None:
+        cls = cls.to(torch.int32).contiguous()
+        _native.require(cls.shape == (n_l,), "project_slices: cls must be (L,)")
+    n_p = i_col.shape[0]
+    out = torch.empty((n_l, n_r, n_p), dtype=COMPLEX, device=table.device)
+    if out.numel() == 0:
+        return out
+    lib = _native.library()
+    project_slices.launches += 1
+    _native.check(lib.thunder_project_slices(
+        table.data_ptr(), n, None if cls is None else cls.data_ptr(),
+        rot.data_ptr(), rot.stride(0), n_l, n_r, i_col.data_ptr(),
+        i_row.data_ptr(), n_p, int(pf), out.data_ptr(),
+        _native.stream_ptr(table)), "project_slices")
+    return out
+
+
+project_slices.launches = 0
+
+
+def project_3d(proj: Projectee, rot: torch.Tensor,
+               rings: PackedRings) -> torch.Tensor:
+    """Central slices at packed pixels for rotations (R, 3, 3) -> (R, p)."""
+    return project_slices(proj.ft[None], rot[None], rings.i_col, rings.i_row,
+                          proj.pf)[0]
+
+
+def project_classed(table: torch.Tensor, cls: torch.Tensor, rot: torch.Tensor,
+                    rings: PackedRings, pf: int) -> torch.Tensor:
+    """Per-image rotations (L, R, 3, 3) from each image's own class
+    spectrum (K, n, n, n) -> (L, R, p)."""
+    return project_slices(table, rot, rings.i_col, rings.i_row, pf, cls)
+
+
+def project_full_3d(proj: Projectee, rot: torch.Tensor) -> torch.Tensor:
+    """Central-slice projection to full centered 2D spectra:
+    rot (B, 3, 3) -> (B, size, size), zero outside max_radius."""
+    size = proj.size
+    dev = proj.ft.device
+    k = torch.arange(size, dtype=torch.int32, device=dev) - size // 2
+    ky, kx = torch.meshgrid(k, k, indexing="ij")
+    vals = project_slices(proj.ft[None], rot[None], kx.reshape(-1),
+                          ky.reshape(-1), proj.pf)[0]
+    inside = (kx * kx + ky * ky < proj.max_radius ** 2).reshape(-1)
+    vals = torch.where(inside, vals, torch.zeros_like(vals))
+    return vals.reshape(rot.shape[:-2] + (size, size))

@@ -1,0 +1,893 @@
+"""The E-M loop of 3D auto-refinement: expectation (pose search),
+maximization (noise / norm statistics, reconstruction) and round-level
+control — the main path of thunder_tpu.optimiser on one GPU.
+
+  round:
+    build the projection tables                       [refreshProj]
+    GLOBAL: rotation-block pose grid -> marginals      [expectation :633-1136]
+    particle-filter phases: perturb -> evaluate -> resample
+                                                       [expectation :1138-1681]
+    sigma / norm / scale from the rank-1 residuals     [maximization]
+    draw poses -> insertion -> two-pass gridding       [reconstructRef]
+    hemisphere FSC, averaging, masking, state machine  [Model, run :3561]
+
+Hemispheres A and B (gold standard) are a leading axis of size 2 on
+every state tensor; both run batched on one device.  The hot spots are
+the four hand-written kernels: HK1 project_slices (global search,
+phases, statistics), HK2 likelihood_block (global search, phases), HK3
+insert_trilinear (insertion) and HK4 shell_sums (FSC, sigma).
+
+Supported here: 3D, K = 1, symmetry C1, CTF search off — the
+configuration the repo benchmarks.  The JAX package's TPU-only
+machinery (residency planning, hemisphere sequencing, brick tables and
+routing, static insert buckets, the sweep inserter) has no counterpart.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import json
+import math
+import os
+import time
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from thunder_tpu.config import ThunderConfig
+from thunder_tpu.constants import (
+    EDGE_WIDTH_RL,
+    MAX_N_PHASE_PER_ITER,
+    MIN_N_PHASE_PER_ITER_GLOBAL,
+    MIN_N_PHASE_PER_ITER_LOCAL,
+    MIN_N_TRANSLATION_GLOBAL,
+    N_PHASE_WITH_NO_VARI_DECREASE,
+)
+from thunder_tpu_torch import particle as pt
+from thunder_tpu_torch.device import COMPLEX, REAL, as_device, generator, synchronize
+from thunder_tpu_torch.geometry.quaternion import random_quat, rotate3d
+from thunder_tpu_torch.geometry.symmetry import Symmetry, r_global
+from thunder_tpu_torch.model import (
+    SEARCH_TYPE_GLOBAL,
+    SEARCH_TYPE_STOP,
+    ModelState,
+    true_fsc_batch,
+)
+from thunder_tpu_torch.ops.fourier import (
+    PackedRings,
+    centered_shell_dev,
+    extract_packed,
+    fft2_centered,
+    ifft2_centered,
+    pack_rings,
+    resize_rl,
+    translate_ft,
+    translate_phases,
+    translate_phases_view,
+)
+from thunder_tpu_torch.ops.insert import insert_trilinear
+from thunder_tpu_torch.ops.likelihood import (
+    block_terms,
+    likelihood_block,
+    local_marginals,
+    local_terms,
+    modulate,
+)
+from thunder_tpu_torch.ops.projector import prepare_projectee_3d_cropped, project_slices
+from thunder_tpu_torch.physics.ctf import CtfParams, ctf_packed
+from thunder_tpu_torch.physics.mask import radial_grid, soft_mask_weight
+from thunder_tpu_torch.physics import spectrum
+from thunder_tpu_torch.physics.spectrum import shell_sums
+from thunder_tpu_torch.pipeline.preprocess import (
+    init_sigma,
+    preprocess_images,
+    sigma_to_sig_rcp,
+)
+from thunder_tpu_torch.recon.reconstructor import reconstruct, reconstruct_two_pass
+
+PARTICLE_FILTER_DECREASE_FACTOR = 0.95  # include/Optimiser.h:60
+ROT_BLOCK = 256        # rotations per global-search block (R*T*4 B in smem)
+RECO_COMPACT_SLOTS = 48
+
+
+def proj_crop_size(size: int, pf: int, r_u: int) -> int:
+    """Crop of the padded spectrum a search at radius r_u can reach:
+    slice coordinates stay within pf * r_u of the origin."""
+    return min(size * pf, 2 * (pf * r_u + 2))
+
+
+def reco_grid_size(size: int, r_u: int) -> int:
+    """Cropped reconstructor box (Model::resetReco, Model.cpp:1113)."""
+    size_r = min(size, 2 * (r_u + 2))
+    return max(16, size_r + (size_r % 2))
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _median(x: torch.Tensor, valid: torch.Tensor) -> float:
+    """Median over the valid entries, the two middle values averaged
+    (jnp.nanmedian's convention)."""
+    return float(torch.nanquantile(torch.where(valid > 0, x, float("nan")).reshape(-1), 0.5))
+
+
+# -- stages (module level: plain functions on tensors) -----------------
+
+def pack_inputs(ft_masked: torch.Tensor, ctf: CtfParams, sigma: torch.Tensor,
+                group_id: torch.Tensor, rings: PackedRings, size: int,
+                pixel_size: float):
+    """allocPreCal analogue: ring pixels, CTF, per-group sigma lookup and
+    the likelihood operands, for (2, L) images.  Returns dat_w (2, L, P)
+    complex, sctf2 (2, L, P), a_term (2, L)."""
+    dat = extract_packed(ft_masked, rings)
+    ctf_p = ctf_packed(ctf, rings.i_col, rings.i_row, size, pixel_size)
+    h = torch.arange(sigma.shape[0], device=sigma.device)[:, None, None]
+    sig = sigma[h, group_id[..., None], rings.i_sig.long()[None, None, :]]
+    sig_rcp = sigma_to_sig_rcp(sig) * rings.mask
+    dat_w = (sig_rcp * ctf_p).to(COMPLEX) * dat
+    sctf2 = sig_rcp * ctf_p * ctf_p
+    a_term = torch.sum(sig_rcp * dat.abs() ** 2, dim=-1)
+    return dat_w, sctf2, a_term
+
+
+def global_search(table: torch.Tensor, rot_blocks: torch.Tensor,
+                  rings: PackedRings, dat_w: torch.Tensor, sctf2: torch.Tensor,
+                  a_term: torch.Tensor, tra: torch.Tensor, pf: int):
+    """Streaming log-sum-exp over a rotation grid for one hemisphere
+    (optimiser._global_search): table (1, n, n, n), rot_blocks
+    (n_blocks, B, 3, 3), dat_w/sctf2 (L, P), a_term (L,), tra (N, P).
+    Returns w_c (L, 1), w_r (1, L, n_blocks*B), w_t (1, L, N)."""
+    if table.shape[0] != 1:
+        raise NotImplementedError("global search supports one class (K = 1)")
+    n_blocks, block = rot_blocks.shape[:2]
+    n_l, n_t = dat_w.shape[0], tra.shape[0]
+    dev = dat_w.device
+    x_ri = modulate(dat_w, tra)
+    base = torch.full((n_l,), float("-inf"), dtype=REAL, device=dev)
+    w_c = torch.zeros((n_l, 1), dtype=REAL, device=dev)
+    w_r = torch.zeros((1, n_l, n_blocks * block), dtype=REAL, device=dev)
+    w_t = torch.zeros((1, n_l, n_t), dtype=REAL, device=dev)
+    ones_r = torch.ones((1, 1), dtype=REAL, device=dev).expand(n_l, block)
+    ones_t = torch.ones((1, 1), dtype=REAL, device=dev).expand(n_l, n_t)
+    for b_idx in range(n_blocks):
+        pri = project_slices(table, rot_blocks[b_idx][None], rings.i_col,
+                             rings.i_row, pf)[0]
+        b, c = block_terms(x_ri, sctf2, pri)
+        likelihood_block(a_term, b, c, ones_r, ones_t, base, w_c[:, 0],
+                         w_r[0], w_t[0], col0=b_idx * block)
+    return w_c, w_r, w_t
+
+
+def compare_refs(ref_a: torch.Tensor, ref_b: torch.Tensor, n_shells: int,
+                 fsc: torch.Tensor | None = None, want_avg: bool = True):
+    """FSC between hemisphere references (K, n, n, n) and averaging below
+    the 0.95 crossing (Model::compareTwoHemispheres, Model.cpp:307-851).
+    ``fsc`` given: the averaging shell comes from it.  Returns
+    (fsc (K, n_shells), averaged a, averaged b)."""
+    ax = (-3, -2, -1)
+    fa = torch.fft.fftshift(torch.fft.fftn(ref_a, dim=ax), dim=ax)
+    fb = torch.fft.fftshift(torch.fft.fftn(ref_b, dim=ax), dim=ax)
+    size = ref_a.shape[-1]
+    if fsc is None:
+        fsc = spectrum.fsc(fa, fb, n_shells, ndim=3)
+    else:
+        fsc = torch.as_tensor(fsc, dtype=REAL, device=ref_a.device)[:, :n_shells]
+    if not want_avg:
+        return fsc, None, None
+    below = fsc < 0.95
+    below[:, 0] = False
+    first = torch.argmax(below.to(torch.int32), dim=1)
+    r_avg = torch.where(below.any(dim=1), first - 1,
+                        torch.full_like(first, n_shells - 1))
+    u3 = centered_shell_dev(size, 3, ref_a.device)
+    sel = u3[None] <= r_avg[:, None, None, None]
+    avg = (fa + fb) / 2
+    back = lambda f: torch.fft.ifftn(torch.fft.ifftshift(f, dim=ax), dim=ax).real
+    return fsc, back(torch.where(sel, avg, fa)), back(torch.where(sel, avg, fb))
+
+
+def recentre_refs(refs: torch.Tensor, o_class: torch.Tensor) -> torch.Tensor:
+    """Translate references (..., n, n, n) by -o (x/y only) with a phase
+    ramp on the centered spectrum; o_class (..., 2)."""
+    ax = (-3, -2, -1)
+    size = refs.shape[-1]
+    k = torch.arange(size, dtype=REAL, device=refs.device) - size // 2
+    ft = torch.fft.fftshift(torch.fft.fftn(refs, dim=ax), dim=ax)
+    ox = o_class[..., 0][..., None, None, None]
+    oy = o_class[..., 1][..., None, None, None]
+    phase = (2 * math.pi / size) * (k[None, None, :] * ox + k[None, :, None] * oy)
+    ft = ft * torch.polar(torch.ones_like(phase), phase)
+    return torch.fft.ifftn(torch.fft.ifftshift(ft, dim=ax), dim=ax).real
+
+
+# -- orchestration ------------------------------------------------------
+
+class StackedData(NamedTuple):
+    """Both hemispheres' images on a leading axis of size 2, padded to a
+    common L (pads repeat real images and carry no insertion weight)."""
+
+    ft_masked: torch.Tensor    # (2, L, size, size) complex64
+    ft_ori: torch.Tensor       # (2, L, size, size) complex64
+    ctf_params: CtfParams      # fields (2, L)
+    group_id: torch.Tensor     # (2, L) int64
+
+
+@dataclass
+class StackedState:
+    refs: torch.Tensor         # (2, K, size, size, size) real space
+    sigma: torch.Tensor        # (2, n_group, max_r)
+    par: pt.ParticleState      # fields (2, L, ...)
+    cls: torch.Tensor          # (2, L) int64
+
+
+class Optimiser:
+    """Host orchestration of one 3D refinement on one device."""
+
+    def __init__(self, cfg: ThunderConfig, images: np.ndarray, ctf,
+                 group_id: np.ndarray, init_refs: np.ndarray | None = None,
+                 hemi_of: np.ndarray | None = None, resume_thu=None,
+                 device=None, seed: int | None = None):
+        if cfg.mode_2d or cfg.k != 1 or cfg.c_search:
+            raise NotImplementedError(
+                "the port runs 3D refinement with K = 1 and CTF search off")
+        if (cfg.sym or "C1").strip().upper() != "C1":
+            raise NotImplementedError("the port runs symmetry C1 only")
+        self.cfg = cfg
+        self.device = dev = as_device(device)
+        self.gen = generator(cfg.seed if seed is None else seed, dev)
+        self.sym = Symmetry(cfg.sym, dev)
+        n = images.shape[0]
+        if n < 2:
+            raise ValueError("need at least one image per hemisphere")
+        hemi_of = np.arange(n) % 2 if hemi_of is None else np.asarray(hemi_of)
+        self.hemi_of = hemi_of
+        self.n_total = n
+        self.n_group = int(np.max(group_id)) + 1
+        self.model = ModelState(
+            n_class=cfg.k, size=cfg.size, pixel_size=cfg.pixel_size,
+            r_init=cfg.r_init, r_global=r_global(cfg), max_r=cfg.max_r,
+            l_search=cfg.l_search, c_search=cfg.c_search)
+        if not cfg.g_search:
+            self.model.search_type = 1
+            self.model.r = min(cfg.max_r, max(self.model.r, self.model.r_global))
+
+        sel = [np.nonzero(hemi_of == h)[0] for h in (0, 1)]
+        if min(len(s) for s in sel) == 0:
+            raise ValueError("a hemisphere is empty; both halves need images")
+        L = max(len(s) for s in sel)
+        self.index = np.stack([np.resize(s, L) for s in sel])
+        self.valid = np.stack([np.arange(L) < len(s) for s in sel])
+        self.n_img = L
+        flat = self.index.reshape(-1)
+
+        prep = preprocess_images(
+            torch.as_tensor(np.asarray(images, np.float32)[flat], device=dev),
+            cfg.mask_radius / cfg.pixel_size, zero_mask=cfg.zero_mask)
+        s2 = (2, L, cfg.size, cfg.size)
+        ctf = CtfParams(*[torch.as_tensor(np.asarray(f, np.float32)[flat],
+                                          device=dev).reshape(2, L)
+                          for f in ctf])
+        self.data = StackedData(
+            ft_masked=prep.ft_masked.reshape(s2).contiguous(),
+            ft_ori=prep.ft_ori.reshape(s2).contiguous(), ctf_params=ctf,
+            group_id=torch.as_tensor(np.asarray(group_id)[flat].astype(np.int64),
+                                     device=dev).reshape(2, L))
+        sigma = torch.stack([
+            init_sigma(self.data.ft_ori[h], cfg.max_r).expand(
+                self.n_group, cfg.max_r) for h in (0, 1)]).contiguous()
+
+        refs = (self._blank_refs() if init_refs is None
+                else np.asarray(init_refs, np.float32))
+        if refs.ndim == 3:
+            refs = np.repeat(refs[None], cfg.k, axis=0)
+        refs2 = torch.as_tensor(np.stack([refs] * 2), device=dev)
+
+        if resume_thu is not None and not cfg.g_search:
+            t = resume_thu
+            par = pt.from_thu(
+                t.quat[flat], t.trans[flat], t.std_trans[flat],
+                np.stack([t.k1[flat], t.k2[flat], t.k3[flat]], axis=1),
+                t.defocus_factor[flat], t.std_defocus_factor[flat],
+                cfg.n_rot_local, cfg.m_l_t, 1, self.gen, dev)
+            par = par.map(lambda a: a.reshape((2, L) + a.shape[1:]))
+        else:
+            par = pt.init_particles(self.gen, (2, L), cfg.n_rot_local,
+                                    cfg.m_l_t, 1, cfg.trans_s, dev)
+        cls = torch.zeros((2, L), dtype=torch.int64, device=dev)
+        self.state = StackedState(refs=refs2, sigma=sigma, par=par, cls=cls)
+        self.offset = torch.zeros((2, L, 2), dtype=REAL, device=dev)
+        self.valid_dev = torch.as_tensor(self.valid.astype(np.float32), device=dev)
+        self.round_records: list[dict] = []
+        self._tables: dict = {}
+        self._refs_report = None
+        self._fsc_band = cfg.max_r
+        self._ref_mask = None
+        if cfg.perform_mask and cfg.mask_path:
+            from thunder_tpu.io.mrc import read_mrc
+
+            self._ref_mask = torch.as_tensor(read_mrc(cfg.mask_path)[0], device=dev)
+        self._soft_mask = soft_mask_weight(
+            cfg.size, 3, cfg.mask_radius / cfg.pixel_size, EDGE_WIDTH_RL, dev)
+
+    # ------------------------------------------------------------------
+
+    def _blank_refs(self) -> np.ndarray:
+        cfg = self.cfg
+        u = radial_grid(cfg.size, 3)
+        blob = np.where(u < cfg.mask_radius / cfg.pixel_size, 1.0, 0.0
+                        ).astype(np.float32)
+        refs = np.repeat(blob[None], cfg.k, axis=0)
+        rng = np.random.default_rng(cfg.seed)
+        return refs * (1 + 0.01 * rng.standard_normal(refs.shape).astype(np.float32))
+
+    def set_refs(self, refs: torch.Tensor) -> None:
+        """Rebind the references; cached projection tables are dropped."""
+        self.state.refs = refs
+        self._tables = {}
+
+    def _sync(self) -> None:
+        synchronize(self.device)
+
+    def _rings(self) -> PackedRings:
+        return pack_rings(self.cfg.size, int(self.model.r), self.cfg.r_low,
+                          device=self.device)
+
+    def _pack_inputs(self, rings: PackedRings):
+        cfg = self.cfg
+        d = self.data
+        return pack_inputs(d.ft_masked, d.ctf_params, self.state.sigma,
+                           d.group_id, rings, cfg.size, float(cfg.pixel_size))
+
+    def proj_table(self, r_u: int) -> torch.Tensor:
+        """Padded, grid-corrected spectra (2, K, crop, crop, crop) of the
+        current references, cropped to what radius r_u reaches (cached
+        until the references change)."""
+        cfg = self.cfg
+        crop = proj_crop_size(cfg.size, cfg.pf, r_u)
+        if crop not in self._tables:
+            self._tables[crop] = prepare_projectee_3d_cropped(
+                self.state.refs, cfg.pf, crop).contiguous()
+        return self._tables[crop]
+
+    def _n_trans_global(self) -> int:
+        cfg = self.cfg
+        chi2q = 1.3862943611198906  # chisq Qinv(0.5, 2) = 2 ln 2
+        n = int(round(math.pi * (cfg.trans_s * chi2q) ** 2
+                      * cfg.trans_search_factor))
+        return max(MIN_N_TRANSLATION_GLOBAL, n)
+
+    # -- expectation ----------------------------------------------------
+
+    def expectation_global(self, rings: PackedRings, quats=None, trans=None):
+        """Global search over a fresh random rotation grid per hemisphere
+        (``quats`` (2, n_rot, 4) / ``trans`` (2, N, 2) inject the grid)."""
+        cfg = self.cfg
+        dev = self.device
+        if quats is None:
+            n_rot = max(1, cfg.n_rot_global // (1 + self.sym.n_elements))
+            if n_rot > ROT_BLOCK:
+                n_rot = _round_up(n_rot, ROT_BLOCK)
+            quats = random_quat(self.gen, (2, n_rot), dev)
+        if trans is None:
+            trans = torch.randn((2, self._n_trans_global(), 2), generator=self.gen,
+                                device=dev, dtype=REAL) * cfg.trans_s
+        n_rot = quats.shape[1]
+        block = min(ROT_BLOCK, n_rot)
+        if n_rot % block:
+            raise ValueError("the rotation grid must fill whole blocks")
+        rot = rotate3d(quats).reshape(2, n_rot // block, block, 3, 3)
+        dat_w, sctf2, a_term = self._pack_inputs(rings)
+        tra = translate_phases(rings, trans)
+        table = self.proj_table(rings.r_u)
+        outs = [global_search(table[h], rot[h], rings, dat_w[h], sctf2[h],
+                              a_term[h], tra[h], cfg.pf) for h in (0, 1)]
+        w_c, w_r, w_t = (torch.stack([o[i] for o in outs]) for i in range(3))
+        return dict(w_c=w_c, w_r=w_r, w_t=w_t, quats=quats, trans=trans)
+
+    def adopt_global(self, g: dict) -> None:
+        """Class draw, adoption of the grid as each image's support, peak
+        clipping and resampling to the local support sizes
+        (Optimiser.cpp:925-1118)."""
+        cfg = self.cfg
+        s = self.state
+        w_c = pt.clip_u_class(g["w_c"])                       # (2, L, K)
+        w_c = w_c / torch.clamp(w_c.sum(-1, keepdim=True), min=1e-30)
+        cls = torch.multinomial(w_c.reshape(-1, cfg.k) + 1e-30, 1,
+                                generator=self.gen).reshape(w_c.shape[:2])
+        n_rot, n_t = g["w_r"].shape[-1], g["w_t"].shape[-1]
+        take = lambda w: torch.gather(
+            w.permute(0, 2, 1, 3), 2,
+            cls[:, :, None, None].expand(-1, -1, 1, w.shape[-1]))[:, :, 0]
+        u_r, u_t = take(g["w_r"]), take(g["w_t"])              # (2, L, .)
+        n_l = u_r.shape[1]
+        dev = self.device
+        b = (2, n_l)
+        ones = torch.ones(b, dtype=REAL, device=dev)
+        par = pt.ParticleState(
+            r=g["quats"][:, None].expand(2, n_l, n_rot, 4),
+            t=g["trans"][:, None].expand(2, n_l, n_t, 2),
+            d=s.par.d, w_r=torch.full(b + (n_rot,), 1.0 / n_rot, device=dev),
+            w_t=torch.full(b + (n_t,), 1.0 / n_t, device=dev),
+            w_d=s.par.w_d, u_r=u_r, u_t=u_t, u_d=s.par.u_d,
+            top_r=torch.tensor([1.0, 0, 0, 0], device=dev).expand(b + (4,)),
+            top_t=torch.zeros(b + (2,), device=dev), top_d=s.par.d[..., 0],
+            k1=ones, k2=ones, k3=ones, s0=ones, s1=ones,
+            s_d=torch.zeros(b, device=dev), score=torch.zeros(b, device=dev))
+        par = pt.clip_u_t(pt.clip_u_r(par))
+        par = pt.resample_r(self.gen, par, cfg.n_rot_local)
+        par = pt.resample_t(self.gen, par, cfg.m_l_t)
+        s.par = pt.cal_vari_t(pt.cal_vari_r(par))
+        s.cls = cls
+
+    def phase_step(self, par: pt.ParticleState, hemis: list, rings,
+                   table, dat_w, sctf2, a_term, pf_small: float):
+        """One particle-filter phase for hemispheres ``hemis``: perturb ->
+        project (HK1) -> likelihood (matmuls + HK2) -> clip -> resample ->
+        variance inference (Optimiser.cpp:1183-1614).  ``par`` holds the
+        selected hemispheres; returns (par, vari (len(hemis), 4))."""
+        cfg = self.cfg
+        hs = torch.as_tensor(hemis, device=self.device)
+        par = pt.perturb_r(self.gen, par, pf_small)
+        par = pt.perturb_t(self.gen, par, pf_small, float(cfg.trans_s))
+        nh, n_l, n_r = par.r.shape[:3]
+        k_cls = table.shape[1]
+        tra = translate_phases_view(rings.i_col, rings.i_row, cfg.size, par.t)
+        rot = rotate3d(par.r).reshape(nh * n_l, n_r, 3, 3)
+        cls = (self.state.cls[hs] + hs[:, None] * k_cls).reshape(-1)
+        pri = project_slices(table.reshape((-1,) + table.shape[2:]), rot,
+                             rings.i_col, rings.i_row, cfg.pf, cls)
+        flat = lambda x: x[hs].reshape((nh * n_l,) + x.shape[2:])
+        x_ri = modulate(flat(dat_w), tra.reshape((nh * n_l,) + tra.shape[2:]))
+        b, c = local_terms(x_ri, flat(sctf2), pri)
+        u_r, u_t = local_marginals(flat(a_term), b, c,
+                                   par.w_r.reshape(nh * n_l, -1),
+                                   par.w_t.reshape(nh * n_l, -1))
+        par = par._replace(u_r=u_r.reshape(nh, n_l, -1),
+                           u_t=u_t.reshape(nh, n_l, -1))
+        par = pt.clip_u_r(par)
+        par = pt.resample_r(self.gen, par, n_r)
+        par = pt.resample_t(self.gen, par, par.t.shape[-2])
+        par = pt.cal_vari_t(pt.cal_vari_r(par))
+        vari = torch.stack([par.k1.mean(-1), par.s0.mean(-1), par.s1.mean(-1),
+                            par.s_d.mean(-1)], dim=-1)
+        return par, vari
+
+    def local_phases(self, rings: PackedRings) -> list:
+        """The adaptive phase loop with the variance-stall rule checked on
+        the host after every phase, per hemisphere
+        (PARTICLE_FILTER_DECREASE_FACTOR 0.95, N_PHASE_WITH_NO_VARI_DECREASE
+        1, stalls counted from the minimum phase count on).  Returns the
+        phase count of each hemisphere."""
+        cfg = self.cfg
+        s = self.state
+        is_global = self.model.search_type == SEARCH_TYPE_GLOBAL
+        min_phase = (MIN_N_PHASE_PER_ITER_GLOBAL if is_global
+                     else MIN_N_PHASE_PER_ITER_LOCAL)
+        pf_small = float(cfg.perturb_factor_s_global if is_global
+                         else cfg.perturb_factor_s_local)
+        dat_w, sctf2, a_term = self._pack_inputs(rings)
+        table = self.proj_table(rings.r_u)
+        f = PARTICLE_FILTER_DECREASE_FACTOR
+        big = float(np.finfo(np.float32).max)
+        phase, n_no_dec = [0, 0], [0, 0]
+        prev = [[big] * 4, [big] * 4]
+        par = s.par.map(lambda a: a.contiguous())
+
+        def running(h):
+            return phase[h] < MAX_N_PHASE_PER_ITER and (
+                phase[h] < min_phase or n_no_dec[h] < N_PHASE_WITH_NO_VARI_DECREASE)
+
+        while True:
+            hemis = [h for h in (0, 1) if running(h)]
+            if not hemis:
+                break
+            sub = par if len(hemis) == 2 else par.map(lambda a: a[hemis])
+            sub, vari = self.phase_step(sub, hemis, rings, table, dat_w,
+                                        sctf2, a_term, pf_small)
+            if len(hemis) == 2:
+                par = sub
+            else:
+                par = par.map(lambda a: a.clone())
+                for fld, new in zip(par, sub):
+                    fld[hemis] = new
+            vari = vari.cpu().numpy()
+            for i, h in enumerate(hemis):
+                k1, s0, s1, sd = (float(v) for v in vari[i])
+                pk1, ps0, ps1, psd = prev[h]
+                dec = k1 < pk1 * f or s0 < ps0 * f or s1 < ps1 * f or sd < psd * f
+                n_no_dec[h] = (0 if dec else n_no_dec[h] + 1) \
+                    if phase[h] + 1 >= min_phase else 0
+                phase[h] += 1
+                prev[h] = [k1, s0, s1, sd]
+        s.par = pt.symmetrise_top(pt.cal_score(par), self.sym)
+        return phase
+
+    # -- maximization ---------------------------------------------------
+
+    def maximization_stats(self, i_round: int) -> None:
+        """normCorrection + allReduceSigma (+ scale correction) over one
+        rank-1 projection pass (optimiser._max_stats_h): per-image shell
+        sums d2 = sum |dat|^2, xa = sum Re(dat conj(m)), aa = sum |m|^2
+        (m = ctf tra pri; HK4), the norm-band median rescale s, and the
+        closed-form sigma of the rescaled residual s^2 d2 - 2 s xa + aa."""
+        cfg = self.cfg
+        s = self.state
+        d = self.data
+        dev = self.device
+        is_global = self.model.search_type == SEARCH_TYPE_GLOBAL
+        do_norm = i_round != 0 and not is_global
+        do_scale = is_global and cfg.group_scl and i_round != 0
+        r_lo = int(self.model.r_u)
+        max_r = cfg.max_r
+        rings = pack_rings(cfg.size, r_lo, 0, lane=512, device=dev)
+        rings_hi = pack_rings(cfg.size, max_r, r_lo, lane=512, device=dev)
+        table = self.proj_table(r_lo)
+        top_t = s.par.top_t - self.offset
+        r_norm = max(min(int(self.model.r), self.model.resolution_p(0.75)),
+                     cfg.r_low + 2)
+        r_s = max(2, min(int(self.model.r), cfg.res_a2p(cfg.sclCor_res)))
+
+        n_l = self.n_img
+        k_cls = table.shape[1]
+        dat = extract_packed(d.ft_ori, rings)                   # (2, L, P)
+        dat_hi = extract_packed(d.ft_ori, rings_hi)
+        ctf = ctf_packed(d.ctf_params, rings.i_col, rings.i_row, cfg.size,
+                         float(cfg.pixel_size))
+        rot = rotate3d(s.par.top_r).reshape(2 * n_l, 1, 3, 3)
+        hs = torch.arange(2, device=dev)[:, None]
+        cls = (s.cls + hs * k_cls).reshape(-1)
+        pri = project_slices(table.reshape((-1,) + table.shape[2:]), rot,
+                             rings.i_col, rings.i_row, cfg.pf, cls)
+        pri = pri.reshape(2, n_l, -1)
+        tra = translate_phases_view(rings.i_col, rings.i_row, cfg.size,
+                                    top_t[..., None, :])[..., 0, :]
+        m = ctf * tra * pri
+        mask = rings.mask
+        d2px = dat.abs() ** 2 * mask
+        xapx = (dat * m.conj()).real * mask
+        aapx = m.abs() ** 2 * mask
+        n_sh = max_r + 1
+        shell = torch.clamp(rings.i_sig, max=max_r)
+        shell_hi = torch.clamp(rings_hi.i_sig, max=max_r)
+        per_px = torch.stack([d2px, xapx, aapx], dim=2).reshape(2 * n_l, 3, -1)
+        sums = shell_sums(per_px.contiguous(), shell, n_sh).reshape(2, n_l, 3, n_sh)
+        hi = (dat_hi.abs() ** 2 * rings_hi.mask).reshape(2 * n_l, 1, -1)
+        d2 = sums[:, :, 0] + shell_sums(hi.contiguous(), shell_hi, n_sh
+                                        ).reshape(2, n_l, n_sh)
+        xa, aa = sums[:, :, 1], sums[:, :, 2]
+
+        fi = rings.i_sig.to(REAL)
+        q = (rings.i_col * rings.i_col + rings.i_row * rings.i_row).to(REAL)
+        lo, hi_r = float(cfg.r_low), float(r_norm)
+        norm_band = mask * (fi >= lo) * (fi < hi_r) * (q >= lo * lo) * (q < hi_r * hi_r)
+        scl_band = mask * (fi < r_s) * (q < r_s * r_s)
+        norm_l = torch.sum((d2px - 2 * xapx + aapx) * norm_band, dim=-1)
+        xa_l = torch.sum(xapx * scl_band, dim=-1)
+        aa_l = torch.sum(aapx * scl_band, dim=-1)
+
+        valid = self.valid_dev
+        if do_norm:
+            med = torch.nanquantile(torch.where(valid > 0, norm_l, float("nan")
+                                                ).reshape(-1), 0.5)
+            s_norm = torch.sqrt(med / torch.clamp(norm_l, min=1e-30))
+        else:
+            s_norm = torch.ones_like(norm_l)
+        s1 = s_norm[..., None]
+        sig = s1 * s1 * d2 - 2 * s1 * xa + aa                   # (2, L, S)
+        g_onehot = ((d.group_id[..., None]
+                     == torch.arange(self.n_group, device=dev)).to(REAL)
+                    * valid[..., None])                          # (2, L, G)
+        sig_sum = torch.einsum("hlg,hls->hgs", g_onehot, sig) / 2
+        cnt_shell = (shell_sums(mask[None, None].contiguous(), shell, n_sh)[0, 0]
+                     + shell_sums(rings_hi.mask[None, None].contiguous(),
+                                  shell_hi, n_sh)[0, 0])
+        cnt_sum = g_onehot.sum(1)[..., None] * cnt_shell
+        sigma = sig_sum[..., :max_r] / torch.clamp(cnt_sum[..., :max_r], min=1.0)
+        s.sigma = torch.clamp(sigma, min=1e-6).contiguous()
+
+        if do_norm:
+            self.data = d._replace(ft_masked=d.ft_masked * s_norm[..., None, None],
+                                   ft_ori=d.ft_ori * s_norm[..., None, None])
+        elif do_scale:
+            tot = (torch.sum(xa_l * valid, 1)
+                   / torch.clamp(torch.sum(aa_l * valid, 1), min=1e-30))
+            scale_g = tot[:, None].expand(2, self.n_group)
+            per_img = torch.gather(scale_g, 1, d.group_id)
+            self.data = d._replace(ft_masked=d.ft_masked / per_img[..., None, None],
+                                   ft_ori=d.ft_ori / per_img[..., None, None])
+            s.sigma = s.sigma / scale_g[..., None] ** 2
+
+    # -- reconstruction -------------------------------------------------
+
+    def reconstruct_round(self, draws=None):
+        """Draw poses, compact them, and insert both hemispheres' slices
+        into per-class (F, T) grids with HK3 (reconstructRef,
+        Optimiser.cpp:6711-7233).  ``draws`` injects (quats, trans, d, w)
+        of shape (2, L, S, ...).  Returns (F (2, K, big^3), T, r_u,
+        grid_size)."""
+        cfg = self.cfg
+        s = self.state
+        r_u = int(self.model.r_u)
+        grid_size = reco_grid_size(cfg.size, r_u)
+        big = grid_size * cfg.pf
+        self._tables = {}
+        if draws is None:
+            n_draw = min(cfg.m_reco, s.par.r.shape[2] * s.par.t.shape[2])
+            n_slots = min(n_draw, RECO_COMPACT_SLOTS)
+            draws = pt.draw_poses_compact(self.gen, s.par, n_draw, n_slots)
+        quats, trans, _, w_draw = draws
+        trans = trans - self.offset[:, :, None, :]
+        if cfg.par_gra:
+            w_img = s.par.score / torch.clamp(torch.max(s.par.score * self.valid_dev),
+                                              min=1e-12)
+        else:
+            w_img = torch.ones_like(s.par.score)
+        w = (w_img * self.valid_dev)[..., None] * w_draw        # (2, L, S)
+        n_slots = w.shape[-1]
+        fs, ts = [], []
+        for h in (0, 1):
+            sel = torch.nonzero(w[h].reshape(-1) > 0)[:, 0]
+            f_h, t_h = insert_trilinear(
+                self.data.ft_ori[h], self.data.ctf_params.map(lambda a: a[h]),
+                sel // n_slots, rotate3d(quats[h].reshape(-1, 4)[sel]),
+                trans[h].reshape(-1, 2)[sel], w[h].reshape(-1)[sel], r_u,
+                cfg.pf, cfg.size, float(cfg.pixel_size), big)
+            fs.append(f_h[None])
+            ts.append(t_h[None])
+        return torch.stack(fs), torch.stack(ts), r_u, grid_size
+
+    def _recentre(self, refs: torch.Tensor) -> torch.Tensor:
+        """Shift each class reference by minus the mean rank-1 translation
+        of its images (Optimiser.cpp:7382-7427)."""
+        cfg = self.cfg
+        if not (cfg.ref_auto_recentre and self._ref_mask is None
+                and self.sym.name.startswith("C")):
+            return refs
+        s = self.state
+        eff_t = s.par.top_t - self.offset
+        one_hot = ((s.cls[:, None, :] == torch.arange(cfg.k, device=self.device
+                                                       )[None, :, None]).to(REAL)
+                   * self.valid_dev[:, None, :])
+        cnt = torch.clamp(one_hot.sum(2), min=1.0)
+        o_class = torch.einsum("hkl,hlc->hkc", one_hot, eff_t) / cnt[..., None]
+        return recentre_refs(refs, o_class)
+
+    def _reconstruct_and_compare(self, record: dict, mark=lambda n: None):
+        """Two-pass reconstruction (MAP-free FSC pass + Wiener MAP pass
+        with the previous round's FSC), hemisphere FSC (HK4) and
+        averaging below the 0.95 crossing (Optimiser.cpp:7310-7755)."""
+        cfg = self.cfg
+        f2, t2, r_u, grid_size = self.reconstruct_round()
+        mark("reco_insert")
+        n_shells = cfg.max_r
+        fsc_prev = torch.as_tensor(np.broadcast_to(
+            np.asarray(self.model.fsc, np.float32)[:1], (cfg.k, n_shells)).copy(),
+            device=self.device)
+        refs_fsc, refs_map = reconstruct_two_pass(
+            f2, t2, fsc_prev, grid_size, cfg.pf, r_u)
+        if grid_size != cfg.size:
+            refs_fsc = resize_rl(refs_fsc, cfg.size, nd=3)
+            refs_map = resize_rl(refs_map, cfg.size, nd=3)
+        refs_fsc = self._recentre(refs_fsc)
+        self._refs_report = refs_fsc
+        if cfg.core_fsc or cfg.mask_fsc:
+            # core / masked true FSC in place of the plain curve
+            # (Model.cpp:411-567)
+            m = (self._ref_mask if cfg.mask_fsc and self._ref_mask is not None
+                 else self._soft_mask)
+            fsc_dev = true_fsc_batch(refs_fsc[0], refs_fsc[1], m, self.gen,
+                                     n_shells)
+        else:
+            fsc_dev, _, _ = compare_refs(refs_fsc[0], refs_fsc[1], n_shells,
+                                         want_avg=False)
+        fsc_all = fsc_dev.cpu().numpy().astype(np.float64)
+        fsc_all[:, r_u:] = 0.0
+        self._fsc_band = int(r_u)
+        mark("reco_fsc")
+        refs = self._recentre(refs_map)
+        mark("reco_wiener")
+        if cfg.gold_standard and cfg.k == 1:
+            _, ref_a, ref_b = compare_refs(refs[0], refs[1], n_shells,
+                                           fsc=fsc_all)
+            refs = torch.stack([ref_a, ref_b])
+        else:
+            refs = ((refs[0] + refs[1]) / 2)[None].expand(2, *refs.shape[1:])
+        self.set_refs(refs.contiguous())
+        self.model.set_fsc(fsc_all)
+        self.model.update_res(cfg.thres_report_fsc)
+
+    def solvent_flatten(self, apply_mask: bool) -> None:
+        """Reference masking with zero background (solventFlatten)."""
+        w = self._ref_mask if (apply_mask and self._ref_mask is not None) \
+            else self._soft_mask
+        self.set_refs(self.state.refs * w)
+
+    def re_centre_img(self) -> None:
+        """Fold the rank-1 shift into the per-image offsets and shift the
+        clouds back (reCentreImg, Optimiser.cpp:6065-6090)."""
+        s = self.state
+        tran = s.par.top_t
+        self.offset = self.offset - tran
+        s.par = s.par._replace(t=s.par.t - tran[..., None, :],
+                               top_t=s.par.top_t - tran)
+
+    def _refresh_masked(self) -> None:
+        """Soft-masked spectra rebuilt from offset-translated originals
+        (reMaskImg, Optimiser.cpp:6093-6149)."""
+        cfg = self.cfg
+        shifted = translate_ft(self.data.ft_ori, self.offset)
+        w = soft_mask_weight(cfg.size, 2, cfg.mask_radius / cfg.pixel_size,
+                             EDGE_WIDTH_RL, self.device)
+        self.data = self.data._replace(
+            ft_masked=fft2_centered(ifft2_centered(shifted) * w).to(COMPLEX))
+
+    # -- one round ------------------------------------------------------
+
+    def run_round(self, i_round: int) -> dict:
+        cfg = self.cfg
+        t0 = time.time()
+        rings = self._rings()
+        record = dict(round=i_round, r=int(self.model.r),
+                      search_type=int(self.model.search_type))
+        stage_ms = None
+        mark_t = [t0]
+        if os.environ.get("THUNDER_STAGE_TIMING"):
+            stage_ms = record["stage_ms"] = {}
+            self._sync()
+            mark_t[0] = time.time()
+
+        def mark(name):
+            if stage_ms is None:
+                return
+            self._sync()
+            now = time.time()
+            stage_ms[name] = round((now - mark_t[0]) * 1e3, 1)
+            mark_t[0] = now
+
+        self.proj_table(int(self.model.r))
+        self.proj_table(int(self.model.r_u))
+        mark("build_table")
+
+        s = self.state
+        prev_top_r = s.par.top_r
+        if i_round == 0 or not cfg.skip_e:
+            if self.model.search_type == SEARCH_TYPE_GLOBAL and cfg.g_search:
+                g = self.expectation_global(rings)
+                mark("global_search")
+                self.adopt_global(g)
+                mark("adopt_global")
+            record["n_phases"] = self.local_phases(rings)
+            mark("phases")
+        else:
+            record["n_phases"] = [0, 0]
+
+        dot = torch.abs(torch.sum(prev_top_r * s.par.top_r, dim=-1))
+        rot_med = _median(dot, self.valid_dev)
+        record["rot_change_median_deg"] = float(
+            np.degrees(2.0 * np.arccos(np.clip(rot_med, -1.0, 1.0))))
+        self.model.set_t_vari(_median(s.par.s0, self.valid_dev),
+                              _median(s.par.s1, self.valid_dev))
+        mark("host_stats")
+
+        if not cfg.skip_m:
+            self.maximization_stats(i_round)
+            mark("max_stats")
+            if not cfg.skip_r:
+                self._reconstruct_and_compare(record, mark)
+                mark("reco_compare")
+        else:
+            self.model.set_fsc(np.ones((cfg.k, cfg.max_r), np.float32))
+
+        self.solvent_flatten(cfg.perform_mask and (
+            cfg.global_mask or self.model.search_type != SEARCH_TYPE_GLOBAL))
+        if self.model.search_type != SEARCH_TYPE_GLOBAL:
+            self.re_centre_img()
+            self._refresh_masked()
+        mark("mask_recentre")
+
+        self.model.update_r(cfg.thres_cutoff_fsc)
+        self.model.update_search_type()
+        record["res_shell"] = int(self.model.res)
+        record["res_A"] = float(self.model.res_angstrom(cfg.thres_report_fsc))
+        self._sync()
+        record["elapsed_s"] = time.time() - t0
+        record["search_type_after"] = int(self.model.search_type)
+        self.round_records.append(record)
+        return record
+
+    def run(self, max_rounds: int | None = None) -> list:
+        n = max_rounds if max_rounds is not None else self.cfg.iter_max
+        for i in range(n):
+            self.run_round(i)
+            if self.model.search_type == SEARCH_TYPE_STOP:
+                break
+        return self.round_records
+
+    def final_reconstruction(self) -> np.ndarray:
+        """Joint reconstruction at the full band after the search stops
+        (Optimiser.cpp:4078-4129), MAP-free.  Returns (K, n, n, n) maps
+        averaged over hemispheres; per-hemisphere maps stay in the state."""
+        cfg = self.cfg
+        saved_r = self.model.r
+        self.model.r = cfg.max_r - 3
+        f2, t2, r_u, grid_size = self.reconstruct_round()
+        self.model.r = saved_r
+        refs = reconstruct(f2, t2, grid_size, cfg.pf, r_u)
+        if grid_size != cfg.size:
+            refs = resize_rl(refs, cfg.size, nd=3)
+        self.set_refs(refs.contiguous())
+        self._refs_report = None
+        return ((refs[0] + refs[1]) / 2).cpu().numpy()
+
+    # -- checkpoints and exports ---------------------------------------
+
+    def save_checkpoint(self, path: str) -> None:
+        """Full state (references, sigma, clouds, offsets, model state)."""
+        s = self.state
+        blobs = dict(refs=s.refs.cpu().numpy(), sigma=s.sigma.cpu().numpy(),
+                     cls=s.cls.cpu().numpy(), offset=self.offset.cpu().numpy(),
+                     index=self.index, valid=self.valid,
+                     fsc=np.asarray(self.model.fsc))
+        for name, arr in zip(s.par._fields, s.par):
+            blobs[f"par_{name}"] = arr.cpu().numpy()
+        model = {f.name: getattr(self.model, f.name)
+                 for f in dataclasses.fields(self.model) if f.name != "fsc"}
+        blobs["model_json"] = np.frombuffer(json.dumps(model).encode(), np.uint8)
+        blobs["rng"] = self.gen.get_state().numpy()
+        np.savez_compressed(path, **blobs)
+
+    def load_checkpoint(self, path: str) -> None:
+        z = np.load(path, allow_pickle=False)
+        dev = self.device
+        t = lambda a: torch.as_tensor(a, device=dev)
+        s = self.state
+        self.set_refs(t(z["refs"]))
+        s.sigma, s.cls, self.offset = t(z["sigma"]), t(z["cls"]), t(z["offset"])
+        self.index, self.valid = z["index"], z["valid"]
+        self.n_img = self.index.shape[1]
+        self.valid_dev = t(self.valid.astype(np.float32))
+        s.par = pt.ParticleState(**{f: t(z[f"par_{f}"]) for f in s.par._fields})
+        model = json.loads(bytes(z["model_json"]).decode())
+        for f in dataclasses.fields(self.model):
+            if f.name in model:
+                setattr(self.model, f.name, model[f.name])
+        self.model.fsc = z["fsc"]
+        self.gen.set_state(torch.as_tensor(z["rng"]))
+
+    def class_assignments(self) -> np.ndarray:
+        out = np.zeros(self.n_total, dtype=np.int64)
+        cls = self.state.cls.cpu().numpy()
+        for h in (0, 1):
+            v = self.valid[h]
+            out[self.index[h][v]] = cls[h][v]
+        return out
+
+    def export_thu(self, thu):
+        """Write the particle-filter state back into a ThuTable
+        (saveDatabase, Optimiser.cpp:8250-8416)."""
+        out = copy.deepcopy(thu)
+        s = self.state
+        host = {k: v.cpu().numpy() for k, v in dict(
+            cls=s.cls, top_r=s.par.top_r, k1=s.par.k1, k2=s.par.k2,
+            k3=s.par.k3, top_t=s.par.top_t, offset=self.offset, s0=s.par.s0,
+            s1=s.par.s1, top_d=s.par.top_d, s_d=s.par.s_d,
+            score=s.par.score).items()}
+        for h in (0, 1):
+            v = self.valid[h]
+            idx = self.index[h][v]
+            get = lambda name: host[name][h][v]
+            out.class_id[idx] = get("cls")
+            out.quat[idx] = get("top_r")
+            out.k1[idx] = get("k1")
+            out.k2[idx] = get("k2")
+            out.k3[idx] = get("k3")
+            out.trans[idx] = get("top_t") - get("offset")
+            out.std_trans[idx] = np.stack([get("s0"), get("s1")], axis=1)
+            out.defocus_factor[idx] = get("top_d")
+            out.std_defocus_factor[idx] = get("s_d")
+            out.score[idx] = get("score")
+        return out
