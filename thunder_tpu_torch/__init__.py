@@ -7,11 +7,13 @@ its layout (``ops/``, ``physics/``, ``geometry/``, ``pipeline/``,
 function: real space in FFT layout, Fourier space centered full-space,
 and a leading hemisphere axis of size 2 on stacked state.
 
-Four hand-written Hopper kernels (``csrc/``) carry the 3D-refinement
-round: slice projection, the likelihood epilogue, trilinear insertion
-and Fourier-shell sums.  Each sits beside a plain PyTorch version that
-runs for CPU tensors; see ``thunder_tpu_torch/_native.py`` for how they
-are built.
+Hand-written Hopper kernels (``csrc/``) carry the 3D-refinement round
+(slice projection, the likelihood epilogue, trilinear insertion,
+Fourier-shell sums) and 2D classification (bilinear plane projection
+and insertion into class planes); five gather kernels port the repo's
+Pallas gather microbenchmarks (``micro/gather.py``).  Each sits beside
+a plain PyTorch version that runs for CPU tensors; see
+``thunder_tpu_torch/_native.py`` for how they are built.
 
 Only numpy-only modules of ``thunder_tpu`` are imported (``io``,
 ``constants``, ``config``, ``utils.logging``); nothing here imports jax.

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written Hopper kernels.
 
-The CUDA sources under ``csrc/`` expose a plain C interface; they are
-compiled with ``nvcc`` for ``sm_90a`` into ONE shared library and bound
-with ``ctypes`` (no PyTorch headers, so a build takes seconds).
+The CUDA sources under ``csrc/`` expose a plain C interface; each is
+compiled by its own ``nvcc`` for ``sm_90a`` (all started together), the
+objects are linked into ONE shared library, and it is bound with
+``ctypes`` (no PyTorch headers, so a build takes seconds).
 
 * The build runs at first use, never at import, into
   ``thunder_tpu_torch/_build/`` (git-ignored).  The library's file name
@@ -28,9 +29,10 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("project_slices.cu", "likelihood_block.cu",
-           "insert_trilinear.cu", "shell_sums.cu")
+           "insert_trilinear.cu", "shell_sums.cu", "project_slices_2d.cu",
+           "insert_bilinear_2d.cu", "gather.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +47,14 @@ _SIGNATURES = {
     "thunder_insert_trilinear": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                                  _F, _F, _P, _P, _I, _P],
     "thunder_shell_sums": [_P, _L, _I, _I, _L, _P, _P, _I, _P, _P],
+    "thunder_project_slices_2d": [_P, _I, _P, _P, _L, _I, _I, _P, _P, _I,
+                                  _I, _P, _P],
+    "thunder_insert_bilinear_2d": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I,
+                                   _I, _F, _F, _F, _P, _P, _I, _I, _I, _I,
+                                   _P],
+    "thunder_take_flat": [_P, _L, _P, _L, _P, _P],
+    "thunder_take_along": [_P, _I, _P, _P, _L, _I, _I, _P, _P],
+    "thunder_take_rows": [_P, _I, _I, _P, _L, _P, _P],
 }
 
 _lib = None
@@ -75,20 +85,39 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile the kernels if the library for the current sources is
-    missing; returns its path.  The compiler's report (registers, shared
+    missing; returns its path.  One ``nvcc -c`` per source, all running
+    at once, then one link.  The compiler's report (registers, shared
     memory, spills from ``-Xptxas -v``) is kept in ``_build/build.log``."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(SRC_DIR, s) for s in SOURCES]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.splitext(s)[0]}.{tag}.o")
+            for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(SRC_DIR, s)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    results = [(c, p.returncode, out, err)
+               for c, p, (out, err) in zip(cmds, procs, outs)]
+    tmp = f"{path}.{tag}"
+    link = [nvcc, "-shared", "-o", tmp, *objs]
+    if all(rc == 0 for _, rc, _, _ in results):
+        res = subprocess.run(link, capture_output=True, text=True)
+        results.append((link, res.returncode, res.stdout, res.stderr))
     with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        for cmd, _, out, err in results:
+            f.write(" ".join(cmd) + "\n" + out + err)
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    failed = [(c, rc, err) for c, rc, _, err in results if rc != 0]
+    if failed:
+        c, rc, err = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}) on {c[-1]}:\n{err}")
     os.replace(tmp, path)
     return path
 

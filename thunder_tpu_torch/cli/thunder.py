@@ -6,9 +6,11 @@ thunder_tpu.cli.thunder:
 Reads the reference-compatible JSON config, the .thu metadata and the
 particle stacks, runs the E-M loop on one device, and writes the
 reference's per-round artifacts (FSC_Round_xxx.txt,
-Class_Info_Round_xxx.txt, Meta_Round_xxx.thu, Reference_xxx_{A,B}_Round_xxx.mrc)
-and the final maps.  Stacks are read with the numpy MRC reader, so no
-native library is needed.
+Class_Info_Round_xxx.txt with each class's occupancy and resolution,
+Meta_Round_xxx.thu, and the references: Reference_xxx_{A,B}_Round_xxx.mrc
+in 3D, the stack of K class averages Reference_Round_xxx.mrcs in 2D)
+and the final maps (Reference_Final.mrcs in 2D).  Stacks are read with
+the numpy MRC reader, so no native library is needed.
 """
 
 from __future__ import annotations
@@ -66,7 +68,10 @@ def save_round_artifacts(opt, thu, out_dir: str, i_round: int) -> None:
     if cfg.save_thu_each_iter and thu is not None:
         write_thu(os.path.join(out_dir, f"Meta_Round_{i_round:03d}.thu"),
                   opt.export_thu(thu))
-    if cfg.save_refs_each_iter:
+    if cfg.save_refs_each_iter and cfg.mode_2d:
+        write_mrc(os.path.join(out_dir, f"Reference_Round_{i_round:03d}.mrcs"),
+                  opt.class_averages(), cfg.pixel_size, is_stack=True)
+    elif cfg.save_refs_each_iter:
         refs = opt._refs_report if opt._refs_report is not None else opt.state.refs
         refs = refs.cpu().numpy()
         for t in range(cfg.k):
@@ -95,6 +100,11 @@ def main(argv=None) -> int:
     from thunder_tpu_torch.optimiser import Optimiser
 
     cfg = ThunderConfig.from_json(a.config)
+    if cfg.par_gra and cfg.k != 1:
+        # the reference warns and ignores grading outside refinement
+        # (Optimiser.cpp:6726-6734)
+        log.warning("particle grading is only recommended in refinement,"
+                    " not classification; ignored with k=%d", cfg.k)
     out_dir = cfg.dst_prefix or "./"
     os.makedirs(out_dir, exist_ok=True)
     log.info("reading %s", cfg.db)
@@ -128,12 +138,16 @@ def main(argv=None) -> int:
     log.info("final full-resolution reconstruction")
     final = opt.final_reconstruction()
     refs = opt.state.refs.cpu().numpy()
-    for t in range(cfg.k):
-        write_mrc(os.path.join(out_dir, f"Reference_{t:03d}_Final.mrc"),
-                  final[t], cfg.pixel_size)
-        for h, tag in ((0, "A"), (1, "B")):
-            write_mrc(os.path.join(out_dir, f"Reference_{t:03d}_{tag}_Final.mrc"),
-                      refs[h, t], cfg.pixel_size)
+    if cfg.mode_2d:
+        write_mrc(os.path.join(out_dir, "Reference_Final.mrcs"), final,
+                  cfg.pixel_size, is_stack=True)
+    else:
+        for t in range(cfg.k):
+            write_mrc(os.path.join(out_dir, f"Reference_{t:03d}_Final.mrc"),
+                      final[t], cfg.pixel_size)
+            for h, tag in ((0, "A"), (1, "B")):
+                write_mrc(os.path.join(out_dir, f"Reference_{t:03d}_{tag}_Final.mrc"),
+                          refs[h, t], cfg.pixel_size)
     log.info("final resolution: %.2f A",
              opt.model.res_angstrom(cfg.thres_report_fsc))
     return 0

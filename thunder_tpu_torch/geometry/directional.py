@@ -125,35 +125,39 @@ def vms_kappa(k: torch.Tensor) -> torch.Tensor:
 
 def sample_vms(gen: torch.Generator, mu: torch.Tensor, k: torch.Tensor,
                n: int, n_rounds: int = 8) -> torch.Tensor:
-    """``n`` unit 2-vectors from von Mises around ``mu`` (2,): the
-    Best-Fisher rejection sampler with a fixed number of proposal rounds
-    (DirectionalStat.cpp:264-318); uniform on the circle for tiny kappa."""
+    """``n`` unit 2-vectors per batch entry from von Mises around ``mu``
+    ((2,) or (..., 2)) with compression ``k`` (...,): the Best-Fisher
+    rejection sampler with a fixed number of proposal rounds
+    (DirectionalStat.cpp:264-318); uniform on the circle for tiny kappa.
+    Returns (..., n, 2)."""
     dev = mu.device
     kappa = vms_kappa(torch.as_tensor(k, dtype=REAL, device=dev))
-    kap = torch.clamp(kappa, min=1e-6)
+    batch = kappa.shape
+    kap = torch.clamp(kappa, min=1e-6)[..., None, None]
     a = 1 + torch.sqrt(1 + 4 * kap * kap)
     b = (a - torch.sqrt(2 * a)) / (2 * kap)
     r = (1 + b * b) / (2 * b)
-    uz = torch.rand((n_rounds, n), generator=gen, device=dev, dtype=REAL)
+    uz = torch.rand(batch + (n_rounds, n), generator=gen, device=dev, dtype=REAL)
     z = torch.cos(math.pi * uz)
     f = (1 + r * z) / (r + z)
     c = kap * (r - f)
-    u2 = torch.clamp(torch.rand((n_rounds, n), generator=gen, device=dev,
+    u2 = torch.clamp(torch.rand(batch + (n_rounds, n), generator=gen, device=dev,
                                 dtype=REAL), min=1e-12)
     accept = (c * (2 - c) > u2) | (torch.log(c / u2) + 1 - c >= 0)
-    first = torch.argmax(accept.to(torch.int32), dim=0)
-    any_acc = accept.any(dim=0)
-    f_sel = torch.where(any_acc, torch.gather(f, 0, first[None])[0],
-                        torch.ones_like(f[0]))
+    first = torch.argmax(accept.to(torch.int32), dim=-2, keepdim=True)
+    f_sel = torch.where(accept.any(dim=-2),
+                        torch.gather(f, -2, first)[..., 0, :],
+                        torch.ones_like(f[..., 0, :]))
     delta = torch.sqrt(torch.clamp((1 - f_sel) * (1 + f_sel), min=0.0))
-    flip = torch.rand((n,), generator=gen, device=dev, dtype=REAL)
+    flip = torch.rand(batch + (n,), generator=gen, device=dev, dtype=REAL)
     sign = torch.where(flip > 0.5, 1.0, -1.0)
-    x = mu[0] * f_sel + sign * delta * mu[1]
-    y = mu[1] * f_sel - sign * delta * mu[0]
-    out = torch.stack([x, y], dim=-1)
-    phi = uz[0] * (2 * math.pi)
+    mu = mu.to(REAL).expand(batch + (2,))
+    m0, m1 = mu[..., 0:1], mu[..., 1:2]
+    out = torch.stack([m0 * f_sel + sign * delta * m1,
+                       m1 * f_sel - sign * delta * m0], dim=-1)
+    phi = uz[..., 0, :] * (2 * math.pi)
     uniform = torch.stack([torch.cos(phi), torch.sin(phi)], dim=-1)
-    return torch.where(kappa < 1e-1, uniform, out)
+    return torch.where((kappa < 1e-1)[..., None, None], uniform, out)
 
 
 def infer_vms(v: torch.Tensor):

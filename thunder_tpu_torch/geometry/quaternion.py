@@ -34,6 +34,15 @@ def quat_normalize(q: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
                            min=eps)
 
 
+def rotate2d_from_unit(v: torch.Tensor) -> torch.Tensor:
+    """(..., 2) unit vector (cos, sin) -> (..., 2, 2) in-plane rotation
+    (Euler.cpp:125).  A 2D pose is the quaternion (cos phi, sin phi, 0,
+    0); its first two components give the rotation."""
+    c, s = v[..., 0], v[..., 1]
+    return torch.stack([torch.stack([c, -s], dim=-1),
+                        torch.stack([s, c], dim=-1)], dim=-2)
+
+
 def rotate3d(q: torch.Tensor) -> torch.Tensor:
     """(..., 4) unit quaternion -> (..., 3, 3) rotation matrix."""
     w, x, y, z = torch.unbind(q, -1)

@@ -79,12 +79,12 @@ def ifft3_centered(f: torch.Tensor) -> torch.Tensor:
 
 # -- real-space pad / extract ------------------------------------------
 
-def pad_rl(x: torch.Tensor, pf: int) -> torch.Tensor:
-    """Zero-pad an FFT-layout array (spatial dims only) by ``pf``
-    around the centered object."""
+def pad_rl(x: torch.Tensor, pf: int, nd: int | None = None) -> torch.Tensor:
+    """Zero-pad an FFT-layout array (the trailing ``nd`` spatial dims,
+    all by default) by ``pf`` around the centered object."""
     if pf == 1:
         return x
-    nd = x.ndim
+    nd = x.ndim if nd is None else nd
     size = x.shape[-1]
     big = size * pf
     lo = (big - size) // 2

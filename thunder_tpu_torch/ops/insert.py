@@ -1,6 +1,7 @@
 """Weighted Fourier insertion (Reconstructor::insertP,
-Reconstructor.cpp:569-866) — and the host of kernel HK3
-(``insert_trilinear``).
+Reconstructor.cpp:569-866) — and the host of kernels HK3
+(``insert_trilinear``, 3D) and HK6 (``insert_bilinear_2d``, per-class
+2D planes).
 
 Insertion accumulates w * ctf * dat into F and w * ctf^2 into T with
 trilinear weights at rot . (pf i, pf j, 0) on a full centered grid.
@@ -66,16 +67,59 @@ def insert_slices_3d(f_grid: torch.Tensor, t_grid: torch.Tensor,
             g[:, 2].reshape(shape))
 
 
-def hermitianize(f_grid: torch.Tensor) -> torch.Tensor:
-    """F <- F + conj(F(-k)) over the trailing 3 (centered, even) dims."""
-    ax = (-3, -2, -1)
-    flipped = torch.roll(torch.flip(f_grid, dims=ax), shifts=(1, 1, 1), dims=ax)
+def insert_slices_2d(f_grid: torch.Tensor, t_grid: torch.Tensor,
+                     vals: torch.Tensor, ctf2w: torch.Tensor,
+                     rot: torch.Tensor, i_col: torch.Tensor,
+                     i_row: torch.Tensor, pf: int, max_radius_pad: float,
+                     cls: torch.Tensor | None = None):
+    """Bilinear scatter of slices into per-class (F, T) planes
+    (thunder_tpu ops/insert.py insert_slices_2d, one plane per class).
+
+    f_grid (K, big, big) complex64 centered, t_grid float32; vals
+    (B, p) complex, ctf2w (B, p), rot (B, 2, 2), pixels (p,), cls (B,)
+    the plane of each slice (None: plane 0).  Out-of-radius samples get
+    zero weight.  Returns new (f_grid, t_grid)."""
+    n_cls, big = f_grid.shape[0], f_grid.shape[-1]
+    c = big // 2
+    fx = (i_col * pf).to(REAL)
+    fy = (i_row * pf).to(REAL)
+    x = rot[..., 0, 0:1] * fx + rot[..., 0, 1:2] * fy
+    y = rot[..., 1, 0:1] * fx + rot[..., 1, 1:2] * fy
+    inside = (x * x + y * y) < max_radius_pad ** 2
+    vals = torch.where(inside, vals, torch.zeros_like(vals)).reshape(-1)
+    ctf2w = torch.where(inside, ctf2w, torch.zeros_like(ctf2w)).reshape(-1)
+    k = (torch.zeros(rot.shape[0], dtype=torch.int64, device=rot.device)
+         if cls is None else cls.to(torch.int64))
+    base = (k[:, None] * big * big).expand(x.shape).reshape(-1)
+    x, y = x.reshape(-1), y.reshape(-1)
+    flx, fly = torch.floor(x), torch.floor(y)
+    wx, wy = x - flx, y - fly
+    ix, iy = flx.to(torch.int64) + c, fly.to(torch.int64) + c
+    g = torch.stack([f_grid.real.reshape(-1), f_grid.imag.reshape(-1),
+                     t_grid.reshape(-1)], dim=-1).to(REAL)
+    upd = torch.stack([vals.real, vals.imag, ctf2w.to(REAL)], dim=-1)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            w = (wy if dy else 1 - wy) * (wx if dx else 1 - wx)
+            xi = torch.clamp(ix + dx, 0, big - 1)
+            yi = torch.clamp(iy + dy, 0, big - 1)
+            g.index_add_(0, base + yi * big + xi, upd * w[:, None])
+    shape = (n_cls, big, big)
+    return (torch.complex(g[:, 0], g[:, 1]).reshape(shape),
+            g[:, 2].reshape(shape))
+
+
+def hermitianize(f_grid: torch.Tensor, nd: int = 3) -> torch.Tensor:
+    """F <- F + conj(F(-k)) over the trailing ``nd`` (centered, even)
+    dims."""
+    ax = tuple(range(-nd, 0))
+    flipped = torch.roll(torch.flip(f_grid, dims=ax), shifts=(1,) * nd, dims=ax)
     return f_grid + flipped.conj()
 
 
-def hermitianize_real(t_grid: torch.Tensor) -> torch.Tensor:
-    ax = (-3, -2, -1)
-    return t_grid + torch.roll(torch.flip(t_grid, dims=ax), shifts=(1, 1, 1),
+def hermitianize_real(t_grid: torch.Tensor, nd: int = 3) -> torch.Tensor:
+    ax = tuple(range(-nd, 0))
+    return t_grid + torch.roll(torch.flip(t_grid, dims=ax), shifts=(1,) * nd,
                                dims=ax)
 
 
@@ -191,3 +235,106 @@ def insert_trilinear(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
 
 
 insert_trilinear.launches = 0
+
+
+# -- HK6 ----------------------------------------------------------------
+
+INSERT_2D_CHUNK = 256          # slices per work item of one block
+INSERT_2D_SMEM = 110 * 1024    # shared-memory budget a block (2 per SM)
+
+
+def insert_bilinear_2d_plain(ft, ctf, img_idx, cls, rot, trans, w, r_u: int,
+                             pf: int, size: int, pixel_size: float,
+                             f_grid: torch.Tensor, t_grid: torch.Tensor):
+    """Plain version of HK6: the dense-window value formation of HK3
+    then the exact bilinear scatter into plane cls[s], 256 slices at a
+    time.  Returns the new (F, T)."""
+    max_rad = float((r_u - 1) * pf)
+    for lo in range(0, rot.shape[0], 256):
+        sl = slice(lo, lo + 256)
+        vals, c2w, vc, vr = dense_slice_values(
+            ft, ctf, img_idx[sl], trans[sl], w[sl], r_u, size, pixel_size)
+        f_grid, t_grid = insert_slices_2d(f_grid, t_grid, vals, c2w, rot[sl],
+                                          vc, vr, pf, max_rad, cls[sl])
+    return f_grid, t_grid
+
+
+def insert_window(big: int, max_radius_pad: float) -> tuple:
+    """(first index, width) of the square of plane cells a bilinear tap
+    at |x|, |y| < max_radius_pad can reach (indices clipped to the
+    plane)."""
+    m = math.ceil(max_radius_pad)
+    lo = max(0, big // 2 - m - 1)
+    return lo, min(big, big // 2 + m + 2) - lo
+
+
+def insert_bilinear_2d(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
+                       cls: torch.Tensor, rot: torch.Tensor,
+                       trans: torch.Tensor, w: torch.Tensor, r_u: int,
+                       pf: int, size: int, pixel_size: float, big: int,
+                       n_class: int, f_grid: torch.Tensor | None = None,
+                       t_grid: torch.Tensor | None = None):
+    """Insert B compacted 2D slices into per-class (F, T) planes (K, big,
+    big), centered, forming each dense-window value in place (see
+    :func:`dense_slice_values`).
+
+    ft (L, size, size) complex64 image spectra; ctf fields (L,);
+    img_idx (B,) image of each slice; cls (B,) its class plane; rot
+    (B, 2, 2); trans (B, 2) against the original images; w (B,) slice
+    weights.  The dense window holds k and -k, so no Hermitian fold
+    follows.  Accumulates into the given planes (zeros when None) and
+    returns them.  CPU tensors take :func:`insert_bilinear_2d_plain`;
+    CUDA tensors launch csrc/insert_bilinear_2d.cu, whose atomics add
+    in a run-dependent order."""
+    dev = ft.device
+    if f_grid is None:
+        f_grid = torch.zeros((n_class, big, big), dtype=COMPLEX, device=dev)
+    if t_grid is None:
+        t_grid = torch.zeros((n_class, big, big), dtype=REAL, device=dev)
+    if not ft.is_cuda:
+        return insert_bilinear_2d_plain(ft, ctf, img_idx, cls, rot, trans, w,
+                                        r_u, pf, size, pixel_size, f_grid,
+                                        t_grid)
+    _native.require(ft.dtype == COMPLEX and ft.is_contiguous()
+                    and ft.shape[-2:] == (size, size),
+                    "insert_bilinear_2d: ft must be contiguous (L, size, size) complex64")
+    _native.require(f_grid.shape == (n_class, big, big) and f_grid.dtype == COMPLEX
+                    and f_grid.is_contiguous() and t_grid.is_contiguous()
+                    and t_grid.shape == (n_class, big, big) and t_grid.dtype == REAL,
+                    "insert_bilinear_2d: planes must be contiguous (K, big, big)")
+    _native.require(2 * r_u - 1 <= size,
+                    "insert_bilinear_2d: window exceeds the image box")
+    n_s = rot.shape[0]
+    if n_s == 0:
+        return f_grid, t_grid
+    # slices sorted by class; each class's run cut into work items
+    order = torch.argsort(cls, stable=True)
+    counts = torch.bincount(cls, minlength=n_class).cpu().tolist()
+    _native.require(len(counts) == n_class,
+                    "insert_bilinear_2d: a class index is past the planes")
+    work, start = [], 0
+    for k, n_k in enumerate(counts):
+        for lo in range(start, start + n_k, INSERT_2D_CHUNK):
+            work.append((k, lo, min(lo + INSERT_2D_CHUNK, start + n_k)))
+        start += n_k
+    work = torch.as_tensor(work, dtype=torch.int32, device=dev).reshape(-1, 3)
+    mrp = float((r_u - 1) * pf)
+    win_lo, win = insert_window(big, mrp)
+    band_h = max(1, min(win, INSERT_2D_SMEM // (3 * 4 * win)))
+    ctfk = ctf_constants(ctf)
+    img_idx = img_idx[order].to(torch.int32).contiguous()
+    rot = rot[order].to(REAL).reshape(n_s, 4).contiguous()
+    trans = trans[order].to(REAL).contiguous()
+    w = w[order].to(REAL).contiguous()
+    lib = _native.library()
+    insert_bilinear_2d.launches += 1
+    _native.check(lib.thunder_insert_bilinear_2d(
+        ft.data_ptr(), size, ctfk.data_ptr(), img_idx.data_ptr(),
+        work.data_ptr(), work.shape[0], rot.data_ptr(), trans.data_ptr(),
+        w.data_ptr(), r_u, pf, mrp, float(pixel_size * size),
+        float(2 * np.pi / size), f_grid.data_ptr(), t_grid.data_ptr(), big,
+        win_lo, win, band_h, _native.stream_ptr(ft)), "insert_bilinear_2d")
+    return f_grid, t_grid
+
+
+insert_bilinear_2d.launches = 0

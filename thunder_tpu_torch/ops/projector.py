@@ -1,13 +1,14 @@
 """Fourier-slice projection (src/Projector.cpp) — and the host of
-kernel HK1 (``project_slices``).
+kernels HK1 (``project_slices``, 3D) and HK5 (``project_slices_2d``).
 
 Pad the reference by ``pf`` in real space, divide by the interpolation
 kernel's FT (grid correction, Projector.cpp:524-606), FFT; per pose,
-gather a central slice by trilinear interpolation at rotated padded
-coordinates (Projector.cpp:337-374).  The padded spectrum is a full
-complex cube in centered layout, as in thunder_tpu.ops.projector; the
-port gathers float32 complex directly (the JAX package's bf16
-corner-row tables are a TPU gather layout).
+gather a central slice (3D, trilinear) or an in-plane rotated plane
+(2D, bilinear) at rotated padded coordinates (Projector.cpp:337-374).
+The padded spectrum is a full complex cube / plane in centered layout,
+as in thunder_tpu.ops.projector; the port gathers float32 complex
+directly (the JAX package's bf16 corner-row tables are a TPU gather
+layout).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from thunder_tpu_torch.device import COMPLEX, REAL
 from thunder_tpu_torch.ops.fourier import (
     PackedRings,
     centered_quad_dev,
+    fft2_centered,
     fft3_centered,
     pad_rl,
     radial_grid_dev,
@@ -36,6 +38,28 @@ class Projectee(NamedTuple):
     size: int
     pf: int
     max_radius: int    # size // 2 - 1
+
+
+def prepare_projectee_2d(ref_rl: torch.Tensor, pf: int = 2) -> Projectee:
+    """Real-space 2D reference (FFT layout) -> padded corrected spectrum
+    (Projector.cpp:97-121); leading dims batch."""
+    size = ref_rl.shape[-1]
+    big = size * pf
+    padded = pad_rl(ref_rl, pf, nd=2)
+    corr = tik_rl(radial_grid_dev(big, 2, ref_rl.device) / (pf * big))
+    return Projectee(fft2_centered(padded / corr).to(COMPLEX), size, pf,
+                     size // 2 - 1)
+
+
+def prepare_projectee_2d_cropped(refs: torch.Tensor, pf: int,
+                                 crop: int) -> torch.Tensor:
+    """Central ``crop`` band of the padded, grid-corrected class spectra
+    (optimiser._prepare_projectee_stack in 2D): refs (K, n, n) ->
+    (K, crop, crop) complex64."""
+    ft = prepare_projectee_2d(refs, pf).ft
+    big = ft.shape[-1]
+    lo = big // 2 - crop // 2
+    return ft[..., lo:lo + crop, lo:lo + crop]
 
 
 def prepare_projectee_3d(ref_rl: torch.Tensor, pf: int = 2) -> Projectee:
@@ -186,6 +210,109 @@ def project_full_3d(proj: Projectee, rot: torch.Tensor) -> torch.Tensor:
     ky, kx = torch.meshgrid(k, k, indexing="ij")
     vals = project_slices(proj.ft[None], rot[None], kx.reshape(-1),
                           ky.reshape(-1), proj.pf)[0]
+    inside = (kx * kx + ky * ky < proj.max_radius ** 2).reshape(-1)
+    vals = torch.where(inside, vals, torch.zeros_like(vals))
+    return vals.reshape(rot.shape[:-2] + (size, size))
+
+
+# -- HK5 ----------------------------------------------------------------
+
+def project_slices_2d_plain(table: torch.Tensor, rot: torch.Tensor,
+                            i_col: torch.Tensor, i_row: torch.Tensor, pf: int,
+                            cls: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of HK5 (the JAX package's _gather_bilinear_2d_stack
+    arithmetic): table (K, n, n) complex64, rot (L, R, 2, 2), cls (L,)
+    or None (class 0) -> (L, R, P) complex64."""
+    n = table.shape[-1]
+    c = n // 2
+    fx = (i_col * pf).to(REAL)
+    fy = (i_row * pf).to(REAL)
+    x = rot[..., 0, 0:1] * fx + rot[..., 0, 1:2] * fy
+    y = rot[..., 1, 0:1] * fx + rot[..., 1, 1:2] * fy
+    flx, fly = torch.floor(x), torch.floor(y)
+    wx, wy = x - flx, y - fly
+    ix = flx.to(torch.int64) + c
+    iy = fly.to(torch.int64) + c
+    n_l = rot.shape[0]
+    k = (torch.zeros(n_l, dtype=torch.int64, device=table.device)
+         if cls is None else cls.to(torch.int64))
+    vi = (k * n * n).reshape((n_l,) + (1,) * (x.ndim - 1))
+    flat = table.reshape(-1)
+
+    def tap(dy, dx, w):
+        xi = torch.clamp(ix + dx, 0, n - 1)
+        yi = torch.clamp(iy + dy, 0, n - 1)
+        return flat[vi + yi * n + xi] * w
+
+    out = tap(0, 0, (1 - wy) * (1 - wx))
+    out = out + tap(0, 1, (1 - wy) * wx)
+    out = out + tap(1, 0, wy * (1 - wx))
+    out = out + tap(1, 1, wy * wx)
+    return out.to(COMPLEX)
+
+
+def project_slices_2d(table: torch.Tensor, rot: torch.Tensor,
+                      i_col: torch.Tensor, i_row: torch.Tensor, pf: int,
+                      cls: torch.Tensor | None = None) -> torch.Tensor:
+    """Bilinear in-plane rotated resampling: out[l, r, p] = sample of
+    plane cls[l] at rot[l, r] . (pf i_col[p], pf i_row[p]).
+
+    table (K, n, n) complex64 centered; rot (L, R, 2, 2) float32 (an
+    expanded leading dim of stride 0 shares one rotation block across
+    images); cls (L,) or None; pixels (P,) int32 -> (L, R, P) complex64.
+    CPU tensors take :func:`project_slices_2d_plain`; CUDA tensors launch
+    csrc/project_slices_2d.cu."""
+    if not table.is_cuda:
+        return project_slices_2d_plain(table, rot, i_col, i_row, pf, cls)
+    _native.require(table.ndim == 3 and table.dtype == COMPLEX
+                    and table.is_contiguous(),
+                    "project_slices_2d: table must be contiguous (K, n, n) complex64")
+    _native.require(rot.ndim == 4 and rot.shape[-2:] == (2, 2)
+                    and rot.dtype == REAL,
+                    "project_slices_2d: rot must be (L, R, 2, 2) float32")
+    if not rot[0].is_contiguous():
+        rot = rot.contiguous()
+    n_l, n_r = rot.shape[:2]
+    n = table.shape[-1]
+    i_col = i_col.to(torch.int32).contiguous()
+    i_row = i_row.to(torch.int32).contiguous()
+    if cls is not None:
+        cls = cls.to(torch.int32).contiguous()
+        _native.require(cls.shape == (n_l,), "project_slices_2d: cls must be (L,)")
+    n_p = i_col.shape[0]
+    out = torch.empty((n_l, n_r, n_p), dtype=COMPLEX, device=table.device)
+    if out.numel() == 0:
+        return out
+    lib = _native.library()
+    project_slices_2d.launches += 1
+    _native.check(lib.thunder_project_slices_2d(
+        table.data_ptr(), n, None if cls is None else cls.data_ptr(),
+        rot.data_ptr(), rot.stride(0), n_l, n_r, i_col.data_ptr(),
+        i_row.data_ptr(), n_p, int(pf), out.data_ptr(),
+        _native.stream_ptr(table)), "project_slices_2d")
+    return out
+
+
+project_slices_2d.launches = 0
+
+
+def project_2d(proj: Projectee, rot: torch.Tensor,
+               rings: PackedRings) -> torch.Tensor:
+    """In-plane rotated resampling at packed pixels for rotations
+    (R, 2, 2) -> (R, p)."""
+    return project_slices_2d(proj.ft[None], rot[None], rings.i_col,
+                             rings.i_row, proj.pf)[0]
+
+
+def project_full_2d(proj: Projectee, rot: torch.Tensor) -> torch.Tensor:
+    """Projection to full centered spectra: rot (B, 2, 2) ->
+    (B, size, size), zero outside max_radius."""
+    size = proj.size
+    dev = proj.ft.device
+    k = torch.arange(size, dtype=torch.int32, device=dev) - size // 2
+    ky, kx = torch.meshgrid(k, k, indexing="ij")
+    vals = project_slices_2d(proj.ft[None], rot[None], kx.reshape(-1),
+                             ky.reshape(-1), proj.pf)[0]
     inside = (kx * kx + ky * ky < proj.max_radius ** 2).reshape(-1)
     vals = torch.where(inside, vals, torch.zeros_like(vals))
     return vals.reshape(rot.shape[:-2] + (size, size))

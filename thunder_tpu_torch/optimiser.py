@@ -1,6 +1,7 @@
-"""The E-M loop of 3D auto-refinement: expectation (pose search),
-maximization (noise / norm statistics, reconstruction) and round-level
-control — the main path of thunder_tpu.optimiser on one GPU.
+"""The E-M loop of 3D auto-refinement and 2D classification:
+expectation (pose and class search), maximization (noise / norm
+statistics, reconstruction) and round-level control — the main paths of
+thunder_tpu.optimiser on one GPU.
 
   round:
     build the projection tables                       [refreshProj]
@@ -13,14 +14,16 @@ control — the main path of thunder_tpu.optimiser on one GPU.
 
 Hemispheres A and B (gold standard) are a leading axis of size 2 on
 every state tensor; both run batched on one device.  The hot spots are
-the four hand-written kernels: HK1 project_slices (global search,
-phases, statistics), HK2 likelihood_block (global search, phases), HK3
-insert_trilinear (insertion) and HK4 shell_sums (FSC, sigma).
+the hand-written kernels: HK1 project_slices / HK5 project_slices_2d
+(global search, phases, statistics), HK2 likelihood_block (global
+search, phases), HK3 insert_trilinear / HK6 insert_bilinear_2d
+(insertion) and HK4 shell_sums (FSC, sigma).
 
-Supported here: 3D, K = 1, symmetry C1, CTF search off — the
-configuration the repo benchmarks.  The JAX package's TPU-only
-machinery (residency planning, hemisphere sequencing, brick tables and
-routing, static insert buckets, the sweep inserter) has no counterpart.
+Supported here: 3D refinement (K = 1, symmetry C1) and 2D
+classification (any K; the config's symmetry is ignored in 2D, as in
+thunder_tpu), CTF search off.  The JAX package's TPU-only machinery
+(residency planning, hemisphere sequencing, brick tables and routing,
+static insert buckets, the sweep inserters) has no counterpart.
 """
 
 from __future__ import annotations
@@ -48,7 +51,8 @@ from thunder_tpu.constants import (
 )
 from thunder_tpu_torch import particle as pt
 from thunder_tpu_torch.device import COMPLEX, REAL, as_device, generator, synchronize
-from thunder_tpu_torch.geometry.quaternion import random_quat, rotate3d
+from thunder_tpu_torch.geometry.quaternion import (random_quat,
+                                                   rotate2d_from_unit, rotate3d)
 from thunder_tpu_torch.geometry.symmetry import Symmetry, r_global
 from thunder_tpu_torch.model import (
     SEARCH_TYPE_GLOBAL,
@@ -68,7 +72,7 @@ from thunder_tpu_torch.ops.fourier import (
     translate_phases,
     translate_phases_view,
 )
-from thunder_tpu_torch.ops.insert import insert_trilinear
+from thunder_tpu_torch.ops.insert import insert_bilinear_2d, insert_trilinear
 from thunder_tpu_torch.ops.likelihood import (
     block_terms,
     likelihood_block,
@@ -76,7 +80,12 @@ from thunder_tpu_torch.ops.likelihood import (
     local_terms,
     modulate,
 )
-from thunder_tpu_torch.ops.projector import prepare_projectee_3d_cropped, project_slices
+from thunder_tpu_torch.ops.projector import (
+    prepare_projectee_2d_cropped,
+    prepare_projectee_3d_cropped,
+    project_slices,
+    project_slices_2d,
+)
 from thunder_tpu_torch.physics.ctf import CtfParams, ctf_packed
 from thunder_tpu_torch.physics.mask import radial_grid, soft_mask_weight
 from thunder_tpu_torch.physics import spectrum
@@ -89,6 +98,7 @@ from thunder_tpu_torch.pipeline.preprocess import (
 from thunder_tpu_torch.recon.reconstructor import reconstruct, reconstruct_two_pass
 
 PARTICLE_FILTER_DECREASE_FACTOR = 0.95  # include/Optimiser.h:60
+CLASS_BALANCE_FACTOR = 0.05             # include/Optimiser.h:71
 ROT_BLOCK = 256        # rotations per global-search block (R*T*4 B in smem)
 RECO_COMPACT_SLOTS = 48
 
@@ -134,46 +144,73 @@ def pack_inputs(ft_masked: torch.Tensor, ctf: CtfParams, sigma: torch.Tensor,
     return dat_w, sctf2, a_term
 
 
+def rotations(quats: torch.Tensor, nd: int) -> torch.Tensor:
+    """Poses (..., 4) -> rotation matrices (..., nd, nd); a 2D pose is
+    the quaternion (cos phi, sin phi, 0, 0)."""
+    return rotate2d_from_unit(quats[..., :2]) if nd == 2 else rotate3d(quats)
+
+
+def project_any(table: torch.Tensor, rot: torch.Tensor, i_col, i_row,
+                pf: int, cls=None) -> torch.Tensor:
+    """HK1 on a (K, n, n, n) table, HK5 on a (K, n, n) one."""
+    fn = project_slices_2d if table.ndim == 3 else project_slices
+    return fn(table, rot, i_col, i_row, pf, cls)
+
+
 def global_search(table: torch.Tensor, rot_blocks: torch.Tensor,
                   rings: PackedRings, dat_w: torch.Tensor, sctf2: torch.Tensor,
                   a_term: torch.Tensor, tra: torch.Tensor, pf: int):
-    """Streaming log-sum-exp over a rotation grid for one hemisphere
-    (optimiser._global_search): table (1, n, n, n), rot_blocks
-    (n_blocks, B, 3, 3), dat_w/sctf2 (L, P), a_term (L,), tra (N, P).
-    Returns w_c (L, 1), w_r (1, L, n_blocks*B), w_t (1, L, N)."""
-    if table.shape[0] != 1:
-        raise NotImplementedError("global search supports one class (K = 1)")
+    """Streaming log-sum-exp over every (class, rotation) of a grid for
+    one hemisphere (optimiser._global_search): table (K, n, n, n) or
+    (K, n, n), rot_blocks (n_blocks, B, d, d), dat_w/sctf2 (L, P),
+    a_term (L,), tra (N, P).  Returns w_c (L, K), w_r (K, L,
+    n_blocks*B), w_t (K, L, N).
+
+    Each class carries its own running baseline through HK2 (one CTA
+    per image rescales only that class's columns); at the end every
+    class is brought to the common baseline b* = max_k b_k by
+    exp(b_k - b*) — the JAX scan's single baseline across (class x
+    block) steps, reached without touching the kernel.  One launch
+    projects a rotation block for all K classes."""
+    n_cls = table.shape[0]
     n_blocks, block = rot_blocks.shape[:2]
     n_l, n_t = dat_w.shape[0], tra.shape[0]
     dev = dat_w.device
     x_ri = modulate(dat_w, tra)
-    base = torch.full((n_l,), float("-inf"), dtype=REAL, device=dev)
-    w_c = torch.zeros((n_l, 1), dtype=REAL, device=dev)
-    w_r = torch.zeros((1, n_l, n_blocks * block), dtype=REAL, device=dev)
-    w_t = torch.zeros((1, n_l, n_t), dtype=REAL, device=dev)
+    base = torch.full((n_cls, n_l), float("-inf"), dtype=REAL, device=dev)
+    w_c = torch.zeros((n_cls, n_l), dtype=REAL, device=dev)
+    w_r = torch.zeros((n_cls, n_l, n_blocks * block), dtype=REAL, device=dev)
+    w_t = torch.zeros((n_cls, n_l, n_t), dtype=REAL, device=dev)
     ones_r = torch.ones((1, 1), dtype=REAL, device=dev).expand(n_l, block)
     ones_t = torch.ones((1, 1), dtype=REAL, device=dev).expand(n_l, n_t)
+    classes = torch.arange(n_cls, device=dev)
     for b_idx in range(n_blocks):
-        pri = project_slices(table, rot_blocks[b_idx][None], rings.i_col,
-                             rings.i_row, pf)[0]
-        b, c = block_terms(x_ri, sctf2, pri)
-        likelihood_block(a_term, b, c, ones_r, ones_t, base, w_c[:, 0],
-                         w_r[0], w_t[0], col0=b_idx * block)
-    return w_c, w_r, w_t
+        rot = rot_blocks[b_idx][None].expand((n_cls,) + rot_blocks.shape[1:])
+        pri = project_any(table, rot, rings.i_col, rings.i_row, pf, classes)
+        for k in range(n_cls):
+            b, c = block_terms(x_ri, sctf2, pri[k])
+            likelihood_block(a_term, b, c, ones_r, ones_t, base[k], w_c[k],
+                             w_r[k], w_t[k], col0=b_idx * block)
+    top = torch.amax(base, dim=0)
+    scale = torch.where(torch.isfinite(base), torch.exp(base - top),
+                        torch.zeros_like(base))
+    return ((w_c * scale).T.contiguous(), w_r * scale[..., None],
+            w_t * scale[..., None])
 
 
 def compare_refs(ref_a: torch.Tensor, ref_b: torch.Tensor, n_shells: int,
-                 fsc: torch.Tensor | None = None, want_avg: bool = True):
-    """FSC between hemisphere references (K, n, n, n) and averaging below
+                 fsc: torch.Tensor | None = None, want_avg: bool = True,
+                 nd: int = 3):
+    """FSC between hemisphere references (K, n^nd) and averaging below
     the 0.95 crossing (Model::compareTwoHemispheres, Model.cpp:307-851).
     ``fsc`` given: the averaging shell comes from it.  Returns
     (fsc (K, n_shells), averaged a, averaged b)."""
-    ax = (-3, -2, -1)
+    ax = tuple(range(-nd, 0))
     fa = torch.fft.fftshift(torch.fft.fftn(ref_a, dim=ax), dim=ax)
     fb = torch.fft.fftshift(torch.fft.fftn(ref_b, dim=ax), dim=ax)
     size = ref_a.shape[-1]
     if fsc is None:
-        fsc = spectrum.fsc(fa, fb, n_shells, ndim=3)
+        fsc = spectrum.fsc(fa, fb, n_shells, ndim=nd)
     else:
         fsc = torch.as_tensor(fsc, dtype=REAL, device=ref_a.device)[:, :n_shells]
     if not want_avg:
@@ -183,23 +220,24 @@ def compare_refs(ref_a: torch.Tensor, ref_b: torch.Tensor, n_shells: int,
     first = torch.argmax(below.to(torch.int32), dim=1)
     r_avg = torch.where(below.any(dim=1), first - 1,
                         torch.full_like(first, n_shells - 1))
-    u3 = centered_shell_dev(size, 3, ref_a.device)
-    sel = u3[None] <= r_avg[:, None, None, None]
+    u = centered_shell_dev(size, nd, ref_a.device)
+    sel = u[None] <= r_avg.reshape((-1,) + (1,) * nd)
     avg = (fa + fb) / 2
     back = lambda f: torch.fft.ifftn(torch.fft.ifftshift(f, dim=ax), dim=ax).real
     return fsc, back(torch.where(sel, avg, fa)), back(torch.where(sel, avg, fb))
 
 
-def recentre_refs(refs: torch.Tensor, o_class: torch.Tensor) -> torch.Tensor:
-    """Translate references (..., n, n, n) by -o (x/y only) with a phase
+def recentre_refs(refs: torch.Tensor, o_class: torch.Tensor,
+                  nd: int = 3) -> torch.Tensor:
+    """Translate references (..., n^nd) by -o (x/y only) with a phase
     ramp on the centered spectrum; o_class (..., 2)."""
-    ax = (-3, -2, -1)
+    ax = tuple(range(-nd, 0))
     size = refs.shape[-1]
     k = torch.arange(size, dtype=REAL, device=refs.device) - size // 2
     ft = torch.fft.fftshift(torch.fft.fftn(refs, dim=ax), dim=ax)
-    ox = o_class[..., 0][..., None, None, None]
-    oy = o_class[..., 1][..., None, None, None]
-    phase = (2 * math.pi / size) * (k[None, None, :] * ox + k[None, :, None] * oy)
+    e = (Ellipsis,) + (None,) * nd
+    ox, oy = o_class[..., 0][e], o_class[..., 1][e]
+    phase = (2 * math.pi / size) * (k * ox + k[:, None] * oy)
     ft = ft * torch.polar(torch.ones_like(phase), phase)
     return torch.fft.ifftn(torch.fft.ifftshift(ft, dim=ax), dim=ax).real
 
@@ -218,28 +256,32 @@ class StackedData(NamedTuple):
 
 @dataclass
 class StackedState:
-    refs: torch.Tensor         # (2, K, size, size, size) real space
+    refs: torch.Tensor         # (2, K, size^nd) real space
     sigma: torch.Tensor        # (2, n_group, max_r)
     par: pt.ParticleState      # fields (2, L, ...)
     cls: torch.Tensor          # (2, L) int64
 
 
 class Optimiser:
-    """Host orchestration of one 3D refinement on one device."""
+    """Host orchestration of one 3D refinement or 2D classification on
+    one device."""
 
     def __init__(self, cfg: ThunderConfig, images: np.ndarray, ctf,
                  group_id: np.ndarray, init_refs: np.ndarray | None = None,
                  hemi_of: np.ndarray | None = None, resume_thu=None,
                  device=None, seed: int | None = None):
-        if cfg.mode_2d or cfg.k != 1 or cfg.c_search:
+        if cfg.c_search or (not cfg.mode_2d and cfg.k != 1):
             raise NotImplementedError(
-                "the port runs 3D refinement with K = 1 and CTF search off")
-        if (cfg.sym or "C1").strip().upper() != "C1":
+                "the port runs 3D refinement with K = 1 and 2D "
+                "classification, both with CTF search off")
+        if not cfg.mode_2d and (cfg.sym or "C1").strip().upper() != "C1":
             raise NotImplementedError("the port runs symmetry C1 only")
         self.cfg = cfg
+        self.nd = nd = 2 if cfg.mode_2d else 3
+        self.mode = pt.MODE_2D if cfg.mode_2d else pt.MODE_3D
         self.device = dev = as_device(device)
         self.gen = generator(cfg.seed if seed is None else seed, dev)
-        self.sym = Symmetry(cfg.sym, dev)
+        self.sym = Symmetry("C1" if cfg.mode_2d else cfg.sym, dev)
         n = images.shape[0]
         if n < 2:
             raise ValueError("need at least one image per hemisphere")
@@ -282,7 +324,7 @@ class Optimiser:
 
         refs = (self._blank_refs() if init_refs is None
                 else np.asarray(init_refs, np.float32))
-        if refs.ndim == 3:
+        if refs.ndim == nd:
             refs = np.repeat(refs[None], cfg.k, axis=0)
         refs2 = torch.as_tensor(np.stack([refs] * 2), device=dev)
 
@@ -292,12 +334,17 @@ class Optimiser:
                 t.quat[flat], t.trans[flat], t.std_trans[flat],
                 np.stack([t.k1[flat], t.k2[flat], t.k3[flat]], axis=1),
                 t.defocus_factor[flat], t.std_defocus_factor[flat],
-                cfg.n_rot_local, cfg.m_l_t, 1, self.gen, dev)
+                cfg.n_rot_local, cfg.m_l_t, 1, self.gen, dev, self.mode)
             par = par.map(lambda a: a.reshape((2, L) + a.shape[1:]))
+            cls = torch.as_tensor(np.clip(t.class_id[flat], 0, cfg.k - 1)
+                                  .astype(np.int64).reshape(2, L), device=dev)
         else:
             par = pt.init_particles(self.gen, (2, L), cfg.n_rot_local,
-                                    cfg.m_l_t, 1, cfg.trans_s, dev)
-        cls = torch.zeros((2, L), dtype=torch.int64, device=dev)
+                                    cfg.m_l_t, 1, cfg.trans_s, dev, self.mode)
+            # random initial classes (thunder_tpu optimiser.py:2013-2014)
+            cls = (torch.randint(0, cfg.k, (2, L), generator=self.gen, device=dev)
+                   if cfg.k > 1 else
+                   torch.zeros((2, L), dtype=torch.int64, device=dev))
         self.state = StackedState(refs=refs2, sigma=sigma, par=par, cls=cls)
         self.offset = torch.zeros((2, L, 2), dtype=REAL, device=dev)
         self.valid_dev = torch.as_tensor(self.valid.astype(np.float32), device=dev)
@@ -311,13 +358,13 @@ class Optimiser:
 
             self._ref_mask = torch.as_tensor(read_mrc(cfg.mask_path)[0], device=dev)
         self._soft_mask = soft_mask_weight(
-            cfg.size, 3, cfg.mask_radius / cfg.pixel_size, EDGE_WIDTH_RL, dev)
+            cfg.size, nd, cfg.mask_radius / cfg.pixel_size, EDGE_WIDTH_RL, dev)
 
     # ------------------------------------------------------------------
 
     def _blank_refs(self) -> np.ndarray:
         cfg = self.cfg
-        u = radial_grid(cfg.size, 3)
+        u = radial_grid(cfg.size, self.nd)
         blob = np.where(u < cfg.mask_radius / cfg.pixel_size, 1.0, 0.0
                         ).astype(np.float32)
         refs = np.repeat(blob[None], cfg.k, axis=0)
@@ -343,14 +390,15 @@ class Optimiser:
                            d.group_id, rings, cfg.size, float(cfg.pixel_size))
 
     def proj_table(self, r_u: int) -> torch.Tensor:
-        """Padded, grid-corrected spectra (2, K, crop, crop, crop) of the
-        current references, cropped to what radius r_u reaches (cached
-        until the references change)."""
+        """Padded, grid-corrected spectra (2, K, crop^nd) of the current
+        references, cropped to what radius r_u reaches (cached until the
+        references change)."""
         cfg = self.cfg
         crop = proj_crop_size(cfg.size, cfg.pf, r_u)
         if crop not in self._tables:
-            self._tables[crop] = prepare_projectee_3d_cropped(
-                self.state.refs, cfg.pf, crop).contiguous()
+            prep = (prepare_projectee_2d_cropped if self.nd == 2
+                    else prepare_projectee_3d_cropped)
+            self._tables[crop] = prep(self.state.refs, cfg.pf, crop).contiguous()
         return self._tables[crop]
 
     def _n_trans_global(self) -> int:
@@ -363,15 +411,24 @@ class Optimiser:
     # -- expectation ----------------------------------------------------
 
     def expectation_global(self, rings: PackedRings, quats=None, trans=None):
-        """Global search over a fresh random rotation grid per hemisphere
-        (``quats`` (2, n_rot, 4) / ``trans`` (2, N, 2) inject the grid)."""
+        """Global search over a fresh random rotation grid per hemisphere,
+        every class (``quats`` (2, n_rot, 4) / ``trans`` (2, N, 2) inject
+        the grid); 2D draws uniform in-plane angles, mS(2D) of them."""
         cfg = self.cfg
         dev = self.device
         if quats is None:
-            n_rot = max(1, cfg.n_rot_global // (1 + self.sym.n_elements))
+            n_rot = (cfg.n_rot_global if cfg.mode_2d else
+                     max(1, cfg.n_rot_global // (1 + self.sym.n_elements)))
             if n_rot > ROT_BLOCK:
                 n_rot = _round_up(n_rot, ROT_BLOCK)
-            quats = random_quat(self.gen, (2, n_rot), dev)
+            if cfg.mode_2d:
+                phi = torch.rand((2, n_rot), generator=self.gen, device=dev,
+                                 dtype=REAL) * (2 * math.pi)
+                quats = torch.stack([torch.cos(phi), torch.sin(phi),
+                                     torch.zeros_like(phi), torch.zeros_like(phi)],
+                                    dim=-1)
+            else:
+                quats = random_quat(self.gen, (2, n_rot), dev)
         if trans is None:
             trans = torch.randn((2, self._n_trans_global(), 2), generator=self.gen,
                                 device=dev, dtype=REAL) * cfg.trans_s
@@ -379,7 +436,8 @@ class Optimiser:
         block = min(ROT_BLOCK, n_rot)
         if n_rot % block:
             raise ValueError("the rotation grid must fill whole blocks")
-        rot = rotate3d(quats).reshape(2, n_rot // block, block, 3, 3)
+        nd = self.nd
+        rot = rotations(quats, nd).reshape(2, n_rot // block, block, nd, nd)
         dat_w, sctf2, a_term = self._pack_inputs(rings)
         tra = translate_phases(rings, trans)
         table = self.proj_table(rings.r_u)
@@ -394,6 +452,7 @@ class Optimiser:
         (Optimiser.cpp:925-1118)."""
         cfg = self.cfg
         s = self.state
+        mode = self.mode
         w_c = pt.clip_u_class(g["w_c"])                       # (2, L, K)
         w_c = w_c / torch.clamp(w_c.sum(-1, keepdim=True), min=1e-30)
         cls = torch.multinomial(w_c.reshape(-1, cfg.k) + 1e-30, 1,
@@ -417,10 +476,10 @@ class Optimiser:
             top_t=torch.zeros(b + (2,), device=dev), top_d=s.par.d[..., 0],
             k1=ones, k2=ones, k3=ones, s0=ones, s1=ones,
             s_d=torch.zeros(b, device=dev), score=torch.zeros(b, device=dev))
-        par = pt.clip_u_t(pt.clip_u_r(par))
+        par = pt.clip_u_t(pt.clip_u_r(par, mode))
         par = pt.resample_r(self.gen, par, cfg.n_rot_local)
         par = pt.resample_t(self.gen, par, cfg.m_l_t)
-        s.par = pt.cal_vari_t(pt.cal_vari_r(par))
+        s.par = pt.cal_vari_t(pt.cal_vari_r(par, mode))
         s.cls = cls
 
     def phase_step(self, par: pt.ParticleState, hemis: list, rings,
@@ -430,16 +489,17 @@ class Optimiser:
         variance inference (Optimiser.cpp:1183-1614).  ``par`` holds the
         selected hemispheres; returns (par, vari (len(hemis), 4))."""
         cfg = self.cfg
+        mode, nd = self.mode, self.nd
         hs = torch.as_tensor(hemis, device=self.device)
-        par = pt.perturb_r(self.gen, par, pf_small)
+        par = pt.perturb_r(self.gen, par, pf_small, mode=mode)
         par = pt.perturb_t(self.gen, par, pf_small, float(cfg.trans_s))
         nh, n_l, n_r = par.r.shape[:3]
         k_cls = table.shape[1]
         tra = translate_phases_view(rings.i_col, rings.i_row, cfg.size, par.t)
-        rot = rotate3d(par.r).reshape(nh * n_l, n_r, 3, 3)
+        rot = rotations(par.r, nd).reshape(nh * n_l, n_r, nd, nd)
         cls = (self.state.cls[hs] + hs[:, None] * k_cls).reshape(-1)
-        pri = project_slices(table.reshape((-1,) + table.shape[2:]), rot,
-                             rings.i_col, rings.i_row, cfg.pf, cls)
+        pri = project_any(table.reshape((-1,) + table.shape[2:]), rot,
+                          rings.i_col, rings.i_row, cfg.pf, cls)
         flat = lambda x: x[hs].reshape((nh * n_l,) + x.shape[2:])
         x_ri = modulate(flat(dat_w), tra.reshape((nh * n_l,) + tra.shape[2:]))
         b, c = local_terms(x_ri, flat(sctf2), pri)
@@ -448,10 +508,10 @@ class Optimiser:
                                    par.w_t.reshape(nh * n_l, -1))
         par = par._replace(u_r=u_r.reshape(nh, n_l, -1),
                            u_t=u_t.reshape(nh, n_l, -1))
-        par = pt.clip_u_r(par)
+        par = pt.clip_u_r(par, mode)
         par = pt.resample_r(self.gen, par, n_r)
         par = pt.resample_t(self.gen, par, par.t.shape[-2])
-        par = pt.cal_vari_t(pt.cal_vari_r(par))
+        par = pt.cal_vari_t(pt.cal_vari_r(par, mode))
         vari = torch.stack([par.k1.mean(-1), par.s0.mean(-1), par.s1.mean(-1),
                             par.s_d.mean(-1)], dim=-1)
         return par, vari
@@ -503,7 +563,7 @@ class Optimiser:
                     if phase[h] + 1 >= min_phase else 0
                 phase[h] += 1
                 prev[h] = [k1, s0, s1, sd]
-        s.par = pt.symmetrise_top(pt.cal_score(par), self.sym)
+        s.par = pt.symmetrise_top(pt.cal_score(par, self.mode), self.sym)
         return phase
 
     # -- maximization ---------------------------------------------------
@@ -537,11 +597,12 @@ class Optimiser:
         dat_hi = extract_packed(d.ft_ori, rings_hi)
         ctf = ctf_packed(d.ctf_params, rings.i_col, rings.i_row, cfg.size,
                          float(cfg.pixel_size))
-        rot = rotate3d(s.par.top_r).reshape(2 * n_l, 1, 3, 3)
+        nd = self.nd
+        rot = rotations(s.par.top_r, nd).reshape(2 * n_l, 1, nd, nd)
         hs = torch.arange(2, device=dev)[:, None]
         cls = (s.cls + hs * k_cls).reshape(-1)
-        pri = project_slices(table.reshape((-1,) + table.shape[2:]), rot,
-                             rings.i_col, rings.i_row, cfg.pf, cls)
+        pri = project_any(table.reshape((-1,) + table.shape[2:]), rot,
+                          rings.i_col, rings.i_row, cfg.pf, cls)
         pri = pri.reshape(2, n_l, -1)
         tra = translate_phases_view(rings.i_col, rings.i_row, cfg.size,
                                     top_t[..., None, :])[..., 0, :]
@@ -593,9 +654,11 @@ class Optimiser:
             self.data = d._replace(ft_masked=d.ft_masked * s_norm[..., None, None],
                                    ft_ori=d.ft_ori * s_norm[..., None, None])
         elif do_scale:
-            tot = (torch.sum(xa_l * valid, 1)
-                   / torch.clamp(torch.sum(aa_l * valid, 1), min=1e-30))
-            scale_g = tot[:, None].expand(2, self.n_group)
+            # per-group scale (refreshScale with group_scl, as
+            # thunder_tpu._max_stats_h's group branch)
+            scale_g = (torch.einsum("hlg,hl->hg", g_onehot, xa_l)
+                       / torch.clamp(torch.einsum("hlg,hl->hg", g_onehot, aa_l),
+                                     min=1e-30))
             per_img = torch.gather(scale_g, 1, d.group_id)
             self.data = d._replace(ft_masked=d.ft_masked / per_img[..., None, None],
                                    ft_ori=d.ft_ori / per_img[..., None, None])
@@ -605,9 +668,10 @@ class Optimiser:
 
     def reconstruct_round(self, draws=None):
         """Draw poses, compact them, and insert both hemispheres' slices
-        into per-class (F, T) grids with HK3 (reconstructRef,
+        into per-class (F, T) grids — HK3 in 3D, HK6 in 2D (one launch
+        for both hemispheres' 2K planes) (reconstructRef,
         Optimiser.cpp:6711-7233).  ``draws`` injects (quats, trans, d, w)
-        of shape (2, L, S, ...).  Returns (F (2, K, big^3), T, r_u,
+        of shape (2, L, S, ...).  Returns (F (2, K, big^nd), T, r_u,
         grid_size)."""
         cfg = self.cfg
         s = self.state
@@ -621,13 +685,17 @@ class Optimiser:
             draws = pt.draw_poses_compact(self.gen, s.par, n_draw, n_slots)
         quats, trans, _, w_draw = draws
         trans = trans - self.offset[:, :, None, :]
-        if cfg.par_gra:
+        # grading only in refinement (parGra && k == 1,
+        # Optimiser.cpp:6726-6761)
+        if cfg.par_gra and cfg.k == 1:
             w_img = s.par.score / torch.clamp(torch.max(s.par.score * self.valid_dev),
                                               min=1e-12)
         else:
             w_img = torch.ones_like(s.par.score)
         w = (w_img * self.valid_dev)[..., None] * w_draw        # (2, L, S)
         n_slots = w.shape[-1]
+        if self.nd == 2:
+            return self._insert_2d(quats, trans, w, r_u, big) + (r_u, grid_size)
         fs, ts = [], []
         for h in (0, 1):
             sel = torch.nonzero(w[h].reshape(-1) > 0)[:, 0]
@@ -640,12 +708,32 @@ class Optimiser:
             ts.append(t_h[None])
         return torch.stack(fs), torch.stack(ts), r_u, grid_size
 
+    def _insert_2d(self, quats, trans, w, r_u: int, big: int):
+        """Both hemispheres' slices with non-zero weight into 2K class
+        planes in one HK6 launch: image l of hemisphere h is row h L + l
+        of the flattened stack, its class plane h K + cls."""
+        cfg = self.cfg
+        n_l, n_slots = w.shape[1], w.shape[2]
+        k = cfg.k
+        sel = torch.nonzero(w.reshape(-1) > 0)[:, 0]            # over (2, L, S)
+        img = sel // n_slots                                     # h L + l
+        hemi = img // n_l
+        cls = self.state.cls.reshape(-1)[img] + hemi * k
+        d = self.data
+        f2, t2 = insert_bilinear_2d(
+            d.ft_ori.reshape((-1,) + d.ft_ori.shape[2:]),
+            d.ctf_params.map(lambda a: a.reshape(-1)), img, cls,
+            rotations(quats.reshape(-1, 4)[sel], 2),
+            trans.reshape(-1, 2)[sel], w.reshape(-1)[sel], r_u, cfg.pf,
+            cfg.size, float(cfg.pixel_size), big, 2 * k)
+        return f2.reshape(2, k, big, big), t2.reshape(2, k, big, big)
+
     def _recentre(self, refs: torch.Tensor) -> torch.Tensor:
         """Shift each class reference by minus the mean rank-1 translation
         of its images (Optimiser.cpp:7382-7427)."""
         cfg = self.cfg
         if not (cfg.ref_auto_recentre and self._ref_mask is None
-                and self.sym.name.startswith("C")):
+                and (cfg.mode_2d or self.sym.name.startswith("C"))):
             return refs
         s = self.state
         eff_t = s.par.top_t - self.offset
@@ -654,27 +742,31 @@ class Optimiser:
                    * self.valid_dev[:, None, :])
         cnt = torch.clamp(one_hot.sum(2), min=1.0)
         o_class = torch.einsum("hkl,hlc->hkc", one_hot, eff_t) / cnt[..., None]
-        return recentre_refs(refs, o_class)
+        return recentre_refs(refs, o_class, self.nd)
 
     def _reconstruct_and_compare(self, record: dict, mark=lambda n: None):
         """Two-pass reconstruction (MAP-free FSC pass + Wiener MAP pass
         with the previous round's FSC), hemisphere FSC (HK4) and
         averaging below the 0.95 crossing (Optimiser.cpp:7310-7755)."""
         cfg = self.cfg
+        nd = self.nd
         f2, t2, r_u, grid_size = self.reconstruct_round()
         mark("reco_insert")
         n_shells = cfg.max_r
-        fsc_prev = torch.as_tensor(np.broadcast_to(
-            np.asarray(self.model.fsc, np.float32)[:1], (cfg.k, n_shells)).copy(),
-            device=self.device)
+        # the previous round's per-class curves (one curve broadcast
+        # until the first reconstruction)
+        fsc_prev = np.asarray(self.model.fsc, np.float32)
+        if fsc_prev.shape[0] < cfg.k:
+            fsc_prev = np.broadcast_to(fsc_prev[:1], (cfg.k,) + fsc_prev.shape[1:])
+        fsc_prev = torch.as_tensor(np.ascontiguousarray(fsc_prev), device=self.device)
         refs_fsc, refs_map = reconstruct_two_pass(
-            f2, t2, fsc_prev, grid_size, cfg.pf, r_u)
+            f2, t2, fsc_prev, grid_size, cfg.pf, r_u, nd)
         if grid_size != cfg.size:
-            refs_fsc = resize_rl(refs_fsc, cfg.size, nd=3)
-            refs_map = resize_rl(refs_map, cfg.size, nd=3)
+            refs_fsc = resize_rl(refs_fsc, cfg.size, nd=nd)
+            refs_map = resize_rl(refs_map, cfg.size, nd=nd)
         refs_fsc = self._recentre(refs_fsc)
         self._refs_report = refs_fsc
-        if cfg.core_fsc or cfg.mask_fsc:
+        if nd == 3 and (cfg.core_fsc or cfg.mask_fsc):
             # core / masked true FSC in place of the plain curve
             # (Model.cpp:411-567)
             m = (self._ref_mask if cfg.mask_fsc and self._ref_mask is not None
@@ -683,7 +775,7 @@ class Optimiser:
                                      n_shells)
         else:
             fsc_dev, _, _ = compare_refs(refs_fsc[0], refs_fsc[1], n_shells,
-                                         want_avg=False)
+                                         want_avg=False, nd=nd)
         fsc_all = fsc_dev.cpu().numpy().astype(np.float64)
         fsc_all[:, r_u:] = 0.0
         self._fsc_band = int(r_u)
@@ -692,13 +784,42 @@ class Optimiser:
         mark("reco_wiener")
         if cfg.gold_standard and cfg.k == 1:
             _, ref_a, ref_b = compare_refs(refs[0], refs[1], n_shells,
-                                           fsc=fsc_all)
+                                           fsc=fsc_all, nd=nd)
             refs = torch.stack([ref_a, ref_b])
         else:
+            # K > 1 (or no gold standard): the halves are fully averaged
+            # every round (Model.cpp:679-690)
             refs = ((refs[0] + refs[1]) / 2)[None].expand(2, *refs.shape[1:])
         self.set_refs(refs.contiguous())
         self.model.set_fsc(fsc_all)
         self.model.update_res(cfg.thres_report_fsc)
+
+    def class_distribution(self) -> torch.Tensor:
+        """Share of the valid images in each class, (K,)
+        (refreshClassDistr, Optimiser.cpp:5484)."""
+        one_hot = (self.state.cls[..., None]
+                   == torch.arange(self.cfg.k, device=self.device)).to(REAL)
+        cnt = torch.sum(one_hot * self.valid_dev[..., None], dim=(0, 1))
+        return cnt / torch.clamp(torch.sum(self.valid_dev), min=1.0)
+
+    def balance_classes(self, distr: np.ndarray | None = None) -> list:
+        """Class rebirth: every class holding less than
+        CLASS_BALANCE_FACTOR / K of the images takes the references of
+        the most populated class (refreshClassDistr + balanceClass,
+        Optimiser.cpp:5484-5592).  Returns the reborn classes."""
+        cfg = self.cfg
+        if cfg.k <= 1:
+            return []
+        if distr is None:
+            distr = self.class_distribution().cpu().numpy()
+        distr = np.asarray(distr)
+        heavy = int(np.argmax(distr))
+        reborn = [t for t in range(cfg.k) if distr[t] < CLASS_BALANCE_FACTOR / cfg.k]
+        if reborn:
+            refs = self.state.refs.clone()
+            refs[:, reborn] = refs[:, heavy][:, None]
+            self.set_refs(refs)
+        return reborn
 
     def solvent_flatten(self, apply_mask: bool) -> None:
         """Reference masking with zero background (solventFlatten)."""
@@ -771,6 +892,8 @@ class Optimiser:
             np.degrees(2.0 * np.arccos(np.clip(rot_med, -1.0, 1.0))))
         self.model.set_t_vari(_median(s.par.s0, self.valid_dev),
                               _median(s.par.s1, self.valid_dev))
+        # the class distribution after expectation drives rebirth
+        distr = self.class_distribution().cpu().numpy() if cfg.k > 1 else None
         mark("host_stats")
 
         if not cfg.skip_m:
@@ -782,6 +905,9 @@ class Optimiser:
         else:
             self.model.set_fsc(np.ones((cfg.k, cfg.max_r), np.float32))
 
+        reborn = self.balance_classes(distr)
+        if reborn:
+            record["reborn_classes"] = reborn
         self.solvent_flatten(cfg.perform_mask and (
             cfg.global_mask or self.model.search_type != SEARCH_TYPE_GLOBAL))
         if self.model.search_type != SEARCH_TYPE_GLOBAL:
@@ -809,16 +935,16 @@ class Optimiser:
 
     def final_reconstruction(self) -> np.ndarray:
         """Joint reconstruction at the full band after the search stops
-        (Optimiser.cpp:4078-4129), MAP-free.  Returns (K, n, n, n) maps
+        (Optimiser.cpp:4078-4129), MAP-free.  Returns (K, n^nd) maps
         averaged over hemispheres; per-hemisphere maps stay in the state."""
         cfg = self.cfg
         saved_r = self.model.r
         self.model.r = cfg.max_r - 3
         f2, t2, r_u, grid_size = self.reconstruct_round()
         self.model.r = saved_r
-        refs = reconstruct(f2, t2, grid_size, cfg.pf, r_u)
+        refs = reconstruct(f2, t2, grid_size, cfg.pf, r_u, self.nd)
         if grid_size != cfg.size:
-            refs = resize_rl(refs, cfg.size, nd=3)
+            refs = resize_rl(refs, cfg.size, nd=self.nd)
         self.set_refs(refs.contiguous())
         self._refs_report = None
         return ((refs[0] + refs[1]) / 2).cpu().numpy()
@@ -865,6 +991,13 @@ class Optimiser:
             v = self.valid[h]
             out[self.index[h][v]] = cls[h][v]
         return out
+
+    def class_averages(self) -> np.ndarray:
+        """Mean of the hemisphere references per class, (K, n^nd): from
+        the MAP-free pass of the last round when there is one (the
+        reference saves those maps), else the current references."""
+        refs = self._refs_report if self._refs_report is not None else self.state.refs
+        return ((refs[0] + refs[1]) / 2).cpu().numpy()
 
     def export_thu(self, thu):
         """Write the particle-filter state back into a ThuTable

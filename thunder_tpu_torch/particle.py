@@ -1,6 +1,7 @@
 """The particle filter over (rotation, translation, defocus), batched
-over leading dims (src/Particle.cpp), as in thunder_tpu.particle for 3D
-refinement.
+over leading dims (src/Particle.cpp), as in thunder_tpu.particle: 3D
+(ACG over quaternions) and 2D (von Mises over in-plane angles, the pose
+kept as the quaternion (cos phi, sin phi, 0, 0)); ``mode`` selects.
 
 State tensors carry any leading batch shape B — the optimiser uses
 (hemisphere, image) = (2, L):
@@ -30,14 +31,20 @@ from thunder_tpu_torch.geometry.directional import (
     infer_acg_k123,
     infer_acg_matrix,
     infer_acg_mean,
+    infer_vms,
     inv_det4_spd,
     sample_acg,
+    sample_vms,
+    vms_kappa,
 )
 from thunder_tpu_torch.geometry.quaternion import (quat_conj, quat_mul,
                                                    quat_normalize)
 
 _CHI2_PPF_TRANSQ_2 = 5.991464547107981  # chisq Qinv(0.05, 2)
 _CHI2_CDF_1_2 = 0.3934693402873666      # chisq P(1, 2)
+
+MODE_2D = 2
+MODE_3D = 3
 
 MIN_STD_T = 0.1
 MIN_K_R = 1e-5
@@ -77,12 +84,24 @@ def _uniform(n: int, batch: tuple, device):
     return torch.full(batch + (n,), 1.0 / n, dtype=REAL, device=device)
 
 
+def _quat_2d(v: torch.Tensor) -> torch.Tensor:
+    """Unit 2-vectors (..., 2) -> in-plane quaternions (v0, v1, 0, 0)."""
+    return torch.cat([v, torch.zeros_like(v)], dim=-1)
+
+
 def init_particles(gen: torch.Generator, batch: tuple, n_r: int, n_t: int,
-                   n_d: int, trans_s: float, device=None) -> ParticleState:
+                   n_d: int, trans_s: float, device=None,
+                   mode: int = MODE_3D) -> ParticleState:
     """Fresh support for global search (Particle::reset): uniform
-    rotations, Gaussian(trans_s) translations, defocus 1."""
+    rotations (2D: uniform angles), Gaussian(trans_s) translations,
+    defocus 1."""
     batch = tuple(batch)
-    r = quat_normalize(_randn(gen, batch + (n_r, 4), device))
+    if mode == MODE_2D:
+        phi = torch.rand(batch + (n_r,), generator=gen, device=device,
+                         dtype=REAL) * (2 * np.pi)
+        r = _quat_2d(torch.stack([torch.cos(phi), torch.sin(phi)], dim=-1))
+    else:
+        r = quat_normalize(_randn(gen, batch + (n_r, 4), device))
     t = _randn(gen, batch + (n_t, 2), device) * trans_s
     d = torch.ones(batch + (n_d,), dtype=REAL, device=device)
     zeros = torch.zeros(batch, dtype=REAL, device=device)
@@ -99,18 +118,24 @@ def init_particles(gen: torch.Generator, batch: tuple, n_r: int, n_t: int,
 
 def from_thu(quat, trans, std_trans, k123, defocus, std_d, n_r: int,
              n_t: int, n_d: int, gen: torch.Generator,
-             device=None) -> ParticleState:
+             device=None, mode: int = MODE_3D) -> ParticleState:
     """Resume support from .thu columns (Particle::load): each image's
     cloud is redrawn around its saved pose with the saved
-    concentrations, and the saved pose is rank-1."""
+    concentrations (2D: von Mises with k = min(k1, 1)), and the saved
+    pose is rank-1."""
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     quat, t0, std_t, d0, sd = f(quat), f(trans), f(std_trans), f(defocus), f(std_d)
     k123 = f(k123)
     k1, k2, k3 = k123[:, 0], k123[:, 1], k123[:, 2]
     n = quat.shape[0]
     kk = torch.clamp(k1, min=1e-5)
-    pert = sample_acg(gen, kk, kk, kk, n_r)             # (n, n_r, 4)
-    r = quat_mul(pert, quat[:, None, :].expand(n, n_r, 4)).clone()
+    if mode == MODE_2D:
+        v = sample_vms(gen, torch.tensor([1.0, 0.0], device=device),
+                       torch.clamp(kk, max=1.0), n_r)
+        r = quat_mul(quat[:, None, :].expand(n, n_r, 4), _quat_2d(v)).clone()
+    else:
+        pert = sample_acg(gen, kk, kk, kk, n_r)             # (n, n_r, 4)
+        r = quat_mul(pert, quat[:, None, :].expand(n, n_r, 4)).clone()
     r[:, 0] = quat
     t = t0[:, None, :] + _randn(gen, (n, n_t, 2), device) * std_t[:, None, :]
     t[:, 0] = t0
@@ -129,7 +154,11 @@ def from_thu(quat, trans, std_trans, k123, defocus, std_d, n_r: int,
 
 # -- variance inference (Particle::calVari, Particle.cpp:1004-1142) -----
 
-def cal_vari_r(state: ParticleState) -> ParticleState:
+def cal_vari_r(state: ParticleState, mode: int = MODE_3D) -> ParticleState:
+    if mode == MODE_2D:
+        _, k = infer_vms(state.r[..., :2])
+        k = torch.clamp(k, min=MIN_K_R)
+        return state._replace(k1=k, k2=k, k3=k)
     mean = infer_acg_mean(state.r)
     centered = quat_mul(quat_conj(mean)[..., None, :].expand_as(state.r),
                         state.r)
@@ -152,8 +181,10 @@ def cal_vari_d(state: ParticleState) -> ParticleState:
                                           min=MIN_STD_D))
 
 
-def cal_score(state: ParticleState) -> ParticleState:
+def cal_score(state: ParticleState, mode: int = MODE_3D) -> ParticleState:
     """score = compressR (Particle.cpp:647-678)."""
+    if mode == MODE_2D:
+        return state._replace(score=1.0 / torch.clamp(state.k1, min=1e-12))
     return state._replace(score=torch.pow(
         torch.clamp(state.k1 * state.k2 * state.k3, min=1e-30), -1.0 / 6))
 
@@ -161,10 +192,19 @@ def cal_score(state: ParticleState) -> ParticleState:
 # -- perturbation (Particle::perturb, Particle.cpp:1149-1289) -----------
 
 def perturb_r(gen: torch.Generator, state: ParticleState, pf: float,
-              noise: torch.Tensor | None = None) -> ParticleState:
+              noise: torch.Tensor | None = None,
+              mode: int = MODE_3D) -> ParticleState:
     """Kick every cloud with an ACG draw around its own mean, scaled by
-    pf^2 times the (capped) concentrations."""
+    pf^2 times the (capped) concentrations; in 2D, turn every support
+    point by a von Mises draw with k = min(PERTURB_K_MAX, pf k1).
+    ``noise`` injects the ACG normals (3D) or the unit 2-vectors (2D)."""
     n_r = state.r.shape[-2]
+    if mode == MODE_2D:
+        if noise is None:
+            noise = sample_vms(gen, torch.tensor([1.0, 0.0], device=state.r.device),
+                               torch.clamp(state.k1 * pf, max=PERTURB_K_MAX), n_r)
+        r = quat_mul(state.r, _quat_2d(noise))
+        return balance_weight_r(state._replace(r=r), mode)
     s = lambda k: pf * pf * torch.clamp(k, max=PERTURB_K_MAX)
     pert = sample_acg(gen, s(state.k1), s(state.k2), s(state.k3), n_r, noise)
     mean = infer_acg_mean(state.r)[..., None, :].expand_as(state.r)
@@ -201,11 +241,24 @@ def _inv_pdf_weights(pdf: torch.Tensor) -> torch.Tensor:
     return torch.where(tot > 0, w / torch.clamp(tot, min=1e-30), uniform)
 
 
-def balance_weight_r(state: ParticleState) -> ParticleState:
+def balance_weight_r(state: ParticleState, mode: int = MODE_3D) -> ParticleState:
     """w_r = 1 / pdf of the fitted ACG proposal; a rank-collapsed cloud
     (det <= 1e-30, or any quad <= 1e-3, or a non-finite pdf) gets
-    uniform weights."""
+    uniform weights.  2D: the fitted von Mises pdf (DirectionalStat.cpp:
+    252-262), its Gaussian limit from kappa 5 on."""
     r = state.r
+    if mode == MODE_2D:
+        v = r[..., :2]
+        mu, k = infer_vms(v)
+        kappa = vms_kappa(k)[..., None]
+        dot = torch.sum(v * mu[..., None, :], dim=-1)
+        small = torch.exp(kappa * dot) / (
+            2 * np.pi * torch.special.i0(torch.clamp(kappa, max=50.0)))
+        dist = torch.linalg.vector_norm(v - mu[..., None, :], dim=-1)
+        sig = torch.sqrt(1.0 / torch.clamp(kappa, min=1e-6))
+        large = torch.exp(-0.5 * (dist / sig) ** 2) / (sig * np.sqrt(2 * np.pi))
+        pdf = torch.where(kappa < 5.0, small, large)
+        return state._replace(w_r=_inv_pdf_weights(pdf))
     a = infer_acg_matrix(r)
     a_inv, det = inv_det4_spd(a)
     quad = torch.sum((r @ a_inv) * r, dim=-1)
@@ -245,8 +298,9 @@ def keep_half_height_peak(u: torch.Tensor, pk: torch.Tensor) -> torch.Tensor:
     return torch.where(u < hh, torch.zeros_like(u), u - hh)
 
 
-def clip_u_r(state: ParticleState) -> ParticleState:
-    pk = peak_factor(state.u_r, PEAK_FACTOR_BASE ** 3)
+def clip_u_r(state: ParticleState, mode: int = MODE_3D) -> ParticleState:
+    base = PEAK_FACTOR_BASE if mode == MODE_2D else PEAK_FACTOR_BASE ** 3
+    pk = peak_factor(state.u_r, base)
     return state._replace(u_r=keep_half_height_peak(state.u_r, pk))
 
 

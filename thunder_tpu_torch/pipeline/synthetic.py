@@ -1,12 +1,20 @@
-"""Synthetic 3D-refinement data made with the port's own projector and
-CTF — the forward model of bench.make_dataset and
-examples/make_synthetic_demo.py (3D, one class, symmetry C1):
-a multi-blob phantom, CTF-modulated central-slice projections at random
-poses and shifts, Gaussian noise at a given SNR, and the .mrcs / .thu /
-JSON files the CLI reads.
+"""Synthetic data made on the device with the port's own projector and
+CTF — the forward models of bench.make_dataset and
+examples/make_synthetic_demo.py, and the .mrcs / .thu / JSON files the
+CLI reads:
 
-    python -m thunder_tpu_torch.pipeline.synthetic outdir [--n 1024]
-        [--size 64] [--snr 3.0] [--seed 0]
+* 3D, one class, symmetry C1: a multi-blob phantom, CTF-modulated
+  central-slice projections at random poses and shifts;
+* 2D, K classes (make_synthetic_demo.py:71-113): K templates (bar,
+  annulus or disc, each with three texture blobs), each image one
+  template at a random in-plane angle and a +-3 px shift, CTF with
+  defocus 8000-20000 A; ``truth.npy`` holds each image's template.
+
+Both add unit Gaussian noise with the signal scaled to ``snr`` times its
+std per image.
+
+    python -m thunder_tpu_torch.pipeline.synthetic outdir [--mode 3D]
+        [--n 1024] [--size 64] [--k 3] [--snr 3.0] [--seed 0]
 """
 
 from __future__ import annotations
@@ -18,9 +26,9 @@ import os
 import numpy as np
 import torch
 
-from thunder_tpu_torch.device import as_device, generator
+from thunder_tpu_torch.device import REAL, as_device, generator
 from thunder_tpu_torch.geometry.quaternion import random_quat, rotate3d
-from thunder_tpu_torch.ops.fourier import ifft2_centered, translate_ft
+from thunder_tpu_torch.ops.fourier import fft2_centered, ifft2_centered, translate_ft
 from thunder_tpu_torch.ops.projector import prepare_projectee_3d, project_full_3d
 from thunder_tpu_torch.physics.ctf import ctf_image, ctf_params
 
@@ -63,6 +71,83 @@ def _ctf_columns(n: int, rng: np.random.Generator) -> np.ndarray:
                      np.full(n, 0.1), np.zeros(n)])
 
 
+def templates_2d(size: int, k: int, rng: np.random.Generator) -> np.ndarray:
+    """K class templates, centered layout (make_synthetic_demo.py:71-96):
+    a bar of five blobs, an annulus or a disc (by t mod 3), each with
+    three texture blobs on top."""
+    c = size // 2
+    kv = np.arange(size) - c
+    ky, kx = np.meshgrid(kv, kv, indexing="ij")
+    rr = np.hypot(kx, ky)
+    out = []
+    for t in range(k):
+        img = np.zeros((size, size), np.float32)
+        if t % 3 == 0:
+            for ox in np.linspace(-size / 4, size / 4, 5):
+                img += np.exp(-((kx - ox) ** 2 + ky ** 2) / (2 * (size / 16) ** 2))
+        elif t % 3 == 1:
+            img = np.exp(-((rr - size / 4) ** 2) / (2 * (size / 20) ** 2))
+        else:
+            img = np.exp(-(rr ** 2) / (2 * (size / 10) ** 2))
+        for _ in range(3):
+            ox, oy = rng.uniform(-size / 5, size / 5, 2)
+            sg = rng.uniform(size / 28, size / 16)
+            img = img + 0.6 * np.exp(-((kx - ox) ** 2 + (ky - oy) ** 2) / (2 * sg * sg))
+        out.append(img.astype(np.float32))
+    return np.stack(out)
+
+
+def rotate_shift(imgs: torch.Tensor, angle_deg: torch.Tensor,
+                 shift: torch.Tensor) -> torch.Tensor:
+    """Bilinear in-plane rotation about the image centre, then a shift
+    (dy, dx) in pixels, zeros outside — scipy.ndimage's rotate(order=1,
+    reshape=False) then shift(order=1) on centered images (B, n, n)."""
+    b, n = imgs.shape[0], imgs.shape[-1]
+    half = (n - 1) / 2
+    k = torch.arange(n, dtype=REAL, device=imgs.device) - half
+    gy, gx = torch.meshgrid(k, k, indexing="ij")
+    th = torch.deg2rad(angle_deg.to(REAL))[:, None, None]
+    py = gy - shift[:, 0, None, None]
+    px = gx - shift[:, 1, None, None]
+    # source of output pixel p: the (row, col) plane turned by theta as
+    # scipy turns it, applied to p - shift
+    sx = torch.cos(th) * px - torch.sin(th) * py
+    sy = torch.sin(th) * px + torch.cos(th) * py
+    grid = torch.stack([sx, sy], dim=-1) / half
+    return torch.nn.functional.grid_sample(imgs[:, None], grid, mode="bilinear",
+                                           padding_mode="zeros",
+                                           align_corners=True)[:, 0]
+
+
+def make_dataset_2d(size: int, n: int, k: int, seed: int = 0,
+                    snr: float = 3.0, device=None, chunk: int = 1024):
+    """The 2D workload: returns (templates (K, n, n) centered, imgs
+    (n, size, size) FFT layout, ctf (7, n), truth (n,), angles (n,) in
+    degrees, shifts (n, 2) as (dy, dx) pixels) as numpy."""
+    dev = as_device(device)
+    rng = np.random.default_rng(seed)
+    ctf = _ctf_columns(n, rng)
+    truth = rng.integers(0, k, n)
+    trans = rng.uniform(-3, 3, (n, 2))
+    temps = templates_2d(size, k, rng)
+    angles = rng.uniform(0, 360, n)
+    gen = generator(seed + 11, dev)
+    tab = torch.as_tensor(temps, device=dev)
+    imgs = np.empty((n, size, size), np.float32)
+    for lo in range(0, n, chunk):
+        sl = slice(lo, min(n, lo + chunk))
+        im = rotate_shift(tab[torch.as_tensor(truth[sl], device=dev)],
+                          torch.as_tensor(angles[sl], device=dev),
+                          torch.as_tensor(trans[sl], dtype=REAL, device=dev))
+        ft = fft2_centered(torch.fft.ifftshift(im, dim=(-2, -1))) * ctf_image(
+            ctf_params(*ctf[:, sl], device=dev), size, PIXEL_SIZE)
+        im = ifft2_centered(ft)
+        std = torch.clamp(im.std(dim=(1, 2), keepdim=True), min=1e-9)
+        noise = torch.randn(im.shape, generator=gen, device=dev, dtype=REAL)
+        imgs[sl] = (im * snr / std + noise).cpu().numpy()
+    return temps, imgs, ctf, truth, angles, trans
+
+
 def make_dataset(size: int, n: int, seed: int = 0, snr: float = 3.0,
                  device=None):
     """bench.make_dataset's workload: returns (vol, imgs, ctf (7, n),
@@ -78,22 +163,29 @@ def make_dataset(size: int, n: int, seed: int = 0, snr: float = 3.0,
 
 
 def write_demo(outdir: str, n: int = 1024, size: int = 64, snr: float = 3.0,
-               seed: int = 0, device=None) -> str:
-    """examples/make_synthetic_demo.py --mode 3D --k 1: writes
-    particles.mrcs, particles.thu, init_model.mrc (the phantom), truth.npy
-    and demo.json under ``outdir``; returns the config path."""
+               seed: int = 0, device=None, mode: str = "3D", k: int = 1) -> str:
+    """examples/make_synthetic_demo.py (--mode 3D --k 1, or --mode 2D
+    with K classes): writes particles.mrcs, particles.thu, truth.npy,
+    demo.json and, in 3D, init_model.mrc (the phantom) under ``outdir``;
+    returns the config path."""
     from thunder_tpu.io.mrc import write_mrc
     from thunder_tpu.io.thu import ThuTable, write_thu
 
     os.makedirs(outdir, exist_ok=True)
     dev = as_device(device)
-    rng = np.random.default_rng(seed)
-    ctf = _ctf_columns(n, rng)
-    trans = rng.uniform(-3, 3, (n, 2))
-    vol = phantom(size, rng)
-    write_mrc(os.path.join(outdir, "init_model.mrc"), vol, PIXEL_SIZE)
-    quats = random_quat(generator(seed, dev), (n,), dev)
-    imgs = project_images(vol, quats, trans, ctf, snr, rng, dev)
+    mode_2d = mode.upper() == "2D"
+    if mode_2d:
+        _, imgs, ctf, truth, _, _ = make_dataset_2d(size, n, k, seed, snr, dev)
+    else:
+        k = 1
+        rng = np.random.default_rng(seed)
+        ctf = _ctf_columns(n, rng)
+        trans = rng.uniform(-3, 3, (n, 2))
+        vol = phantom(size, rng)
+        write_mrc(os.path.join(outdir, "init_model.mrc"), vol, PIXEL_SIZE)
+        quats = random_quat(generator(seed, dev), (n,), dev)
+        imgs = project_images(vol, quats, trans, ctf, snr, rng, dev)
+        truth = np.zeros(n, np.int64)
     write_mrc(os.path.join(outdir, "particles.mrcs"), imgs, PIXEL_SIZE,
               is_stack=True)
 
@@ -101,18 +193,18 @@ def write_demo(outdir: str, n: int = 1024, size: int = 64, snr: float = 3.0,
     t.defocus_u, t.defocus_v, t.defocus_theta = ctf[1], ctf[2], ctf[3]
     t.cs, t.amplitude_contrast = ctf[4], ctf[5]
     t.particle_path = [f"{i + 1:06d}@particles.mrcs" for i in range(n)]
-    t.class_id = np.zeros(n, np.int64)
+    t.class_id = np.asarray(truth, np.int64)
     write_thu(os.path.join(outdir, "particles.thu"), t)
-    np.save(os.path.join(outdir, "truth.npy"), np.zeros(n, np.int64))
+    np.save(os.path.join(outdir, "truth.npy"), np.asarray(truth, np.int64))
 
     config = {
         "Basic": {
             "Number of Threads Per Process": os.cpu_count() or 4,
-            "2D or 3D Mode": "3D",
+            "2D or 3D Mode": "2D" if mode_2d else "3D",
             "Global Search": True,
             "Local Search": True,
             "CTF Search": False,
-            "Number of Classes": 1,
+            "Number of Classes": k,
             "Size of Image": size,
             "Pixel Size (Angstrom)": PIXEL_SIZE,
             "Radius of Mask on Images (Angstrom)": size * PIXEL_SIZE / 2 * 0.85,
@@ -120,7 +212,8 @@ def write_demo(outdir: str, n: int = 1024, size: int = 64, snr: float = 3.0,
             "Initial Resolution (Angstrom)": size * PIXEL_SIZE / 6,
             "Perform Global Search Under (Angstrom)": size * PIXEL_SIZE / 12,
             "Symmetry": "C1",
-            "Initial Model": os.path.join(outdir, "init_model.mrc"),
+            "Initial Model": ("" if mode_2d
+                              else os.path.join(outdir, "init_model.mrc")),
             ".thu File Storing Paths and CTFs of Images":
                 os.path.join(outdir, "particles.thu"),
             "Path of Particles": outdir + "/",
@@ -185,12 +278,14 @@ def write_demo(outdir: str, n: int = 1024, size: int = 64, snr: float = 3.0,
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="synthetic")
     p.add_argument("outdir", nargs="?", default="./synthetic_demo")
+    p.add_argument("--mode", default="3D", choices=["2D", "3D"])
     p.add_argument("--n", type=int, default=1024)
     p.add_argument("--size", type=int, default=64)
+    p.add_argument("--k", type=int, default=3, help="classes (2D)")
     p.add_argument("--snr", type=float, default=3.0)
     p.add_argument("--seed", type=int, default=0)
     a = p.parse_args(argv)
-    path = write_demo(a.outdir, a.n, a.size, a.snr, a.seed)
+    path = write_demo(a.outdir, a.n, a.size, a.snr, a.seed, mode=a.mode, k=a.k)
     print(f"wrote {a.outdir}: particles.mrcs, particles.thu, {path}")
     return 0
 

@@ -3,7 +3,8 @@ final inverse transform + kernel correction (Reconstructor::reconstruct,
 Reconstructor.cpp:1129-1831), as in thunder_tpu.recon.reconstructor.
 
 Every function takes leading batch dims (hemisphere, class, pass) in
-front of the (big, big, big) centered grids.  The balance loop runs in
+front of the centered grids, (big, big, big) in 3D or (big, big) in 2D
+(``nd``; the 2D path is the 3D one with plane FFTs).  The balance loop runs in
 rfft half-space; batched lanes are independent loops — a lane that has
 stopped is frozen while the others go on (what the JAX package's vmapped
 while_loop does), with one host check per iteration.
@@ -37,7 +38,9 @@ from thunder_tpu_torch.ops.fourier import (
 )
 from thunder_tpu_torch.physics.kernels import mkb_rl, tik_rl
 
-_AX = (-3, -2, -1)
+
+def _ax(nd: int) -> tuple:
+    return tuple(range(-nd, 0))
 
 
 def _mkb_rl_nf(a: float, alpha: float) -> float:
@@ -48,33 +51,35 @@ def _mkb_rl_nf(a: float, alpha: float) -> float:
     return float((2 * np.pi) ** 1.5 * a ** 3 / i0a / v ** 1.5 * i32)
 
 
-def _mkb_window(big: int, a: float, alpha: float, device) -> torch.Tensor:
+def _mkb_window(big: int, a: float, alpha: float, device,
+                nd: int = 3) -> torch.Tensor:
     """Real-space MKB window over the padded FFT-layout grid, 1 at the
     origin (convoluteC, Reconstructor.cpp:2595-2674)."""
-    r = radial_grid_dev(big, 3, device) / big
+    r = radial_grid_dev(big, nd, device) / big
     return (mkb_rl(r, a, alpha) / _mkb_rl_nf(a, alpha)).to(REAL)
 
 
-def _tik_correction(size: int, pf: int, device) -> torch.Tensor:
-    r = radial_grid_dev(size, 3, device) / (pf * size)
+def _tik_correction(size: int, pf: int, device, nd: int = 3) -> torch.Tensor:
+    r = radial_grid_dev(size, nd, device) / (pf * size)
     return tik_rl(r).to(REAL)
 
 
-def _quad_inside(big: int, radius: float, device) -> torch.Tensor:
-    return centered_quad_dev(big, 3, device) < radius ** 2
+def _quad_inside(big: int, radius: float, device, nd: int = 3) -> torch.Tensor:
+    return centered_quad_dev(big, nd, device) < radius ** 2
 
 
 def wiener_filter_t(t_grid: torch.Tensor, fsc_curve: torch.Tensor, pf: int,
-                    max_radius: int, join_half: bool) -> torch.Tensor:
+                    max_radius: int, join_half: bool,
+                    nd: int = 3) -> torch.Tensor:
     """T /= clamp(FSC) on shells in [WIENER_FACTOR_MIN_R*pf, maxR*pf);
     fsc_curve (..., n_fsc) broadcasts against t_grid's leading dims."""
     big = t_grid.shape[-1]
-    u = centered_shell_dev(big, 3, t_grid.device).long()
+    u = centered_shell_dev(big, nd, t_grid.device).long()
     n_fsc = fsc_curve.shape[-1]
     up = u // pf
     shell = torch.clamp(up, max=n_fsc - 1)
     fsc = fsc_curve[..., shell.reshape(-1)].reshape(
-        fsc_curve.shape[:-1] + (big,) * 3)
+        fsc_curve.shape[:-1] + (big,) * nd)
     fsc = torch.where(up >= n_fsc, torch.zeros_like(fsc), fsc)
     fsc = torch.clamp(fsc, FSC_BASE_L, FSC_BASE_H)
     if join_half:
@@ -85,9 +90,10 @@ def wiener_filter_t(t_grid: torch.Tensor, fsc_curve: torch.Tensor, pf: int,
 
 def balance_weights(t_grid: torch.Tensor, pf: int, max_radius: int,
                     a: float = DEFAULT_MKB_A,
-                    alpha: float = DEFAULT_MKB_ALPHA) -> torch.Tensor:
+                    alpha: float = DEFAULT_MKB_ALPHA,
+                    nd: int = 3) -> torch.Tensor:
     """W such that (T.W) convolved with the gridding window ~ 1
-    (Reconstructor.cpp:1288-1551); t_grid (..., big, big, big) real.
+    (Reconstructor.cpp:1288-1551); t_grid (..., big^nd) real.
 
     Unlike thunder_tpu, only cells that received insertions (T above
     the 1e-25 floor) are updated and enter the convergence test.  In an
@@ -100,22 +106,23 @@ def balance_weights(t_grid: torch.Tensor, pf: int, max_radius: int,
     big = t_grid.shape[-1]
     c = big // 2
     dev = t_grid.device
-    window = _mkb_window(big, a, alpha, dev)
-    shape = (big,) * 3
+    ax = _ax(nd)
+    window = _mkb_window(big, a, alpha, dev, nd)
+    shape = (big,) * nd
 
     def to_half(x):
-        return torch.fft.ifftshift(x, dim=_AX)[..., :c + 1]
+        return torch.fft.ifftshift(x, dim=ax)[..., :c + 1]
 
-    inside_h = to_half(_quad_inside(big, max_radius * pf, dev))
+    inside = to_half(_quad_inside(big, max_radius * pf, dev, nd))
     t_half = to_half(torch.clamp(t_grid, min=T_MIN))
     # cells no slice reached keep W = 1 (see the docstring)
-    inside_h = inside_h & (t_half > T_MIN)
-    lanes = t_grid.shape[:-3]
-    w = torch.where(inside_h, 1.0, 0.0).to(REAL).expand(t_half.shape).clone()
+    inside_h = inside & (t_half > T_MIN)
+    lanes = t_grid.shape[:-nd]
+    w = torch.where(inside, 1.0, 0.0).to(REAL).expand(t_half.shape).clone()
 
     def convolute_c(c_half):
-        c_rl = torch.fft.irfftn(c_half.to(torch.complex64), s=shape, dim=_AX)
-        return torch.fft.rfftn(c_rl * window, dim=_AX)
+        c_rl = torch.fft.irfftn(c_half.to(torch.complex64), s=shape, dim=ax)
+        return torch.fft.rfftn(c_rl * window, dim=ax)
 
     fmax = float(np.finfo(np.float32).max)
     diff_prev = torch.full(lanes, fmax, dtype=REAL, device=dev)
@@ -126,10 +133,10 @@ def balance_weights(t_grid: torch.Tensor, pf: int, max_radius: int,
         c_abs = convolute_c(t_half * w).abs()
         w_new = torch.where(inside_h, w / torch.clamp(c_abs, min=C_ABS_MIN), w)
         diff = torch.amax(torch.where(inside_h, (c_abs - 1.0).abs(),
-                                      torch.zeros_like(c_abs)), dim=_AX)
+                                      torch.zeros_like(c_abs)), dim=ax)
         nnd = torch.where(diff > diff_prev * DIFF_C_DECREASE_THRES,
                           n_no_dec + 1, torch.zeros_like(n_no_dec))
-        act = active.reshape(lanes + (1, 1, 1))
+        act = active.reshape(lanes + (1,) * nd)
         w = torch.where(act, w_new, w)
         diff_prev = torch.where(active, diff, diff_prev)
         n_no_dec = torch.where(active, nnd, n_no_dec)
@@ -145,48 +152,56 @@ def balance_weights(t_grid: torch.Tensor, pf: int, max_radius: int,
     mirror = (big - idx) % big
     take_mirror = idx > c
     gx = torch.clamp(torch.where(take_mirror, mirror, idx), max=c)
-    gz = torch.where(take_mirror[None, None, :], mirror[:, None, None],
-                     idx[:, None, None])
-    gy = torch.where(take_mirror[None, None, :], mirror[None, :, None],
-                     idx[None, :, None])
-    w_full = w[..., gz, gy, gx[None, None, :].expand(big, big, big)]
-    return torch.fft.fftshift(w_full, dim=_AX)
+    if nd == 3:
+        gz = torch.where(take_mirror[None, None, :], mirror[:, None, None],
+                         idx[:, None, None])
+        gy = torch.where(take_mirror[None, None, :], mirror[None, :, None],
+                         idx[None, :, None])
+        w_full = w[..., gz, gy, gx[None, None, :].expand(big, big, big)]
+    else:
+        gy = torch.where(take_mirror[None, :], mirror[:, None], idx[:, None])
+        w_full = w[..., gy, gx[None, :].expand(big, big)]
+    return torch.fft.fftshift(w_full, dim=ax)
 
 
 def finalize_reconstruction(f_grid: torch.Tensor, w: torch.Tensor, size: int,
-                            pf: int, max_radius: int) -> torch.Tensor:
+                            pf: int, max_radius: int,
+                            nd: int = 3) -> torch.Tensor:
     """F.W -> c2r transform -> extract 1/pf -> trilinear kernel
-    correction; (..., big^3) -> (..., size^3) real FFT layout."""
+    correction; (..., big^nd) -> (..., size^nd) real FFT layout."""
     big = f_grid.shape[-1]
     c = big // 2
-    inside = _quad_inside(big, max_radius * pf, f_grid.device)
+    ax = _ax(nd)
+    inside = _quad_inside(big, max_radius * pf, f_grid.device, nd)
     pad_dst = torch.where(inside, f_grid * w, torch.zeros_like(f_grid))
-    half = torch.fft.ifftshift(pad_dst, dim=_AX)[..., :c + 1]
-    rl = torch.fft.irfftn(half, s=(big,) * 3, dim=_AX)
-    out = extract_rl(rl, pf, nd=3)
-    return out / _tik_correction(size, pf, f_grid.device)
+    half = torch.fft.ifftshift(pad_dst, dim=ax)[..., :c + 1]
+    rl = torch.fft.irfftn(half, s=(big,) * nd, dim=ax)
+    out = extract_rl(rl, pf, nd=nd)
+    return out / _tik_correction(size, pf, f_grid.device, nd)
 
 
 def reconstruct(f_grid, t_grid, size: int, pf: int,
-                max_radius: int) -> torch.Tensor:
+                max_radius: int, nd: int = 3) -> torch.Tensor:
     """One MAP-free gridding reconstruction per batch entry (grid
     correction on)."""
     t_real = t_grid.real if t_grid.is_complex() else t_grid
     return finalize_reconstruction(
-        f_grid, balance_weights(t_real, pf, max_radius), size, pf, max_radius)
+        f_grid, balance_weights(t_real, pf, max_radius, nd=nd), size, pf,
+        max_radius, nd)
 
 
 def reconstruct_two_pass(f_grid, t_grid, fsc_curve, size: int, pf: int,
-                         max_radius: int):
+                         max_radius: int, nd: int = 3):
     """The reference's per-round double reconstruction
     (Optimiser.cpp:7310-7755): the MAP-free FSC pass and the Wiener (MAP)
     pass from the same (F, T).  Both balance loops run cold (warm-
     starting the MAP pass is a trap, see the JAX package) and as batched
     independent lanes.  Returns (rec_fsc, rec_map)."""
     t_real = t_grid.real if t_grid.is_complex() else t_grid
-    t_w = wiener_filter_t(t_real, fsc_curve, pf, max_radius, join_half=True)
+    t_w = wiener_filter_t(t_real, fsc_curve, pf, max_radius, join_half=True,
+                          nd=nd)
     w12 = balance_weights(torch.stack([t_real, t_w.expand_as(t_real)]), pf,
-                          max_radius)
+                          max_radius, nd=nd)
     rec = finalize_reconstruction(f_grid.unsqueeze(0), w12, size, pf,
-                                  max_radius)
+                                  max_radius, nd)
     return rec[0], rec[1]
