@@ -10,28 +10,40 @@ non-zero, printing no result, without one (or without the package).
 Phase 0 builds the eleven hand-written Hopper kernels (one nvcc per
 source, sm_90a).  Phase 1 holds the 3D kernels (HK1-HK4) against their
 plain PyTorch versions at the 3D path's 128 px shapes, phase 1b the 2D
-path's at 160 px (HK5 at r = 5 and 15, HK6 with the 480,000 slices of
-a round into 2K = 60 planes, HK2 at R = 100 x T = 151, HK4 at the ring
-FRC and sigma shapes), timing both with CUDA events.  Phase 2 writes a 128 px, 256-image synthetic dataset
-with the port's generator and runs three rounds of the demo-grid K=1 3D
-refinement through ``thunder_tpu_torch.cli.thunder.main`` from the
-phantom low-passed to 40 A.  It checks that the maps and FSC curves are
-finite, that the output files exist, that the resolution ends finer
-than the 40 A start, that the final map agrees with the phantom
-(FSC 0.5) to a finer resolution than the start model does, and that
-every kernel was launched by that run.  Phase 3 runs the gather
+path's at 160 px (HK5 at r = 5 and 15; HK6 with the 480,000 slices of a
+round into 2K = 60 planes at r_u = 31, 12 and 40; HK2, the likelihood
+with its products fused in, at the global-search block of all 30
+classes at r = 5 and 15 and at the phase loop's; HK4 at the ring FRC and
+sigma shapes); phase 1 also holds HK2 at the 3D global block of 256
+rotations x 151 translations, configs/demo_3D.json's grid.  Each kernel's timing line gives kernel_ms and plain_ms
+(CUDA events), library_ms (one PyTorch call computing the same function:
+F.grid_sample for HK1 and HK5, torch.bincount for HK4; none exists for
+HK2, HK3 and HK6), bound_ms (the larger of its bytes over 3.35 TB/s and
+its fp32 operations over 67 TFLOP/s, counted from this run's inputs),
+what bounds it and the share bound_ms / kernel_ms.  Phase 2 writes a 128
+px, 256-image synthetic dataset with the port's generator and runs
+three rounds of the demo-grid K=1 3D refinement through
+``thunder_tpu_torch.cli.thunder.main`` from the phantom low-passed to 40
+A.  It checks that the maps and FSC curves are finite, that the output
+files exist, that the resolution ends finer than the 40 A start, that
+the final map agrees with the phantom (FSC 0.5) to a finer resolution
+than the start model does, that every kernel was launched by that run,
+and that each global search launched HK2 once a rotation block a
+hemisphere (all classes in one launch).  Phase 3 runs the gather
 microbenchmark (``thunder_tpu_torch.micro.gather``: G1-G5 on the eight
-cases of the repo's Pallas gathers, exact against plain PyTorch).
-Phase 4 runs 2D classification on ``configs/demo_2D.json`` (K = 30,
-160 px) for six rounds through the CLI on 10,000 synthetic images of
-30 templates: FRC curves and class averages finite, the .mrcs and
-Class_Info files written, ``res_A`` finer than the 60 A start (a gate
-this data cannot fail: see phase_slice_2d), class purity at least 5/K,
-and HK5, HK6, HK2 and HK4 launched.  Phase 5 reruns each path with
-torch.profiler around one round (3D round 1, 2D round 4) and prints its
-device time, idle share and heaviest kernels.  The last three lines are
-JSON objects: the profiles, the kernels, and ``{"ok": true, "device":
-{...}}``.
+cases of the repo's Pallas gathers, exact against plain PyTorch; the
+plain version is the library call).  Phase 4 runs 2D classification on
+``configs/demo_2D.json`` (K = 30, 160 px) for six rounds through the
+CLI on 10,000 synthetic images of 30 templates: FRC curves and class
+averages finite, the .mrcs and Class_Info files written, ``res_A``
+finer than the 60 A start (a gate this data cannot fail: see
+phase_slice_2d), class purity at least 5/K, HK5, HK6, HK2 and HK4
+launched, and HK2 launched once a rotation block a hemisphere in every
+global search.  Phases 2 and 4 each run one round (3D round 1, 2D round
+4) under torch.profiler, without per-stage syncs, and print its device
+time, idle share and heaviest kernels.  The last lines are the card's name and power
+limit, then three JSON objects: the profiles, the kernels, and ``{"ok":
+true, "device": {...}}``.
 """
 
 import json
@@ -63,8 +75,13 @@ R_GLOBAL, R_U, N_HEMI = 22, 36, 128
 # rounds (0.055, 0.123, 0.120 on an H100) and passes 5/K from round 3 on
 # (thunder_tpu shows the same collapse and rebirth on the CPU)
 SIZE_2D, K_2D, N_2D, ROUNDS_2D = 160, 30, 10000, 6
+# the rounds run under torch.profiler: 3D round 1 (past round 0's
+# set-up), 2D round 4 (the collapse and rebirth of rounds 1-3 are over)
+PROFILE_3D, PROFILE_2D = 1, 4
 R_2D, R_GLOBAL_2D, R_U_2D, N_ROT_2D, N_TRANS_2D = 5, 15, 31, 100, 151
 INIT_RES_2D = 60.0
+# an H100 SXM's published peaks (HBM3 rate, FP32 vector rate), for bounds
+HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
 
 
 def fail(msg: str) -> None:
@@ -92,6 +109,20 @@ def timed(fn, reps: int, warm: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def timed_once(fn) -> tuple:
+    """(result, milliseconds) of one call, CUDA events around it."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def compare(name, shape, got, ref, rel_tol, reason):
@@ -139,36 +170,169 @@ def agreement_res(vol, truth) -> float:
     return SIZE * PIXEL_SIZE / max(spectrum.res_p(curve, 0.5), 1)
 
 
-def lk_inputs(dev, n_img: int, n_r: int, n_t: int, n_cols: int):
-    """HK2 inputs of one block (a, b, c) and fresh accumulators (base,
-    w_c, w_r over ``n_cols`` columns, w_t)."""
+def grid_sample_call(table, rot, i_col, i_row, pf: int, cls):
+    """HK1's or HK5's function as ONE F.grid_sample call (bilinear /
+    trilinear, align_corners, border), built outside the timed call:
+    table (K, n^nd) complex -> real channels; coordinates rot . (pf i_col,
+    pf i_row) in index units.  3D: images grouped by class in equal runs
+    (N = K); 2D: the K planes become the depth of one 5D volume and each
+    image samples its own plane at an integer depth.  Returns (call,
+    to_lrp) where to_lrp maps its output to (L, R, P) complex."""
+    import torch
+    import torch.nn.functional as F
+
+    nd = table.ndim - 1
+    n = table.shape[-1]
+    n_k, (n_l, n_r) = table.shape[0], rot.shape[:2]
+    fx, fy = (i_col * pf).float(), (i_row * pf).float()
+    g = torch.stack([rot[..., i, 0:1] * fx + rot[..., i, 1:2] * fy for i in range(nd)], -1)
+    g = (g + n // 2) * (2.0 / (n - 1)) - 1                    # (L, R, P, nd)
+    if nd == 3:
+        order = torch.argsort(cls, stable=True)
+        inp = torch.view_as_real(table).movedim(-1, 1).contiguous()     # (K, 2, n, n, n)
+        grid = g[order].reshape(n_k, n_l // n_k, n_r, -1, 3).contiguous()
+        back = lambda o: torch.empty_like(o.movedim(1, -1).reshape(n_l, n_r, -1, 2)).index_copy_(
+            0, order, o.movedim(1, -1).reshape(n_l, n_r, -1, 2))
+    else:
+        inp = torch.view_as_real(table).movedim(-1, 0)[None].contiguous()  # (1, 2, K, n, n)
+        z = (cls.float() * (2.0 / max(n_k - 1, 1)) - 1)[:, None, None, None].expand(g.shape[:-1] + (1,))
+        grid = torch.cat([g, z], -1)[None].contiguous()                # (1, L, R, P, 3)
+        back = lambda o: o[0].movedim(0, -1)
+    call = lambda: F.grid_sample(inp, grid, mode="bilinear", padding_mode="border",
+                                 align_corners=True)
+    return call, lambda o: torch.view_as_complex(back(o).contiguous())
+
+
+def bincount_call(values, shell, n_sh: int, weight):
+    """HK4's function as ONE torch.bincount call over (field, shell)
+    bins; the flat bin index and weights are built outside the call."""
     import torch
 
-    a = -1e4 + 10 * torch.randn(n_img, device=dev)
-    b = 40 * torch.randn(n_img, n_r, device=dev)
-    c = 40 * torch.randn(n_img, n_t, n_r, device=dev).permute(0, 2, 1)
-    acc = (torch.full((n_img,), float("-inf"), device=dev),
-           torch.zeros(n_img, device=dev), torch.zeros(n_img, n_cols, device=dev),
-           torch.zeros(n_img, n_t, device=dev))
-    return a, b, c, acc
+    b, c, n = values.shape
+    idx = (torch.arange(b * c, device=values.device)[:, None] * (n_sh + 1)
+           + torch.clamp(shell.long(), max=n_sh)[None]).reshape(-1)
+    w = (values if weight is None else values * weight).reshape(-1).contiguous()
+    call = lambda: torch.bincount(idx, w, minlength=b * c * (n_sh + 1))
+    return call, lambda o: o.reshape(b, c, n_sh + 1)[..., :n_sh].float()
 
 
-def run_blocks(fn, a, b, c, w_r, w_t, acc, blocks: int):
-    """``blocks`` consecutive HK2 blocks (or its plain version ``fn``)
-    into copies of ``acc``."""
-    acc = [x.clone() for x in acc]
-    for k in range(blocks):
-        fn(a, b + k, c, w_r, w_t, *acc, col0=k * b.shape[1])
+def bound(n_bytes: float, n_flops: float) -> tuple:
+    """(bound_ms, "bytes" or "operations"): the least time the card
+    could take, the larger of the bytes over the memory rate and the
+    fp32 operations over the fp32 rate."""
+    t_b, t_f = n_bytes / HBM_BYTES_S * 1e3, n_flops / FP32_FLOP_S * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def record(name, shape, err, ms, plain_ms, n_bytes, n_flops, library_ms=None, **extra):
+    """A kernel's record at one shape, with its bound and share, and its
+    timing line."""
+    b_ms, by = bound(n_bytes, n_flops)
+    lib = "null" if library_ms is None else f"{library_ms:.4f}"
+    say(f"  {name} [{shape}]: kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms {lib}  "
+        f"bound_ms {b_ms:.4f} ({by})  share {b_ms / ms:.4f}")
+    return dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=b_ms, bound_by=by, share=b_ms / ms, **extra)
+
+
+def lk_operands(dev, gen, n_l: int, n_k: int, n_r: int, n_t: int, r: int, size: int,
+                per_image: bool):
+    """HK2's inputs at one main-path block: L noisy images' dat_w, sctf2
+    and a (sigRcp -1/2 for unit noise power, CTF in [0.3, 1)); pri (K,
+    L, R, P) per image or one block per class shared by all images
+    (image stride 0); tra (L, T, P) per image or shared; priors per
+    image or ones."""
+    import torch
+
+    from thunder_tpu_torch.ops.fourier import pack_rings, translate_phases
+
+    rings = pack_rings(size, r, 1, device=dev)
+    n_p = rings.i_col.numel()
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    cplx = lambda *s: torch.complex(rnd(*s), rnd(*s))
+    s = -0.5 * rings.mask
+    dat = cplx(n_l, n_p)
+    ctf = 0.3 + 0.7 * torch.rand(n_l, n_p, generator=gen, device=dev)
+    dat_w, sctf2 = (s * ctf) * dat, s * ctf * ctf
+    a = (s * dat.abs() ** 2).sum(-1)
+    if per_image:
+        pri = 0.5 * cplx(n_k, n_l, n_r, n_p)
+        tra = translate_phases(rings, 3 * rnd(n_l, n_t, 2))
+        w_r = torch.rand(n_l, n_r, generator=gen, device=dev)
+        w_t = torch.rand(n_l, n_t, generator=gen, device=dev)
+    else:
+        pri = (0.5 * cplx(n_k, 1, n_r, n_p)).expand(n_k, n_l, n_r, n_p)
+        tra = translate_phases(rings, 3 * rnd(n_t, 2))[None].expand(n_l, n_t, n_p)
+        w_r = torch.ones(1, 1, device=dev).expand(n_l, n_r)
+        w_t = torch.ones(1, 1, device=dev).expand(n_l, n_t)
+    return dat_w.to(torch.complex64), sctf2, a, pri, tra, w_r, w_t
+
+
+def lk_run(fn, ops, blocks: int = 1):
+    """``blocks`` consecutive rotation blocks through HK2 (or its plain
+    version ``fn``) into fresh accumulators (base, w_c, w_r, w_t)."""
+    import torch
+
+    dat_w, sctf2, a, pri, tra, w_r, w_t = ops
+    n_k, n_l, n_r = pri.shape[:3]
+    dev = a.device
+    acc = (torch.full((n_k, n_l), float("-inf"), device=dev), torch.zeros(n_k, n_l, device=dev),
+           torch.zeros(n_k, n_l, blocks * n_r, device=dev),
+           torch.zeros(n_k, n_l, tra.shape[1], device=dev))
+    for b in range(blocks):
+        fn(*ops, *acc, col0=b * n_r)
     return acc
 
 
+def lk_cost(ops) -> tuple:
+    """(bytes, fp32 operations) of one HK2 launch: inputs read once
+    (shared ones once), accumulators read and written; C's 2P-deep
+    product, B, X and the epilogue's exp and sums."""
+    dat_w, sctf2, a, pri, tra, w_r, w_t = ops
+    n_k, n_l, n_r, n_p = pri.shape
+    n_t = tra.shape[1]
+    nbytes = lambda x, shared: 4 * x.numel() * (2 if x.is_complex() else 1) // shared
+    n_bytes = (nbytes(dat_w, 1) + nbytes(sctf2, 1) + nbytes(a, 1)
+               + nbytes(pri, n_l if pri.stride(1) == 0 else 1)
+               + nbytes(tra, n_l if tra.stride(0) == 0 else 1)
+               + nbytes(w_r, n_l * n_r if w_r.stride(0) == 0 else 1)
+               + nbytes(w_t, n_l * n_t if w_t.stride(0) == 0 else 1)
+               + 2 * 4 * n_k * n_l * (2 + n_r + n_t))
+    n_flops = n_k * n_l * (4 * n_p * n_r * n_t + 4 * n_p * n_r + 6 * n_p * n_t + 8 * n_r * n_t)
+    return n_bytes, n_flops
+
+
+def lk_check(name, ops, blocks: int, timing: bool):
+    """HK2 against its plain version (block_terms / local_terms +
+    lse_block) on ``ops``; returns the record (timed when ``timing``)."""
+    from thunder_tpu_torch.ops import likelihood
+
+    dat_w, _, _, pri, tra, _, _ = ops
+    n_k, n_l, n_r, n_p = pri.shape
+    shape = f"{name} L={n_l} K={n_k} R={n_r} T={tra.shape[1]} P={n_p}"
+    got = lk_run(likelihood.likelihood_block, ops, blocks)
+    ref = lk_run(likelihood.likelihood_block_plain, ops, blocks)
+    err = max(compare("likelihood_block", f"{shape} {nm}", g, r, 1e-4,
+                      "2P-long dot products summed in another order than cuBLAS's; "
+                      "exp amplifies it")
+              for nm, g, r in zip(("base", "w_c", "w_r", "w_t"), got, ref))
+    del got, ref
+    if not timing:
+        return dict(shape=shape, max_abs_err=err)
+    n_bytes, n_flops = lk_cost(ops)
+    return record("likelihood_block", shape, err,
+                  timed(lambda: lk_run(likelihood.likelihood_block, ops), 10),
+                  timed(lambda: lk_run(likelihood.likelihood_block_plain, ops), 2, warm=1),
+                  n_bytes, n_flops)
+
+
 def phase_kernels(dev):
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each 3D kernel against its plain version at the main path's shapes."""
     import numpy as np
     import torch
 
     from thunder_tpu_torch.geometry.quaternion import random_quat, rotate3d
-    from thunder_tpu_torch.ops import insert, likelihood, projector
+    from thunder_tpu_torch.ops import insert, projector
     from thunder_tpu_torch.ops.fourier import pack_rings
     from thunder_tpu_torch.optimiser import proj_crop_size, reco_grid_size
     from thunder_tpu_torch.physics import spectrum
@@ -185,49 +349,46 @@ def phase_kernels(dev):
     # HK1 project_slices: phase loop (2 x 128 images x 125 rotations,
     # per-image) and global search (one 256-rotation block, shared)
     rings = pack_rings(SIZE, r_glob, 1, device=dev)
+    n_p = rings.i_col.numel()
     crop = proj_crop_size(SIZE, 2, r_glob)
     table = projector.prepare_projectee_3d_cropped(
         torch.stack([vol, vol * 0.5]), 2, crop).contiguous()
     rot_l = rotate3d(random_quat(gen, (2 * n_l, 125), dev))
     cls = torch.arange(2 * n_l, device=dev) // n_l
     args_l = (table, rot_l, rings.i_col, rings.i_row, 2, cls)
-    e_l = compare("project_slices", f"phases L={2 * n_l} R=125 P={rings.i_col.numel()} crop={crop}",
-                  projector.project_slices(*args_l), projector.project_slices_plain(*args_l),
+    out = projector.project_slices(*args_l)
+    e_l = compare("project_slices", f"phases L={2 * n_l} R=125 P={n_p} crop={crop}",
+                  out, projector.project_slices_plain(*args_l),
                   1e-5, "same arithmetic; FMA contraction moves coordinates by an ulp")
     rot_g = rotate3d(random_quat(gen, (1, 256), dev))
     args_g = (table[:1], rot_g, rings.i_col, rings.i_row, 2, None)
     e_g = compare("project_slices", "global R=256 shared",
                   projector.project_slices(*args_g), projector.project_slices_plain(*args_g),
                   1e-5, "as above")
-    results["project_slices"] = dict(
-        max_abs_err=max(e_l, e_g),
-        ms=timed(lambda: projector.project_slices(*args_l), 20),
-        plain_ms=timed(lambda: projector.project_slices_plain(*args_l), 5),
-        shape=f"L={2 * n_l} R=125 P={rings.i_col.numel()} crop={crop}^3")
+    lib, lib_out = grid_sample_call(*args_l)
+    compare("grid_sample (HK1's library yardstick)", "phases", lib_out(lib()), out, 1e-4,
+            "border clamps the coordinate where HK1 clamps each tap")
+    results["project_slices"] = record(
+        "project_slices", f"L={2 * n_l} R=125 P={n_p} crop={crop}^3", max(e_l, e_g),
+        timed(lambda: projector.project_slices(*args_l), 20),
+        timed(lambda: projector.project_slices_plain(*args_l), 5),
+        table.numel() * 8 + rot_l.numel() * 4 + 8 * n_p + 4 * 2 * n_l + out.numel() * 8,
+        out.numel() * 60, library_ms=timed(lib, 20))
+    del out
 
-    # HK2 likelihood_block: global (128 images x 256 rotations x 30
-    # translations, two consecutive blocks) and local (256 x 125 x 9)
-    a, b, c, acc = lk_inputs(dev, n_l, 256, 30, 512)
-    ones_r = torch.ones(1, 1, device=dev).expand(n_l, 256)
-    ones_t = torch.ones(1, 1, device=dev).expand(n_l, 30)
-    got = run_blocks(likelihood.likelihood_block, a, b, c, ones_r, ones_t, acc, 2)
-    ref = run_blocks(likelihood.likelihood_block_plain, a, b, c, ones_r, ones_t, acc, 2)
-    errs = [compare("likelihood_block", f"global L={n_l} R=256 T=30 {nm}", g, r, 1e-5,
-                    "exp sums taken in another order")
-            for nm, g, r in zip(("base", "w_c", "w_r", "w_t"), got, ref)]
-    one = lambda fn: run_blocks(fn, a, b, c, ones_r, ones_t, acc, 1)
-    ms_g = timed(lambda: one(likelihood.likelihood_block), 20)
-    plain_g = timed(lambda: one(likelihood.likelihood_block_plain), 5)
-    a, b, c, acc = lk_inputs(dev, 2 * n_l, 125, 9, 125)
-    w_r = torch.rand(2 * n_l, 125, device=dev)
-    w_t = torch.rand(2 * n_l, 9, device=dev)
-    got = run_blocks(likelihood.likelihood_block, a, b, c, w_r, w_t, acc, 1)
-    ref = run_blocks(likelihood.likelihood_block_plain, a, b, c, w_r, w_t, acc, 1)
-    errs += [compare("likelihood_block", f"local L={2 * n_l} R=125 T=9 {nm}", g, r, 1e-5,
-                     "exp sums taken in another order")
-             for nm, g, r in zip(("u_r", "u_t"), got[2:], ref[2:])]
-    results["likelihood_block"] = dict(max_abs_err=max(errs), ms=ms_g, plain_ms=plain_g,
-                                       shape=f"L={n_l} R=256 T=30 (one global block)")
+    # HK2 likelihood_block at the 3D main-path blocks: global search (128
+    # images x one 256-rotation block x 30 translations, two consecutive
+    # blocks, shared) and the phase loop (both halves' 256 images x 125
+    # rotations x 9 translations, per image), both at r = 22 (P = 728);
+    # and the global block at configs/demo_3D.json's 151 translations,
+    # which the CTA takes in three rotation sub-blocks
+    results["likelihood_block_3d"] = [
+        lk_check("3D global", lk_operands(dev, gen, n_l, 1, 256, 30, r_glob, SIZE, False), 2,
+                 True),
+        lk_check("3D phase", lk_operands(dev, gen, 2 * n_l, 1, 125, 9, r_glob, SIZE, True), 1,
+                 True),
+        lk_check("3D global T=151", lk_operands(dev, gen, n_l, 1, 256, 151, r_glob, SIZE, False),
+                 1, True)]
 
     # HK3 insert_trilinear: one hemisphere's compacted slices of a global
     # round (128 images x 48 slots) into the r_u = 36 grid
@@ -253,31 +414,36 @@ def phase_kernels(dev):
                  torch.view_as_real(fk), torch.view_as_real(fp), 1e-4,
                  "atomicAdd order varies from run to run")
     e2 = compare("insert_trilinear", "T", tk, tp, 1e-4, "atomicAdd order")
-    results["insert_trilinear"] = dict(
-        max_abs_err=max(e1, e2), ms=timed(ins, 5), plain_ms=timed(ins_p, 2),
-        shape=f"slices={n_s} r_u={r_u} big={big}^3")
+    npx = int((insert.dense_window(r_u)[2] > 0).sum())
+    results["insert_trilinear"] = record(
+        "insert_trilinear", f"slices={n_s} r_u={r_u} big={big}^3", max(e1, e2),
+        timed(ins, 5), timed(ins_p, 2),
+        n_l * npx * 8 + n_l * 32 + n_s * 64 + big ** 3 * 12, n_s * npx * 110)
 
     # HK4 shell_sums: the hemisphere FSC (3 fields over the 128^3 box,
     # 62 shells) and the sigma stage's per-image sums (256 images)
     u, half = spectrum.shell_geometry(SIZE, 3, dev)
     vals = torch.randn(1, 3, SIZE ** 3, device=dev) ** 2
     n_sh = SIZE // 2 - 2
+    ref = spectrum.shell_sums_plain(vals, u, n_sh, half)
     e1 = compare("shell_sums", f"fsc B=1 C=3 N={SIZE}^3 shells={n_sh}",
-                 spectrum.shell_sums(vals, u, n_sh, half),
-                 spectrum.shell_sums_plain(vals, u, n_sh, half), 1e-4,
+                 spectrum.shell_sums(vals, u, n_sh, half), ref, 1e-4,
                  "float32 sums in a run-dependent order (atomics)")
+    lib, lib_out = bincount_call(vals, u, n_sh, half)
+    compare("bincount (HK4's library yardstick)", "fsc", lib_out(lib()), ref, 1e-4,
+            "float32 sums in another order")
     rings_u = pack_rings(SIZE, r_u, 0, lane=512, device=dev)
     pv = torch.randn(2 * n_l, 3, rings_u.i_col.numel(), device=dev) ** 2
     sh = torch.clamp(rings_u.i_sig, max=n_sh)
     e2 = compare("shell_sums", f"sigma B={2 * n_l} C=3 P={rings_u.i_col.numel()} shells={n_sh + 1}",
                  spectrum.shell_sums(pv, sh, n_sh + 1), spectrum.shell_sums_plain(pv, sh, n_sh + 1),
                  1e-4, "atomics order")
-    results["shell_sums"] = dict(
-        max_abs_err=max(e1, e2), ms=timed(lambda: spectrum.shell_sums(vals, u, n_sh, half), 20),
-        plain_ms=timed(lambda: spectrum.shell_sums_plain(vals, u, n_sh, half), 5),
-        shape=f"B=1 C=3 N={SIZE}^3 shells={n_sh}")
-    for name, r in results.items():
-        say(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+    results["shell_sums"] = record(
+        "shell_sums", f"B=1 C=3 N={SIZE}^3 shells={n_sh}", max(e1, e2),
+        timed(lambda: spectrum.shell_sums(vals, u, n_sh, half), 20),
+        timed(lambda: spectrum.shell_sums_plain(vals, u, n_sh, half), 5),
+        vals.numel() * 4 + SIZE ** 3 * 8 + 3 * n_sh * 4, vals.numel() * 2,
+        library_ms=timed(lib, 20))
     return results
 
 
@@ -289,7 +455,7 @@ def phase_kernels_2d(dev):
 
     from thunder_tpu_torch.device import generator
     from thunder_tpu_torch.geometry.quaternion import rotate2d_from_unit
-    from thunder_tpu_torch.ops import insert, likelihood, projector
+    from thunder_tpu_torch.ops import insert, projector
     from thunder_tpu_torch.ops.fourier import pack_rings
     from thunder_tpu_torch.optimiser import proj_crop_size, reco_grid_size
     from thunder_tpu_torch.physics import spectrum
@@ -306,35 +472,42 @@ def phase_kernels_2d(dev):
     # HK5: the phase loop (both halves' images, 9 rotations each, own
     # class of 2K planes) and one global-search block (all classes, 100
     # shared rotations), at the band every round on the card ran at
-    # (r = 5) and at the widest global band (r = 15); timed at r = 5
-    errs, times = [], {}
+    # (r = 5) and at the widest global band (r = 15); timed at both
+    recs = []
     for r in (R_2D, R_GLOBAL_2D):
         rings = pack_rings(SIZE_2D, r, 1, device=dev)
+        n_p = rings.i_col.numel()
         crop = proj_crop_size(SIZE_2D, 2, r)
         table = torch.randn(2 * K_2D, crop, crop, dtype=torch.complex64, device=dev)
         cls = torch.randint(0, 2 * K_2D, (N_2D,), generator=gen, device=dev)
         args_l = (table, rot2d((N_2D, 9)), rings.i_col, rings.i_row, 2, cls)
-        shape = f"L={N_2D} R=9 r={r} P={rings.i_col.numel()} crop={crop}^2"
-        errs.append(compare("project_slices_2d", f"phases {shape}",
-                            projector.project_slices_2d(*args_l),
-                            projector.project_slices_2d_plain(*args_l), 1e-5,
-                            "same coordinates (no FMA); tap sums may contract"))
+        shape = f"L={N_2D} R=9 r={r} P={n_p} crop={crop}^2"
+        out = projector.project_slices_2d(*args_l)
+        e1 = compare("project_slices_2d", f"phases {shape}", out,
+                     projector.project_slices_2d_plain(*args_l), 1e-5,
+                     "same coordinates (no FMA); tap sums may contract")
         args_g = (table[:K_2D], rot2d((1, N_ROT_2D)).expand(K_2D, N_ROT_2D, 2, 2),
                   rings.i_col, rings.i_row, 2, torch.arange(K_2D, device=dev))
-        errs.append(compare("project_slices_2d", f"global K={K_2D} R={N_ROT_2D} r={r} shared",
-                            projector.project_slices_2d(*args_g),
-                            projector.project_slices_2d_plain(*args_g), 1e-5, "as above"))
-        times[r] = (timed(lambda: projector.project_slices_2d(*args_l), 20),
-                    timed(lambda: projector.project_slices_2d_plain(*args_l), 5), shape)
-    results["project_slices_2d"] = dict(
-        max_abs_err=max(errs), ms=times[R_2D][0], plain_ms=times[R_2D][1],
-        shape=times[R_2D][2], ms_r15=times[R_GLOBAL_2D][0],
-        plain_ms_r15=times[R_GLOBAL_2D][1], shape_r15=times[R_GLOBAL_2D][2])
+        e2 = compare("project_slices_2d", f"global K={K_2D} R={N_ROT_2D} r={r} shared",
+                     projector.project_slices_2d(*args_g),
+                     projector.project_slices_2d_plain(*args_g), 1e-5, "as above")
+        lib, lib_out = grid_sample_call(*args_l)
+        compare("grid_sample (HK5's library yardstick)", f"phases r={r}", lib_out(lib()), out,
+                1e-4, "border clamps the coordinate where HK5 clamps each tap")
+        recs.append(record(
+            "project_slices_2d", shape, max(e1, e2),
+            timed(lambda: projector.project_slices_2d(*args_l), 20),
+            timed(lambda: projector.project_slices_2d_plain(*args_l), 5),
+            table.numel() * 8 + N_2D * 9 * 16 + 8 * n_p + 4 * N_2D + out.numel() * 8,
+            out.numel() * 30, library_ms=timed(lib, 20)))
+        del out
+    results["project_slices_2d"] = dict(recs[0], at_r15=recs[1])
 
     # HK6 as Optimiser._insert_2d launches it once a round: both halves'
     # 10,000 images x 48 compacted slots into 2K class planes (image l of
-    # half h goes to plane h K + its class) at r_u = 31
-    big = reco_grid_size(SIZE_2D, R_U_2D) * 2
+    # half h goes to plane h K + its class) at r_u = 31, the first
+    # rounds' band; and a tenth of the slots at r_u = 12 and 40 (r_u 40
+    # takes two bands of the shared-memory window)
     n_s = N_2D * 48
     ft = torch.fft.fftshift(torch.fft.fft2(torch.randn(N_2D, SIZE_2D, SIZE_2D, device=dev)),
                             dim=(-2, -1)).to(torch.complex64).contiguous()
@@ -344,40 +517,53 @@ def phase_kernels_2d(dev):
     img_idx = torch.arange(n_s, device=dev) // 48
     cls_img = (torch.randint(0, K_2D, (N_2D,), generator=gen, device=dev)
                + K_2D * (torch.arange(N_2D, device=dev) // (N_2D // 2)))
-    args = (ft, ctf, img_idx, cls_img[img_idx], rot2d((n_s,)),
-            3 * torch.randn(n_s, 2, device=dev), torch.rand(n_s, device=dev) / 48,
-            R_U_2D, 2, SIZE_2D, PIXEL_SIZE)
-    ins = lambda: insert.insert_bilinear_2d(*args, big, 2 * K_2D)
-    ins_p = lambda: insert.insert_bilinear_2d_plain(
-        *args, torch.zeros((2 * K_2D, big, big), dtype=torch.complex64, device=dev),
-        torch.zeros((2 * K_2D, big, big), device=dev))
-    (fk, tk), (fp, tp) = ins(), ins_p()
-    shape = f"slices={n_s} planes={2 * K_2D} r_u={R_U_2D} big={big}"
-    e1 = compare("insert_bilinear_2d", f"F {shape}", torch.view_as_real(fk),
-                 torch.view_as_real(fp), 1e-4, "atomicAdd order varies from run to run")
-    e2 = compare("insert_bilinear_2d", "T", tk, tp, 1e-4, "atomicAdd order")
-    del fk, tk, fp, tp
-    # the plain version takes seconds a call here: one timed call after
-    # the comparison's
-    results["insert_bilinear_2d"] = dict(
-        max_abs_err=max(e1, e2), ms=timed(ins, 5), plain_ms=timed(ins_p, 1, warm=0),
-        shape=shape + "^2")
-    del ft, args
+    slices = (ft, ctf, img_idx, cls_img[img_idx], rot2d((n_s,)),
+              3 * torch.randn(n_s, 2, device=dev), torch.rand(n_s, device=dev) / 48)
+    recs = {}
+    for r_u, n_r in ((R_U_2D, n_s), (12, n_s // 10), (40, n_s // 10)):
+        big = reco_grid_size(SIZE_2D, r_u) * 2
+        args = tuple(x[:n_r] for x in slices[2:]) + (r_u, 2, SIZE_2D, PIXEL_SIZE)
+        args = slices[:2] + args
+        ins = lambda: insert.insert_bilinear_2d(*args, big, 2 * K_2D)
+        ins_p = lambda: insert.insert_bilinear_2d_plain(
+            *args, torch.zeros((2 * K_2D, big, big), dtype=torch.complex64, device=dev),
+            torch.zeros((2 * K_2D, big, big), device=dev))
+        # the plain version takes seconds a call: the compared call is
+        # its one timed call
+        fk, tk = ins()
+        (fp, tp), plain_ms = timed_once(ins_p)
+        shape = f"slices={n_r} planes={2 * K_2D} r_u={r_u} big={big}"
+        e1 = compare("insert_bilinear_2d", f"F {shape}", torch.view_as_real(fk),
+                     torch.view_as_real(fp), 1e-4, "atomic adds in a run-dependent order")
+        e2 = compare("insert_bilinear_2d", f"T {shape}", tk, tp, 1e-4, "atomic adds' order")
+        del fk, tk, fp, tp
+        plan = insert.insert_2d_plan(r_u, 2, big)
+        npx = plan["npx"]
+        # the images the subset's slices touch: their windows are read
+        # and their CTF x data formed once each
+        n_img = int(img_idx[:n_r].unique().numel())
+        recs[r_u] = record(
+            "insert_bilinear_2d", shape + "^2", max(e1, e2), timed(ins, 5 if r_u == R_U_2D else 2),
+            plain_ms, n_img * (npx * 8 + 32) + n_r * 32 + 2 * K_2D * big * big * 12,
+            n_r * npx * 54 + n_img * npx * 80, bands=plan["n_band"], images=n_img)
+    results["insert_bilinear_2d"] = dict(recs[R_U_2D], max_abs_err=max(
+        r["max_abs_err"] for r in recs.values()), other_r_u=[recs[12], recs[40]])
+    del ft, slices, args
 
-    # HK2 at the 2D global block: one class of a hemisphere, 100 x 151
+    # HK2 at the 2D main-path blocks: global search (one half's 5,000
+    # images x all 30 classes' shared 100-rotation block x 151
+    # translations, at r = 5 and 15; timed at r = 5, the band every round
+    # ran at) and the phase loop (both halves' 10,000 images x 9 x 9,
+    # per image)
     n_l = N_2D // 2
-    a, b, c, acc = lk_inputs(dev, n_l, N_ROT_2D, N_TRANS_2D, N_ROT_2D)
-    ones_r = torch.ones(1, 1, device=dev).expand(n_l, N_ROT_2D)
-    ones_t = torch.ones(1, 1, device=dev).expand(n_l, N_TRANS_2D)
-    run = lambda fn: run_blocks(fn, a, b, c, ones_r, ones_t, acc, 1)
-    got, ref = run(likelihood.likelihood_block), run(likelihood.likelihood_block_plain)
-    errs = [compare("likelihood_block", f"2D global L={n_l} R={N_ROT_2D} T={N_TRANS_2D} {nm}",
-                    g, r, 1e-5, "exp sums taken in another order")
-            for nm, g, r in zip(("base", "w_c", "w_r", "w_t"), got, ref)]
-    results["likelihood_block_2d"] = dict(
-        max_abs_err=max(errs), ms=timed(lambda: run(likelihood.likelihood_block), 20),
-        plain_ms=timed(lambda: run(likelihood.likelihood_block_plain), 5),
-        shape=f"L={n_l} R={N_ROT_2D} T={N_TRANS_2D} (60 KB shared memory)")
+    results["likelihood_block"] = lk_check(
+        "2D global r=5", lk_operands(dev, gen, n_l, K_2D, N_ROT_2D, N_TRANS_2D, R_2D, SIZE_2D,
+                                     False), 1, True)
+    results["likelihood_block_more"] = [
+        lk_check("2D global r=15", lk_operands(dev, gen, n_l, K_2D, N_ROT_2D, N_TRANS_2D,
+                                               R_GLOBAL_2D, SIZE_2D, False), 1, False),
+        lk_check("2D phase", lk_operands(dev, gen, N_2D, 1, 9, 9, R_2D, SIZE_2D, True), 1,
+                 True)]
 
     # HK4 at the 2D shapes: the ring FRC of compare_refs (K class maps of
     # 160^2, 3 fields, max_r rings, half-plane weight) and the sigma
@@ -385,22 +571,89 @@ def phase_kernels_2d(dev):
     n_sh = SIZE_2D // 2 - 2
     u, half = spectrum.shell_geometry(SIZE_2D, 2, dev)
     vals = torch.randn(K_2D, 3, SIZE_2D ** 2, device=dev) ** 2
+    ref = spectrum.shell_sums_plain(vals, u, n_sh, half)
     e1 = compare("shell_sums", f"2D FRC B={K_2D} C=3 N={SIZE_2D}^2 shells={n_sh}",
-                 spectrum.shell_sums(vals, u, n_sh, half),
-                 spectrum.shell_sums_plain(vals, u, n_sh, half), 1e-4, "atomics order")
+                 spectrum.shell_sums(vals, u, n_sh, half), ref, 1e-4, "atomics order")
+    lib, lib_out = bincount_call(vals, u, n_sh, half)
+    compare("bincount (HK4's library yardstick)", "2D FRC", lib_out(lib()), ref, 1e-4,
+            "float32 sums in another order")
     rings_u = pack_rings(SIZE_2D, R_U_2D, 0, lane=512, device=dev)
     pv = torch.randn(N_2D, 3, rings_u.i_col.numel(), device=dev) ** 2
     sh = torch.clamp(rings_u.i_sig, max=n_sh)
     e2 = compare("shell_sums", f"2D sigma B={N_2D} C=3 P={rings_u.i_col.numel()} "
                  f"shells={n_sh + 1}", spectrum.shell_sums(pv, sh, n_sh + 1),
                  spectrum.shell_sums_plain(pv, sh, n_sh + 1), 1e-4, "atomics order")
-    results["shell_sums_2d"] = dict(
-        max_abs_err=max(e1, e2), ms=timed(lambda: spectrum.shell_sums(vals, u, n_sh, half), 20),
-        plain_ms=timed(lambda: spectrum.shell_sums_plain(vals, u, n_sh, half), 5),
-        shape=f"2D FRC B={K_2D} C=3 N={SIZE_2D}^2 shells={n_sh}")
-    for name, r in results.items():
-        say(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+    results["shell_sums_2d"] = record(
+        "shell_sums", f"2D FRC B={K_2D} C=3 N={SIZE_2D}^2 shells={n_sh}", max(e1, e2),
+        timed(lambda: spectrum.shell_sums(vals, u, n_sh, half), 20),
+        timed(lambda: spectrum.shell_sums_plain(vals, u, n_sh, half), 5),
+        vals.numel() * 4 + SIZE_2D ** 2 * 8 + K_2D * 3 * n_sh * 4, vals.numel() * 2,
+        library_ms=timed(lib, 20))
     return results
+
+
+def run_cli_counting_global(argv: list, profile_round: int) -> tuple:
+    """The port's CLI on ``argv`` with Optimiser.expectation_global
+    wrapped to count HK2's launches in each global search, and
+    torch.profiler (CUDA activity) around round ``profile_round`` alone
+    (run without per-stage syncs): (return code, [(launches, 2 x
+    rotation blocks)] per global search, {"wall": s, "events": raw
+    profiler events}).  One launch a rotation block a hemisphere covers
+    all K classes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from thunder_tpu_torch.cli import thunder
+    from thunder_tpu_torch.ops.likelihood import likelihood_block
+    from thunder_tpu_torch.optimiser import ROT_BLOCK, Optimiser
+
+    expectation_global, run_round = Optimiser.expectation_global, Optimiser.run_round
+    seen, got = [], {}
+
+    def counted(self, rings, quats=None, trans=None):
+        before = likelihood_block.launches
+        g = expectation_global(self, rings, quats, trans)
+        n_rot = g["quats"].shape[1]
+        block = min(ROT_BLOCK, n_rot)
+        seen.append((likelihood_block.launches - before, 2 * (n_rot // block)))
+        return g
+
+    def profiled(self, i_round):
+        if i_round != profile_round:
+            return run_round(self, i_round)
+        timing = os.environ.pop("THUNDER_STAGE_TIMING", None)
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                rec = run_round(self, i_round)
+                torch.cuda.synchronize()
+                got["wall"] = time.perf_counter() - t0
+        finally:
+            if timing is not None:
+                os.environ["THUNDER_STAGE_TIMING"] = timing
+        # the raw events: building FunctionEvents from ~300,000 of them
+        # (prof.events()) takes tens of seconds
+        got["events"] = prof.profiler.kineto_results.events()
+        return rec
+
+    Optimiser.expectation_global, Optimiser.run_round = counted, profiled
+    try:
+        rc = thunder.main(argv)
+    finally:
+        Optimiser.expectation_global, Optimiser.run_round = expectation_global, run_round
+    return rc, seen, got
+
+
+def check_global_launches(label: str, seen: list) -> None:
+    if not seen:
+        fail(f"{label}: no global search ran")
+    bad = [s for s in seen if s[0] != s[1]]
+    say(f"  {label} global search: HK2 launches per search {[s[0] for s in seen]}, "
+        f"expected 2 x rotation blocks = {seen[0][1]}")
+    if bad:
+        fail(f"{label}: global search launched HK2 {bad} times, not once a rotation "
+             f"block a hemisphere")
 
 
 def phase_gather(dev, kernels):
@@ -458,13 +711,13 @@ def demo_2d(tmp: str, dev) -> tuple:
 
 def phase_slice_2d(dev, wrappers):
     """ROUNDS_2D rounds of 2D classification on configs/demo_2D.json
-    through the CLI, on 10,000 synthetic 160 px images of 30 templates."""
+    through the CLI, on 10,000 synthetic 160 px images of 30 templates,
+    round PROFILE_2D under the profiler."""
     import numpy as np
     import torch
 
-    from thunder_tpu.io.mrc import read_mrc
-    from thunder_tpu.io.thu import read_thu
-    from thunder_tpu_torch.cli import thunder
+    from thunder_tpu_torch.io.mrc import read_mrc
+    from thunder_tpu_torch.io.thu import read_thu
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_2d_") as tmp:
         cfg_path, truth = demo_2d(tmp, dev)
@@ -473,12 +726,13 @@ def phase_slice_2d(dev, wrappers):
         for w in wrappers.values():
             w.launches = 0
         t0 = time.time()
-        rc = thunder.main([cfg_path, "--device", str(dev)])
+        rc, seen, got = run_cli_counting_global([cfg_path, "--device", str(dev)], PROFILE_2D)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = {name: w.launches for name, w in wrappers.items()}
         if rc != 0:
             fail(f"2D: thunder main returned {rc}")
+        check_global_launches("2D", seen)
 
         out = os.path.join(tmp, "output")
         with open(os.path.join(out, "round_metrics.jsonl")) as f:
@@ -501,7 +755,7 @@ def phase_slice_2d(dev, wrappers):
             say(f"  round {i}: r={rec['r']} phases={rec['n_phases']} res={rec['res_A']:.3f} A  "
                 f"purity {purities[-1]:.4f}  {rec['elapsed_s']:.3f} s  "
                 f"{N_2D / rec['elapsed_s']:.2f} img/s  reborn={rec.get('reborn_classes', [])}  "
-                f"stage_ms={json.dumps(rec['stage_ms'])}")
+                f"stage_ms={json.dumps(rec.get('stage_ms', 'profiled'))}")
             fsc = np.loadtxt(os.path.join(out, f"FSC_Round_{i:03d}.txt"))
             if fsc.size == 0 or not np.isfinite(fsc).all():
                 fail(f"2D round {i}: FRC not finite")
@@ -515,6 +769,7 @@ def phase_slice_2d(dev, wrappers):
         if final.shape != (K_2D, SIZE_2D, SIZE_2D) or not np.isfinite(final).all():
             fail("2D: final class averages bad shape or non-finite")
         say(f"  2D main path wall {wall:.1f} s, launches {launches}")
+        prof = profile_summary(got, PROFILE_2D, "2D")
         res = [r["res_A"] for r in recs]
         # On this data the gate cannot fail: res_A reads the band edge
         # (7.04 A) from round 0, in thunder_tpu as in the port.  The
@@ -530,14 +785,14 @@ def phase_slice_2d(dev, wrappers):
         zero = [n for n, c in launches.items() if c <= 0]
         if zero:
             fail(f"2D: kernels never launched by the 2D path: {zero}")
-    return launches, recs
+    return launches, recs, prof
 
 
 def demo_3d(tmp: str, dev) -> tuple:
     """The 3D dataset (N_IMAGES synthetic 128 px images of the phantom),
     the start model (the phantom low-passed to 40 A) and the demo-grid
     config, under ``tmp``; returns (config path, phantom, start model)."""
-    from thunder_tpu.io.mrc import read_mrc, write_mrc
+    from thunder_tpu_torch.io.mrc import read_mrc, write_mrc
     from thunder_tpu_torch.pipeline.synthetic import write_demo
 
     t0 = time.time()
@@ -564,47 +819,20 @@ def demo_3d(tmp: str, dev) -> tuple:
     return cfg_path, truth, start
 
 
-def profile_round(dev, cfg_path: str, target: int, label: str) -> dict:
-    """Run the CLI on ``cfg_path`` up to round ``target`` with
-    torch.profiler (CUDA activity) around that round alone.  Device time
-    is the sum of the CUDA kernel events; the idle share is 1 - device
-    time / the round's wall time under the profiler."""
-    import torch
+def profile_summary(got: dict, target: int, label: str) -> dict:
+    """Device time (the sum of the CUDA kernel events), idle share (1 -
+    device time / the round's wall time under the profiler), kernel and
+    launch counts, and the heaviest kernels of the profiled round."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from thunder_tpu_torch.cli import thunder
-    from thunder_tpu_torch.optimiser import Optimiser
-
-    run_round = Optimiser.run_round
-    got = {}
-
-    def profiled(self, i_round):
-        if i_round != target:
-            return run_round(self, i_round)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            rec = run_round(self, i_round)
-            torch.cuda.synchronize()
-            got["wall"] = time.perf_counter() - t0
-        got["events"] = prof.events()
-        return rec
-
-    os.environ.pop("THUNDER_STAGE_TIMING", None)
-    Optimiser.run_round = profiled
-    try:
-        rc = thunder.main([cfg_path, "--device", str(dev), "--max-rounds", str(target + 1)])
-    finally:
-        Optimiser.run_round = run_round
-    if rc != 0 or "events" not in got:
-        fail(f"profile {label}: the CLI returned {rc} before round {target} was profiled")
+    if "events" not in got:
+        fail(f"profile {label}: round {target} was not profiled")
     by_name, launches = {}, 0
     for e in got["events"]:
-        if e.device_type == DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-        elif "LaunchKernel" in e.name:
+        if e.device_type() == DeviceType.CUDA:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+        elif "LaunchKernel" in e.name():
             launches += 1
     if not by_name:
         fail(f"profile {label}: no CUDA kernel events in the profiled round")
@@ -620,24 +848,13 @@ def profile_round(dev, cfg_path: str, target: int, label: str) -> dict:
     return rec
 
 
-def phase_profile(dev) -> list:
-    """One profiled round of each path: 3D round 1 and 2D round 4 (the
-    collapse and rebirth of rounds 1-3 are over by then)."""
-    recs = []
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_prof_") as tmp:
-        recs.append(profile_round(dev, demo_3d(tmp, dev)[0], 1, "3D"))
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_prof_2d_") as tmp:
-        recs.append(profile_round(dev, demo_2d(tmp, dev)[0], 4, "2D"))
-    return recs
-
-
 def phase_slice(dev, wrappers):
-    """Three demo-grid rounds through the CLI on a synthetic dataset."""
+    """Three demo-grid rounds through the CLI on a synthetic dataset,
+    round PROFILE_3D under the profiler."""
     import numpy as np
     import torch
 
-    from thunder_tpu.io.mrc import read_mrc
-    from thunder_tpu_torch.cli import thunder
+    from thunder_tpu_torch.io.mrc import read_mrc
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         cfg_path, truth, start = demo_3d(tmp, dev)
@@ -646,12 +863,13 @@ def phase_slice(dev, wrappers):
         for w in wrappers.values():
             w.launches = 0
         t0 = time.time()
-        rc = thunder.main([cfg_path, "--device", str(dev)])
+        rc, seen, got = run_cli_counting_global([cfg_path, "--device", str(dev)], PROFILE_3D)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = {name: w.launches for name, w in wrappers.items()}
         if rc != 0:
             fail(f"thunder main returned {rc}")
+        check_global_launches("3D", seen)
 
         out = os.path.join(tmp, "output")
         with open(os.path.join(out, "round_metrics.jsonl")) as f:
@@ -661,8 +879,10 @@ def phase_slice(dev, wrappers):
         for rec in recs:
             say(f"  round {rec['round']}: r={rec['r']} phases={rec['n_phases']} "
                 f"res={rec['res_A']:.3f} A  {rec['elapsed_s']:.3f} s  "
-                f"{N_IMAGES / rec['elapsed_s']:.2f} img/s  stage_ms={json.dumps(rec['stage_ms'])}")
+                f"{N_IMAGES / rec['elapsed_s']:.2f} img/s  "
+                f"stage_ms={json.dumps(rec.get('stage_ms', 'profiled'))}")
         say(f"  main path wall {wall:.1f} s, launches {launches}")
+        prof = profile_summary(got, PROFILE_3D, "3D")
         need = (["Reference_000_Final.mrc", "Reference_000_A_Final.mrc",
                  "Reference_000_B_Final.mrc"]
                 + [f"{p}_Round_{i:03d}{s}" for i in range(ROUNDS)
@@ -692,7 +912,7 @@ def phase_slice(dev, wrappers):
         zero = [n for n, c in launches.items() if c <= 0]
         if zero:
             fail(f"kernels never launched by the main path: {zero}")
-    return launches, recs
+    return launches, recs, prof
 
 
 def main() -> None:
@@ -715,10 +935,12 @@ def main() -> None:
         fail(f"thunder_tpu_torch not importable ({e}); run from a checkout of the repo")
 
     dev = torch.device("cuda:0")
+    t_start = time.time()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    say(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip()
-        else f"nvidia-smi unavailable: {smi.stderr.strip()}")
+    card = (smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip()
+            else f"nvidia-smi unavailable: {smi.stderr.strip()}")
+    say(card)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
@@ -731,20 +953,20 @@ def main() -> None:
                 say("  ptxas: " + line.strip())
     _native.library()
 
-    say("phase 1: 3D kernels against their plain versions")
+    say(f"[{time.time() - t_start:.1f} s] phase 1: 3D kernels against their plain versions")
     results = phase_kernels(dev)
     torch.cuda.synchronize()
-    say("phase 1b: 2D kernels against their plain versions")
+    say(f"[{time.time() - t_start:.1f} s] phase 1b: 2D kernels against their plain versions")
     results_2d = phase_kernels_2d(dev)
     torch.cuda.synchronize()
 
     wrappers = {"project_slices": project_slices, "likelihood_block": likelihood_block,
                 "insert_trilinear": insert_trilinear, "shell_sums": shell_sums}
-    say("phase 2: 3D refinement")
-    launches, _ = phase_slice(dev, wrappers)
+    say(f"[{time.time() - t_start:.1f} s] phase 2: 3D refinement")
+    launches, _, prof_3d = phase_slice(dev, wrappers)
     torch.cuda.synchronize()
 
-    say("phase 3: gather microbenchmark (G1-G5, exact against plain)")
+    say(f"[{time.time() - t_start:.1f} s] phase 3: gather microbenchmark (G1-G5, exact against plain)")
     g_recs, g_launches = phase_gather(dev, gather.KERNELS)
     zero = [n for n, c in g_launches.items() if c <= 0]
     if zero:
@@ -753,13 +975,10 @@ def main() -> None:
     wrappers_2d = {"project_slices_2d": project_slices_2d,
                    "insert_bilinear_2d": insert_bilinear_2d,
                    "likelihood_block": likelihood_block, "shell_sums": shell_sums}
-    say("phase 4: 2D classification")
-    launches_2d, _ = phase_slice_2d(dev, wrappers_2d)
+    say(f"[{time.time() - t_start:.1f} s] phase 4: 2D classification")
+    launches_2d, _, prof_2d = phase_slice_2d(dev, wrappers_2d)
     torch.cuda.synchronize()
-
-    say("phase 5: one profiled round of each path")
-    profiles = phase_profile(dev)
-    torch.cuda.synchronize()
+    profiles = [prof_3d, prof_2d]
 
     meta = {
         "project_slices": ("HK1", "thunder_tpu_torch/csrc/project_slices.cu",
@@ -775,36 +994,47 @@ def main() -> None:
         "insert_bilinear_2d": ("HK6", "thunder_tpu_torch/csrc/insert_bilinear_2d.cu",
                                "thunder_tpu/ops/insert.py:721"),
     }
-    by_path = {name: {"3d": launches.get(name, 0), "2d": launches_2d.get(name, 0)}
-               for name in meta}
-    results["project_slices_2d"] = results_2d["project_slices_2d"]
-    results["insert_bilinear_2d"] = results_2d["insert_bilinear_2d"]
+    # HK2's record is the 2D global block (the heaviest launch a round);
+    # its other main-path blocks ride along, as does HK4's 2D FRC
+    more_lk = results["likelihood_block_3d"] + results_2d["likelihood_block_more"]
+    recs = {
+        "project_slices": results["project_slices"],
+        "likelihood_block": dict(
+            results_2d["likelihood_block"], other_shapes=more_lk,
+            max_abs_err=max(r["max_abs_err"] for r in more_lk + [results_2d["likelihood_block"]])),
+        "insert_trilinear": results["insert_trilinear"],
+        "shell_sums": dict(results["shell_sums"], at_2d=results_2d["shell_sums_2d"],
+                           max_abs_err=max(results["shell_sums"]["max_abs_err"],
+                                           results_2d["shell_sums_2d"]["max_abs_err"])),
+        "project_slices_2d": results_2d["project_slices_2d"],
+        "insert_bilinear_2d": results_2d["insert_bilinear_2d"],
+    }
     kernels = []
-    for name, r in results.items():
-        k = dict(name=name, id=meta[name][0], route="cuda", source=meta[name][1],
-                 replaces=meta[name][2], launches=sum(by_path[name].values()),
-                 launches_by_path=by_path[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
-                 plain_ms=r["plain_ms"], shape=r["shape"])
-        k.update({key: v for key, v in r.items() if key.endswith("_r15")})
-        # HK2 and HK4 serve both paths: their 2D-shape records ride along
-        r2 = results_2d.get({"likelihood_block": "likelihood_block_2d",
-                             "shell_sums": "shell_sums_2d"}.get(name, ""))
-        if r2:
-            k["max_abs_err"] = max(r["max_abs_err"], r2["max_abs_err"])
-            k["ms_2d"], k["plain_ms_2d"], k["shape_2d"] = r2["ms"], r2["plain_ms"], r2["shape"]
-        kernels.append(k)
+    for name, r in recs.items():
+        by_path = {"3d": launches.get(name, 0), "2d": launches_2d.get(name, 0)}
+        kernels.append(dict(
+            name=name, id=meta[name][0], route="cuda", source=meta[name][1],
+            replaces=meta[name][2], launches=sum(by_path.values()), launches_by_path=by_path,
+            **r))
     for fn in gather.KERNELS:
         cases = [c for c in g_recs if c["fn"] == fn.__name__]
         first = cases[0]
+        b_ms, by = bound(first["io_bytes"], 0)
+        # the plain version is itself the one library call (torch.take,
+        # index_select, gather): library_ms is its time
         kernels.append(dict(
             name=fn.__name__, id=first["kernel"], route="cuda",
             source="thunder_tpu_torch/csrc/gather.cu", replaces=first["replaces"],
             also_replaces=[c["replaces"] for c in cases[1:]],
             launches=g_launches[fn.__name__],
             max_abs_err=max(c["max_abs_err"] for c in cases), ms=first["ms"],
-            plain_ms=first["plain_ms"], gbps=first["gbps"],
+            plain_ms=first["plain_ms"], library_ms=first["plain_ms"], bound_ms=b_ms,
+            bound_by=by, share=b_ms / first["ms"], gbps=first["gbps"],
             cases={c["case"]: dict(ms=c["ms"], plain_ms=c["plain_ms"], rate=c["rate"],
-                                   unit=c["unit"], gbps=c["gbps"]) for c in cases}))
+                                   unit=c["unit"], gbps=c["gbps"],
+                                   bound_ms=bound(c["io_bytes"], 0)[0]) for c in cases}))
+    say(f"[{time.time() - t_start:.1f} s] done")
+    say(card)
     say(json.dumps({"profiles": profiles}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,7 +17,7 @@ torch.set_num_threads(2)
 
 from thunder_tpu import optimiser as jo  # noqa: E402
 from thunder_tpu import particle as jpt  # noqa: E402
-from thunder_tpu.config import ThunderConfig  # noqa: E402
+from thunder_tpu.config import ThunderConfig as JConfig  # noqa: E402
 from thunder_tpu.geometry import directional as jd  # noqa: E402
 from thunder_tpu.geometry.quaternion import rotate2d_from_unit  # noqa: E402
 from thunder_tpu.ops import projector as jproj  # noqa: E402
@@ -28,6 +28,7 @@ from thunder_tpu.recon import reconstructor as jrec  # noqa: E402
 from thunder_tpu_torch import interop  # noqa: E402
 from thunder_tpu_torch import optimiser as to  # noqa: E402
 from thunder_tpu_torch import particle as tpt  # noqa: E402
+from thunder_tpu_torch.config import ThunderConfig as TConfig  # noqa: E402
 from thunder_tpu_torch.geometry import quaternion as tq  # noqa: E402
 from thunder_tpu_torch.ops import insert as tins  # noqa: E402
 from thunder_tpu_torch.ops import projector as tproj  # noqa: E402
@@ -51,13 +52,15 @@ def close(a, b, rtol):
     assert err <= rtol, err
 
 
-def config(**kw):
+def config(cls=JConfig, **kw):
+    """A 2D config of thunder_tpu's (or, with ``cls=TConfig``, the
+    port's) ThunderConfig; both from the same arguments."""
     base = dict(mode="2D", k=K, size=SIZE, pixel_size=1.32, mask_radius=SIZE * 1.32 * 0.42,
                 trans_s=2.0, init_res=SIZE * 1.32 / 6, global_search_res=SIZE * 1.32 / 10,
                 sym="C4", m_s_2d=40, m_l_r_2d=9, m_l_t=9, m_reco=12,
                 ignore_res=SIZE * 1.32, trans_search_factor=0.25)
     base.update(kw)
-    return ThunderConfig(**base)
+    return cls(**base)
 
 
 def unit_quats(phi):
@@ -77,7 +80,7 @@ def pair(data2d):
     from the JAX state (poses near the truth) through interop."""
     imgs, ctf, truth, ang, sh = data2d
     jopt = jo.Optimiser(config(), imgs, jctf_params(*ctf), np.zeros(N, np.int64))
-    topt = to.Optimiser(config(), imgs, tuple(ctf), np.zeros(N, np.int64), device="cpu")
+    topt = to.Optimiser(config(TConfig), imgs, tuple(ctf), np.zeros(N, np.int64), device="cpu")
     q = unit_quats(np.deg2rad(ang))[jopt.index]
     jopt.state.par = jopt.state.par._replace(
         top_r=jnp.asarray(q), top_t=jnp.asarray(sh[:, ::-1][jopt.index], jnp.float32))
@@ -184,6 +187,53 @@ def test_insert_bilinear_2d_plain_matches_insert_class():
                                   float((r_u - 1) * pf), SIZE, pf, True, 1, grid)
         close(tf[k], jf, 1e-5)
         close(tt[k], jt, 1e-5)
+
+
+@pytest.mark.parametrize("n_img,n_cls,per_img", [(40, 3, 1), (97, 5, 48), (10, 60, 48)])
+def test_insert_2d_work_covers_every_slice_once(n_img, n_cls, per_img):
+    """HK6's work: slices sorted by (class, image); every slice in
+    exactly one run; a run is one image of one class; a work item holds
+    consecutive runs of one class, cut at image boundaries, within one
+    chunk of slices plus one image."""
+    rng = np.random.default_rng(n_img)
+    cls_img = rng.integers(0, n_cls, n_img)
+    img = np.repeat(rng.permutation(n_img), per_img)
+    chunk = 64
+    order, runs, work = tins.insert_2d_work(t(img), t(cls_img[img]), chunk)
+    order, runs, work = order.numpy(), runs.numpy(), work.numpy()
+    assert sorted(order) == list(range(img.size))
+    img_s, cls_s = img[order], cls_img[img][order]
+    assert runs[0, 0] == 0 and runs[-1, 1] == img.size
+    assert (runs[1:, 0] == runs[:-1, 1]).all() and (runs[:, 1] > runs[:, 0]).all()
+    for s0, s1 in runs:
+        assert len(set(img_s[s0:s1])) == 1 and len(set(cls_s[s0:s1])) == 1
+    assert len({tuple(x) for x in np.stack([img_s[runs[:, 0]], cls_s[runs[:, 0]]], 1)}) \
+        == len(runs)
+    assert work[0, 1] == 0 and work[-1, 2] == len(runs)
+    assert (work[1:, 1] == work[:-1, 2]).all()
+    for k, r0, r1 in work:
+        assert (cls_s[runs[r0, 0]:runs[r1 - 1, 1]] == k).all()
+        assert runs[r1 - 1, 1] - runs[r0, 0] <= chunk + per_img
+
+
+@pytest.mark.parametrize("r_u,big", [(31, 132), (12, 56), (40, 168), (75, 320), (7, 32)])
+def test_insert_2d_plan_fits_shared_memory(r_u, big):
+    """HK6's plan at the 2D main path's bands (r_u 31 of the first
+    rounds at 160 px, r_u 12 and 40, the final reconstruction's r_u 75)
+    and a test box: the window and a batch's ramp tables within Hopper's
+    227 KB, one band where the window fits, bands covering every row,
+    and the in-disc pixel list of the dense window's mask."""
+    plan = tins.insert_2d_plan(r_u, 2, big)
+    assert plan["smem"] <= 227 * 1024
+    assert plan["n_band"] * plan["band_h"] >= plan["win"]
+    assert (plan["n_band"] == 1) == (plan["smem"] - plan["band_h"] * plan["win"] * 12
+                                     + plan["win"] ** 2 * 12 <= 227 * 1024)
+    px = tins.in_disc_pixels(r_u)
+    vc, vr, mask = tins.dense_window(r_u)
+    assert px.numel() == plan["npx"] == int((mask > 0).sum())
+    assert bool(((vc[px.long()] ** 2 + vr[px.long()] ** 2) < (r_u - 1) ** 2).all())
+    assert plan["pxt"] * tins.INSERT_2D_THREADS >= min(plan["npx"], tins.INSERT_2D_PX_MAX
+                                                       * tins.INSERT_2D_THREADS)
 
 
 def test_hermitianize_2d_matches_jax():

@@ -142,6 +142,7 @@ def test_global_search_cli_rounds_track_jax_classes(tmp_path):
 _BLOCKED = r"""
 import sys
 sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["thunder_tpu"] = None  # and so does any import of the JAX package
 import torch
 torch.set_num_threads(2)
 from thunder_tpu_torch.pipeline.synthetic import write_demo
@@ -152,7 +153,7 @@ c = json.load(open(p)); c["Advanced"]["Max Number of Iteration"] = 1
 c["Advanced"]["Number of Sampling Points for Scanning in Global Search (2D)"] = 24
 json.dump(c, open(p, "w"))
 assert main([p, "--device", "cpu"]) == 0
-assert sys.modules["jax"] is None
+assert sys.modules["jax"] is None and sys.modules["thunder_tpu"] is None
 print("OK")
 """
 

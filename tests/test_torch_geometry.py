@@ -10,14 +10,14 @@ import torch
 
 torch.set_num_threads(2)
 
-from thunder_tpu.config import ThunderConfig  # noqa: E402
+from thunder_tpu.config import ThunderConfig as JConfig  # noqa: E402
 from thunder_tpu.geometry import directional as jd  # noqa: E402
 from thunder_tpu.geometry import quaternion as jq  # noqa: E402
 from thunder_tpu.geometry.symmetry import Symmetry as JSym  # noqa: E402
 from thunder_tpu_torch.geometry import directional as td  # noqa: E402
 from thunder_tpu_torch.geometry import quaternion as tq  # noqa: E402
 from thunder_tpu_torch.geometry.symmetry import Symmetry as TSym  # noqa: E402
-from thunder_tpu_torch.geometry.symmetry import r_global  # noqa: E402
+from thunder_tpu_torch.config import ThunderConfig as TConfig  # noqa: E402
 
 # float32 products in another order than XLA's
 ATOL = 2e-6
@@ -65,9 +65,15 @@ def test_symmetry_group_and_counterpart(name):
 
 @pytest.mark.parametrize("sym", ["C1", "D7", "I3", "O"])
 def test_r_global_uses_the_port_symmetry(sym):
-    cfg = ThunderConfig(mode="3D", size=128, pixel_size=1.32, sym=sym,
-                        mask_radius=76.0, global_search_res=8.0)
-    assert r_global(cfg) == cfg.r_global
+    """The port's ThunderConfig computes the global-search band with its
+    own symmetry module and agrees with thunder_tpu's config (which uses
+    the JAX package's symmetry here, where jax is installed)."""
+    kw = dict(mode="3D", size=128, pixel_size=1.32, sym=sym, mask_radius=76.0,
+              global_search_res=8.0)
+    n_sym = TSym(sym).n_elements
+    assert TConfig(**kw).r_global == JConfig(**kw).r_global
+    assert TConfig(**kw).r_global == min(
+        TConfig(**kw).max_r, round(128 * 1.32 / min(8.0, 19.0 / (1 + n_sym) ** (1 / 3))) + 1)
 
 
 def test_acg_inference_matches_jax():

@@ -49,23 +49,58 @@ def test_project_slices(dev):
                        projector.project_slices_plain(*args)) < 1e-5
 
 
-def test_likelihood_block(dev):
-    n, r, tt = 5, 40, 7
-    a = torch.randn(n, device=dev)
-    b = 5 * torch.randn(n, 2 * r, device=dev)
-    c = 5 * torch.randn(n, 2 * r, tt, device=dev)
-    w_r = torch.rand(n, 2 * r, device=dev)
-    w_t = torch.rand(n, tt, device=dev)
+def _lk_operands(dev, n, k, r, tt, per_image, seed, size=32, band=6):
+    """HK2 inputs: n noisy images (sigRcp -1/2, CTF in [0.3, 1)) on the
+    rings to ``band`` of a ``size`` px box; pri (k, n, r, P) per image or
+    one block per class shared by all images; tra (n, tt, P) per image
+    or shared."""
+    g = generator(seed, dev)
+    rings = pack_rings(size, band, 1, device=dev)
+    p = rings.i_col.numel()
+    cplx = lambda *sh: torch.complex(torch.randn(sh, generator=g, device=dev),
+                                     torch.randn(sh, generator=g, device=dev))
+    s = -0.5 * rings.mask
+    dat = cplx(n, p)
+    ctf = 0.3 + 0.7 * torch.rand(n, p, generator=g, device=dev)
+    ops = [(s * ctf) * dat, s * ctf * ctf, (s * dat.abs() ** 2).sum(-1)]
+    if per_image:
+        pri = 0.5 * cplx(k, n, r, p)
+        ph = 0.3 * torch.randn(n, tt, p, generator=g, device=dev)
+    else:
+        pri = (0.5 * cplx(k, 1, r, p)).expand(k, n, r, p)
+        ph = (0.3 * torch.randn(tt, p, generator=g, device=dev))[None].expand(n, tt, p)
+    tra = torch.polar(torch.ones_like(ph), ph)
+    return ops + [pri, tra, torch.rand(n, r, generator=g, device=dev),
+                  torch.rand(n, tt, generator=g, device=dev)]
+
+
+def _lk_both(ops, blocks):
+    """HK2 and its plain version over ``blocks`` consecutive rotation
+    blocks of pri (split along R) into fresh accumulators."""
+    pri, w_r = ops[3], ops[5]
+    k, n, r = pri.shape[:3]
+    step = r // blocks
     outs = []
     for fn in (likelihood.likelihood_block, likelihood.likelihood_block_plain):
-        acc = (torch.full((n,), float("-inf"), device=dev), torch.zeros(n, device=dev),
-               torch.zeros(n, 2 * r, device=dev), torch.zeros(n, tt, device=dev))
-        for k in range(2):
-            sl = slice(k * r, (k + 1) * r)
-            fn(a, b[:, sl], c[:, sl], w_r[:, sl], w_t, *acc, col0=k * r)
+        dev = pri.device
+        acc = (torch.full((k, n), float("-inf"), device=dev), torch.zeros(k, n, device=dev),
+               torch.zeros(k, n, r, device=dev), torch.zeros(k, n, ops[4].shape[1], device=dev))
+        for b in range(blocks):
+            sl = slice(b * step, (b + 1) * step)
+            fn(*ops[:3], pri[:, :, sl], ops[4], w_r[:, sl], ops[6], *acc, col0=b * step)
         outs.append(acc)
-    for x, y in zip(*outs):
-        assert rel_err(x, y) < 1e-5
+    return outs
+
+
+@pytest.mark.parametrize("per_image", [False, True])
+def test_likelihood_block(dev, per_image):
+    """Two consecutive rotation blocks of two classes, shared (global
+    search) or per-image (phase loop) supports.  Held to 1e-4 relative:
+    the 2P-long dot products are summed in another order than cuBLAS's
+    and exp amplifies it."""
+    ops = _lk_operands(dev, 5, 2, 80, 7, per_image, 5)
+    for x, y in zip(*_lk_both(ops, 2)):
+        assert rel_err(x, y) < 1e-4
 
 
 def test_insert_trilinear(dev):
@@ -147,21 +182,23 @@ def test_insert_bilinear_2d(dev, r_u):
 
 def test_likelihood_block_2d_shapes(dev):
     """The 2D global search's block: R = 100 rotations x T = 151
-    translations = 60 KB of shared memory, past the 48 KB default."""
-    n, r, tt = 64, 100, 151
-    a = -1e4 + 10 * torch.randn(n, device=dev)
-    b = 40 * torch.randn(n, r, device=dev)
-    c = 40 * torch.randn(n, tt, r, device=dev).permute(0, 2, 1)
-    ones_r = torch.ones(1, 1, device=dev).expand(n, r)
-    ones_t = torch.ones(1, 1, device=dev).expand(n, tt)
-    outs = []
-    for fn in (likelihood.likelihood_block, likelihood.likelihood_block_plain):
-        acc = (torch.full((n,), float("-inf"), device=dev), torch.zeros(n, device=dev),
-               torch.zeros(n, r, device=dev), torch.zeros(n, tt, device=dev))
-        fn(a, b, c, ones_r, ones_t, *acc)
-        outs.append(acc)
-    for x, y in zip(*outs):
-        assert rel_err(x, y) < 1e-5
+    translations of three classes in one launch (8 x 8 tiles, shared
+    memory past the 48 KB default); 1e-4 as above."""
+    ops = _lk_operands(dev, 64, 3, 100, 151, False, 6)
+    for x, y in zip(*_lk_both(ops, 1)):
+        assert rel_err(x, y) < 1e-4
+
+
+@pytest.mark.parametrize("per_image", [False, True])
+def test_likelihood_block_rotation_sub_blocks(dev, per_image):
+    """A 3D global-search block of 256 rotations x 151 translations
+    (configs/demo_3D.json's T) at P = 728 (r = 22 at 128 px), which the
+    CTA takes in three rotation sub-blocks; two classes; 1e-4 as above."""
+    assert likelihood.likelihood_plan(256, 151)["n_sub"] == 3
+    ops = _lk_operands(dev, 16, 2, 256, 151, per_image, 7, size=128, band=22)
+    assert ops[0].shape[1] == 728
+    for x, y in zip(*_lk_both(ops, 1)):
+        assert rel_err(x, y) < 1e-4
 
 
 def test_gathers(dev):

@@ -68,8 +68,8 @@ def test_true_fsc_matches_jax_given_phases():
 def test_optimiser_uses_true_fsc_when_configured(monkeypatch):
     """With 'Calculate FSC Using Core Region' on, the round's FSC is the
     true FSC of the MAP-free maps under the soft mask."""
-    from thunder_tpu.config import ThunderConfig
     from thunder_tpu_torch import optimiser as to
+    from thunder_tpu_torch.config import ThunderConfig
     from thunder_tpu_torch.pipeline.synthetic import make_dataset
 
     size, n = 16, 16

@@ -1,9 +1,10 @@
 """The port's 3D-refinement round as a whole, against thunder_tpu on the
 CPU: stage parity from state injected with thunder_tpu_torch.interop,
-a 3-round 32 px run of both packages on the same data (FSC-0.143
+the global grid's sizes on configs/demo_3D.json, a 3-round 32 px run of both packages on the same data (FSC-0.143
 shells within one per round), the port's CLI writing its files, and the
 whole port importing and running with jax blocked."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -18,13 +19,14 @@ import torch
 torch.set_num_threads(2)
 
 from thunder_tpu import optimiser as jo  # noqa: E402
-from thunder_tpu.config import ThunderConfig  # noqa: E402
+from thunder_tpu.config import ThunderConfig as JConfig  # noqa: E402
 from thunder_tpu.geometry.quaternion import random_quat  # noqa: E402
 from thunder_tpu.ops.fourier import pack_rings  # noqa: E402
 from thunder_tpu.ops.projector import ri_split  # noqa: E402
 from thunder_tpu.physics.ctf import ctf_params as jctf_params  # noqa: E402
 from thunder_tpu_torch import interop  # noqa: E402
 from thunder_tpu_torch import optimiser as to  # noqa: E402
+from thunder_tpu_torch.config import ThunderConfig as TConfig  # noqa: E402
 from thunder_tpu_torch.model import SEARCH_TYPE_LOCAL  # noqa: E402
 from thunder_tpu_torch.ops import fourier as tf  # noqa: E402
 
@@ -44,13 +46,15 @@ def close(a, b, rtol):
     assert err <= rtol, err
 
 
-def config(size, **kw):
+def config(size, cls=JConfig, **kw):
+    """A 3D config of thunder_tpu's (or, with ``cls=TConfig``, the
+    port's) ThunderConfig; both from the same arguments."""
     base = dict(mode="3D", k=1, size=size, pixel_size=1.0, mask_radius=size * 0.42,
                 trans_s=1.5, init_res=size / 6, global_search_res=size / 10,
                 sym="C1", m_s=512, m_l_r=24, m_l_t=9, m_reco=12,
                 ignore_res=float(size), trans_search_factor=0.25)
     base.update(kw)
-    return ThunderConfig(**base)
+    return cls(**base)
 
 
 def ctf_cols(n, defocus=500.0):
@@ -67,7 +71,7 @@ def pair():
     cfg = config(size)
     jopt = jo.Optimiser(cfg, imgs, jctf_params(*ctf_cols(n)), np.zeros(n, np.int64),
                         init_refs=phantom)
-    topt = to.Optimiser(config(size), imgs, ctf_cols(n), np.zeros(n, np.int64),
+    topt = to.Optimiser(config(size, TConfig), imgs, ctf_cols(n), np.zeros(n, np.int64),
                         init_refs=phantom, device="cpu")
     # poses near the truth, so the statistics stages see real signal
     par = jopt.state.par
@@ -108,6 +112,43 @@ def test_stage_parity_global_search(pair):
     g = topt.expectation_global(topt._rings(), t(quats), t(trans))
     for a, b in zip((g["w_c"], g["w_r"], g["w_t"]), jw):
         close(a, b, 2e-4)
+
+
+class _Drawn(Exception):
+    """Raised by the stand-ins below once the global grid is drawn."""
+
+
+def test_global_grid_sizes_match_jax(monkeypatch):
+    """configs/demo_3D.json's global grid (mS = 10000, trans 10 px,
+    factor 0.25: T = 151) at the symmetry and class count the port runs
+    (C1, K = 1), on 24 px data: both packages draw 10,240 rotations (mS
+    rounded up to blocks of 256) in 40 blocks of 256 and 151
+    translations.  The search itself is stubbed out once the grid is
+    drawn."""
+    path = os.path.join(REPO, "configs", "demo_3D.json")
+    size, n = 24, 8
+    kw = dict(sym="C1", k=1, size=size, pixel_size=1.0, mask_radius=size * 0.42,
+              init_res=size / 6, global_search_res=size / 10)
+    phantom, imgs, _, _ = make_3d_dataset(size, n, seed=3)
+    jopt = jo.Optimiser(dataclasses.replace(JConfig.from_json(path), **kw), imgs,
+                        jctf_params(*ctf_cols(n)), np.zeros(n, np.int64), init_refs=phantom)
+    topt = to.Optimiser(dataclasses.replace(TConfig.from_json(path), **kw), imgs,
+                        ctf_cols(n), np.zeros(n, np.int64), init_refs=phantom, device="cpu")
+    seen = {}
+
+    def grid_of(name, rot_blocks, tra):
+        seen[name] = (tuple(rot_blocks.shape[-4:-2]), tra.shape[-2])
+        raise _Drawn
+
+    monkeypatch.setattr(jo, "_global_search_h",
+                        lambda stack, rot, ic, ir, dw, s2, a, tra, *r, **k:
+                        grid_of("jax", rot, tra))
+    monkeypatch.setattr(to, "global_search",
+                        lambda table, rot, rings, dw, s2, a, tra, pf: grid_of("port", rot, tra))
+    for opt in (jopt, topt):
+        with pytest.raises(_Drawn):
+            opt.expectation_global(opt._rings())
+    assert seen["port"] == seen["jax"] == ((40, 256), 151)
 
 
 def test_stage_parity_maximization(pair):
@@ -212,7 +253,7 @@ def test_three_rounds_track_jax_fsc_shells():
     kw = dict(g_search=False, m_s=256, m_l_r=16, m_reco=8)
     jopt = jo.Optimiser(config(size, **kw), imgs, jctf_params(*ctf_cols(n)),
                         np.zeros(n, np.int64), init_refs=phantom, resume_thu=thu)
-    topt = to.Optimiser(config(size, **kw), imgs, ctf_cols(n), np.zeros(n, np.int64),
+    topt = to.Optimiser(config(size, TConfig, **kw), imgs, ctf_cols(n), np.zeros(n, np.int64),
                         init_refs=phantom, resume_thu=thu, device="cpu")
     for i in range(3):
         rj, rt = jopt.run_round(i), topt.run_round(i)
@@ -231,7 +272,7 @@ def test_checkpoint_resumes_the_same_round(tmp_path):
     kw = dict(m_s=256, m_l_r=12, m_reco=8, pixel_size=1.32)
 
     def fresh():
-        return to.Optimiser(config(size, **kw), imgs, tuple(ctf), np.zeros(n, np.int64),
+        return to.Optimiser(config(size, TConfig, **kw), imgs, tuple(ctf), np.zeros(n, np.int64),
                             init_refs=vol, device="cpu")
 
     a = fresh()
@@ -288,6 +329,7 @@ def test_cli_writes_round_files(tmp_path):
 _BLOCKED = r"""
 import sys
 sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["thunder_tpu"] = None  # and so does any import of the JAX package
 import importlib, pkgutil, torch
 torch.set_num_threads(2)
 import thunder_tpu_torch
@@ -296,7 +338,7 @@ for m in pkgutil.walk_packages(thunder_tpu_torch.__path__, "thunder_tpu_torch.")
 from thunder_tpu_torch.cli.thunder import main
 rc = main([sys.argv[1], "--device", "cpu", "--max-rounds", "1"])
 assert rc == 0
-assert sys.modules["jax"] is None
+assert sys.modules["jax"] is None and sys.modules["thunder_tpu"] is None
 print("OK")
 """
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -34,6 +35,8 @@ SOURCES = ("project_slices.cu", "likelihood_block.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+SMEM_MAX = 227 * 1024   # shared memory one block can use on Hopper (232,448 B)
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -41,17 +44,15 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "thunder_project_slices": [_P, _I, _P, _P, _L, _I, _I, _P, _P, _I, _I,
                                _P, _P],
-    "thunder_likelihood_block": [_P, _P, _L, _L, _P, _L, _L, _L, _P, _L, _L,
-                                 _P, _L, _L, _I, _I, _I, _P, _P, _P, _L, _I,
-                                 _P, _P],
+    "thunder_likelihood_block": [_P, _I, _I, _I, _I, _P],
     "thunder_insert_trilinear": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                                  _F, _F, _P, _P, _I, _P],
     "thunder_shell_sums": [_P, _L, _I, _I, _L, _P, _P, _I, _P, _P],
     "thunder_project_slices_2d": [_P, _I, _P, _P, _L, _I, _I, _P, _P, _I,
                                   _I, _P, _P],
-    "thunder_insert_bilinear_2d": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I,
-                                   _I, _F, _F, _F, _P, _P, _I, _I, _I, _I,
-                                   _P],
+    "thunder_insert_bilinear_2d": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P,
+                                   _P, _I, _I, _I, _I, _F, _F, _F, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _P],
     "thunder_take_flat": [_P, _L, _P, _L, _P, _P],
     "thunder_take_along": [_P, _I, _P, _P, _L, _I, _I, _P, _P],
     "thunder_take_rows": [_P, _I, _I, _P, _L, _P, _P],
@@ -120,6 +121,17 @@ def build() -> str:
         raise RuntimeError(f"nvcc failed ({rc}) on {c[-1]}:\n{err}")
     os.replace(tmp, path)
     return path
+
+
+def csrc_constant(source: str, name: str) -> int:
+    """The value of ``constexpr int <name> = <value>;`` in ``csrc/<source>``:
+    the launch plans size shared memory from the kernels' compile-time
+    constants as the source they are built from states them."""
+    with open(os.path.join(SRC_DIR, source)) as f:
+        m = re.search(rf"constexpr int {name} = (\d+);", f.read())
+    if m is None:
+        raise RuntimeError(f"csrc/{source} defines no constexpr int {name}")
+    return int(m.group(1))
 
 
 def library() -> ctypes.CDLL:

@@ -27,8 +27,8 @@ log = logging.getLogger("thunder")
 
 def load_images(thu, prefix: str = "") -> np.ndarray:
     """(n, size, size) float32 stack, internal FFT layout, in .thu order."""
-    from thunder_tpu.io.mrc import MrcFile
-    from thunder_tpu.io.thu import parse_stack_ref
+    from thunder_tpu_torch.io.mrc import MrcFile
+    from thunder_tpu_torch.io.thu import parse_stack_ref
 
     per_file: dict = {}
     for pos, ref in enumerate(thu.particle_path):
@@ -44,8 +44,8 @@ def load_images(thu, prefix: str = "") -> np.ndarray:
 
 
 def save_round_artifacts(opt, thu, out_dir: str, i_round: int) -> None:
-    from thunder_tpu.io.mrc import write_mrc
-    from thunder_tpu.io.thu import write_thu
+    from thunder_tpu_torch.io.mrc import write_mrc
+    from thunder_tpu_torch.io.thu import write_thu
     from thunder_tpu_torch.physics import spectrum
 
     cfg = opt.cfg
@@ -85,20 +85,22 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="thunder")
     p.add_argument("config", help="JSON config (reference-compatible)")
     p.add_argument("--max-rounds", type=int, default=None)
-    p.add_argument("--device", default="auto",
-                   help="torch device ('cuda', 'cpu'); auto = the first "
-                        "CUDA device when one is visible")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default 'cuda': the first CUDA device; "
+                        "'cpu' runs on the CPU, as a machine without a card must)")
     a = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
 
-    from thunder_tpu.config import ThunderConfig
-    from thunder_tpu.io.mrc import read_mrc, write_mrc
-    from thunder_tpu.io.thu import read_thu
-    from thunder_tpu.utils.logging import RoundMetrics
+    from thunder_tpu_torch.config import ThunderConfig
+    from thunder_tpu_torch.device import as_device
+    from thunder_tpu_torch.io.mrc import read_mrc, write_mrc
+    from thunder_tpu_torch.io.thu import read_thu
     from thunder_tpu_torch.model import SEARCH_TYPE_STOP
     from thunder_tpu_torch.optimiser import Optimiser
+    from thunder_tpu_torch.utils.logging import RoundMetrics
 
+    device = as_device(a.device)        # no card and no --device cpu: raise now
     cfg = ThunderConfig.from_json(a.config)
     if cfg.par_gra and cfg.k != 1:
         # the reference warns and ignores grading outside refinement
@@ -119,7 +121,7 @@ def main(argv=None) -> int:
     images = load_images(thu, cfg.par_prefix)
     opt = Optimiser(cfg, images, ctf, thu.group_id - 1, init_refs=init_refs,
                     resume_thu=thu if not cfg.g_search else None,
-                    device=a.device)
+                    device=device)
     log.info("device %s", opt.device)
 
     metrics = RoundMetrics(os.path.join(out_dir, "round_metrics.jsonl"))

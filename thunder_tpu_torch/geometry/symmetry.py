@@ -3,10 +3,6 @@ SymmetryFunctions.cpp:65-151), as in thunder_tpu.geometry.symmetry:
 the group is completed by closure on the host with numpy and exposed as
 torch tensors.  ``n_elements`` counts non-identity elements
 (``Symmetry::nSymmetryElement``).
-
-:func:`r_global` computes the configuration's global-search band with
-THIS module — ``ThunderConfig.r_global`` reaches the JAX package's
-symmetry and silently falls back to ``n_sym = 0`` where jax is absent.
 """
 
 from __future__ import annotations
@@ -104,12 +100,3 @@ class Symmetry:
 
     def __repr__(self):
         return f"Symmetry({self.name}, order={self.order})"
-
-
-def r_global(cfg) -> int:
-    """Global-search band of a ThunderConfig: min(res, 0.25 maskRadius /
-    (1 + nSym)^(1/3)), then AROUND(resA2P(.)) + 1 (Optimiser.cpp:298-304)."""
-    n_sym = Symmetry(cfg.sym).n_elements if not cfg.mode_2d else 0
-    res = min(cfg.global_search_res, 0.25 * cfg.mask_radius / (1 + n_sym) ** (1 / 3))
-    r = round(cfg.size * cfg.pixel_size / res) + 1
-    return max(1, min(cfg.max_r, r))

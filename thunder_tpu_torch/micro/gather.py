@@ -191,6 +191,8 @@ def run(dev, table_mb: float = 4.0, n_samples_m: float = 2.0, reps: int = 20,
         plain = PLAIN[c.kernel]
         got, ref = c.kernel(*c.args[0]), plain(*c.args[0])
         err = float((got - ref).abs().max()) if got.numel() else 0.0
+        # each input read once, the output written once
+        io_bytes = sum(t.numel() * t.element_size() for t in (*c.args[0], got))
         if got.shape != ref.shape or not torch.equal(got, ref):
             raise RuntimeError(f"{c.name}: kernel and plain gather differ "
                                f"(max abs err {err})")
@@ -206,7 +208,8 @@ def run(dev, table_mb: float = 4.0, n_samples_m: float = 2.0, reps: int = 20,
         recs.append(dict(case=c.name, replaces=c.replaces,
                          kernel=KERNEL_ID[c.kernel], fn=c.kernel.__name__,
                          unit=c.unit, count=c.count, max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, rate=rate, gbps=gbps))
+                         plain_ms=plain_ms, rate=rate, gbps=gbps,
+                         io_bytes=io_bytes))
     refs = reference_lines(dev, cases, max(2, reps // 4))
     for r in refs:
         unit = "Gtaps/s" if r["unit"] == "taps" else "Grows/s"

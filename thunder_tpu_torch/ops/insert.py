@@ -239,8 +239,12 @@ insert_trilinear.launches = 0
 
 # -- HK6 ----------------------------------------------------------------
 
-INSERT_2D_CHUNK = 256          # slices per work item of one block
-INSERT_2D_SMEM = 110 * 1024    # shared-memory budget a block (2 per SM)
+INSERT_2D_SLICES = 512     # slices a work item gathers (whole images of one class)
+# the kernel's compile-time constants, read from its source: slices
+# whose ramp tables a block stages at once, threads a block, in-disc
+# pixels a thread holds at a time
+INSERT_2D_BATCH, INSERT_2D_THREADS, INSERT_2D_PX_MAX = (
+    _native.csrc_constant("insert_bilinear_2d.cu", n) for n in ("BATCH", "THREADS", "PX_MAX"))
 
 
 def insert_bilinear_2d_plain(ft, ctf, img_idx, cls, rot, trans, w, r_u: int,
@@ -268,6 +272,55 @@ def insert_window(big: int, max_radius_pad: float) -> tuple:
     return lo, min(big, big // 2 + m + 2) - lo
 
 
+def in_disc_pixels(r_u: int, device=None) -> torch.Tensor:
+    """The dense-window pixels HK6 inserts (|k| < r_u - 1, the mask of
+    :func:`dense_window`) as flat window indices (vr + r_u - 1) nk +
+    (vc + r_u - 1), int32."""
+    return torch.nonzero(dense_window(r_u, device)[2] > 0)[:, 0].to(torch.int32)
+
+
+def insert_2d_work(img_idx: torch.Tensor, cls: torch.Tensor,
+                   chunk: int = INSERT_2D_SLICES):
+    """HK6's work: (order, runs, work).  ``order`` sorts the slices by
+    (class, image); ``runs`` (n_run, 2) int32 holds [first, end) of each
+    image's slices in that order; ``work`` (n_work, 3) int32 holds
+    (class, first run, end run): a class's runs cut, at image
+    boundaries, into items whose first runs start within one ``chunk``
+    of slices (an item holds at most chunk + one image's slices)."""
+    img, k = img_idx.long(), cls.long()
+    order = torch.argsort(k * (img.max() + 1) + img, stable=True)
+    k_s = k[order]
+    _, counts = torch.unique_consecutive(k_s * (img.max() + 1) + img[order],
+                                         return_counts=True)
+    ends = torch.cumsum(counts, 0)
+    starts = ends - counts
+    run_cls = k_s[starts]
+    bucket = (starts - torch.searchsorted(k_s, run_cls)) // chunk
+    _, n_runs = torch.unique_consecutive(run_cls * (k_s.numel() + 1) + bucket,
+                                         return_counts=True)
+    last = torch.cumsum(n_runs, 0)
+    first = last - n_runs
+    runs = torch.stack([starts, ends], 1).to(torch.int32)
+    work = torch.stack([run_cls[first], first, last], 1).to(torch.int32)
+    return order, runs, work
+
+
+def insert_2d_plan(r_u: int, pf: int, big: int) -> dict:
+    """HK6's launch plan: the window of plane cells (first index, width),
+    the rows a block holds (one band where the window and a batch's ramp
+    tables fit in Hopper's 227 KB, else bands), the shared-memory bytes,
+    the in-disc pixel count and the pixels a thread holds at a time."""
+    mrp = float((r_u - 1) * pf)
+    win_lo, win = insert_window(big, mrp)
+    nk = 2 * r_u - 1
+    tables = INSERT_2D_BATCH * (16 * nk + 20)
+    band_h = max(1, min(win, (_native.SMEM_MAX - tables) // (12 * win)))
+    npx = int((dense_window(r_u)[2] > 0).sum())
+    pxt = max(1, min(INSERT_2D_PX_MAX, -(-npx // INSERT_2D_THREADS)))
+    return dict(win_lo=win_lo, win=win, band_h=band_h, n_band=-(-win // band_h),
+                smem=tables + 12 * band_h * win, npx=npx, pxt=pxt)
+
+
 def insert_bilinear_2d(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
                        cls: torch.Tensor, rot: torch.Tensor,
                        trans: torch.Tensor, w: torch.Tensor, r_u: int,
@@ -284,8 +337,8 @@ def insert_bilinear_2d(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
     weights.  The dense window holds k and -k, so no Hermitian fold
     follows.  Accumulates into the given planes (zeros when None) and
     returns them.  CPU tensors take :func:`insert_bilinear_2d_plain`;
-    CUDA tensors launch csrc/insert_bilinear_2d.cu, whose atomics add
-    in a run-dependent order."""
+    CUDA tensors launch csrc/insert_bilinear_2d.cu over the work of
+    :func:`insert_2d_work`, whose atomics add in a run-dependent order."""
     dev = ft.device
     if f_grid is None:
         f_grid = torch.zeros((n_class, big, big), dtype=COMPLEX, device=dev)
@@ -307,20 +360,11 @@ def insert_bilinear_2d(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
     n_s = rot.shape[0]
     if n_s == 0:
         return f_grid, t_grid
-    # slices sorted by class; each class's run cut into work items
-    order = torch.argsort(cls, stable=True)
-    counts = torch.bincount(cls, minlength=n_class).cpu().tolist()
-    _native.require(len(counts) == n_class,
+    order, runs, work = insert_2d_work(img_idx, cls)
+    _native.require(0 <= int(work[:, 0].min()) and int(work[-1, 0]) < n_class,
                     "insert_bilinear_2d: a class index is past the planes")
-    work, start = [], 0
-    for k, n_k in enumerate(counts):
-        for lo in range(start, start + n_k, INSERT_2D_CHUNK):
-            work.append((k, lo, min(lo + INSERT_2D_CHUNK, start + n_k)))
-        start += n_k
-    work = torch.as_tensor(work, dtype=torch.int32, device=dev).reshape(-1, 3)
-    mrp = float((r_u - 1) * pf)
-    win_lo, win = insert_window(big, mrp)
-    band_h = max(1, min(win, INSERT_2D_SMEM // (3 * 4 * win)))
+    plan = insert_2d_plan(r_u, pf, big)
+    px = in_disc_pixels(r_u, dev)
     ctfk = ctf_constants(ctf)
     img_idx = img_idx[order].to(torch.int32).contiguous()
     rot = rot[order].to(REAL).reshape(n_s, 4).contiguous()
@@ -329,11 +373,13 @@ def insert_bilinear_2d(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
     lib = _native.library()
     insert_bilinear_2d.launches += 1
     _native.check(lib.thunder_insert_bilinear_2d(
-        ft.data_ptr(), size, ctfk.data_ptr(), img_idx.data_ptr(),
+        ft.data_ptr(), size, ctfk.data_ptr(), img_idx.data_ptr(), runs.data_ptr(),
         work.data_ptr(), work.shape[0], rot.data_ptr(), trans.data_ptr(),
-        w.data_ptr(), r_u, pf, mrp, float(pixel_size * size),
-        float(2 * np.pi / size), f_grid.data_ptr(), t_grid.data_ptr(), big,
-        win_lo, win, band_h, _native.stream_ptr(ft)), "insert_bilinear_2d")
+        w.data_ptr(), px.data_ptr(), plan["npx"], plan["pxt"], r_u, pf,
+        float((r_u - 1) * pf), float(pixel_size * size), float(2 * np.pi / size),
+        f_grid.data_ptr(), t_grid.data_ptr(), big, plan["win_lo"], plan["win"],
+        plan["band_h"], INSERT_2D_THREADS, plan["smem"], _native.stream_ptr(ft)),
+        "insert_bilinear_2d")
     return f_grid, t_grid
 
 

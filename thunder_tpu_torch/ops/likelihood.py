@@ -1,5 +1,5 @@
-"""The likelihood as matmuls plus a streaming log-sum-exp epilogue —
-and the host of kernel HK2 (``likelihood_block``).
+"""The likelihood of a pose block and its streaming log-sum-exp — the
+host of kernel HK2 (``likelihood_block``).
 
 Reference semantics (Optimiser.cpp:9187): with s = sigRcp,
 
@@ -8,19 +8,22 @@ Reference semantics (Optimiser.cpp:9187): with s = sigRcp,
     B[l,r]     = sum_p (s ctf^2)[l,p] |pri[r,p]|^2
     C[l,r,t]   = -2 Re sum_p (s ctf dat conj(tra_t))[l,p] conj(pri[r,p])
 
-B and C are float32 ``torch.matmul`` products (TF32 off, see
-device.py), exactly where the JAX package leaves them to XLA einsums
-(thunder_tpu/ops/likelihood.py:73-78, :92-96).  The epilogue — block
-max, baseline rescale, exp and the rotation / translation marginals —
-is HK2.
+On the card HK2 computes B, C and the epilogue (block max, baseline
+rescale, exp, the rotation / translation marginals) in one kernel, all
+classes of a rotation block in one launch.  Its plain version, the CPU
+path, forms B and C as float32 ``torch.matmul`` products (TF32 off, see
+device.py), where the JAX package leaves them to XLA einsums
+(thunder_tpu/ops/likelihood.py:73-78, :92-96), then the epilogue.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from thunder_tpu_torch import _native
-from thunder_tpu_torch.device import REAL
+from thunder_tpu_torch.device import COMPLEX, REAL
 
 
 def split_ri(z: torch.Tensor) -> torch.Tensor:
@@ -71,10 +74,9 @@ def _rescale(acc: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.where(s == 0, torch.zeros_like(acc), acc * s)
 
 
-def likelihood_block_plain(a, b, c, w_r, w_t, base, acc_c, acc_r, acc_t,
-                           col0: int = 0) -> None:
-    """Plain version of HK2; updates base, acc_c, acc_r, acc_t in place
-    (see :func:`likelihood_block`)."""
+def lse_block(a, b, c, w_r, w_t, base, acc_c, acc_r, acc_t, col0: int = 0) -> None:
+    """The streaming log-sum-exp epilogue of one class, in place, from
+    B (L, R) and C (L, R, T) (see :func:`likelihood_block`)."""
     n_r = b.shape[1]
     dvp = a[:, None, None] + b[:, :, None] + c
     new_base = torch.maximum(base, torch.amax(dvp, dim=(1, 2)))
@@ -84,83 +86,168 @@ def likelihood_block_plain(a, b, c, w_r, w_t, base, acc_c, acc_r, acc_t,
     u_r = torch.einsum("lrt,lt->lr", w, w_t)
     u_t = torch.einsum("lrt,lr->lt", w, w_r)
     acc_r[:, :col0] = _rescale(acc_r[:, :col0], scale)
-    acc_r[:, col0:col0 + n_r] = _rescale(acc_r[:, col0:col0 + n_r], scale) + u_r
+    acc_r[:, col0:col0 + n_r] = u_r
     acc_t.copy_(_rescale(acc_t, scale) + u_t)
     acc_c.copy_(_rescale(acc_c, scale) + torch.sum(w, dim=(1, 2)))
     base.copy_(new_base)
 
 
-def likelihood_block(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
-                     w_r: torch.Tensor, w_t: torch.Tensor, base: torch.Tensor,
-                     acc_c: torch.Tensor, acc_r: torch.Tensor,
-                     acc_t: torch.Tensor, col0: int = 0) -> None:
-    """Streaming log-sum-exp over one (R x T) pose block per image, in
-    place:
+def likelihood_block_plain(dat_w, sctf2, a, pri, tra, w_r, w_t, base, acc_c,
+                           acc_r, acc_t, col0: int = 0) -> None:
+    """Plain version of HK2, in place (see :func:`likelihood_block`): per
+    class, B and C as float32 matmuls (:func:`block_terms` where the
+    class's rotation block is shared by all images, else
+    :func:`local_terms`), then :func:`lse_block`."""
+    x_ri = modulate(dat_w, tra)
+    shared = pri.shape[1] == 1 or pri.stride(1) == 0
+    for k in range(pri.shape[0]):
+        b, c = (block_terms(x_ri, sctf2, pri[k, 0]) if shared
+                else local_terms(x_ri, sctf2, pri[k]))
+        lse_block(a, b, c, w_r, w_t, base[k], acc_c[k], acc_r[k], acc_t[k], col0)
 
-      dvp = a[l] + b[l, r] + c[l, r, t];  new = max(base, max dvp)
+
+LK_QC = _native.csrc_constant("likelihood_block.cu", "QC")       # pixels per staged chunk
+LK_THREADS = _native.csrc_constant("likelihood_block.cu", "MAX_THREADS")
+LK_TILES = ((1, 1), (2, 2), (2, 4), (4, 4), (4, 8), (8, 8))
+
+
+def likelihood_plan(n_r: int, n_t: int) -> dict:
+    """Launch plan of HK2 for an (R x T) block: the smallest register
+    tile (TM translations x TN rotations) whose tiles, one a thread,
+    cover the block in a CTA of at most LK_THREADS threads; where even 8
+    x 8 tiles do not, the CTA takes the rotations in ``n_sub``
+    sub-blocks of ``rb`` (``n_rt`` TN) rotations.  Also the thread count
+    and the shared-memory bytes (B, a reduction scratch, two staging
+    buffers of LK_QC pixels that the epilogue's partial sums then
+    reuse).  Raises for more than LK_THREADS tiles of 8 translations."""
+    for tm, tn in LK_TILES:
+        n_tt, n_rt = -(-n_t // tm), -(-n_r // tn)
+        if n_tt * n_rt <= LK_THREADS:
+            break
+    else:
+        if n_tt > LK_THREADS:
+            raise ValueError(f"likelihood_block: {n_t} translations exceed "
+                             f"{LK_THREADS} tiles of 8")
+        n_sub = -(-n_rt // (LK_THREADS // n_tt))
+        n_rt = -(-n_rt // n_sub)
+    rp, tp = n_rt * tn, n_tt * tm
+    stage = 2 * 8 * (LK_QC * (rp + tp) + LK_QC + LK_QC // 2)
+    partial = 4 * (n_tt * rp + n_rt * tp)
+    return dict(tm=tm, tn=tn, n_tt=n_tt, n_rt=n_rt, rb=rp, n_sub=-(-n_r // rp),
+                threads=-(-n_tt * n_rt // 32) * 32,
+                smem=4 * (-(-rp // 4) * 4 + 32) + max(stage, partial))
+
+
+class _LkArgs(ctypes.Structure):
+    """csrc/likelihood_block.cu's LkArgs."""
+    _fields_ = [
+        ("dat_w", ctypes.c_void_p), ("dw_sl", ctypes.c_longlong),
+        ("sctf2", ctypes.c_void_p), ("s2_sl", ctypes.c_longlong),
+        ("a", ctypes.c_void_p),
+        ("pri", ctypes.c_void_p), ("pri_sk", ctypes.c_longlong),
+        ("pri_sl", ctypes.c_longlong), ("pri_sr", ctypes.c_longlong),
+        ("tra", ctypes.c_void_p), ("tra_sl", ctypes.c_longlong),
+        ("tra_st", ctypes.c_longlong),
+        ("w_r", ctypes.c_void_p), ("wr_sl", ctypes.c_longlong),
+        ("wr_sr", ctypes.c_longlong),
+        ("w_t", ctypes.c_void_p), ("wt_sl", ctypes.c_longlong),
+        ("wt_st", ctypes.c_longlong),
+        ("base", ctypes.c_void_p), ("acc_c", ctypes.c_void_p),
+        ("st_sk", ctypes.c_longlong), ("st_sl", ctypes.c_longlong),
+        ("acc_r", ctypes.c_void_p), ("accr_sk", ctypes.c_longlong),
+        ("accr_sl", ctypes.c_longlong),
+        ("acc_t", ctypes.c_void_p), ("acct_sk", ctypes.c_longlong),
+        ("acct_sl", ctypes.c_longlong)] + [
+        (n, ctypes.c_int) for n in ("L", "K", "R", "T", "P", "col0", "n_tt",
+                                    "n_rt")]
+
+
+def likelihood_block(dat_w: torch.Tensor, sctf2: torch.Tensor, a: torch.Tensor,
+                     pri: torch.Tensor, tra: torch.Tensor, w_r: torch.Tensor,
+                     w_t: torch.Tensor, base: torch.Tensor, acc_c: torch.Tensor,
+                     acc_r: torch.Tensor, acc_t: torch.Tensor,
+                     col0: int = 0) -> None:
+    """Streaming log-sum-exp over one (R x T) pose block per image and
+    class, likelihood included, in place:
+
+      B[k,l,r]   = sum_p sctf2[l,p] |pri[k,l,r,p]|^2
+      C[k,l,r,t] = -2 Re sum_p dat_w[l,p] conj(tra[l,t,p]) conj(pri[k,l,r,p])
+      dvp = a[l] + B + C;  new = max(base[k,l], max dvp)
       scale = exp(base - new) (0 where base is -inf);  w = exp(dvp - new)
-      acc_c[l]              = acc_c * scale + sum_{r,t} w
-      acc_r[l, col0 + r]    = acc_r * scale + sum_t w w_t[l, t]
-      acc_r[l, :col0]      *= scale
-      acc_t[l, t]           = acc_t * scale + sum_r w w_r[l, r]
-      base[l]               = new
+      acc_c[k,l]           = acc_c * scale + sum_{r,t} w
+      acc_r[k,l,col0 + r]  = sum_t w w_t[l,t]
+      acc_r[k,l,:col0]    *= scale
+      acc_t[k,l,t]         = acc_t * scale + sum_r w w_r[l,r]
+      base[k,l]            = new
 
-    a (L,); b (L, R), c (L, R, T), w_r (L, R), w_t (L, T) with any
-    strides (stride 0 shares a row); base, acc_c (L,) and acc_t (L, T)
-    contiguous; acc_r (L, >= col0 + R) with unit column stride, zero in
-    the columns of blocks not seen yet.  Where base is -inf the
-    accumulators' old contents are ignored.  CPU
-    tensors take :func:`likelihood_block_plain`; CUDA tensors launch
-    csrc/likelihood_block.cu (one CTA per image, the block in shared
-    memory)."""
-    if not c.is_cuda:
-        likelihood_block_plain(a, b, c, w_r, w_t, base, acc_c, acc_r, acc_t,
-                               col0)
+    dat_w (L, P) complex64 and sctf2 (L, P) with unit pixel stride; a
+    (L,); pri (K, L, R, P) complex64 (image stride 0: one rotation block
+    per class shared by all images); tra (L, T, P) complex64 (image
+    stride 0: shared translations); w_r (L, R) and w_t (L, T) with any
+    strides; base and acc_c (K, L) with equal strides, acc_r (K, L,
+    >= col0 + R) with unit column stride, acc_t (K, L, T).  Where base is -inf the
+    accumulators' old contents are ignored.  CPU tensors take
+    :func:`likelihood_block_plain`; CUDA tensors launch
+    csrc/likelihood_block.cu, one launch for all K classes."""
+    if not dat_w.is_cuda:
+        likelihood_block_plain(dat_w, sctf2, a, pri, tra, w_r, w_t, base,
+                               acc_c, acc_r, acc_t, col0)
         return
-    n_l, n_r, n_t = c.shape
-    for name, t in (("a", a), ("b", b), ("c", c), ("w_r", w_r), ("w_t", w_t),
-                    ("base", base), ("acc_c", acc_c), ("acc_r", acc_r),
-                    ("acc_t", acc_t)):
-        _native.require(t.dtype == REAL and t.is_cuda,
-                        f"likelihood_block: {name} must be float32 on the card")
-    _native.require(b.shape == (n_l, n_r) and w_r.shape == (n_l, n_r)
-                    and w_t.shape == (n_l, n_t),
+    n_k, n_l, n_r, n_p = pri.shape
+    n_t = tra.shape[1]
+    for name, x, dt in (("dat_w", dat_w, COMPLEX), ("sctf2", sctf2, REAL),
+                        ("a", a, REAL), ("pri", pri, COMPLEX), ("tra", tra, COMPLEX),
+                        ("w_r", w_r, REAL), ("w_t", w_t, REAL), ("base", base, REAL),
+                        ("acc_c", acc_c, REAL), ("acc_r", acc_r, REAL),
+                        ("acc_t", acc_t, REAL)):
+        _native.require(x.dtype == dt and x.is_cuda,
+                        f"likelihood_block: {name} must be {dt} on the card")
+    _native.require(dat_w.shape == (n_l, n_p) and sctf2.shape == (n_l, n_p)
+                    and a.shape == (n_l,) and tra.shape == (n_l, n_t, n_p)
+                    and w_r.shape == (n_l, n_r) and w_t.shape == (n_l, n_t)
+                    and base.shape == (n_k, n_l) and acc_c.shape == (n_k, n_l)
+                    and acc_t.shape == (n_k, n_l, n_t)
+                    and acc_r.shape[:2] == (n_k, n_l) and acc_r.shape[2] >= col0 + n_r,
                     "likelihood_block: inconsistent shapes")
-    _native.require(base.is_contiguous() and acc_c.is_contiguous()
-                    and acc_t.is_contiguous() and acc_t.shape == (n_l, n_t)
-                    and a.is_contiguous(),
-                    "likelihood_block: a, base, acc_c, acc_t must be contiguous")
-    _native.require(acc_r.stride(1) == 1 and acc_r.shape[1] >= col0 + n_r,
-                    "likelihood_block: acc_r rows must be unit-stride")
-    _native.require(4 * (n_r * n_t + 32) <= 227 * 1024,
-                    "likelihood_block: R*T block exceeds shared memory")
-    if n_l == 0:
+    _native.require(dat_w.stride(1) == 1 and sctf2.stride(1) == 1 and pri.stride(3) == 1
+                    and tra.stride(2) == 1 and acc_r.stride(2) == 1
+                    and acc_t.stride(2) == 1 and a.stride(0) == 1
+                    and base.stride() == acc_c.stride(),
+                    "likelihood_block: pixel, column and accumulator strides")
+    if n_l == 0 or n_k == 0:
         return
+    plan = likelihood_plan(n_r, n_t)
+    args = _LkArgs(
+        dat_w.data_ptr(), dat_w.stride(0), sctf2.data_ptr(), sctf2.stride(0),
+        a.data_ptr(), pri.data_ptr(), pri.stride(0), pri.stride(1), pri.stride(2),
+        tra.data_ptr(), tra.stride(0), tra.stride(1),
+        w_r.data_ptr(), w_r.stride(0), w_r.stride(1),
+        w_t.data_ptr(), w_t.stride(0), w_t.stride(1),
+        base.data_ptr(), acc_c.data_ptr(), base.stride(0), base.stride(1),
+        acc_r.data_ptr(), acc_r.stride(0), acc_r.stride(1),
+        acc_t.data_ptr(), acc_t.stride(0), acc_t.stride(1),
+        n_l, n_k, n_r, n_t, n_p, int(col0), plan["n_tt"], plan["n_rt"])
     lib = _native.library()
     likelihood_block.launches += 1
     _native.check(lib.thunder_likelihood_block(
-        a.data_ptr(), b.data_ptr(), b.stride(0), b.stride(1),
-        c.data_ptr(), c.stride(0), c.stride(1), c.stride(2),
-        w_r.data_ptr(), w_r.stride(0), w_r.stride(1),
-        w_t.data_ptr(), w_t.stride(0), w_t.stride(1),
-        n_l, n_r, n_t, base.data_ptr(), acc_c.data_ptr(), acc_r.data_ptr(),
-        acc_r.stride(0), int(col0), acc_t.data_ptr(),
-        _native.stream_ptr(c)), "likelihood_block")
+        ctypes.addressof(args), plan["tm"], plan["tn"], plan["threads"],
+        plan["smem"], _native.stream_ptr(dat_w)), "likelihood_block")
 
 
 likelihood_block.launches = 0
 
 
-def local_marginals(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
-                    w_r: torch.Tensor, w_t: torch.Tensor):
-    """u_r (L, R) and u_t (L, T) of one phase: per-image max over the
-    support, exp, and the prior-weighted marginals (optimiser._phase_body
-    lines 498-502)."""
-    n_l, n_r, n_t = c.shape
-    dev = c.device
-    base = torch.full((n_l,), float("-inf"), dtype=REAL, device=dev)
-    acc_c = torch.empty((n_l,), dtype=REAL, device=dev)
-    u_r = torch.empty((n_l, n_r), dtype=REAL, device=dev)
-    u_t = torch.empty((n_l, n_t), dtype=REAL, device=dev)
-    likelihood_block(a, b, c, w_r, w_t, base, acc_c, u_r, u_t)
-    return u_r, u_t
+def local_marginals(dat_w, sctf2, a, pri, tra, w_r, w_t):
+    """u_r (L, R) and u_t (L, T) of one phase over per-image supports
+    pri (L, R, P) and tra (L, T, P): per-image max, exp and the
+    prior-weighted marginals (optimiser._phase_body lines 487-502), one
+    HK2 launch."""
+    n_l, n_r = pri.shape[:2]
+    n_t = tra.shape[1]
+    dev = dat_w.device
+    base = torch.full((1, n_l), float("-inf"), dtype=REAL, device=dev)
+    acc_c = torch.empty((1, n_l), dtype=REAL, device=dev)
+    u_r = torch.empty((1, n_l, n_r), dtype=REAL, device=dev)
+    u_t = torch.empty((1, n_l, n_t), dtype=REAL, device=dev)
+    likelihood_block(dat_w, sctf2, a, pri[None], tra, w_r, w_t, base, acc_c, u_r, u_t)
+    return u_r[0], u_t[0]

@@ -40,8 +40,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from thunder_tpu.config import ThunderConfig
-from thunder_tpu.constants import (
+from thunder_tpu_torch.config import ThunderConfig
+from thunder_tpu_torch.constants import (
     EDGE_WIDTH_RL,
     MAX_N_PHASE_PER_ITER,
     MIN_N_PHASE_PER_ITER_GLOBAL,
@@ -53,7 +53,7 @@ from thunder_tpu_torch import particle as pt
 from thunder_tpu_torch.device import COMPLEX, REAL, as_device, generator, synchronize
 from thunder_tpu_torch.geometry.quaternion import (random_quat,
                                                    rotate2d_from_unit, rotate3d)
-from thunder_tpu_torch.geometry.symmetry import Symmetry, r_global
+from thunder_tpu_torch.geometry.symmetry import Symmetry
 from thunder_tpu_torch.model import (
     SEARCH_TYPE_GLOBAL,
     SEARCH_TYPE_STOP,
@@ -73,13 +73,7 @@ from thunder_tpu_torch.ops.fourier import (
     translate_phases_view,
 )
 from thunder_tpu_torch.ops.insert import insert_bilinear_2d, insert_trilinear
-from thunder_tpu_torch.ops.likelihood import (
-    block_terms,
-    likelihood_block,
-    local_marginals,
-    local_terms,
-    modulate,
-)
+from thunder_tpu_torch.ops.likelihood import likelihood_block, local_marginals
 from thunder_tpu_torch.ops.projector import (
     prepare_projectee_2d_cropped,
     prepare_projectee_3d_cropped,
@@ -99,7 +93,7 @@ from thunder_tpu_torch.recon.reconstructor import reconstruct, reconstruct_two_p
 
 PARTICLE_FILTER_DECREASE_FACTOR = 0.95  # include/Optimiser.h:60
 CLASS_BALANCE_FACTOR = 0.05             # include/Optimiser.h:71
-ROT_BLOCK = 256        # rotations per global-search block (R*T*4 B in smem)
+ROT_BLOCK = 256        # rotations per global-search block (thunder_tpu's _ROT_BLOCK)
 RECO_COMPACT_SLOTS = 48
 
 
@@ -166,17 +160,17 @@ def global_search(table: torch.Tensor, rot_blocks: torch.Tensor,
     a_term (L,), tra (N, P).  Returns w_c (L, K), w_r (K, L,
     n_blocks*B), w_t (K, L, N).
 
-    Each class carries its own running baseline through HK2 (one CTA
-    per image rescales only that class's columns); at the end every
-    class is brought to the common baseline b* = max_k b_k by
+    Each class carries its own running baseline through HK2 (the CTA
+    of an (image, class) rescales only that class's columns); at the end
+    every class is brought to the common baseline b* = max_k b_k by
     exp(b_k - b*) — the JAX scan's single baseline across (class x
-    block) steps, reached without touching the kernel.  One launch
-    projects a rotation block for all K classes."""
+    block) steps.  A rotation block costs two launches for all K
+    classes: one projection (HK1 / HK5) and one likelihood (HK2)."""
     n_cls = table.shape[0]
     n_blocks, block = rot_blocks.shape[:2]
     n_l, n_t = dat_w.shape[0], tra.shape[0]
     dev = dat_w.device
-    x_ri = modulate(dat_w, tra)
+    tra_l = tra[None].expand(n_l, -1, -1)
     base = torch.full((n_cls, n_l), float("-inf"), dtype=REAL, device=dev)
     w_c = torch.zeros((n_cls, n_l), dtype=REAL, device=dev)
     w_r = torch.zeros((n_cls, n_l, n_blocks * block), dtype=REAL, device=dev)
@@ -187,10 +181,9 @@ def global_search(table: torch.Tensor, rot_blocks: torch.Tensor,
     for b_idx in range(n_blocks):
         rot = rot_blocks[b_idx][None].expand((n_cls,) + rot_blocks.shape[1:])
         pri = project_any(table, rot, rings.i_col, rings.i_row, pf, classes)
-        for k in range(n_cls):
-            b, c = block_terms(x_ri, sctf2, pri[k])
-            likelihood_block(a_term, b, c, ones_r, ones_t, base[k], w_c[k],
-                             w_r[k], w_t[k], col0=b_idx * block)
+        likelihood_block(dat_w, sctf2, a_term, pri[:, None].expand(n_cls, n_l, -1, -1),
+                         tra_l, ones_r, ones_t, base, w_c, w_r, w_t,
+                         col0=b_idx * block)
     top = torch.amax(base, dim=0)
     scale = torch.where(torch.isfinite(base), torch.exp(base - top),
                         torch.zeros_like(base))
@@ -291,7 +284,7 @@ class Optimiser:
         self.n_group = int(np.max(group_id)) + 1
         self.model = ModelState(
             n_class=cfg.k, size=cfg.size, pixel_size=cfg.pixel_size,
-            r_init=cfg.r_init, r_global=r_global(cfg), max_r=cfg.max_r,
+            r_init=cfg.r_init, r_global=cfg.r_global, max_r=cfg.max_r,
             l_search=cfg.l_search, c_search=cfg.c_search)
         if not cfg.g_search:
             self.model.search_type = 1
@@ -354,7 +347,7 @@ class Optimiser:
         self._fsc_band = cfg.max_r
         self._ref_mask = None
         if cfg.perform_mask and cfg.mask_path:
-            from thunder_tpu.io.mrc import read_mrc
+            from thunder_tpu_torch.io.mrc import read_mrc
 
             self._ref_mask = torch.as_tensor(read_mrc(cfg.mask_path)[0], device=dev)
         self._soft_mask = soft_mask_weight(
@@ -485,7 +478,7 @@ class Optimiser:
     def phase_step(self, par: pt.ParticleState, hemis: list, rings,
                    table, dat_w, sctf2, a_term, pf_small: float):
         """One particle-filter phase for hemispheres ``hemis``: perturb ->
-        project (HK1) -> likelihood (matmuls + HK2) -> clip -> resample ->
+        project (HK1 / HK5) -> likelihood (HK2) -> clip -> resample ->
         variance inference (Optimiser.cpp:1183-1614).  ``par`` holds the
         selected hemispheres; returns (par, vari (len(hemis), 4))."""
         cfg = self.cfg
@@ -501,9 +494,8 @@ class Optimiser:
         pri = project_any(table.reshape((-1,) + table.shape[2:]), rot,
                           rings.i_col, rings.i_row, cfg.pf, cls)
         flat = lambda x: x[hs].reshape((nh * n_l,) + x.shape[2:])
-        x_ri = modulate(flat(dat_w), tra.reshape((nh * n_l,) + tra.shape[2:]))
-        b, c = local_terms(x_ri, flat(sctf2), pri)
-        u_r, u_t = local_marginals(flat(a_term), b, c,
+        u_r, u_t = local_marginals(flat(dat_w), flat(sctf2), flat(a_term), pri,
+                                   tra.reshape((nh * n_l,) + tra.shape[2:]),
                                    par.w_r.reshape(nh * n_l, -1),
                                    par.w_t.reshape(nh * n_l, -1))
         par = par._replace(u_r=u_r.reshape(nh, n_l, -1),

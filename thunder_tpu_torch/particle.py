@@ -19,7 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from thunder_tpu.constants import (
+from thunder_tpu_torch.constants import (
     PEAK_FACTOR_BASE,
     PEAK_FACTOR_C,
     PEAK_FACTOR_MAX,

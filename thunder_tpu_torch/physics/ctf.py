@@ -16,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from thunder_tpu.constants import CTF_LAMBDA_A, CTF_LAMBDA_B
+from thunder_tpu_torch.constants import CTF_LAMBDA_A, CTF_LAMBDA_B
 from thunder_tpu_torch.device import REAL
 
 

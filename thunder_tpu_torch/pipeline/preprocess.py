@@ -9,7 +9,7 @@ from typing import NamedTuple
 
 import torch
 
-from thunder_tpu.constants import EDGE_WIDTH_RL
+from thunder_tpu_torch.constants import EDGE_WIDTH_RL
 from thunder_tpu_torch.device import COMPLEX, REAL
 from thunder_tpu_torch.ops.fourier import fft2_centered
 from thunder_tpu_torch.physics.mask import radial_grid, soft_mask_weight

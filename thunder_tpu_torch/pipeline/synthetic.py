@@ -14,7 +14,10 @@ Both add unit Gaussian noise with the signal scaled to ``snr`` times its
 std per image.
 
     python -m thunder_tpu_torch.pipeline.synthetic outdir [--mode 3D]
-        [--n 1024] [--size 64] [--k 3] [--snr 3.0] [--seed 0]
+        [--n 1024] [--size 64] [--k 3] [--snr 3.0] [--seed 0] [--device cpu]
+
+The data are made on the card unless the caller asks for the CPU
+(``device="cpu"``, ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -168,8 +171,8 @@ def write_demo(outdir: str, n: int = 1024, size: int = 64, snr: float = 3.0,
     with K classes): writes particles.mrcs, particles.thu, truth.npy,
     demo.json and, in 3D, init_model.mrc (the phantom) under ``outdir``;
     returns the config path."""
-    from thunder_tpu.io.mrc import write_mrc
-    from thunder_tpu.io.thu import ThuTable, write_thu
+    from thunder_tpu_torch.io.mrc import write_mrc
+    from thunder_tpu_torch.io.thu import ThuTable, write_thu
 
     os.makedirs(outdir, exist_ok=True)
     dev = as_device(device)
@@ -284,8 +287,10 @@ def main(argv=None) -> int:
     p.add_argument("--k", type=int, default=3, help="classes (2D)")
     p.add_argument("--snr", type=float, default=3.0)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default 'cuda'; 'cpu' without a card)")
     a = p.parse_args(argv)
-    path = write_demo(a.outdir, a.n, a.size, a.snr, a.seed, mode=a.mode, k=a.k)
+    path = write_demo(a.outdir, a.n, a.size, a.snr, a.seed, a.device, mode=a.mode, k=a.k)
     print(f"wrote {a.outdir}: particles.mrcs, particles.thu, {path}")
     return 0
 

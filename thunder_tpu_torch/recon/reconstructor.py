@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from thunder_tpu.constants import (
+from thunder_tpu_torch.constants import (
     C_ABS_MIN,
     DEFAULT_MKB_A,
     DEFAULT_MKB_ALPHA,
