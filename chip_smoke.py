@@ -9,7 +9,12 @@ non-zero, printing no result, without one (or without the package).
 
 Phase 0 builds the eleven hand-written Hopper kernels (one nvcc per
 source, sm_90a).  Phase 1 holds the 3D kernels (HK1-HK4) against their
-plain PyTorch versions at the 3D path's 128 px shapes, phase 1b the 2D
+plain PyTorch versions at the 3D path's 128 px shapes (HK1 from the quad
+table the rounds use and from the plain cube, at the phase loop's and
+the global search's shapes and where its taps clip at the faces of a
+full-box table; HK3 also with slices in no order and of weight zero),
+and HK1 and HK3 at the shapes of a 256 px box at its global radius;
+phase 1b the 2D
 path's at 160 px (HK5 at r = 5 and 15; HK6 with the 480,000 slices of a
 round into 2K = 60 planes at r_u = 31, 12 and 40; HK2, the likelihood
 with its products fused in, at the global-search block of all 30
@@ -41,7 +46,9 @@ phase_slice_2d), class purity at least 5/K, HK5, HK6, HK2 and HK4
 launched, and HK2 launched once a rotation block a hemisphere in every
 global search.  Phases 2 and 4 each run one round (3D round 1, 2D round
 4) under torch.profiler, without per-stage syncs, and print its device
-time, idle share and heaviest kernels.  The last lines are the card's name and power
+time, idle share and heaviest kernels, and its launch calls, kernels and
+device time by named range of the optimiser (``thunder:round/<stage>``,
+``thunder:phase/<step>``).  The last lines are the card's name and power
 limit, then three JSON objects: the profiles, the kernels, and ``{"ok":
 true, "device": {...}}``.
 """
@@ -347,34 +354,100 @@ def phase_kernels(dev):
     vol = torch.as_tensor(phantom(SIZE, rng), device=dev)
 
     # HK1 project_slices: phase loop (2 x 128 images x 125 rotations,
-    # per-image) and global search (one 256-rotation block, shared)
+    # per-image) and global search (one 256-rotation block, shared), from
+    # the quad table Optimiser.proj_table keeps at this size and from the
+    # plain cube
     rings = pack_rings(SIZE, r_glob, 1, device=dev)
     n_p = rings.i_col.numel()
     crop = proj_crop_size(SIZE, 2, r_glob)
     table = projector.prepare_projectee_3d_cropped(
         torch.stack([vol, vol * 0.5]), 2, crop).contiguous()
+    if not projector.quad_fits(2, crop):
+        fail(f"the {crop}^3 table of the 128 px rounds no longer takes the quad layout")
+    quads = projector.quad_taps(table)
     rot_l = rotate3d(random_quat(gen, (2 * n_l, 125), dev))
     cls = torch.arange(2 * n_l, device=dev) // n_l
-    args_l = (table, rot_l, rings.i_col, rings.i_row, 2, cls)
-    out = projector.project_slices(*args_l)
-    e_l = compare("project_slices", f"phases L={2 * n_l} R=125 P={n_p} crop={crop}",
-                  out, projector.project_slices_plain(*args_l),
-                  1e-5, "same arithmetic; FMA contraction moves coordinates by an ulp")
-    rot_g = rotate3d(random_quat(gen, (1, 256), dev))
-    args_g = (table[:1], rot_g, rings.i_col, rings.i_row, 2, None)
-    e_g = compare("project_slices", "global R=256 shared",
-                  projector.project_slices(*args_g), projector.project_slices_plain(*args_g),
-                  1e-5, "as above")
-    lib, lib_out = grid_sample_call(*args_l)
+    tail_l = (rot_l, rings.i_col, rings.i_row, 2, cls)
+    why = "same coordinates and tap order; the sums may contract into FMAs"
+    ref = projector.project_slices_plain(table, *tail_l)
+    out = projector.project_slices(quads, *tail_l)
+    shape_l = f"L={2 * n_l} R=125 P={n_p} crop={crop}^3"
+    e_l = max(compare("project_slices", f"phases, quad table {shape_l}", out, ref, 1e-5, why),
+              compare("project_slices", "phases, plain cube",
+                      projector.project_slices(table, *tail_l), ref, 1e-5, why))
+    lib, lib_out = grid_sample_call(table, *tail_l)
     compare("grid_sample (HK1's library yardstick)", "phases", lib_out(lib()), out, 1e-4,
             "border clamps the coordinate where HK1 clamps each tap")
-    results["project_slices"] = record(
-        "project_slices", f"L={2 * n_l} R=125 P={n_p} crop={crop}^3", max(e_l, e_g),
-        timed(lambda: projector.project_slices(*args_l), 20),
-        timed(lambda: projector.project_slices_plain(*args_l), 5),
-        table.numel() * 8 + rot_l.numel() * 4 + 8 * n_p + 4 * 2 * n_l + out.numel() * 8,
-        out.numel() * 60, library_ms=timed(lib, 20))
-    del out
+    cost_l = (table.numel() * 8 + rot_l.numel() * 4 + 8 * n_p + 4 * 2 * n_l + out.numel() * 8,
+              out.numel() * 60)
+    del out, ref
+    plain_l = timed(lambda: projector.project_slices_plain(table, *tail_l), 5)
+    rec_l = record("project_slices", shape_l + " quad table", e_l,
+                   timed(lambda: projector.project_slices(quads, *tail_l), 20), plain_l,
+                   *cost_l, library_ms=timed(lib, 20))
+    rec_cube = record("project_slices", shape_l + " plain cube", e_l,
+                      timed(lambda: projector.project_slices(table, *tail_l), 20), plain_l,
+                      *cost_l, library_ms=rec_l["library_ms"])
+    say(f"  quad_taps of the {crop}^3 x 2 table: "
+        f"{timed(lambda: projector.quad_taps(table), 10):.4f} ms (once a table a round)")
+
+    rot_g = rotate3d(random_quat(gen, (1, 256), dev))
+    tail_g = (rot_g, rings.i_col, rings.i_row, 2, None)
+    ref = projector.project_slices_plain(table[:1], *tail_g)
+    e_g = max(compare("project_slices", "global R=256 shared, quad table",
+                      projector.project_slices(quads[:1], *tail_g), ref, 1e-5, why),
+              compare("project_slices", "global R=256 shared, plain cube",
+                      projector.project_slices(table[:1], *tail_g), ref, 1e-5, why))
+    lib, _ = grid_sample_call(table[:1], rot_g, rings.i_col, rings.i_row, 2,
+                              torch.zeros(1, dtype=torch.long, device=dev))
+    # a launch of microseconds: CUDA events around the wrapper measure the
+    # host's call rate as much as the kernel
+    rec_g = record("project_slices", f"global L=1 R=256 P={n_p} crop={crop}^3 quad table", e_g,
+                   timed(lambda: projector.project_slices(quads[:1], *tail_g), 50),
+                   timed(lambda: projector.project_slices_plain(table[:1], *tail_g), 5),
+                   table[:1].numel() * 8 + rot_g.numel() * 4 + 8 * n_p + ref.numel() * 8,
+                   ref.numel() * 60, library_ms=timed(lib, 50))
+    del ref, quads
+
+    # taps that clip: the full padded box as the table and the whole
+    # image grid as the pixels, whose corners reach 181 cells from the
+    # centre of a cube that ends at 127
+    k = torch.arange(SIZE, dtype=torch.int32, device=dev) - SIZE // 2
+    ky, kx = (g.reshape(-1) for g in torch.meshgrid(k, k, indexing="ij"))
+    full = torch.randn(1, 2 * SIZE, 2 * SIZE, 2 * SIZE, dtype=torch.complex64, device=dev)
+    tail_c = (rotate3d(random_quat(generator(2, dev), (2, 8), dev)), kx, ky, 2, None)
+    ref = projector.project_slices_plain(full, *tail_c)
+    e_c = max(compare("project_slices", f"clipped taps, full box {2 * SIZE}^3, plain cube",
+                      projector.project_slices(full, *tail_c), ref, 1e-5, why),
+              compare("project_slices", "clipped taps, quad table",
+                      projector.project_slices(projector.quad_taps(full), *tail_c), ref, 1e-5,
+                      why))
+    del full, ref
+
+    # op level, off the cells' path: a 256 px box at its global radius
+    # (r = 43: two 176^3 cubes, 87 MB, past the L2 cache; the quad table
+    # would be 349 MB, so proj_table keeps the plain cube)
+    size_b, r_b = 2 * SIZE, 2 * (r_glob - 1) + 1
+    rings_b = pack_rings(size_b, r_b, 1, device=dev)
+    crop_b = proj_crop_size(size_b, 2, r_b)
+    if projector.quad_fits(2, crop_b):
+        fail(f"the {crop_b}^3 table of a 256 px box would take the quad layout")
+    table_b = torch.randn(2, crop_b, crop_b, crop_b, dtype=torch.complex64, device=dev)
+    tail_b = (rot_l, rings_b.i_col, rings_b.i_row, 2, cls)
+    out = projector.project_slices(table_b, *tail_b)
+    e_b = compare("project_slices", f"{size_b} px: L={2 * n_l} R=125 P={rings_b.i_col.numel()} "
+                  f"crop={crop_b}^3", out, projector.project_slices_plain(table_b, *tail_b),
+                  1e-5, why)
+    lib, _ = grid_sample_call(table_b, *tail_b)
+    rec_b = record("project_slices", f"{size_b} px: L={2 * n_l} R=125 P={rings_b.i_col.numel()} "
+                   f"crop={crop_b}^3 plain cube", e_b,
+                   timed(lambda: projector.project_slices(table_b, *tail_b), 5),
+                   timed(lambda: projector.project_slices_plain(table_b, *tail_b), 2, warm=1),
+                   table_b.numel() * 8 + rot_l.numel() * 4 + 8 * rings_b.i_col.numel()
+                   + 4 * 2 * n_l + out.numel() * 8, out.numel() * 60, library_ms=timed(lib, 5))
+    del out, table_b, lib
+    results["project_slices"] = dict(rec_l, max_abs_err=max(e_l, e_g, e_c, e_b),
+                                     plain_cube=rec_cube, global_shape=rec_g, at_256px=rec_b)
 
     # HK2 likelihood_block at the 3D main-path blocks: global search (128
     # images x one 256-rotation block x 30 translations, two consecutive
@@ -415,10 +488,52 @@ def phase_kernels(dev):
                  "atomicAdd order varies from run to run")
     e2 = compare("insert_trilinear", "T", tk, tp, 1e-4, "atomicAdd order")
     npx = int((insert.dense_window(r_u)[2] > 0).sum())
-    results["insert_trilinear"] = record(
+    rec_3 = record(
         "insert_trilinear", f"slices={n_s} r_u={r_u} big={big}^3", max(e1, e2),
         timed(ins, 5), timed(ins_p, 2),
         n_l * npx * 8 + n_l * 32 + n_s * 64 + big ** 3 * 12, n_s * npx * 110)
+    # a sixth of the slices in no order of image, a third of them of weight
+    # zero, accumulated into grids that already hold sums; the window's
+    # corner pixels lie beyond the padded-radius cut in every case
+    pick = torch.randperm(n_s, device=dev)[:n_s // 6]
+    w_z = torch.where(torch.arange(pick.numel(), device=dev) % 3 == 0, 0.0, w[pick])
+    if not bool((img_idx[pick][1:] < img_idx[pick][:-1]).any()):
+        fail("insert_trilinear: the unsorted case came out sorted")
+    some = (ft, ctf, img_idx[pick], rot[pick], trans[pick], w_z, r_u, 2, SIZE, PIXEL_SIZE)
+    fk2, tk2 = insert.insert_trilinear(*some, big, fk.clone(), tk.clone())
+    fp2, tp2 = insert.insert_trilinear_plain(*some, fp, tp)
+    e3 = max(compare("insert_trilinear", f"F, {pick.numel()} slices in no order, a third of "
+                     "weight zero, into given grids", torch.view_as_real(fk2),
+                     torch.view_as_real(fp2), 1e-4, "atomicAdd order"),
+             compare("insert_trilinear", "T, the same", tk2, tp2, 1e-4, "atomicAdd order"))
+    del fk, tk, fp, tp, fk2, tk2, fp2, tp2
+
+    # op level, off the cells' path: a 256 px box at its global radius
+    # (r = 43, r_u = 85: a 348^3 grid, F and T 506 MB and the scratch
+    # grid 674 MB, far past the L2 cache)
+    size_b = 2 * SIZE
+    r_ub = 2 * (r_glob - 1) + 1 + round((size_b // 2 - 2) / 3)
+    big_b = reco_grid_size(size_b, r_ub) * 2
+    ft_b = torch.fft.fftshift(torch.fft.fft2(torch.randn(n_l, size_b, size_b, device=dev)),
+                              dim=(-2, -1)).to(torch.complex64).contiguous()
+    wide = (ft_b, ctf, img_idx, rot, trans, w, r_ub, 2, size_b, PIXEL_SIZE)
+    zeros_b = lambda: (torch.zeros((big_b,) * 3, dtype=torch.complex64, device=dev),
+                       torch.zeros((big_b,) * 3, device=dev))
+    (fk, tk), ((fp, tp), plain_ms) = (insert.insert_trilinear(*wide, big_b),
+                                      timed_once(lambda: insert.insert_trilinear_plain(
+                                          *wide, *zeros_b())))
+    shape_b = f"{size_b} px: slices={n_s} r_u={r_ub} big={big_b}^3"
+    e4 = max(compare("insert_trilinear", f"F {shape_b}", torch.view_as_real(fk),
+                     torch.view_as_real(fp), 1e-4, "atomicAdd order"),
+             compare("insert_trilinear", "T", tk, tp, 1e-4, "atomicAdd order"))
+    del fk, tk, fp, tp
+    npx_b = int((insert.dense_window(r_ub)[2] > 0).sum())
+    rec_3b = record("insert_trilinear", shape_b, e4,
+                    timed(lambda: insert.insert_trilinear(*wide, big_b), 2, warm=1), plain_ms,
+                    n_l * npx_b * 8 + n_l * 32 + n_s * 64 + big_b ** 3 * 12,
+                    n_s * npx_b * 110)
+    del ft_b, wide
+    results["insert_trilinear"] = dict(rec_3, max_abs_err=max(e1, e2, e3, e4), at_256px=rec_3b)
 
     # HK4 shell_sums: the hemisphere FSC (3 fields over the 128^3 box,
     # 62 shells) and the sigma stage's per-image sums (256 images)
@@ -594,29 +709,42 @@ def phase_kernels_2d(dev):
 
 def run_cli_counting_global(argv: list, profile_round: int) -> tuple:
     """The port's CLI on ``argv`` with Optimiser.expectation_global
-    wrapped to count HK2's launches in each global search, and
-    torch.profiler (CUDA activity) around round ``profile_round`` alone
-    (run without per-stage syncs): (return code, [(launches, 2 x
-    rotation blocks)] per global search, {"wall": s, "events": raw
-    profiler events}).  One launch a rotation block a hemisphere covers
-    all K classes."""
+    wrapped to count HK2's launches in each global search, it and
+    Optimiser.local_phases wrapped to count the projection kernels'
+    launches there, and torch.profiler (CPU activity for the optimiser's
+    named ranges, CUDA activity for launches and kernels) around round
+    ``profile_round`` alone (run without per-stage syncs): (return code,
+    [(launches, 2 x rotation blocks)] per global search, {"wall": s,
+    "events": raw profiler events, "project": {"global": n, "phase":
+    n}}).  One launch a rotation block a hemisphere covers all K
+    classes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from thunder_tpu_torch.cli import thunder
     from thunder_tpu_torch.ops.likelihood import likelihood_block
+    from thunder_tpu_torch.ops.projector import project_slices, project_slices_2d
     from thunder_tpu_torch.optimiser import ROT_BLOCK, Optimiser
 
     expectation_global, run_round = Optimiser.expectation_global, Optimiser.run_round
-    seen, got = [], {}
+    local_phases = Optimiser.local_phases
+    seen, got = [], {"project": {"global": 0, "phase": 0}}
+    projections = lambda: project_slices.launches + project_slices_2d.launches
 
     def counted(self, rings, quats=None, trans=None):
-        before = likelihood_block.launches
+        before, before_p = likelihood_block.launches, projections()
         g = expectation_global(self, rings, quats, trans)
+        got["project"]["global"] += projections() - before_p
         n_rot = g["quats"].shape[1]
         block = min(ROT_BLOCK, n_rot)
         seen.append((likelihood_block.launches - before, 2 * (n_rot // block)))
         return g
+
+    def counted_phases(self, rings):
+        before_p = projections()
+        phases = local_phases(self, rings)
+        got["project"]["phase"] += projections() - before_p
+        return phases
 
     def profiled(self, i_round):
         if i_round != profile_round:
@@ -624,7 +752,7 @@ def run_cli_counting_global(argv: list, profile_round: int) -> tuple:
         timing = os.environ.pop("THUNDER_STAGE_TIMING", None)
         torch.cuda.synchronize()
         try:
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 rec = run_round(self, i_round)
                 torch.cuda.synchronize()
@@ -638,10 +766,12 @@ def run_cli_counting_global(argv: list, profile_round: int) -> tuple:
         return rec
 
     Optimiser.expectation_global, Optimiser.run_round = counted, profiled
+    Optimiser.local_phases = counted_phases
     try:
         rc = thunder.main(argv)
     finally:
         Optimiser.expectation_global, Optimiser.run_round = expectation_global, run_round
+        Optimiser.local_phases = local_phases
     return rc, seen, got
 
 
@@ -822,21 +952,67 @@ def demo_3d(tmp: str, dev) -> tuple:
 def profile_summary(got: dict, target: int, label: str) -> dict:
     """Device time (the sum of the CUDA kernel events), idle share (1 -
     device time / the round's wall time under the profiler), kernel and
-    launch counts, and the heaviest kernels of the profiled round."""
+    launch counts, and the heaviest kernels of the profiled round; then
+    the same by the optimiser's named ranges (``thunder:round/<stage>``
+    and, inside the phase loop, ``thunder:phase/<step>``): a launch call
+    belongs to the innermost range open on the host when it was made, a
+    kernel to the range of the call that launched it (matched by the
+    profiler's correlation id)."""
+    import bisect
+
     from torch.autograd import DeviceType
 
     if "events" not in got:
         fail(f"profile {label}: round {target} was not profiled")
-    by_name, launches = {}, 0
+    levels = {"phase/": [], "round/": []}    # (start, end, name), innermost level first
+    calls, device = [], []
     for e in got["events"]:
+        name = e.name()
         if e.device_type() == DeviceType.CUDA:
-            ms, n = by_name.get(e.name(), (0.0, 0))
-            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
-        elif "LaunchKernel" in e.name():
-            launches += 1
-    if not by_name:
+            if name.startswith("thunder:"):    # the profiler's device-side copy of a range
+                continue
+            device.append((name, e.duration_ns() / 1e6, e.correlation_id(), e.start_ns()))
+        elif name.startswith("thunder:"):
+            levels.get(name[8:14], levels["round/"]).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns(), name[8:]))
+        elif name.startswith("cuda") and e.correlation_id() > 0:
+            calls.append((e.correlation_id(), e.start_ns(), "LaunchKernel" in name))
+    if not device:
         fail(f"profile {label}: no CUDA kernel events in the profiled round")
+    if not levels["round/"]:
+        fail(f"profile {label}: the optimiser's named ranges are not in the profile")
+    for level in levels.values():
+        level.sort()
+    starts = {k: [r[0] for r in level] for k, level in levels.items()}
+
+    def range_at(t: int) -> str:
+        for k, level in levels.items():
+            i = bisect.bisect_right(starts[k], t) - 1
+            if i >= 0 and t < level[i][1]:
+                return level[i][2]
+        return "outside the ranges"
+
+    by_range, call_range = {}, {}
+    cell = lambda r: by_range.setdefault(r, dict(launch_calls=0, kernels=0, device_ms=0.0,
+                                                 gemm_ms=0.0, gemm_kernels=0, top={}))
+    for corr, t, is_launch in calls:
+        call_range[corr] = r = range_at(t)
+        cell(r)["launch_calls"] += int(is_launch)
+    by_name, unmatched = {}, 0
+    for name, ms, corr, t in device:
+        tot, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + ms, n + 1)
+        unmatched += corr not in call_range
+        c = cell(call_range.get(corr) or range_at(t))
+        c["kernels"] += 1
+        c["device_ms"] += ms
+        if "gemm" in name.lower():
+            c["gemm_ms"] += ms
+            c["gemm_kernels"] += 1
+        tot, n = c["top"].get(name, (0.0, 0))
+        c["top"][name] = (tot + ms, n + 1)
     device_ms = sum(ms for ms, _ in by_name.values())
+    launches = sum(c["launch_calls"] for c in by_range.values())
     rec = dict(path=label, round=target, wall_s=got["wall"], device_ms=device_ms,
                idle_share=1 - device_ms / 1e3 / got["wall"],
                kernels=sum(n for _, n in by_name.values()), launch_calls=launches)
@@ -845,6 +1021,17 @@ def profile_summary(got: dict, target: int, label: str) -> dict:
         f"{rec['idle_share']:.4f}, {launches} launch calls")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         say(f"    {ms:10.3f} ms x{n:<6d} {name[:90]}")
+    say(f"  profile {label} round {target} by range (launch calls, kernels, device ms, of "
+        f"which GEMM kernels and ms; heaviest kernel); {unmatched} kernels matched by time:")
+    order = sorted(by_range, key=lambda r: -by_range[r]["launch_calls"])
+    for r in order:
+        c = by_range[r]
+        top = max(c.pop("top").items(), key=lambda kv: kv[1][0], default=("-", (0.0, 0)))
+        say(f"    {r:<26s} {c['launch_calls']:7d} {c['kernels']:7d} {c['device_ms']:10.3f}  "
+            f"gemm x{c['gemm_kernels']:<6d} {c['gemm_ms']:8.3f}  "
+            f"{top[1][0]:8.3f} ms x{top[1][1]:<6d} {top[0][:60]}")
+    rec["by_range"] = {r: by_range[r] for r in order}
+    rec["project_launches"] = got["project"]
     return rec
 
 
@@ -1009,9 +1196,15 @@ def main() -> None:
         "project_slices_2d": results_2d["project_slices_2d"],
         "insert_bilinear_2d": results_2d["insert_bilinear_2d"],
     }
+    # the projection kernels' launches by caller: global search, the
+    # phase loop, and the rest (the sigma / norm stage's rank-1 pass)
+    split = {"project_slices": (launches, prof_3d), "project_slices_2d": (launches_2d, prof_2d)}
     kernels = []
     for name, r in recs.items():
         by_path = {"3d": launches.get(name, 0), "2d": launches_2d.get(name, 0)}
+        if name in split:
+            n, by = split[name][0][name], split[name][1]["project_launches"]
+            r = dict(r, launches_by_caller=dict(by, sigma=n - by["global"] - by["phase"]))
         kernels.append(dict(
             name=name, id=meta[name][0], route="cuda", source=meta[name][1],
             replaces=meta[name][2], launches=sum(by_path.values()), launches_by_path=by_path,

@@ -89,6 +89,44 @@ def test_insert_trilinear_matches_insert_slices_3d():
     close(t_t, t_j, 1e-5)
 
 
+def test_insert_trilinear_unsorted_zero_weight_and_cut():
+    """HK3's function on the inputs its card test uses: img_idx in no
+    order, some slices of weight zero, and a band whose corner pixels
+    fall beyond the padded-radius cut; against JAX insert_slices_3d."""
+    rng = np.random.default_rng(5)
+    size, n_img, n_s, r_u, pf = 16, 4, 12, 7, 2
+    big = 2 * (r_u + 2) * pf
+    ft = (rng.standard_normal((n_img, size, size))
+          + 1j * rng.standard_normal((n_img, size, size))).astype(np.complex64)
+    d = rng.uniform(1000, 3000, n_img)
+    ctf = ctf_params(np.full(n_img, 300e3), d, d * 1.05, rng.uniform(0, 3, n_img),
+                     np.full(n_img, 2e7), np.full(n_img, 0.1), np.zeros(n_img))
+    img_idx = t(np.asarray([3, 0, 2, 2, 1, 3, 0, 0, 1, 2, 3, 1]))
+    r = t(rots(n_s, 6))
+    trans = t(rng.uniform(-2, 2, (n_s, 2)).astype(np.float32))
+    w = rng.random(n_s).astype(np.float32)
+    w[[1, 5, 6]] = 0.0
+    w = t(w)
+    f_t, t_t = ti.insert_trilinear(t(ft), ctf, img_idx, r, trans, w, r_u, pf, size,
+                                   1.32, big)
+    vals, c2w, vc, vr = ti.dense_slice_values(t(ft), ctf, img_idx, trans, w, r_u,
+                                              size, 1.32)
+    # the window's corners lie beyond the cut, and are masked out
+    assert int((vc * vc + vr * vr >= (r_u - 1) ** 2).sum()) > 0
+    assert float(c2w[1].abs().max()) == 0.0
+    zf = jnp.zeros((big,) * 3, jnp.complex64)
+    zt = jnp.zeros((big,) * 3, jnp.float32)
+    f_j, t_j = ji.insert_slices_3d(zf, zt, vals.numpy(), c2w.numpy(), r.numpy(),
+                                   vc.numpy(), vr.numpy(), pf, float((r_u - 1) * pf))
+    close(f_t, f_j, 1e-5)
+    close(t_t, t_j, 1e-5)
+    # accumulation into given grids: inserting twice doubles the sums
+    f_2, t_2 = ti.insert_trilinear(t(ft), ctf, img_idx, r, trans, w, r_u, pf, size,
+                                   1.32, big, f_t.clone(), t_t.clone())
+    close(f_2, 2 * np.asarray(f_j), 1e-5)
+    close(t_2, 2 * np.asarray(t_j), 1e-5)
+
+
 def _grids(big, seed):
     rng = np.random.default_rng(seed)
     f = (rng.standard_normal((big,) * 3) + 1j * rng.standard_normal((big,) * 3))

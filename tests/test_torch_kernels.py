@@ -37,16 +37,56 @@ def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def test_project_slices(dev):
+@pytest.mark.parametrize("quad", [False, True])
+def test_project_slices(dev, quad):
+    """Per-image classes and the single-class path, from the plain cube
+    and from the quad table; 1e-5: the same coordinates and tap order,
+    the sums may contract into FMAs."""
     g = generator(0, dev)
     tab = torch.randn(2, 40, 40, 40, dtype=torch.complex64, device=dev)
+    table = projector.quad_taps(tab) if quad else tab
     rot = rotate3d(random_quat(g, (6, 11), dev))
     rings = pack_rings(32, 12, 1, device=dev)
     cls = torch.tensor([0, 1, 1, 0, 1, 0], device=dev)
     for c in (cls, None):
-        args = (tab, rot, rings.i_col, rings.i_row, 2, c)
-        assert rel_err(projector.project_slices(*args),
-                       projector.project_slices_plain(*args)) < 1e-5
+        got = projector.project_slices(table, rot, rings.i_col, rings.i_row, 2, c)
+        ref = projector.project_slices_plain(tab, rot, rings.i_col, rings.i_row, 2, c)
+        assert rel_err(got, ref) < 1e-5
+
+
+@pytest.mark.parametrize("quad", [False, True])
+def test_project_slices_clipped_taps(dev, quad):
+    """A full-box table with coordinates at and past its faces (pf 3 on
+    a band of 12 reaches 36 cells from the centre of a 40-cell cube):
+    every tap index clips as the plain version clips it."""
+    g = generator(5, dev)
+    tab = torch.randn(2, 40, 40, 40, dtype=torch.complex64, device=dev)
+    table = projector.quad_taps(tab) if quad else tab
+    rot = rotate3d(random_quat(g, (4, 32), dev))
+    rings = pack_rings(32, 12, 1, device=dev)
+    cls = torch.tensor([1, 0, 0, 1], device=dev)
+    args = (rot, rings.i_col, rings.i_row, 3, cls)
+    x = (rot[..., :2] @ torch.stack([rings.i_col, rings.i_row]).float() * 3).abs()
+    assert float(x.max()) > 21
+    assert rel_err(projector.project_slices(table, *args),
+                   projector.project_slices_plain(tab, *args)) < 1e-5
+
+
+@pytest.mark.parametrize("quad", [False, True])
+def test_project_slices_global_shape(dev, quad):
+    """The global search's launch: one block of 256 rotations shared by
+    all images (image stride 0), one class, P = 728 (r = 22 at 128 px)."""
+    g = generator(6, dev)
+    tab = torch.randn(1, 92, 92, 92, dtype=torch.complex64, device=dev)
+    table = projector.quad_taps(tab) if quad else tab
+    rings = pack_rings(128, 22, 1, device=dev)
+    assert rings.i_col.numel() == 728
+    rot = rotate3d(random_quat(g, (1, 256), dev))
+    for r in (rot, rot.expand(3, 256, 3, 3)):
+        cls = None if r.shape[0] == 1 else torch.zeros(3, dtype=torch.int64, device=dev)
+        args = (r, rings.i_col, rings.i_row, 2, cls)
+        assert rel_err(projector.project_slices(table, *args),
+                       projector.project_slices_plain(tab, *args)) < 1e-5
 
 
 def _lk_operands(dev, n, k, r, tt, per_image, seed, size=32, band=6):
@@ -103,7 +143,11 @@ def test_likelihood_block(dev, per_image):
         assert rel_err(x, y) < 1e-4
 
 
-def test_insert_trilinear(dev):
+@pytest.mark.parametrize("given_grids", [False, True])
+def test_insert_trilinear(dev, given_grids):
+    """Slices of images in no order, some of weight zero, the window's
+    corner pixels beyond the padded-radius cut; into fresh grids or
+    accumulated into given ones."""
     rng = np.random.default_rng(0)
     size, n_img, n_s, r_u, pf = 32, 4, 30, 12, 2
     big = 2 * (r_u + 2) * pf
@@ -112,12 +156,23 @@ def test_insert_trilinear(dev):
     ctf = ctf_params(np.full(n_img, 300e3), d, d, np.zeros(n_img), np.full(n_img, 2e7),
                      np.full(n_img, 0.1), np.zeros(n_img), device=dev)
     g = generator(1, dev)
-    args = (ft, ctf, torch.randint(0, n_img, (n_s,), device=dev),
-            rotate3d(random_quat(g, (n_s,), dev)), torch.randn(n_s, 2, device=dev),
-            torch.rand(n_s, device=dev), r_u, pf, size, 1.32)
-    fk, tk = insert.insert_trilinear(*args, big)
-    zero = lambda dt: torch.zeros((big,) * 3, dtype=dt, device=dev)
-    fp, tp = insert.insert_trilinear_plain(*args, zero(torch.complex64), zero(torch.float32))
+    img_idx = torch.randint(0, n_img, (n_s,), device=dev)
+    assert bool((img_idx[1:] < img_idx[:-1]).any())
+    w = torch.rand(n_s, device=dev)
+    w[::7] = 0.0
+    args = (ft, ctf, img_idx, rotate3d(random_quat(g, (n_s,), dev)),
+            torch.randn(n_s, 2, device=dev), w, r_u, pf, size, 1.32)
+    mask = insert.dense_window(r_u)[2]
+    assert int((mask == 0).sum()) > 0
+    if given_grids:
+        f0 = torch.randn((big,) * 3, dtype=torch.complex64, device=dev)
+        t0 = torch.rand((big,) * 3, device=dev)
+    else:
+        f0 = torch.zeros((big,) * 3, dtype=torch.complex64, device=dev)
+        t0 = torch.zeros((big,) * 3, device=dev)
+    fp, tp = insert.insert_trilinear_plain(*args, f0.clone(), t0.clone())
+    fk, tk = (insert.insert_trilinear(*args, big, f0.clone(), t0.clone()) if given_grids
+              else insert.insert_trilinear(*args, big))
     # atomicAdd order varies from run to run
     assert rel_err(torch.view_as_real(fk), torch.view_as_real(fp)) < 1e-5
     assert rel_err(tk, tp) < 1e-5

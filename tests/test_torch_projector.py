@@ -89,6 +89,69 @@ def test_shared_rotation_block_broadcasts():
     np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
+def _cplx_table(k, n, seed):
+    rng = np.random.default_rng(seed)
+    return t((rng.standard_normal((k, n, n, n))
+              + 1j * rng.standard_normal((k, n, n, n))).astype(np.complex64))
+
+
+def test_quad_taps_hold_the_plain_taps():
+    """HK1's quad table, tap for tap: cell (z, y, x) holds t[z, y, x],
+    t[z, y, x+], t[z, y+, x], t[z, y+, x+] with + clipped to n - 1
+    (tolerance 0: a copy)."""
+    n = 6
+    tab = _cplx_table(2, n, 10)
+    q = torch.view_as_complex(tp.quad_taps(tab).reshape(2, n, n, n, 4, 2))
+    assert tp.is_quad_table(tp.quad_taps(tab)) and not tp.is_quad_table(tab)
+    nxt = np.minimum(np.arange(n) + 1, n - 1)
+    ref = tab.numpy()
+    np.testing.assert_array_equal(q[..., 0].numpy(), ref)
+    np.testing.assert_array_equal(q[..., 1].numpy(), ref[..., nxt])
+    np.testing.assert_array_equal(q[..., 2].numpy(), ref[..., nxt, :])
+    np.testing.assert_array_equal(q[..., 3].numpy(), ref[..., nxt, :][..., nxt])
+
+
+@pytest.mark.parametrize("crop", [14, 32])
+def test_project_slices_from_quad_table_is_exact(crop):
+    """The quad table gives the plain table's slices exactly (tolerance
+    0), and thunder_tpu's; crop 14 is smaller than the band reaches, so
+    taps clip at every face of the cube."""
+    vs = np.stack([vol(seed=3), vol(seed=4)])
+    tab = np.asarray(jnp.stack([jp.prepare_projectee_3d_cropped(jnp.asarray(v), 2, crop)
+                                for v in vs]))
+    cls = np.asarray([0, 1, 1, 0, 1], np.int32)
+    r = rots((5, 7), 5)
+    jr, tr = jf.pack_rings(16, 7, 0), tf.pack_rings(16, 7, 0)
+    plain = tp.project_classed(t(tab), t(cls), t(r), tr, 2)
+    quad = tp.project_classed(tp.quad_taps(t(tab)), t(cls), t(r), tr, 2)
+    np.testing.assert_array_equal(quad.numpy(), plain.numpy())
+    ri = jp.ri_split(jnp.asarray(tab), pack_bf16=False)
+    close(quad, jp.project_classed(ri, jnp.asarray(cls), jnp.asarray(r), jr, 2, False))
+
+
+def test_project_slices_clips_at_the_full_box():
+    """crop = the full padded box with coordinates pushed to and past
+    its faces (pf 3 on a band the box does not hold): every tap index
+    clips as _gather_trilinear_3d clips it, from either layout."""
+    v = vol(size=8, seed=8)
+    proj = jp.prepare_projectee_3d(jnp.asarray(v), 2)
+    tab = t(np.asarray(proj.ft))[None]                       # (1, 16, 16, 16)
+    r = rots((1, 9), 9)
+    jr, tr = jf.pack_rings(16, 7, 0), tf.pack_rings(16, 7, 0)
+    x = np.abs(np.asarray(r)[0, :, :, :2] @ np.stack([jr.i_col, jr.i_row]) * 3)
+    assert x.max() > 8 + 1                                   # beyond the last cell
+    ref = jp.project_3d(proj._replace(pf=3), jnp.asarray(r[0]), jr)   # _gather_trilinear_3d
+    for table in (tab, tp.quad_taps(tab)):
+        got = tp.project_slices(table, t(r), tr.i_col, tr.i_row, 3)[0]
+        close(got, ref)
+
+
+def test_quad_fits_near_l2():
+    """The quad layout is kept while 32 bytes a cell stay near the 50 MB
+    L2: two 92^3 cubes (128 px, r = 22) do, two 176^3 (256 px) do not."""
+    assert tp.quad_fits(2, 92) and not tp.quad_fits(2, 176)
+
+
 def test_projector_slices_golden():
     n = 32
     gold = np.fromfile(os.path.join(G, "proj_slices_32.bin"), np.float32)

@@ -42,11 +42,11 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "thunder_project_slices": [_P, _I, _P, _P, _L, _I, _I, _P, _P, _I, _I,
-                               _P, _P],
+    "thunder_project_slices": [_P, _I, _I, _P, _P, _L, _I, _I, _P, _P, _I,
+                               _I, _P, _P],
     "thunder_likelihood_block": [_P, _I, _I, _I, _I, _P],
     "thunder_insert_trilinear": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                                 _F, _F, _P, _P, _I, _P],
+                                 _F, _F, _P, _P, _P, _I, _P],
     "thunder_shell_sums": [_P, _L, _I, _I, _L, _P, _P, _I, _P, _P],
     "thunder_project_slices_2d": [_P, _I, _P, _P, _L, _I, _I, _P, _P, _I,
                                   _I, _P, _P],

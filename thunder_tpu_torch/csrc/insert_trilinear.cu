@@ -15,13 +15,24 @@
 // per-image constants), takes the position rot[s] . (pf vc, pf vr, 0),
 // applies the padded-radius cut |pos| < max_radius_pad of
 // insert_slices_3d, and adds the 8 trilinear taps (indices clipped to
-// [0, big-1]) into F (re, im) and T with atomicAdd.
+// [0, big-1]).
 //
-// What bounds it on Hopper: the atomics, 24 per sample, into a grid of
-// (2 (r_u+2) pf)^3 cells that stays L2-resident at 128 px (152^3 x 12 B
-// = 42 MB); neighbouring threads hit neighbouring cells, so contention
-// is low.  Pixels outside the cut and zero-weight slices return before
-// any memory traffic.  Summation order differs from run to run.
+// What bounds it on Hopper: the rate at which L2 retires atomic
+// operations, ~90 G a second whatever their width (measured:
+// micro/hk_candidates.py; scalar, float2 and float4 adds all ran at that
+// rate).  At pf 2 neighbouring samples land two cells apart, so no two
+// lanes share a cell and nothing can be merged before the atomics: the
+// only lever is fewer operations a sample.  The taps therefore go into a
+// scratch grid G of interleaved (re, im, T, 0) cells, one float4
+// atomicAdd a tap (sm_90's 16-byte vector atomic): 8 operations a sample
+// where separate F.re, F.im and T took 24.  A second pass adds G into F
+// and T.  G is 16 bytes a cell (56 MB at 152^3, just past the 50 MB L2)
+// and still ran 2.8 times faster than the 42 MB of separate grids; the
+// arithmetic (a sincos pair, a CTF, ~110 operations a sample) hides
+// behind the atomics, which is why forming each image's values once (a
+// block walking an image's slices, tried beside this) gained nothing.
+// Pixels outside the cut and zero-weight slices return before any memory
+// traffic.  Summation order differs from run to run.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -33,7 +44,7 @@ __global__ void insert_trilinear_kernel(
     const int* __restrict__ img_idx, const float* __restrict__ rot,
     const float* __restrict__ trans, const float* __restrict__ wsl,
     int r_u, int pf, float max_radius_pad, float box_a, float tpos,
-    float* __restrict__ F, float* __restrict__ T, int big, long long total) {
+    float4* __restrict__ G, int big, long long total) {
   long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const int nk = 2 * r_u - 1;
@@ -89,7 +100,7 @@ __global__ void insert_trilinear_kernel(
   float wx = x - flx, wy = y - fly, wz = z - flz;
   int cb = big / 2;
   int ix = (int)flx + cb, iy = (int)fly + cb, iz = (int)flz + cb;
-  long long nn = (long long)big * big;
+  int x0 = min(max(ix, 0), big - 1), x1 = min(max(ix + 1, 0), big - 1);
 #pragma unroll
   for (int dz = 0; dz < 2; ++dz) {
     int zi = min(max(iz + dz, 0), big - 1);
@@ -97,27 +108,36 @@ __global__ void insert_trilinear_kernel(
 #pragma unroll
     for (int dy = 0; dy < 2; ++dy) {
       int yi = min(max(iy + dy, 0), big - 1);
-      float wyy = dy ? wy : 1.f - wy;
-#pragma unroll
-      for (int dx = 0; dx < 2; ++dx) {
-        int xi = min(max(ix + dx, 0), big - 1);
-        float wt = wzz * wyy * (dx ? wx : 1.f - wx);
-        long long lin = zi * nn + (long long)yi * big + xi;
-        atomicAdd(F + 2 * lin, vre * wt);
-        atomicAdd(F + 2 * lin + 1, vim * wt);
-        atomicAdd(T + lin, c2w * wt);
-      }
+      float wzy = wzz * (dy ? wy : 1.f - wy);
+      float4* row = G + ((long long)zi * big + yi) * big;
+      float w0 = wzy * (1.f - wx), w1 = wzy * wx;
+      atomicAdd(row + x0, make_float4(vre * w0, vim * w0, c2w * w0, 0.f));
+      atomicAdd(row + x1, make_float4(vre * w1, vim * w1, c2w * w1, 0.f));
     }
   }
 }
 
+// F += G.(re, im), T += G.T over the cells any tap reached
+__global__ void insert_split_kernel(const float4* __restrict__ G, float2* __restrict__ F,
+                                    float* __restrict__ T, long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float4 g = G[i];
+  if (g.x == 0.f && g.y == 0.f && g.z == 0.f) return;
+  float2 f = F[i];
+  F[i] = make_float2(f.x + g.x, f.y + g.y);
+  T[i] += g.z;
+}
+
 }  // namespace
 
+// G: scratch (big^3, 4) float32, zeroed by the caller; F (big^3)
+// complex64 and T (big^3) float32 are accumulated into
 extern "C" int thunder_insert_trilinear(
     const void* ft, int size, const void* ctfk, const void* img_idx,
     const void* rot, const void* trans, const void* w, int n_slices,
     int r_u, int pf, float max_radius_pad, float box_a, float tpos, void* F,
-    void* T, int big, void* stream) {
+    void* T, void* G, int big, void* stream) {
   int nk = 2 * r_u - 1;
   long long total = (long long)n_slices * nk * nk;
   if (total > 0) {
@@ -127,7 +147,11 @@ extern "C" int thunder_insert_trilinear(
                                (cudaStream_t)stream>>>(
         (const float2*)ft, size, (const float*)ctfk, (const int*)img_idx,
         (const float*)rot, (const float*)trans, (const float*)w, r_u, pf,
-        max_radius_pad, box_a, tpos, (float*)F, (float*)T, big, total);
+        max_radius_pad, box_a, tpos, (float4*)G, big, total);
+    long long cells = (long long)big * big * big;
+    insert_split_kernel<<<(unsigned)((cells + threads - 1) / threads), threads, 0,
+                          (cudaStream_t)stream>>>(
+        (const float4*)G, (float2*)F, (float*)T, cells);
   }
   return (int)cudaGetLastError();
 }

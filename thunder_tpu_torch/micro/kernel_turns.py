@@ -1,0 +1,121 @@
+"""HK1 ``project_slices`` and HK3 ``insert_trilinear`` of two checkouts
+timed in turns on one card, at the shapes ``chip_smoke.py`` times.
+
+    python thunder_tpu_torch/micro/kernel_turns.py PARENT_TREE [THIS_TREE]
+
+Runs one process per turn, in the order parent, this, this, parent, each
+with its own tree first on the module path (so each builds and loads its
+own kernels), and prints each turn's times and a last JSON line.  A turn
+calls only the two public functions, with the table as that tree's
+``Optimiser.proj_table`` would hand it over (the quad table where the
+tree has one and it fits), so the same file measures both trees.  Needs
+a CUDA device and nvcc.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+
+def one_turn() -> dict:
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.device import generator
+    from thunder_tpu_torch.geometry.quaternion import random_quat, rotate3d
+    from thunder_tpu_torch.ops import insert, projector
+    from thunder_tpu_torch.ops.fourier import pack_rings
+    from thunder_tpu_torch.optimiser import proj_crop_size, reco_grid_size
+    from thunder_tpu_torch.physics.ctf import ctf_params
+
+    dev = torch.device("cuda:0")
+    gen = generator(0, dev)
+    rng = np.random.default_rng(0)
+
+    def timed(fn, reps, warm=2):
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps
+
+    def as_handed_over(table):
+        fits = getattr(projector, "quad_fits", None)
+        if fits is not None and fits(2, table.shape[-1]):
+            return projector.quad_taps(table)
+        return table
+
+    out = {}
+    n_l = 128
+    for size, r in ((128, 22), (256, 43)):
+        rings = pack_rings(size, r, 1, device=dev)
+        crop = proj_crop_size(size, 2, r)
+        table = torch.randn(2, crop, crop, crop, dtype=torch.complex64, device=dev)
+        handed = as_handed_over(table)
+        rot = rotate3d(random_quat(gen, (2 * n_l, 125), dev))
+        cls = torch.arange(2 * n_l, device=dev) // n_l
+        out[f"HK1 phase {size} px"] = timed(lambda: projector.project_slices(
+            handed, rot, rings.i_col, rings.i_row, 2, cls), 20 if size == 128 else 5)
+        if handed is not table:
+            out[f"HK1 phase {size} px, plain cube"] = timed(lambda: projector.project_slices(
+                table, rot, rings.i_col, rings.i_row, 2, cls), 20)
+        rot_g = rotate3d(random_quat(gen, (1, 256), dev))
+        out[f"HK1 global {size} px"] = timed(lambda: projector.project_slices(
+            handed[:1], rot_g, rings.i_col, rings.i_row, 2, None), 50)
+        del table, handed
+    defocus = rng.uniform(8000, 20000, n_l)
+    ctf = ctf_params(np.full(n_l, 300e3), defocus, defocus * 1.05, rng.uniform(0, 3, n_l),
+                     np.full(n_l, 2e7), np.full(n_l, 0.1), np.zeros(n_l), device=dev)
+    n_s = n_l * 48
+    img_idx = torch.arange(n_s, device=dev) // 48
+    rot = rotate3d(random_quat(gen, (n_s,), dev))
+    trans = 3 * torch.randn(n_s, 2, device=dev)
+    w = torch.rand(n_s, device=dev) / 48
+    for size, r_u in ((128, 36), (256, 85)):
+        big = reco_grid_size(size, r_u) * 2
+        ft = torch.fft.fftshift(torch.fft.fft2(torch.randn(n_l, size, size, device=dev)),
+                                dim=(-2, -1)).to(torch.complex64).contiguous()
+        out[f"HK3 {size} px"] = timed(lambda: insert.insert_trilinear(
+            ft, ctf, img_idx, rot, trans, w, r_u, 2, size, 1.32, big), 5 if size == 128 else 2)
+    return out
+
+
+def main(argv) -> int:
+    if argv[1:] == ["--one"]:
+        print(json.dumps(one_turn()))
+        return 0
+    if len(argv) not in (2, 3):
+        print(__doc__, file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    trees = {"parent": os.path.abspath(argv[1]),
+             "this": os.path.abspath(argv[2]) if len(argv) == 3 else here}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi unavailable"
+    print(card, flush=True)
+    turns = []
+    for who in ("parent", "this", "this", "parent"):
+        env = dict(os.environ, PYTHONPATH=trees[who])
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--one"],
+                             cwd=trees[who], env=env, capture_output=True, text=True)
+        if res.returncode != 0:
+            print(res.stdout + res.stderr, file=sys.stderr)
+            return 1
+        ms = json.loads(res.stdout.strip().splitlines()[-1])
+        turns.append(dict(tree=who, ms=ms))
+        print(f"{who:<7s} " + "  ".join(f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+    print(json.dumps({"card": card, "turns": turns}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

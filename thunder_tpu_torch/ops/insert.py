@@ -196,8 +196,10 @@ def insert_trilinear(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
     against the original images; w (B,) slice weights.  Accumulates into
     the given grids (zeros when None) and returns them.  CPU tensors take
     :func:`insert_trilinear_plain`; CUDA tensors launch
-    csrc/insert_trilinear.cu, whose atomics add in a run-dependent
-    order."""
+    csrc/insert_trilinear.cu, which scatters into an interleaved
+    (re, im, T, 0) scratch grid of big^3 x 16 bytes (allocated here) with
+    one 16-byte atomic a tap, in a run-dependent order, and adds it into
+    (F, T)."""
     dev = ft.device
     if f_grid is None:
         f_grid = torch.zeros((big,) * 3, dtype=COMPLEX, device=dev)
@@ -223,14 +225,15 @@ def insert_trilinear(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
     w = w.to(REAL).contiguous()
     if n_s == 0:
         return f_grid, t_grid
+    scratch = torch.zeros((big ** 3, 4), dtype=REAL, device=dev)
     lib = _native.library()
     insert_trilinear.launches += 1
     _native.check(lib.thunder_insert_trilinear(
         ft.data_ptr(), size, ctfk.data_ptr(), img_idx.data_ptr(),
         rot.data_ptr(), trans.data_ptr(), w.data_ptr(), n_s, r_u, pf,
         float((r_u - 1) * pf), float(pixel_size * size),
-        float(2 * np.pi / size), f_grid.data_ptr(), t_grid.data_ptr(), big,
-        _native.stream_ptr(ft)), "insert_trilinear")
+        float(2 * np.pi / size), f_grid.data_ptr(), t_grid.data_ptr(),
+        scratch.data_ptr(), big, _native.stream_ptr(ft)), "insert_trilinear")
     return f_grid, t_grid
 
 

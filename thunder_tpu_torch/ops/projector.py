@@ -101,12 +101,43 @@ def prepare_projectee_3d_cropped(ref_rl: torch.Tensor, pf: int,
 
 # -- HK1 ----------------------------------------------------------------
 
+# HK1's quad table pays while it stays near the 50 MB L2 cache of an
+# H100: with two classes, 256 images x 125 rotations, measured faster than
+# the plain cube at 48, 86 and 128 MiB and slower at 214 and 333 MiB
+# (micro/hk_candidates.py --big)
+QUAD_TABLE_MAX_BYTES = 128 * 2 ** 20
+
+
+def quad_taps(table: torch.Tensor) -> torch.Tensor:
+    """HK1's quad table: (K, n, n, n) complex64 -> (K, n, n, n, 8)
+    float32 whose cell (z, y, x) holds the four (y, x) taps of a
+    trilinear sample in plane z, t[z, y, x], t[z, y, x+], t[z, y+, x],
+    t[z, y+, x+] (re, im each; + is the next index clipped to n - 1):
+    32 bytes on a 32-byte boundary, so the kernel reads a sample's eight
+    taps as two sectors."""
+    nx = lambda t: torch.cat([t[..., 1:], t[..., -1:]], -1)
+    ny = lambda t: torch.cat([t[..., 1:, :], t[..., -1:, :]], -2)
+    q = torch.stack([table, nx(table), ny(table), nx(ny(table))], -1)
+    return torch.view_as_real(q).reshape(table.shape + (8,)).contiguous()
+
+
+def is_quad_table(table: torch.Tensor) -> bool:
+    return table.ndim == 5 and table.shape[-1] == 8 and table.dtype == REAL
+
+
+def quad_fits(n_cls: int, n: int) -> bool:
+    """Whether the quad table of n_cls cubes of n^3 stays near L2."""
+    return 32 * n_cls * n ** 3 <= QUAD_TABLE_MAX_BYTES
+
+
 def project_slices_plain(table: torch.Tensor, rot: torch.Tensor,
                          i_col: torch.Tensor, i_row: torch.Tensor, pf: int,
                          cls: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of HK1 (the JAX package's _gather_trilinear_3d
-    arithmetic): table (K, n, n, n) complex64, rot (L, R, 3, 3),
-    cls (L,) or None (class 0) -> (L, R, P) complex64."""
+    arithmetic): table (K, n, n, n) complex64 or its quad table, rot
+    (L, R, 3, 3), cls (L,) or None (class 0) -> (L, R, P) complex64."""
+    if is_quad_table(table):
+        table = torch.view_as_complex(table[..., :2])   # each cell's own tap
     n = table.shape[-1]
     c = n // 2
     fx = (i_col * pf).to(REAL)
@@ -148,23 +179,27 @@ def project_slices(table: torch.Tensor, rot: torch.Tensor,
     """Trilinear central-slice gather: out[l, r, p] = sample of cube
     cls[l] at rot[l, r] . (pf i_col[p], pf i_row[p], 0).
 
-    table (K, n, n, n) complex64 centered; rot (L, R, 3, 3) float32 (an
-    expanded leading dim of stride 0 shares one rotation block across
-    images); cls (L,) or None; pixels (P,) int32 -> (L, R, P) complex64.
-    CPU tensors take :func:`project_slices_plain`; CUDA tensors launch
-    csrc/project_slices.cu."""
+    table (K, n, n, n) complex64 centered, or its :func:`quad_taps`
+    table (K, n, n, n, 8) float32, which a caller with many launches on
+    one table builds once (see :func:`quad_fits`); rot (L, R, 3, 3)
+    float32 (an expanded leading dim of stride 0 shares one rotation
+    block across images); cls (L,) or None; pixels (P,) int32 ->
+    (L, R, P) complex64.  CPU tensors take :func:`project_slices_plain`;
+    CUDA tensors launch csrc/project_slices.cu."""
     if not table.is_cuda:
         return project_slices_plain(table, rot, i_col, i_row, pf, cls)
-    _native.require(table.ndim == 4 and table.dtype == COMPLEX
-                    and table.is_contiguous(),
-                    "project_slices: table must be contiguous (K, n, n, n) complex64")
+    quad = is_quad_table(table)
+    _native.require((quad or (table.ndim == 4 and table.dtype == COMPLEX))
+                    and table.is_contiguous() and table.shape[1] ** 3 < 2 ** 31,
+                    "project_slices: table must be contiguous (K, n, n, n) complex64 "
+                    "or its (K, n, n, n, 8) float32 quad table")
     _native.require(rot.ndim == 4 and rot.shape[-2:] == (3, 3)
                     and rot.dtype == REAL,
                     "project_slices: rot must be (L, R, 3, 3) float32")
     if not rot[0].is_contiguous():
         rot = rot.contiguous()
     n_l, n_r = rot.shape[:2]
-    n = table.shape[-1]
+    n = table.shape[1]
     i_col = i_col.to(torch.int32).contiguous()
     i_row = i_row.to(torch.int32).contiguous()
     if cls is not None:
@@ -177,7 +212,7 @@ def project_slices(table: torch.Tensor, rot: torch.Tensor,
     lib = _native.library()
     project_slices.launches += 1
     _native.check(lib.thunder_project_slices(
-        table.data_ptr(), n, None if cls is None else cls.data_ptr(),
+        table.data_ptr(), int(quad), n, None if cls is None else cls.data_ptr(),
         rot.data_ptr(), rot.stride(0), n_l, n_r, i_col.data_ptr(),
         i_row.data_ptr(), n_p, int(pf), out.data_ptr(),
         _native.stream_ptr(table)), "project_slices")

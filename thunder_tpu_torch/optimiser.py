@@ -39,6 +39,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from thunder_tpu_torch.config import ThunderConfig
 from thunder_tpu_torch.constants import (
@@ -79,6 +80,8 @@ from thunder_tpu_torch.ops.projector import (
     prepare_projectee_3d_cropped,
     project_slices,
     project_slices_2d,
+    quad_fits,
+    quad_taps,
 )
 from thunder_tpu_torch.physics.ctf import CtfParams, ctf_packed
 from thunder_tpu_torch.physics.mask import radial_grid, soft_mask_weight
@@ -107,6 +110,48 @@ def reco_grid_size(size: int, r_u: int) -> int:
     """Cropped reconstructor box (Model::resetReco, Model.cpp:1113)."""
     size_r = min(size, 2 * (r_u + 2))
     return max(16, size_r + (size_r % 2))
+
+
+def _range(name: str):
+    """A named torch.profiler range, ``thunder:<name>`` (a no-op outside
+    a profile)."""
+    return record_function("thunder:" + name)
+
+
+class _Stages:
+    """The consecutive stages of a round.  begin(name) closes the open
+    stage and opens the next: a profiler range ``thunder:round/<name>``
+    and, when ``sync`` is given (per-stage timing asked for), its host
+    milliseconds up to a device sync, kept in ``ms``.  Leaving the
+    ``with`` block closes the last stage."""
+
+    def __init__(self, sync=None):
+        self.ms = None if sync is None else {}
+        self._sync = sync
+        self._open = None
+
+    def __enter__(self):
+        if self._sync is not None:
+            self._sync()
+        return self
+
+    def begin(self, name: str) -> None:
+        self.end()
+        self._open = (name, _range("round/" + name), time.time())
+        self._open[1].__enter__()
+
+    def end(self) -> None:
+        if self._open is None:
+            return
+        name, rng, t0 = self._open
+        rng.__exit__(None, None, None)
+        if self._sync is not None:
+            self._sync()
+            self.ms[name] = round((time.time() - t0) * 1e3, 1)
+        self._open = None
+
+    def __exit__(self, *exc) -> None:
+        self.end()
 
 
 def _round_up(x: int, m: int) -> int:
@@ -385,13 +430,19 @@ class Optimiser:
     def proj_table(self, r_u: int) -> torch.Tensor:
         """Padded, grid-corrected spectra (2, K, crop^nd) of the current
         references, cropped to what radius r_u reaches (cached until the
-        references change)."""
+        references change).  A 3D table that stays near the L2 cache as
+        HK1's quad table is kept in that layout, (2, K, crop^3, 8)
+        float32 (ops/projector.py quad_taps): a round's ~90 projections
+        read it."""
         cfg = self.cfg
         crop = proj_crop_size(cfg.size, cfg.pf, r_u)
         if crop not in self._tables:
             prep = (prepare_projectee_2d_cropped if self.nd == 2
                     else prepare_projectee_3d_cropped)
-            self._tables[crop] = prep(self.state.refs, cfg.pf, crop).contiguous()
+            table = prep(self.state.refs, cfg.pf, crop).contiguous()
+            if self.nd == 3 and quad_fits(2 * cfg.k, crop):
+                table = quad_taps(table)
+            self._tables[crop] = table
         return self._tables[crop]
 
     def _n_trans_global(self) -> int:
@@ -484,28 +535,39 @@ class Optimiser:
         cfg = self.cfg
         mode, nd = self.mode, self.nd
         hs = torch.as_tensor(hemis, device=self.device)
-        par = pt.perturb_r(self.gen, par, pf_small, mode=mode)
-        par = pt.perturb_t(self.gen, par, pf_small, float(cfg.trans_s))
+        with _range("phase/perturb_r"):
+            par = pt.perturb_r(self.gen, par, pf_small, mode=mode)
+        with _range("phase/perturb_t"):
+            par = pt.perturb_t(self.gen, par, pf_small, float(cfg.trans_s))
         nh, n_l, n_r = par.r.shape[:3]
         k_cls = table.shape[1]
-        tra = translate_phases_view(rings.i_col, rings.i_row, cfg.size, par.t)
-        rot = rotations(par.r, nd).reshape(nh * n_l, n_r, nd, nd)
-        cls = (self.state.cls[hs] + hs[:, None] * k_cls).reshape(-1)
-        pri = project_any(table.reshape((-1,) + table.shape[2:]), rot,
-                          rings.i_col, rings.i_row, cfg.pf, cls)
+        with _range("phase/translate_rotate"):
+            tra = translate_phases_view(rings.i_col, rings.i_row, cfg.size, par.t)
+            rot = rotations(par.r, nd).reshape(nh * n_l, n_r, nd, nd)
+            cls = (self.state.cls[hs] + hs[:, None] * k_cls).reshape(-1)
+        with _range("phase/project"):
+            pri = project_any(table.reshape((-1,) + table.shape[2:]), rot,
+                              rings.i_col, rings.i_row, cfg.pf, cls)
         flat = lambda x: x[hs].reshape((nh * n_l,) + x.shape[2:])
-        u_r, u_t = local_marginals(flat(dat_w), flat(sctf2), flat(a_term), pri,
-                                   tra.reshape((nh * n_l,) + tra.shape[2:]),
-                                   par.w_r.reshape(nh * n_l, -1),
-                                   par.w_t.reshape(nh * n_l, -1))
-        par = par._replace(u_r=u_r.reshape(nh, n_l, -1),
-                           u_t=u_t.reshape(nh, n_l, -1))
-        par = pt.clip_u_r(par, mode)
-        par = pt.resample_r(self.gen, par, n_r)
-        par = pt.resample_t(self.gen, par, par.t.shape[-2])
-        par = pt.cal_vari_t(pt.cal_vari_r(par, mode))
-        vari = torch.stack([par.k1.mean(-1), par.s0.mean(-1), par.s1.mean(-1),
-                            par.s_d.mean(-1)], dim=-1)
+        with _range("phase/local_marginals"):
+            u_r, u_t = local_marginals(flat(dat_w), flat(sctf2), flat(a_term), pri,
+                                       tra.reshape((nh * n_l,) + tra.shape[2:]),
+                                       par.w_r.reshape(nh * n_l, -1),
+                                       par.w_t.reshape(nh * n_l, -1))
+            par = par._replace(u_r=u_r.reshape(nh, n_l, -1),
+                               u_t=u_t.reshape(nh, n_l, -1))
+        with _range("phase/clip_u_r"):
+            par = pt.clip_u_r(par, mode)
+        with _range("phase/resample_r"):
+            par = pt.resample_r(self.gen, par, n_r)
+        with _range("phase/resample_t"):
+            par = pt.resample_t(self.gen, par, par.t.shape[-2])
+        with _range("phase/cal_vari_r"):
+            par = pt.cal_vari_r(par, mode)
+        with _range("phase/cal_vari_t"):
+            par = pt.cal_vari_t(par)
+            vari = torch.stack([par.k1.mean(-1), par.s0.mean(-1), par.s1.mean(-1),
+                                par.s_d.mean(-1)], dim=-1)
         return par, vari
 
     def local_phases(self, rings: PackedRings) -> list:
@@ -736,14 +798,15 @@ class Optimiser:
         o_class = torch.einsum("hkl,hlc->hkc", one_hot, eff_t) / cnt[..., None]
         return recentre_refs(refs, o_class, self.nd)
 
-    def _reconstruct_and_compare(self, record: dict, mark=lambda n: None):
+    def _reconstruct_and_compare(self, record: dict, stage: _Stages):
         """Two-pass reconstruction (MAP-free FSC pass + Wiener MAP pass
         with the previous round's FSC), hemisphere FSC (HK4) and
         averaging below the 0.95 crossing (Optimiser.cpp:7310-7755)."""
         cfg = self.cfg
         nd = self.nd
+        stage.begin("reco_insert")
         f2, t2, r_u, grid_size = self.reconstruct_round()
-        mark("reco_insert")
+        stage.begin("reco_fsc")
         n_shells = cfg.max_r
         # the previous round's per-class curves (one curve broadcast
         # until the first reconstruction)
@@ -771,9 +834,9 @@ class Optimiser:
         fsc_all = fsc_dev.cpu().numpy().astype(np.float64)
         fsc_all[:, r_u:] = 0.0
         self._fsc_band = int(r_u)
-        mark("reco_fsc")
+        stage.begin("reco_wiener")
         refs = self._recentre(refs_map)
-        mark("reco_wiener")
+        stage.begin("reco_compare")
         if cfg.gold_standard and cfg.k == 1:
             _, ref_a, ref_b = compare_refs(refs[0], refs[1], n_shells,
                                            fsc=fsc_all, nd=nd)
@@ -841,43 +904,40 @@ class Optimiser:
     # -- one round ------------------------------------------------------
 
     def run_round(self, i_round: int) -> dict:
+        """One E-M round; each stage runs in a named profiler range
+        (``thunder:round/<stage>``) and, with THUNDER_STAGE_TIMING set,
+        is timed up to a device sync into the record's ``stage_ms``."""
+        timing = bool(os.environ.get("THUNDER_STAGE_TIMING"))
+        with _Stages(self._sync if timing else None) as stage:
+            return self._run_round(i_round, stage)
+
+    def _run_round(self, i_round: int, stage: _Stages) -> dict:
         cfg = self.cfg
         t0 = time.time()
         rings = self._rings()
         record = dict(round=i_round, r=int(self.model.r),
                       search_type=int(self.model.search_type))
-        stage_ms = None
-        mark_t = [t0]
-        if os.environ.get("THUNDER_STAGE_TIMING"):
-            stage_ms = record["stage_ms"] = {}
-            self._sync()
-            mark_t[0] = time.time()
+        if stage.ms is not None:
+            record["stage_ms"] = stage.ms
 
-        def mark(name):
-            if stage_ms is None:
-                return
-            self._sync()
-            now = time.time()
-            stage_ms[name] = round((now - mark_t[0]) * 1e3, 1)
-            mark_t[0] = now
-
+        stage.begin("build_table")
         self.proj_table(int(self.model.r))
         self.proj_table(int(self.model.r_u))
-        mark("build_table")
 
         s = self.state
         prev_top_r = s.par.top_r
         if i_round == 0 or not cfg.skip_e:
             if self.model.search_type == SEARCH_TYPE_GLOBAL and cfg.g_search:
+                stage.begin("global_search")
                 g = self.expectation_global(rings)
-                mark("global_search")
+                stage.begin("adopt_global")
                 self.adopt_global(g)
-                mark("adopt_global")
+            stage.begin("phases")
             record["n_phases"] = self.local_phases(rings)
-            mark("phases")
         else:
             record["n_phases"] = [0, 0]
 
+        stage.begin("host_stats")
         dot = torch.abs(torch.sum(prev_top_r * s.par.top_r, dim=-1))
         rot_med = _median(dot, self.valid_dev)
         record["rot_change_median_deg"] = float(
@@ -886,17 +946,16 @@ class Optimiser:
                               _median(s.par.s1, self.valid_dev))
         # the class distribution after expectation drives rebirth
         distr = self.class_distribution().cpu().numpy() if cfg.k > 1 else None
-        mark("host_stats")
 
         if not cfg.skip_m:
+            stage.begin("max_stats")
             self.maximization_stats(i_round)
-            mark("max_stats")
             if not cfg.skip_r:
-                self._reconstruct_and_compare(record, mark)
-                mark("reco_compare")
+                self._reconstruct_and_compare(record, stage)
         else:
             self.model.set_fsc(np.ones((cfg.k, cfg.max_r), np.float32))
 
+        stage.begin("mask_recentre")
         reborn = self.balance_classes(distr)
         if reborn:
             record["reborn_classes"] = reborn
@@ -905,7 +964,7 @@ class Optimiser:
         if self.model.search_type != SEARCH_TYPE_GLOBAL:
             self.re_centre_img()
             self._refresh_masked()
-        mark("mask_recentre")
+        stage.end()
 
         self.model.update_r(cfg.thres_cutoff_fsc)
         self.model.update_search_type()
