@@ -8,24 +8,32 @@ Run from the root of a checkout.  It needs one CUDA device and exits
 non-zero, printing no result, without one (or without the package).
 
 Phase 0 builds the eleven hand-written Hopper kernels (one nvcc per
-source, sm_90a).  Phase 1 holds the 3D kernels (HK1-HK4) against their
-plain PyTorch versions at the 3D path's 128 px shapes (HK1 from the quad
-table the rounds use and from the plain cube, at the phase loop's and
-the global search's shapes and where its taps clip at the faces of a
-full-box table; HK3 also with slices in no order and of weight zero),
-and HK1 and HK3 at the shapes of a 256 px box at its global radius;
-phase 1b the 2D
-path's at 160 px (HK5 at r = 5 and 15; HK6 with the 480,000 slices of a
+source, sm_90a) and times an empty kernel launched the same way, as a
+replayed CUDA graph: the floor under any launch.  Phase 1 holds the 3D
+kernels (HK1-HK4) against their plain PyTorch versions at the 3D path's
+128 px shapes (HK1 from the quad table the rounds use and from the plain
+cube, at the phase loop's and the global search's shapes and where its
+taps clip at the faces of a full-box table; HK3 also with slices in no
+order and of weight zero; HK4 at the hemisphere FSC, as spectrum.fsc
+launches it from the two spectra and on three stacked fields, and at the
+sigma stage's per-image sums with three fields and with one, its
+coordinate form held exact against shell_geometry), and HK1 and HK3 at
+the shapes of a 256 px box at its global radius; phase 1b the 2D path's
+at 160 px (HK5 at the phase loop's, the global-search block's and the
+sigma pass's shapes, at r = 5 and 15; HK6 with the 480,000 slices of a
 round into 2K = 60 planes at r_u = 31, 12 and 40; HK2, the likelihood
 with its products fused in, at the global-search block of all 30
 classes at r = 5 and 15 and at the phase loop's; HK4 at the ring FRC and
-sigma shapes); phase 1 also holds HK2 at the 3D global block of 256
-rotations x 151 translations, configs/demo_3D.json's grid.  Each kernel's timing line gives kernel_ms and plain_ms
-(CUDA events), library_ms (one PyTorch call computing the same function:
-F.grid_sample for HK1 and HK5, torch.bincount for HK4; none exists for
-HK2, HK3 and HK6), bound_ms (the larger of its bytes over 3.35 TB/s and
-its fp32 operations over 67 TFLOP/s, counted from this run's inputs),
-what bounds it and the share bound_ms / kernel_ms.  Phase 2 writes a 128
+the sigma shapes); phase 1 also holds HK2 at the 3D global block of 256
+rotations x 151 translations, configs/demo_3D.json's grid.  Each
+kernel's timing line gives kernel_ms and plain_ms (CUDA events),
+library_ms (one PyTorch call computing the same function: F.grid_sample
+for HK1 and HK5, torch.bincount for HK4; none exists for HK2, HK3 and
+HK6), bound_ms (the larger of its bytes over 3.35 TB/s and its fp32
+operations over 67 TFLOP/s, counted from this run's inputs), what bounds
+it and the share bound_ms / kernel_ms; a record under 0.15 ms (the
+events measure the host's call rate under ~0.05 ms) also
+kernel_alone_ms, its launches replayed as a CUDA graph.  Phase 2 writes a 128
 px, 256-image synthetic dataset with the port's generator and runs
 three rounds of the demo-grid K=1 3D refinement through
 ``thunder_tpu_torch.cli.thunder.main`` from the phantom low-passed to 40
@@ -44,7 +52,9 @@ averages finite, the .mrcs and Class_Info files written, ``res_A``
 finer than the 60 A start (a gate this data cannot fail: see
 phase_slice_2d), class purity at least 5/K, HK5, HK6, HK2 and HK4
 launched, and HK2 launched once a rotation block a hemisphere in every
-global search.  Phases 2 and 4 each run one round (3D round 1, 2D round
+global search.  Both runs split HK4's launches by what called it (the
+FSC / FRC, the preprocess spectra, the sigma stage) and the projection
+kernels' by global search, phase loop and sigma pass.  Phases 2 and 4 each run one round (3D round 1, 2D round
 4) under torch.profiler, without per-stage syncs, and print its device
 time, idle share and heaviest kernels, and its launch calls, kernels and
 device time by named range of the optimiser (``thunder:round/<stage>``,
@@ -89,6 +99,10 @@ R_2D, R_GLOBAL_2D, R_U_2D, N_ROT_2D, N_TRANS_2D = 5, 15, 31, 100, 151
 INIT_RES_2D = 60.0
 # an H100 SXM's published peaks (HBM3 rate, FP32 vector rate), for bounds
 HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
+# a record whose call takes less is also timed apart from its wrapper
+# (under ~0.05 ms CUDA events around a loop of calls give the host's call
+# rate, and up to three times that on a slow host)
+ALONE_UNDER_MS = 0.15
 
 
 def fail(msg: str) -> None:
@@ -231,15 +245,25 @@ def bound(n_bytes: float, n_flops: float) -> tuple:
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-def record(name, shape, err, ms, plain_ms, n_bytes, n_flops, library_ms=None, **extra):
+def record(name, shape, err, ms, plain_ms, n_bytes, n_flops, library_ms=None, alone=None,
+           **extra):
     """A kernel's record at one shape, with its bound and share, and its
-    timing line."""
+    timing line.  ``alone``: the timed call; when it took under
+    ALONE_UNDER_MS, where CUDA events around a loop of calls measure the
+    host's call rate, its launches are also replayed as a CUDA graph
+    (``alone_ms``, the kernel's own device time)."""
     b_ms, by = bound(n_bytes, n_flops)
     lib = "null" if library_ms is None else f"{library_ms:.4f}"
+    alone_ms = None
+    if alone is not None and ms < ALONE_UNDER_MS:
+        from thunder_tpu_torch.micro.launch_floor import graph_ms
+
+        alone_ms = graph_ms(alone)
     say(f"  {name} [{shape}]: kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms {lib}  "
-        f"bound_ms {b_ms:.4f} ({by})  share {b_ms / ms:.4f}")
+        f"bound_ms {b_ms:.4f} ({by})  share {b_ms / ms:.4f}"
+        + ("" if alone_ms is None else f"  kernel_alone_ms {alone_ms:.4f}"))
     return dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=b_ms, bound_by=by, share=b_ms / ms, **extra)
+                bound_ms=b_ms, bound_by=by, share=b_ms / ms, alone_ms=alone_ms, **extra)
 
 
 def lk_operands(dev, gen, n_l: int, n_k: int, n_r: int, n_t: int, r: int, size: int,
@@ -327,10 +351,110 @@ def lk_check(name, ops, blocks: int, timing: bool):
     if not timing:
         return dict(shape=shape, max_abs_err=err)
     n_bytes, n_flops = lk_cost(ops)
+    acc = lk_run(likelihood.likelihood_block, ops)     # the launch alone: given accumulators
     return record("likelihood_block", shape, err,
                   timed(lambda: lk_run(likelihood.likelihood_block, ops), 10),
                   timed(lambda: lk_run(likelihood.likelihood_block_plain, ops), 2, warm=1),
-                  n_bytes, n_flops)
+                  n_bytes, n_flops,
+                  alone=lambda: likelihood.likelihood_block(*ops, *acc, col0=0))
+
+
+def hk4_records(dev, gen, size: int, nd: int, n_b: int, n_img: int, r_u: int, label: str):
+    """HK4 at one path's shapes.  The FSC / FRC of ``n_b`` reference pairs
+    on the centered size^nd grid: "pair", the entry spectrum.fsc takes
+    (the three fields formed from the two spectra in the kernel), and
+    "grid", the coordinate form on three stacked real fields (the
+    preprocess spectra take it with one field); the coordinate form's
+    shell index and half-space choice held exact against
+    shell_geometry's.  The sigma stage's per-image sums of ``n_img``
+    images over the packed rings below r_u (3 fields, "sigma_c3") and
+    from r_u to max_r (1 field, "sigma_c1").  Bounds count what each form
+    must read: the half space's cells of a centered grid, every packed
+    pixel."""
+    import torch
+
+    from thunder_tpu_torch.ops.fourier import pack_rings
+    from thunder_tpu_torch.physics import spectrum
+
+    n_sh = size // 2 - 2
+    n = size ** nd
+    half_cells = size ** (nd - 1) * (size - size // 2 + 1)
+    why = "float32 sums in another order, run-dependent where atomics add them"
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    u, half = spectrum.shell_geometry(size, nd, dev)
+    n_all = int(u.max()) + 1
+    ones = torch.ones(1, 1, n, device=dev)
+    cnt = spectrum.shell_sums_grid(ones, size, nd, n_all)
+    if not (torch.equal(cnt, spectrum.shell_sums_plain(ones, u, n_all, half))
+            and torch.equal(spectrum.shell_sums_grid(u.float()[None, None], size, nd, n_all),
+                            cnt * torch.arange(n_all, device=dev))
+            and torch.equal(spectrum.shell_sums_grid(ones, size, nd, n_all, False),
+                            spectrum.shell_sums_plain(ones, u, n_all))):
+        fail(f"shell_sums {label}: the coordinate form's shells or half space differ from "
+             f"shell_geometry's on the {size}^{nd} grid")
+    say(f"  shell_sums {label}: coordinate form exact against shell_geometry, {size}^{nd} grid, "
+        f"{n_all} shells")
+    recs = {}
+    vals = rnd(n_b, 3, n) ** 2
+    ref = spectrum.shell_sums_plain(vals, u, n_sh, half)
+    shape = f"{label} B={n_b} C=3 N={size}^{nd} shells={n_sh}"
+    call = lambda: spectrum.shell_sums_grid(vals, size, nd, n_sh)
+    err = compare("shell_sums", f"grid form {shape}", call(), ref, 1e-4, why)
+    lib, lib_out = bincount_call(vals, u, n_sh, half)
+    compare("bincount (HK4's library yardstick)", shape, lib_out(lib()), ref, 1e-4,
+            "float32 sums in another order")
+    lib_ms = timed(lib, 20)
+    out_bytes = n_b * 3 * n_sh * 4
+    recs["grid"] = record(
+        "shell_sums", f"grid form {shape}", err, timed(call, 50),
+        timed(lambda: spectrum.shell_sums_grid_plain(vals, size, nd, n_sh), 5),
+        n_b * 12 * half_cells + out_bytes, n_b * 6 * half_cells, library_ms=lib_ms, alone=call)
+    del vals, lib
+    a = torch.complex(rnd(n_b, n), rnd(n_b, n))
+    b = a + 0.5 * torch.complex(rnd(n_b, n), rnd(n_b, n))
+    call = lambda: spectrum.fsc_sums(a, b, size, nd, n_sh)
+    err = compare("shell_sums", f"pair form {shape}", call(),
+                  spectrum.fsc_sums_plain(a, b, size, nd, n_sh), 1e-4, why)
+    # bincount takes no spectra: its time is the one above, on stacked fields
+    recs["pair"] = record(
+        "shell_sums", f"pair form {shape}", err, timed(call, 50),
+        timed(lambda: spectrum.fsc_sums_plain(a, b, size, nd, n_sh), 5),
+        n_b * 16 * half_cells + out_bytes, n_b * 12 * half_cells, library_ms=lib_ms, alone=call)
+    del a, b
+    for key, rings, n_c in (("sigma_c3", pack_rings(size, r_u, 0, lane=512, device=dev), 3),
+                            ("sigma_c1", pack_rings(size, n_sh, r_u, lane=512, device=dev), 1)):
+        n_p = rings.i_col.numel()
+        pv = rnd(n_img, n_c, n_p) ** 2 * rings.mask
+        sh = torch.clamp(rings.i_sig, max=n_sh)
+        shape = f"{label} sigma B={n_img} C={n_c} P={n_p} shells={n_sh + 1}"
+        call = lambda: spectrum.shell_sums(pv, sh, n_sh + 1)
+        ref = spectrum.shell_sums_plain(pv, sh, n_sh + 1)
+        err = compare("shell_sums", shape, call(), ref, 1e-4, why)
+        lib, lib_out = bincount_call(pv, sh, n_sh + 1, None)
+        compare("bincount (HK4's library yardstick)", shape, lib_out(lib()), ref, 1e-4,
+                "float32 sums in another order")
+        recs[key] = record(
+            "shell_sums", shape, err, timed(call, 20),
+            timed(lambda: spectrum.shell_sums_plain(pv, sh, n_sh + 1), 5),
+            pv.numel() * 4 + n_p * 4 + n_img * n_c * (n_sh + 1) * 4, pv.numel(),
+            library_ms=timed(lib, 5), alone=call,
+            pieces=spectrum.shell_sums_plan(n_img, n_p))
+        del pv, ref, lib
+    return recs
+
+
+def hk4_by_caller(shapes: dict) -> dict:
+    """HK4's launches of a run by what called it, from the wrapper's
+    count by (form, B, C, N): spectrum.fsc (the hemisphere FSC, the ring
+    FRC, the final maps' FSC) takes the pair form, the preprocess
+    spectra the coordinate form, the sigma stage the row form with
+    three fields, with one, and once an image-less count (B = 1)."""
+    out = {"fsc_frc": 0, "preprocess": 0, "sigma_c3": 0, "sigma_c1": 0, "count": 0}
+    for (form, n_b, n_c, _), k in shapes.items():
+        key = ("fsc_frc" if form == "pair" else "preprocess" if form == "grid"
+               else "sigma_c3" if n_c == 3 else "count" if n_b == 1 else "sigma_c1")
+        out[key] += k
+    return out
 
 
 def phase_kernels(dev):
@@ -342,7 +466,6 @@ def phase_kernels(dev):
     from thunder_tpu_torch.ops import insert, projector
     from thunder_tpu_torch.ops.fourier import pack_rings
     from thunder_tpu_torch.optimiser import proj_crop_size, reco_grid_size
-    from thunder_tpu_torch.physics import spectrum
     from thunder_tpu_torch.physics.ctf import ctf_params
     from thunder_tpu_torch.pipeline.synthetic import phantom
     from thunder_tpu_torch.device import generator
@@ -406,7 +529,8 @@ def phase_kernels(dev):
                    timed(lambda: projector.project_slices(quads[:1], *tail_g), 50),
                    timed(lambda: projector.project_slices_plain(table[:1], *tail_g), 5),
                    table[:1].numel() * 8 + rot_g.numel() * 4 + 8 * n_p + ref.numel() * 8,
-                   ref.numel() * 60, library_ms=timed(lib, 50))
+                   ref.numel() * 60, library_ms=timed(lib, 50),
+                   alone=lambda: projector.project_slices(quads[:1], *tail_g))
     del ref, quads
 
     # taps that clip: the full padded box as the table and the whole
@@ -535,30 +659,9 @@ def phase_kernels(dev):
     del ft_b, wide
     results["insert_trilinear"] = dict(rec_3, max_abs_err=max(e1, e2, e3, e4), at_256px=rec_3b)
 
-    # HK4 shell_sums: the hemisphere FSC (3 fields over the 128^3 box,
-    # 62 shells) and the sigma stage's per-image sums (256 images)
-    u, half = spectrum.shell_geometry(SIZE, 3, dev)
-    vals = torch.randn(1, 3, SIZE ** 3, device=dev) ** 2
-    n_sh = SIZE // 2 - 2
-    ref = spectrum.shell_sums_plain(vals, u, n_sh, half)
-    e1 = compare("shell_sums", f"fsc B=1 C=3 N={SIZE}^3 shells={n_sh}",
-                 spectrum.shell_sums(vals, u, n_sh, half), ref, 1e-4,
-                 "float32 sums in a run-dependent order (atomics)")
-    lib, lib_out = bincount_call(vals, u, n_sh, half)
-    compare("bincount (HK4's library yardstick)", "fsc", lib_out(lib()), ref, 1e-4,
-            "float32 sums in another order")
-    rings_u = pack_rings(SIZE, r_u, 0, lane=512, device=dev)
-    pv = torch.randn(2 * n_l, 3, rings_u.i_col.numel(), device=dev) ** 2
-    sh = torch.clamp(rings_u.i_sig, max=n_sh)
-    e2 = compare("shell_sums", f"sigma B={2 * n_l} C=3 P={rings_u.i_col.numel()} shells={n_sh + 1}",
-                 spectrum.shell_sums(pv, sh, n_sh + 1), spectrum.shell_sums_plain(pv, sh, n_sh + 1),
-                 1e-4, "atomics order")
-    results["shell_sums"] = record(
-        "shell_sums", f"B=1 C=3 N={SIZE}^3 shells={n_sh}", max(e1, e2),
-        timed(lambda: spectrum.shell_sums(vals, u, n_sh, half), 20),
-        timed(lambda: spectrum.shell_sums_plain(vals, u, n_sh, half), 5),
-        vals.numel() * 4 + SIZE ** 3 * 8 + 3 * n_sh * 4, vals.numel() * 2,
-        library_ms=timed(lib, 20))
+    # HK4 shell_sums: the hemisphere FSC (62 shells of the 128^3 box) and
+    # the sigma stage's per-image sums (both halves' 256 images)
+    results["shell_sums"] = hk4_records(dev, gen, SIZE, 3, 1, 2 * n_l, r_u, "3D")
     return results
 
 
@@ -573,7 +676,6 @@ def phase_kernels_2d(dev):
     from thunder_tpu_torch.ops import insert, projector
     from thunder_tpu_torch.ops.fourier import pack_rings
     from thunder_tpu_torch.optimiser import proj_crop_size, reco_grid_size
-    from thunder_tpu_torch.physics import spectrum
     from thunder_tpu_torch.physics.ctf import ctf_params
 
     gen = generator(1, dev)
@@ -588,7 +690,7 @@ def phase_kernels_2d(dev):
     # class of 2K planes) and one global-search block (all classes, 100
     # shared rotations), at the band every round on the card ran at
     # (r = 5) and at the widest global band (r = 15); timed at both
-    recs = []
+    recs, recs_g = [], []
     for r in (R_2D, R_GLOBAL_2D):
         rings = pack_rings(SIZE_2D, r, 1, device=dev)
         n_p = rings.i_col.numel()
@@ -603,20 +705,52 @@ def phase_kernels_2d(dev):
                      "same coordinates (no FMA); tap sums may contract")
         args_g = (table[:K_2D], rot2d((1, N_ROT_2D)).expand(K_2D, N_ROT_2D, 2, 2),
                   rings.i_col, rings.i_row, 2, torch.arange(K_2D, device=dev))
-        e2 = compare("project_slices_2d", f"global K={K_2D} R={N_ROT_2D} r={r} shared",
-                     projector.project_slices_2d(*args_g),
+        shape_g = f"global K={K_2D} R={N_ROT_2D} shared r={r} P={n_p} crop={crop}^2"
+        out_g = projector.project_slices_2d(*args_g)
+        e2 = compare("project_slices_2d", shape_g, out_g,
                      projector.project_slices_2d_plain(*args_g), 1e-5, "as above")
         lib, lib_out = grid_sample_call(*args_l)
         compare("grid_sample (HK5's library yardstick)", f"phases r={r}", lib_out(lib()), out,
                 1e-4, "border clamps the coordinate where HK5 clamps each tap")
         recs.append(record(
-            "project_slices_2d", shape, max(e1, e2),
+            "project_slices_2d", shape, e1,
             timed(lambda: projector.project_slices_2d(*args_l), 20),
             timed(lambda: projector.project_slices_2d_plain(*args_l), 5),
             table.numel() * 8 + N_2D * 9 * 16 + 8 * n_p + 4 * N_2D + out.numel() * 8,
-            out.numel() * 30, library_ms=timed(lib, 20)))
-        del out
-    results["project_slices_2d"] = dict(recs[0], at_r15=recs[1])
+            out.numel() * 30, library_ms=timed(lib, 20),
+            alone=lambda: projector.project_slices_2d(*args_l)))
+        lib, _ = grid_sample_call(*args_g)
+        recs_g.append(record(
+            "project_slices_2d", shape_g, e2,
+            timed(lambda: projector.project_slices_2d(*args_g), 50),
+            timed(lambda: projector.project_slices_2d_plain(*args_g), 5),
+            K_2D * crop * crop * 8 + N_ROT_2D * 16 + 8 * n_p + 4 * K_2D + out_g.numel() * 8,
+            out_g.numel() * 30, library_ms=timed(lib, 50),
+            alone=lambda: projector.project_slices_2d(*args_g)))
+        del out, out_g, lib
+    # the sigma / norm stage's pass: every image's best rotation, the
+    # packed half disc to r_u (lane 512)
+    rings = pack_rings(SIZE_2D, R_U_2D, 0, lane=512, device=dev)
+    n_p = rings.i_col.numel()
+    crop = proj_crop_size(SIZE_2D, 2, R_U_2D)
+    table = torch.randn(2 * K_2D, crop, crop, dtype=torch.complex64, device=dev)
+    args_s = (table, rot2d((N_2D, 1)), rings.i_col, rings.i_row, 2,
+              torch.randint(0, 2 * K_2D, (N_2D,), generator=gen, device=dev))
+    shape_s = f"sigma L={N_2D} R=1 r_u={R_U_2D} P={n_p} crop={crop}^2"
+    out = projector.project_slices_2d(*args_s)
+    e3 = compare("project_slices_2d", shape_s, out, projector.project_slices_2d_plain(*args_s),
+                 1e-5, "as above")
+    lib, _ = grid_sample_call(*args_s)
+    rec_s = record("project_slices_2d", shape_s, e3,
+                   timed(lambda: projector.project_slices_2d(*args_s), 20),
+                   timed(lambda: projector.project_slices_2d_plain(*args_s), 5),
+                   table.numel() * 8 + N_2D * 16 + 8 * n_p + 4 * N_2D + out.numel() * 8,
+                   out.numel() * 30, library_ms=timed(lib, 20),
+                   alone=lambda: projector.project_slices_2d(*args_s))
+    del out, table, lib, args_s
+    results["project_slices_2d"] = dict(
+        recs[0], at_r15=recs[1], global_shapes=recs_g, sigma_shape=rec_s,
+        max_abs_err=max(r["max_abs_err"] for r in recs + recs_g + [rec_s]))
 
     # HK6 as Optimiser._insert_2d launches it once a round: both halves'
     # 10,000 images x 48 compacted slots into 2K class planes (image l of
@@ -681,29 +815,9 @@ def phase_kernels_2d(dev):
                  True)]
 
     # HK4 at the 2D shapes: the ring FRC of compare_refs (K class maps of
-    # 160^2, 3 fields, max_r rings, half-plane weight) and the sigma
-    # stage's per-image sums (both halves' images over the r_u band)
-    n_sh = SIZE_2D // 2 - 2
-    u, half = spectrum.shell_geometry(SIZE_2D, 2, dev)
-    vals = torch.randn(K_2D, 3, SIZE_2D ** 2, device=dev) ** 2
-    ref = spectrum.shell_sums_plain(vals, u, n_sh, half)
-    e1 = compare("shell_sums", f"2D FRC B={K_2D} C=3 N={SIZE_2D}^2 shells={n_sh}",
-                 spectrum.shell_sums(vals, u, n_sh, half), ref, 1e-4, "atomics order")
-    lib, lib_out = bincount_call(vals, u, n_sh, half)
-    compare("bincount (HK4's library yardstick)", "2D FRC", lib_out(lib()), ref, 1e-4,
-            "float32 sums in another order")
-    rings_u = pack_rings(SIZE_2D, R_U_2D, 0, lane=512, device=dev)
-    pv = torch.randn(N_2D, 3, rings_u.i_col.numel(), device=dev) ** 2
-    sh = torch.clamp(rings_u.i_sig, max=n_sh)
-    e2 = compare("shell_sums", f"2D sigma B={N_2D} C=3 P={rings_u.i_col.numel()} "
-                 f"shells={n_sh + 1}", spectrum.shell_sums(pv, sh, n_sh + 1),
-                 spectrum.shell_sums_plain(pv, sh, n_sh + 1), 1e-4, "atomics order")
-    results["shell_sums_2d"] = record(
-        "shell_sums", f"2D FRC B={K_2D} C=3 N={SIZE_2D}^2 shells={n_sh}", max(e1, e2),
-        timed(lambda: spectrum.shell_sums(vals, u, n_sh, half), 20),
-        timed(lambda: spectrum.shell_sums_plain(vals, u, n_sh, half), 5),
-        vals.numel() * 4 + SIZE_2D ** 2 * 8 + K_2D * 3 * n_sh * 4, vals.numel() * 2,
-        library_ms=timed(lib, 20))
+    # 160^2, max_r rings) and the sigma stage's per-image sums (both
+    # halves' images below and above the r_u band)
+    results["shell_sums_2d"] = hk4_records(dev, gen, SIZE_2D, 2, K_2D, N_2D, R_U_2D, "2D")
     return results
 
 
@@ -855,11 +969,13 @@ def phase_slice_2d(dev, wrappers):
         torch.cuda.synchronize()
         for w in wrappers.values():
             w.launches = 0
+        wrappers["shell_sums"].shapes.clear()
         t0 = time.time()
         rc, seen, got = run_cli_counting_global([cfg_path, "--device", str(dev)], PROFILE_2D)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = {name: w.launches for name, w in wrappers.items()}
+        hk4_shapes = dict(wrappers["shell_sums"].shapes)
         if rc != 0:
             fail(f"2D: thunder main returned {rc}")
         check_global_launches("2D", seen)
@@ -899,7 +1015,9 @@ def phase_slice_2d(dev, wrappers):
         if final.shape != (K_2D, SIZE_2D, SIZE_2D) or not np.isfinite(final).all():
             fail("2D: final class averages bad shape or non-finite")
         say(f"  2D main path wall {wall:.1f} s, launches {launches}")
+        say(f"  shell_sums launches by (form, B, C, N): {hk4_shapes}")
         prof = profile_summary(got, PROFILE_2D, "2D")
+        prof["shell_sums_launches"] = hk4_by_caller(hk4_shapes)
         res = [r["res_A"] for r in recs]
         # On this data the gate cannot fail: res_A reads the band edge
         # (7.04 A) from round 0, in thunder_tpu as in the port.  The
@@ -1049,11 +1167,13 @@ def phase_slice(dev, wrappers):
         torch.cuda.synchronize()
         for w in wrappers.values():
             w.launches = 0
+        wrappers["shell_sums"].shapes.clear()
         t0 = time.time()
         rc, seen, got = run_cli_counting_global([cfg_path, "--device", str(dev)], PROFILE_3D)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = {name: w.launches for name, w in wrappers.items()}
+        hk4_shapes = dict(wrappers["shell_sums"].shapes)
         if rc != 0:
             fail(f"thunder main returned {rc}")
         check_global_launches("3D", seen)
@@ -1069,7 +1189,9 @@ def phase_slice(dev, wrappers):
                 f"{N_IMAGES / rec['elapsed_s']:.2f} img/s  "
                 f"stage_ms={json.dumps(rec.get('stage_ms', 'profiled'))}")
         say(f"  main path wall {wall:.1f} s, launches {launches}")
+        say(f"  shell_sums launches by (form, B, C, N): {hk4_shapes}")
         prof = profile_summary(got, PROFILE_3D, "3D")
+        prof["shell_sums_launches"] = hk4_by_caller(hk4_shapes)
         need = (["Reference_000_Final.mrc", "Reference_000_A_Final.mrc",
                  "Reference_000_B_Final.mrc"]
                 + [f"{p}_Round_{i:03d}{s}" for i in range(ROUNDS)
@@ -1139,6 +1261,11 @@ def main() -> None:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 say("  ptxas: " + line.strip())
     _native.library()
+    from thunder_tpu_torch.micro.launch_floor import empty_launch_ms
+
+    floor_ms = empty_launch_ms()
+    say(f"  an empty kernel, launched the same way and replayed as a CUDA graph: "
+        f"{floor_ms:.4f} ms a launch (the floor under every kernel_alone_ms below)")
 
     say(f"[{time.time() - t_start:.1f} s] phase 1: 3D kernels against their plain versions")
     results = phase_kernels(dev)
@@ -1182,7 +1309,12 @@ def main() -> None:
                                "thunder_tpu/ops/insert.py:721"),
     }
     # HK2's record is the 2D global block (the heaviest launch a round);
-    # its other main-path blocks ride along, as does HK4's 2D FRC
+    # its other main-path blocks ride along.  HK4's is the hemisphere FSC
+    # as spectrum.fsc launches it (the pair form); its other shapes ride
+    # along by path and form
+    hk4_shapes = {f"{path} {k}": r for path, recs_4 in (("3d", results["shell_sums"]),
+                                                        ("2d", results_2d["shell_sums_2d"]))
+                  for k, r in recs_4.items()}
     more_lk = results["likelihood_block_3d"] + results_2d["likelihood_block_more"]
     recs = {
         "project_slices": results["project_slices"],
@@ -1190,9 +1322,8 @@ def main() -> None:
             results_2d["likelihood_block"], other_shapes=more_lk,
             max_abs_err=max(r["max_abs_err"] for r in more_lk + [results_2d["likelihood_block"]])),
         "insert_trilinear": results["insert_trilinear"],
-        "shell_sums": dict(results["shell_sums"], at_2d=results_2d["shell_sums_2d"],
-                           max_abs_err=max(results["shell_sums"]["max_abs_err"],
-                                           results_2d["shell_sums_2d"]["max_abs_err"])),
+        "shell_sums": dict(results["shell_sums"]["pair"], shapes=hk4_shapes,
+                           max_abs_err=max(r["max_abs_err"] for r in hk4_shapes.values())),
         "project_slices_2d": results_2d["project_slices_2d"],
         "insert_bilinear_2d": results_2d["insert_bilinear_2d"],
     }
@@ -1205,6 +1336,9 @@ def main() -> None:
         if name in split:
             n, by = split[name][0][name], split[name][1]["project_launches"]
             r = dict(r, launches_by_caller=dict(by, sigma=n - by["global"] - by["phase"]))
+        if name == "shell_sums":
+            r = dict(r, launches_by_caller={"3d": prof_3d["shell_sums_launches"],
+                                            "2d": prof_2d["shell_sums_launches"]})
         kernels.append(dict(
             name=name, id=meta[name][0], route="cuda", source=meta[name][1],
             replaces=meta[name][2], launches=sum(by_path.values()), launches_by_path=by_path,
@@ -1223,13 +1357,14 @@ def main() -> None:
             max_abs_err=max(c["max_abs_err"] for c in cases), ms=first["ms"],
             plain_ms=first["plain_ms"], library_ms=first["plain_ms"], bound_ms=b_ms,
             bound_by=by, share=b_ms / first["ms"], gbps=first["gbps"],
+            alone_ms=first["alone_ms"],
             cases={c["case"]: dict(ms=c["ms"], plain_ms=c["plain_ms"], rate=c["rate"],
-                                   unit=c["unit"], gbps=c["gbps"],
+                                   unit=c["unit"], gbps=c["gbps"], alone_ms=c["alone_ms"],
                                    bound_ms=bound(c["io_bytes"], 0)[0]) for c in cases}))
     say(f"[{time.time() - t_start:.1f} s] done")
     say(card)
     say(json.dumps({"profiles": profiles}))
-    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"kernels": kernels, "empty_launch_ms": floor_ms}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -178,13 +178,57 @@ def test_insert_trilinear(dev, given_grids):
     assert rel_err(tk, tp) < 1e-5
 
 
-def test_shell_sums(dev):
-    u, half = spectrum.shell_geometry(24, 3, dev)
-    v = torch.randn(3, 3, 24 ** 3, device=dev)
-    for w in (half, None):
-        # float32 sums added in a run-dependent order
-        assert rel_err(spectrum.shell_sums(v, u, 10, w),
-                       spectrum.shell_sums_plain(v, u, 10, w)) < 1e-5
+@pytest.mark.parametrize("case", ["fsc 3D", "frc 2D", "sigma 3D", "sigma 2D", "one field",
+                                  "overflow dropped", "pieces", "five fields"])
+def test_shell_sums(dev, case):
+    """HK4 at small sizes of its four main-path shapes and at its edges;
+    1e-5: float32 sums added in another order than the plain version's,
+    run-dependent where atomics add them."""
+    g = generator(7, dev)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=dev)
+    if case in ("fsc 3D", "frc 2D", "overflow dropped"):
+        size, nd, b = (24, 3, 1) if case != "frc 2D" else (40, 2, 5)
+        n_sh = 4 if case == "overflow dropped" else size // 2 - 2
+        u, half = spectrum.shell_geometry(size, nd, dev)
+        assert int(u.max()) > n_sh
+        v = rnd(b, 3, size ** nd)
+        for w in (half, None):
+            ref = spectrum.shell_sums_plain(v, u, n_sh, w)
+            assert rel_err(spectrum.shell_sums(v, u, n_sh, w), ref) < 1e-5
+            assert rel_err(spectrum.shell_sums_grid(v, size, nd, n_sh, w is not None), ref) < 1e-5
+        a = torch.complex(rnd(b, size ** nd), rnd(b, size ** nd))
+        c = a + 0.5 * torch.complex(rnd(b, size ** nd), rnd(b, size ** nd))
+        assert rel_err(spectrum.fsc_sums(a, c, size, nd, n_sh),
+                       spectrum.fsc_sums_plain(a, c, size, nd, n_sh)) < 1e-5
+        return
+    rings = pack_rings(64, 20, 0, lane=512, device=dev)
+    n = rings.i_col.numel()
+    b, c = {"sigma 3D": (64, 3), "sigma 2D": (5000, 3), "one field": (5000, 1),
+            "pieces": (1, 1), "five fields": (7, 5)}[case]
+    assert (spectrum.shell_sums_plan(b, n) == 1) == (b == 5000)
+    v = rnd(b, c, n) * rings.mask
+    sh = torch.clamp(rings.i_sig, max=20)
+    for w in (None, rings.mask):
+        assert rel_err(spectrum.shell_sums(v, sh, 21, w),
+                       spectrum.shell_sums_plain(v, sh, 21, w)) < 1e-5
+
+
+@pytest.mark.parametrize("size,nd", [(128, 3), (160, 2), (33, 3), (45, 2)])
+def test_shell_sums_grid_geometry_is_exact(dev, size, nd):
+    """The coordinate form's shell index and half-space choice are
+    shell_geometry's, cell for cell: with a field that is 1 in one cell
+    and a second that numbers the shells, the sums are exact integers."""
+    u, half = spectrum.shell_geometry(size, nd, dev)
+    n_sh = int(u.max()) + 1
+    ones = torch.ones(1, 1, size ** nd, device=dev)
+    cnt = spectrum.shell_sums_grid(ones, size, nd, n_sh)
+    assert torch.equal(cnt, spectrum.shell_sums_plain(ones, u, n_sh, half))
+    assert torch.equal(spectrum.shell_sums_grid(ones, size, nd, n_sh, False),
+                       spectrum.shell_sums_plain(ones, u, n_sh))
+    # a cell in the wrong shell would move its index into another bin
+    idx = u.to(torch.float32)[None, None]
+    got = spectrum.shell_sums_grid(idx, size, nd, n_sh)
+    assert torch.equal(got, cnt * torch.arange(n_sh, device=dev))
 
 
 def _rot2d(g, shape, dev):
@@ -193,20 +237,51 @@ def _rot2d(g, shape, dev):
 
 
 def test_project_slices_2d(dev):
+    """Per-image rotations and classes, cls=None, one rotation block
+    shared by all classes (stride 0, as in global search), an odd pixel
+    count, and launches large enough for two pixels a thread, with the
+    rotations walked or split between threads."""
     g = generator(2, dev)
-    tab = torch.randn(3, 36, 36, dtype=torch.complex64, device=dev)
+    table = tab = torch.randn(3, 36, 36, dtype=torch.complex64, device=dev)
     rings = pack_rings(32, 12, 1, device=dev)
+    assert rings.i_col.numel() % 2 == 0
     cls = torch.tensor([0, 2, 1, 2, 0, 1], device=dev)
     rot = _rot2d(g, (6, 11), dev)
     for c in (cls, None):
-        args = (tab, rot, rings.i_col, rings.i_row, 2, c)
-        assert rel_err(projector.project_slices_2d(*args),
-                       projector.project_slices_2d_plain(*args)) < 1e-5
-    # one rotation block shared by all classes (stride 0), as in global search
-    shared = _rot2d(g, (1, 9), dev).expand(3, 9, 2, 2)
-    args = (tab, shared, rings.i_col, rings.i_row, 2, torch.arange(3, device=dev))
-    assert rel_err(projector.project_slices_2d(*args),
-                   projector.project_slices_2d_plain(*args)) < 1e-5
+        args = (rot, rings.i_col, rings.i_row, 2, c)
+        assert rel_err(projector.project_slices_2d(table, *args),
+                       projector.project_slices_2d_plain(tab, *args)) < 1e-5
+    odd = (rot, rings.i_col[:31], rings.i_row[:31], 2, cls)
+    assert rel_err(projector.project_slices_2d(table, *odd),
+                   projector.project_slices_2d_plain(tab, *odd)) < 1e-5
+    shared = _rot2d(g, (1, 100), dev).expand(3, 100, 2, 2)
+    args = (shared, rings.i_col, rings.i_row, 2, torch.arange(3, device=dev))
+    assert rel_err(projector.project_slices_2d(table, *args),
+                   projector.project_slices_2d_plain(tab, *args)) < 1e-5
+    n_p = rings.i_col.numel()
+    for n_l, n_r in ((2 ** 23 // (9 * n_p) + 1, 9), (40, 2 ** 23 // (40 * n_p) + 1)):
+        many = _rot2d(g, (n_l, n_r), dev)
+        args = (many, rings.i_col, rings.i_row, 2, torch.randint(0, 3, (n_l,), device=dev))
+        assert n_l * n_r * n_p >= 2 ** 23    # csrc/project_slices_2d.cu: PAIR_FROM
+        assert rel_err(projector.project_slices_2d(table, *args),
+                       projector.project_slices_2d_plain(tab, *args)) < 1e-5
+
+
+@pytest.mark.parametrize("n_rot", [32, 12000])
+def test_project_slices_2d_clipped_taps(dev, n_rot):
+    """Coordinates at and past the plane's edges (pf 3 on a band of 12
+    reaches 36 cells from the centre of a 40-cell plane): every tap index
+    clips as the plain version clips it, one pixel a thread and two."""
+    g = generator(8, dev)
+    table = tab = torch.randn(2, 40, 40, dtype=torch.complex64, device=dev)
+    rings = pack_rings(32, 12, 1, device=dev)
+    rot = _rot2d(g, (4, n_rot), dev)
+    args = (rot, rings.i_col, rings.i_row, 3, torch.tensor([1, 0, 0, 1], device=dev))
+    x = (rot @ torch.stack([rings.i_col, rings.i_row]).float() * 3).abs()
+    assert float(x.max()) > 21
+    assert (4 * n_rot * rings.i_col.numel() >= 2 ** 23) == (n_rot > 32)
+    assert rel_err(projector.project_slices_2d(table, *args),
+                   projector.project_slices_2d_plain(tab, *args)) < 1e-5
 
 
 @pytest.mark.parametrize("r_u", [12, 40])

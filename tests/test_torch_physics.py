@@ -156,6 +156,101 @@ def test_shell_sums_plain_semantics():
     np.testing.assert_allclose(out, ref[..., :7], rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("ndim,size,n_b", [(2, 16, 3), (3, 12, 1), (3, 15, 2)])
+def test_fsc_sums_are_the_stacked_half_space_sums(ndim, size, n_b):
+    """HK4's spectrum-pair entry: its plain version gives the sums of
+    the three stacked fields Re(a conj b), |a|^2, |b|^2 through the
+    array form exactly, batched, and the FSC of thunder_tpu from them
+    (1e-5 relative: float32 sums in another order)."""
+    rng = np.random.default_rng(11)
+    shape = (n_b,) + (size,) * ndim
+    a = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    b = (a + 0.5 * rng.standard_normal(shape)).astype(np.complex64)
+    n_sh = size // 2 - 1
+    ta, tb = (t(x).reshape(n_b, -1) for x in (a, b))
+    got = ts.fsc_sums(ta, tb, size, ndim, n_sh)
+    assert got.shape == (n_b, 3, n_sh)
+    u, half = ts.shell_geometry(size, ndim, "cpu")
+    vals = torch.stack([(ta * tb.conj()).real, ta.abs() ** 2, tb.abs() ** 2], dim=1)
+    np.testing.assert_array_equal(got.numpy(), ts.shell_sums(vals, u, n_sh, half).numpy())
+    np.testing.assert_array_equal(got.numpy(),
+                                  ts.shell_sums_grid(vals, size, ndim, n_sh).numpy())
+    curve = got[:, 0] / torch.sqrt(got[:, 1] * got[:, 2])
+    for i in range(n_b):
+        close(curve[i], js.fsc(jnp.asarray(a[i]), jnp.asarray(b[i]), n_sh), 1e-5)
+
+
+@pytest.mark.parametrize("ndim,size,half", [(2, 16, True), (2, 15, False), (3, 12, True),
+                                            (3, 9, False)])
+def test_shell_sums_grid_plain_matches_jax(ndim, size, half):
+    """The coordinate form's plain version, several fields at once,
+    against thunder_tpu's shell_sum field by field (1e-5 relative)."""
+    rng = np.random.default_rng(12)
+    v = rng.standard_normal((2, 3, size ** ndim)).astype(np.float32)
+    n_sh = size // 2
+    got = ts.shell_sums_grid(t(v), size, ndim, n_sh, half)
+    for i in range(2):
+        for c in range(3):
+            close(got[i, c], js.shell_sum(jnp.asarray(v[i, c].reshape((size,) * ndim)), size,
+                                          ndim, n_sh, half), 1e-5)
+
+
+@pytest.mark.parametrize("ndim,size", [(3, 128), (2, 160), (3, 33), (2, 45)])
+def test_coordinate_form_shell_index_is_exact(ndim, size):
+    """HK4's coordinate form takes a cell's shell as rint(sqrt(k^2)) in
+    float32 and its half-space weight as kx >= 0 or kx == -c: both are
+    shell_geometry's, cell for cell (and thunder_tpu's)."""
+    c = size // 2
+    k = np.arange(size, dtype=np.int32) - c
+    grids = np.meshgrid(*([k] * ndim), indexing="ij")
+    k2 = sum(g * g for g in grids)
+    shell = np.rint(np.sqrt(k2.astype(np.float32))).astype(np.int32)
+    weight = ((grids[-1] >= 0) | (grids[-1] == -c)).astype(np.float32)
+    u, half = ts._shell_geometry_np(size, ndim)
+    np.testing.assert_array_equal(shell, u)
+    np.testing.assert_array_equal(weight, half)
+    if size <= 45:
+        ju, jhalf = js._shell_geometry(size, ndim)
+        np.testing.assert_array_equal(u, np.asarray(ju))
+        np.testing.assert_array_equal(half, np.asarray(jhalf))
+
+
+def test_coordinate_form_shell_index_is_exact_for_every_k2():
+    """The float32 square root never rounds across a half-integer: for
+    every integer k^2 a box of up to 1024 px can hold, rint(sqrt) in
+    float32 is rint(sqrt) in float64."""
+    k2 = np.arange(3 * 512 ** 2 + 1)
+    np.testing.assert_array_equal(np.rint(np.sqrt(k2.astype(np.float32))),
+                                  np.rint(np.sqrt(k2.astype(np.float64))))
+
+
+@pytest.mark.parametrize("n_b,n,pieces", [(10000, 1536, 1), (10000, 8192, 1), (256, 2048, 8),
+                                          (256, 4096, 16), (1, 1536, 6), (1, 100, 1),
+                                          (30, 25600, 100), (5000, 64, 1)])
+def test_shell_sums_plan(n_b, n, pieces):
+    """The row form's launch plan: a warp an image once the batch fills
+    the card (and then no zero-filled output), else pieces of at least
+    256 cells, enough of them for ~4,224 warps."""
+    assert ts.shell_sums_plan(n_b, n) == pieces
+
+
+def test_chip_smoke_splits_hk4_launches_by_caller():
+    """chip_smoke.py's split of HK4's launch count, from the wrapper's
+    count by (form, B, C, N)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_for_test", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    shapes = {("pair", 1, 3, 128 ** 3): 7, ("pair", 30, 3, 160 ** 2): 2,
+              ("grid", 1, 1, 160 ** 2): 4, ("rows", 256, 3, 2048): 3,
+              ("rows", 256, 1, 4096): 3, ("rows", 1, 1, 2048): 5, ("rows", 1, 1, 4096): 1}
+    assert smoke.hk4_by_caller(shapes) == {"fsc_frc": 9, "preprocess": 4, "sigma_c3": 3,
+                                           "sigma_c1": 3, "count": 6}
+
+
 def test_fsc_golden_and_res_p():
     gold = np.fromfile(os.path.join(G, "fsc_32.bin"), np.float32)
     a = _phantom_centered()

@@ -12,7 +12,10 @@ size the flat-table cases of micro_pallas_gather.py; the other cases
 keep their scripts' fixed shapes.  Needs a CUDA device.  Indices vary
 from call to call (a few index sets, cycled), as in the scripts.
 Times are CUDA events over repeated calls; GB/s counts the index bytes
-read, the table bytes gathered and the output bytes written.
+read, the table bytes gathered and the output bytes written.  A case
+whose call takes under 0.05 ms is also timed as a replayed CUDA graph of
+its launches ("kernel alone": the events' time of so short a call is the
+host's call rate).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Callable
 
 import torch
 
+from thunder_tpu_torch.micro.launch_floor import graph_ms
 from thunder_tpu_torch.ops import gather as g
 
 LANES = 128
@@ -179,8 +183,10 @@ def reference_lines(dev, cases: list, reps: int) -> list:
 
 
 def run(dev, table_mb: float = 4.0, n_samples_m: float = 2.0, reps: int = 20,
-        say=print) -> tuple:
-    """Each case's kernel against its plain version (exact), both timed.
+        say=print, alone_under_ms: float = 0.05) -> tuple:
+    """Each case's kernel against its plain version (exact), both timed;
+    a case under ``alone_under_ms`` also by a CUDA-graph replay of its
+    launches (``alone_ms``: the kernel apart from the host's call rate).
     Returns (case records, reference-line records)."""
     if dev.type != "cuda":
         raise RuntimeError("the gather microbenchmark measures the card: "
@@ -199,17 +205,19 @@ def run(dev, table_mb: float = 4.0, n_samples_m: float = 2.0, reps: int = 20,
         del got, ref
         ms = timed(c.kernel, c.args, reps)
         plain_ms = timed(plain, c.args, max(2, reps // 4))
+        alone_ms = graph_ms(c.kernel, args=c.args) if ms < alone_under_ms else None
         rate, gbps = _rate(c, ms)
         p_rate, p_gbps = _rate(c, plain_ms)
         unit = "Gtaps/s" if c.unit == "taps" else "Grows/s"
         say(f"{c.name:10s} {KERNEL_ID[c.kernel]} {c.kernel.__name__:17s} "
             f"kernel {ms:9.4f} ms {rate:8.3f} {unit} {gbps:8.1f} GB/s | "
-            f"plain {plain_ms:9.4f} ms {p_rate:8.3f} {unit} {p_gbps:8.1f} GB/s")
+            f"plain {plain_ms:9.4f} ms {p_rate:8.3f} {unit} {p_gbps:8.1f} GB/s"
+            + ("" if alone_ms is None else f" | kernel alone {alone_ms:.4f} ms"))
         recs.append(dict(case=c.name, replaces=c.replaces,
                          kernel=KERNEL_ID[c.kernel], fn=c.kernel.__name__,
                          unit=c.unit, count=c.count, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, rate=rate, gbps=gbps,
-                         io_bytes=io_bytes))
+                         io_bytes=io_bytes, alone_ms=alone_ms))
     refs = reference_lines(dev, cases, max(2, reps // 4))
     for r in refs:
         unit = "Gtaps/s" if r["unit"] == "taps" else "Grows/s"

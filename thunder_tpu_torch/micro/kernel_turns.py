@@ -1,15 +1,17 @@
-"""HK1 ``project_slices`` and HK3 ``insert_trilinear`` of two checkouts
-timed in turns on one card, at the shapes ``chip_smoke.py`` times.
+"""HK1 ``project_slices``, HK3 ``insert_trilinear``, HK4 ``shell_sums``
+and HK5 ``project_slices_2d`` of two checkouts timed in turns on one
+card, at the shapes ``chip_smoke.py`` times.
 
     python thunder_tpu_torch/micro/kernel_turns.py PARENT_TREE [THIS_TREE]
 
 Runs one process per turn, in the order parent, this, this, parent, each
 with its own tree first on the module path (so each builds and loads its
 own kernels), and prints each turn's times and a last JSON line.  A turn
-calls only the two public functions, with the table as that tree's
+calls only the kernels' public functions, with the table as that tree's
 ``Optimiser.proj_table`` would hand it over (the quad table where the
-tree has one and it fits), so the same file measures both trees.  Needs
-a CUDA device and nvcc.
+tree has one and it fits) and the shell sums of a centered grid through
+the entry that tree's ``spectrum.fsc`` takes, so the same file measures
+both trees.  Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -25,10 +27,12 @@ def one_turn() -> dict:
     import torch
 
     from thunder_tpu_torch.device import generator
-    from thunder_tpu_torch.geometry.quaternion import random_quat, rotate3d
+    from thunder_tpu_torch.geometry.quaternion import (random_quat, rotate2d_from_unit,
+                                                       rotate3d)
     from thunder_tpu_torch.ops import insert, projector
     from thunder_tpu_torch.ops.fourier import pack_rings
     from thunder_tpu_torch.optimiser import proj_crop_size, reco_grid_size
+    from thunder_tpu_torch.physics import spectrum
     from thunder_tpu_torch.physics.ctf import ctf_params
 
     dev = torch.device("cuda:0")
@@ -85,6 +89,55 @@ def one_turn() -> dict:
                                 dim=(-2, -1)).to(torch.complex64).contiguous()
         out[f"HK3 {size} px"] = timed(lambda: insert.insert_trilinear(
             ft, ctf, img_idx, rot, trans, w, r_u, 2, size, 1.32, big), 5 if size == 128 else 2)
+    del ft
+
+    # HK4: the hemisphere FSC and the ring FRC (three stacked fields of a
+    # centered grid, and spectrum.fsc on the spectra themselves), then the
+    # sigma stage's packed-ring sums (both halves' images: 256 in the 3D
+    # run, 10,000 in the 2D run)
+    grid = getattr(spectrum, "shell_sums_grid", None)
+    for name, size, nd, n_b in (("FSC 128 px", 128, 3, 1), ("FRC 160 px", 160, 2, 30)):
+        u, half = spectrum.shell_geometry(size, nd, dev)
+        n_sh = size // 2 - 2
+        vals = torch.randn(n_b, 3, size ** nd, device=dev) ** 2
+        sums = ((lambda: grid(vals, size, nd, n_sh)) if grid is not None
+                else (lambda: spectrum.shell_sums(vals, u, n_sh, half)))
+        out[f"HK4 {name}"] = timed(sums, 50)
+        a, b = (torch.randn((n_b,) + (size,) * nd, dtype=torch.complex64, device=dev)
+                for _ in range(2))
+        out[f"spectrum.fsc {name}"] = timed(lambda: spectrum.fsc(a, b, n_sh, ndim=nd), 50)
+    for name, size, r_u, r_l, n_b, n_c in (("sigma 3D C=3", 128, 36, 0, 256, 3),
+                                           ("sigma 3D C=1 above r_u", 128, 62, 36, 256, 1),
+                                           ("sigma 2D C=3", 160, 31, 0, 10000, 3),
+                                           ("sigma 2D C=1 above r_u", 160, 78, 31, 10000, 1)):
+        rings = pack_rings(size, r_u, r_l, lane=512, device=dev)
+        n_sh = size // 2 - 1
+        pv = torch.randn(n_b, n_c, rings.i_col.numel(), device=dev) ** 2
+        sh = torch.clamp(rings.i_sig, max=n_sh - 1)
+        out[f"HK4 {name}"] = timed(lambda: spectrum.shell_sums(pv, sh, n_sh), 20)
+        del pv
+
+    # HK5: the phase loop at r = 5 and 15, one global-search block, the
+    # sigma pass (160 px, 2K = 60 planes)
+    def rot2d(shape):
+        phi = torch.rand(shape, generator=gen, device=dev) * (2 * np.pi)
+        return rotate2d_from_unit(torch.stack([torch.cos(phi), torch.sin(phi)], -1))
+
+    for name, r, r_l, lane, n_l, n_r, shared in (("phase r=5", 5, 1, 8, 10000, 9, False),
+                                                 ("phase r=15", 15, 1, 8, 10000, 9, False),
+                                                 ("global r=5", 5, 1, 8, 30, 100, True),
+                                                 ("global r=15", 15, 1, 8, 30, 100, True),
+                                                 ("sigma r_u=31", 31, 0, 512, 10000, 1, False)):
+        rings = pack_rings(160, r, r_l, lane=lane, device=dev)
+        crop = proj_crop_size(160, 2, r)
+        table = torch.randn(60, crop, crop, dtype=torch.complex64, device=dev)
+        if shared:
+            rot = rot2d((1, n_r)).expand(n_l, n_r, 2, 2)
+            cls = torch.arange(n_l, device=dev)
+        else:
+            rot, cls = rot2d((n_l, n_r)), torch.randint(0, 60, (n_l,), device=dev)
+        out[f"HK5 {name}"] = timed(lambda: projector.project_slices_2d(
+            table, rot, rings.i_col, rings.i_row, 2, cls), 50 if n_l * n_r < 50000 else 20)
     return out
 
 
@@ -112,7 +165,7 @@ def main(argv) -> int:
             return 1
         ms = json.loads(res.stdout.strip().splitlines()[-1])
         turns.append(dict(tree=who, ms=ms))
-        print(f"{who:<7s} " + "  ".join(f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+        print(f"{who:<7s} " + "  ".join(f"{k}: {v:.4f}" for k, v in ms.items()), flush=True)
     print(json.dumps({"card": card, "turns": turns}))
     return 0
 

@@ -114,7 +114,8 @@ def quad_taps(table: torch.Tensor) -> torch.Tensor:
     trilinear sample in plane z, t[z, y, x], t[z, y, x+], t[z, y+, x],
     t[z, y+, x+] (re, im each; + is the next index clipped to n - 1):
     32 bytes on a 32-byte boundary, so the kernel reads a sample's eight
-    taps as two sectors."""
+    taps as two sectors.  (The same layout over 2D planes measured
+    slower for HK5, whose planes fit L1: csrc/project_slices_2d.cu.)"""
     nx = lambda t: torch.cat([t[..., 1:], t[..., -1:]], -1)
     ny = lambda t: torch.cat([t[..., 1:, :], t[..., -1:, :]], -2)
     q = torch.stack([table, nx(table), ny(table), nx(ny(table))], -1)
@@ -286,6 +287,12 @@ def project_slices_2d_plain(table: torch.Tensor, rot: torch.Tensor,
     return out.to(COMPLEX)
 
 
+def _as_int32(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.int32 and x.is_contiguous():
+        return x
+    return x.to(torch.int32).contiguous()
+
+
 def project_slices_2d(table: torch.Tensor, rot: torch.Tensor,
                       i_col: torch.Tensor, i_row: torch.Tensor, pf: int,
                       cls: torch.Tensor | None = None) -> torch.Tensor:
@@ -300,7 +307,7 @@ def project_slices_2d(table: torch.Tensor, rot: torch.Tensor,
     if not table.is_cuda:
         return project_slices_2d_plain(table, rot, i_col, i_row, pf, cls)
     _native.require(table.ndim == 3 and table.dtype == COMPLEX
-                    and table.is_contiguous(),
+                    and table.is_contiguous() and table.shape[1] ** 2 < 2 ** 31,
                     "project_slices_2d: table must be contiguous (K, n, n) complex64")
     _native.require(rot.ndim == 4 and rot.shape[-2:] == (2, 2)
                     and rot.dtype == REAL,
@@ -308,11 +315,10 @@ def project_slices_2d(table: torch.Tensor, rot: torch.Tensor,
     if not rot[0].is_contiguous():
         rot = rot.contiguous()
     n_l, n_r = rot.shape[:2]
-    n = table.shape[-1]
-    i_col = i_col.to(torch.int32).contiguous()
-    i_row = i_row.to(torch.int32).contiguous()
+    n = table.shape[1]
+    i_col, i_row = _as_int32(i_col), _as_int32(i_row)
     if cls is not None:
-        cls = cls.to(torch.int32).contiguous()
+        cls = _as_int32(cls)
         _native.require(cls.shape == (n_l,), "project_slices_2d: cls must be (L,)")
     n_p = i_col.shape[0]
     out = torch.empty((n_l, n_r, n_p), dtype=COMPLEX, device=table.device)

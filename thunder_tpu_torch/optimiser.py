@@ -433,7 +433,7 @@ class Optimiser:
         references change).  A 3D table that stays near the L2 cache as
         HK1's quad table is kept in that layout, (2, K, crop^3, 8)
         float32 (ops/projector.py quad_taps): a round's ~90 projections
-        read it."""
+        read it; 2D planes stay as they are (HK5 finds them in L1)."""
         cfg = self.cfg
         crop = proj_crop_size(cfg.size, cfg.pf, r_u)
         if crop not in self._tables:

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from thunder_tpu_torch import _native
-from thunder_tpu_torch.device import REAL
+from thunder_tpu_torch.device import COMPLEX, REAL
 
 
 def res_p2a(res_p, image_size: int, pixel_size: float):
@@ -58,6 +58,23 @@ def shell_geometry(size: int, ndim: int, device) -> tuple:
 
 # -- HK4 ----------------------------------------------------------------
 
+# warps wanted in flight before an image is left to one warp: the row
+# form splits the images of a small batch into pieces (132 SMs x 32),
+# of 256 cells at least (measured on an H100: 512 images of 2,048 cells
+# in 8 pieces 0.014 ms, in 4 0.019, whole 0.047; micro/hk_candidates.py)
+ROWS_TARGET_WARPS = 4224
+ROWS_MIN_CHUNK = 256
+
+
+def shell_sums_plan(n_batch: int, n: int) -> int:
+    """Pieces the row form of HK4 cuts each image's N cells into.  1:
+    a warp owns an image and stores its sums (the output needs no zero
+    fill); more when the batch alone would leave the card idle."""
+    by_len = -(-n // ROWS_MIN_CHUNK)
+    by_batch = -(-ROWS_TARGET_WARPS // max(n_batch, 1))
+    return max(1, min(by_len, by_batch))
+
+
 def shell_sums_plain(values: torch.Tensor, shell: torch.Tensor,
                      n_shells: int, weight: torch.Tensor | None = None
                      ) -> torch.Tensor:
@@ -72,39 +89,125 @@ def shell_sums_plain(values: torch.Tensor, shell: torch.Tensor,
     return out[..., :n_shells]
 
 
+def _count_launch(form: str, b: int, c: int, n: int) -> None:
+    shell_sums.launches += 1
+    key = (form, b, c, n)
+    shell_sums.shapes[key] = shell_sums.shapes.get(key, 0) + 1
+
+
+def _require_fields(values: torch.Tensor, who: str) -> None:
+    _native.require(values.ndim == 3 and values.dtype == REAL,
+                    f"{who}: values must be (B, C, N) float32")
+    _native.require(values.stride(2) == 1 and values.stride(1) == values.shape[2],
+                    f"{who}: each (C, N) block must be contiguous")
+
+
+def _require_grid(n_b: int, n: int, size: int, ndim: int, who: str) -> None:
+    _native.require(ndim in (2, 3) and n == size ** ndim and n < 2 ** 31 and n_b <= 65535,
+                    f"{who}: needs size^ndim cells (ndim 2 or 3) under 2^31 and at most "
+                    "65535 batch entries")
+
+
 def shell_sums(values: torch.Tensor, shell: torch.Tensor, n_shells: int,
                weight: torch.Tensor | None = None) -> torch.Tensor:
     """Fourier-shell sums of C real fields, (B, C, N) -> (B, C, n_shells).
 
     CPU tensors take :func:`shell_sums_plain`; CUDA tensors launch the
-    hand-written kernel (csrc/shell_sums.cu).  Kernel sums are added in
-    a run-dependent order (atomics), so they match the plain version to
-    float32 rounding, not bitwise."""
+    hand-written kernel (csrc/shell_sums.cu, the row form).  Kernel sums
+    are added in another order than the plain version's, run-dependent
+    where atomics add them, so they match to float32 rounding, not
+    bitwise."""
     if not values.is_cuda:
         return shell_sums_plain(values, shell, n_shells, weight)
-    _native.require(values.ndim == 3 and values.dtype == REAL,
-                    "shell_sums: values must be (B, C, N) float32")
-    _native.require(values.stride(2) == 1 and values.stride(1) == values.shape[2],
-                    "shell_sums: each (C, N) block must be contiguous")
+    _require_fields(values, "shell_sums")
     b, c, n = values.shape
     shell = shell.to(torch.int32).contiguous()
     _native.require(shell.shape == (n,), "shell_sums: shell must be (N,)")
     if weight is not None:
         weight = weight.to(REAL).contiguous()
         _native.require(weight.shape == (n,), "shell_sums: weight must be (N,)")
-    out = torch.zeros((b, c, n_shells), dtype=REAL, device=values.device)
+    chunks = shell_sums_plan(b, n)
+    alloc = torch.empty if chunks == 1 else torch.zeros
+    out = alloc((b, c, n_shells), dtype=REAL, device=values.device)
     if out.numel() == 0 or n == 0:
-        return out
+        return out.zero_()
     lib = _native.library()
-    shell_sums.launches += 1
+    _count_launch("rows", b, c, n)
     _native.check(lib.thunder_shell_sums(
         values.data_ptr(), values.stride(0), b, c, n, shell.data_ptr(),
-        None if weight is None else weight.data_ptr(), n_shells,
+        None if weight is None else weight.data_ptr(), n_shells, chunks,
         out.data_ptr(), _native.stream_ptr(values)), "shell_sums")
     return out
 
 
 shell_sums.launches = 0
+shell_sums.shapes = {}    # (form, B, C, N) -> launches, all three entries
+
+
+def shell_sums_grid_plain(values: torch.Tensor, size: int, ndim: int,
+                          n_shells: int, halfspace: bool = True
+                          ) -> torch.Tensor:
+    """Plain version of HK4's coordinate form: :func:`shell_sums_plain`
+    over :func:`shell_geometry`'s arrays."""
+    u, half = shell_geometry(size, ndim, values.device)
+    return shell_sums_plain(values, u, n_shells, half if halfspace else None)
+
+
+def shell_sums_grid(values: torch.Tensor, size: int, ndim: int,
+                    n_shells: int, halfspace: bool = True) -> torch.Tensor:
+    """Shell sums of C real fields on centered full grids, (B, C,
+    size^ndim) -> (B, C, n_shells), over the half space kx >= 0 (plus
+    the kx = -c column) or every cell.  On the card the kernel forms the
+    shell index and the half-space choice from each cell's coordinates
+    and reads neither array; its launches count as ``shell_sums``'s."""
+    if not values.is_cuda:
+        return shell_sums_grid_plain(values, size, ndim, n_shells, halfspace)
+    _require_fields(values, "shell_sums_grid")
+    b, c, n = values.shape
+    _require_grid(b, n, size, ndim, "shell_sums_grid")
+    out = torch.zeros((b, c, n_shells), dtype=REAL, device=values.device)
+    if out.numel() == 0 or n == 0:
+        return out
+    lib = _native.library()
+    _count_launch("grid", b, c, n)
+    _native.check(lib.thunder_shell_sums_grid(
+        values.data_ptr(), values.stride(0), b, c, size, ndim, int(halfspace),
+        n_shells, out.data_ptr(), _native.stream_ptr(values)), "shell_sums_grid")
+    return out
+
+
+def fsc_sums_plain(a: torch.Tensor, b: torch.Tensor, size: int, ndim: int,
+                   n_shells: int) -> torch.Tensor:
+    """Plain version of HK4's spectrum-pair entry: a, b (B, size^ndim)
+    complex -> (B, 3, n_shells) half-space shell sums of Re(a conj b),
+    |a|^2, |b|^2."""
+    vals = torch.stack([(a * b.conj()).real, a.abs() ** 2, b.abs() ** 2], dim=1)
+    return shell_sums_grid_plain(vals.to(REAL), size, ndim, n_shells)
+
+
+def fsc_sums(a: torch.Tensor, b: torch.Tensor, size: int, ndim: int,
+             n_shells: int) -> torch.Tensor:
+    """The FSC's three half-space shell sums, (B, 3, n_shells), from the
+    centered spectra a, b (B, size^ndim) themselves: on the card HK4
+    forms the three products in the kernel, so no stacked copy of the
+    fields is written and read back."""
+    if not a.is_cuda:
+        return fsc_sums_plain(a, b, size, ndim, n_shells)
+    _native.require(a.shape == b.shape and a.ndim == 2,
+                    "fsc_sums: a and b must both be (B, size^ndim)")
+    a = a.to(COMPLEX).contiguous()
+    b = b.to(COMPLEX).contiguous()
+    n_b, n = a.shape
+    _require_grid(n_b, n, size, ndim, "fsc_sums")
+    out = torch.zeros((n_b, 3, n_shells), dtype=REAL, device=a.device)
+    if out.numel() == 0 or n == 0:
+        return out
+    lib = _native.library()
+    _count_launch("pair", n_b, 3, n)
+    _native.check(lib.thunder_fsc_sums_grid(
+        a.data_ptr(), b.data_ptr(), n_b, size, ndim, n_shells, out.data_ptr(),
+        _native.stream_ptr(a)), "fsc_sums")
+    return out
 
 
 # -- shell statistics on centered spectra ------------------------------
@@ -113,11 +216,9 @@ def shell_sum(values: torch.Tensor, size: int, ndim: int, n_shells: int,
               halfspace: bool = True) -> torch.Tensor:
     """Sum a centered full-space real array (..., size^ndim) over integer
     shells -> (..., n_shells)."""
-    u, half = shell_geometry(size, ndim, values.device)
     lead = values.shape[:values.ndim - ndim]
-    v = values.reshape((-1, 1, u.shape[0]))
-    out = shell_sums(v.contiguous().to(REAL), u, n_shells,
-                     half if halfspace else None)
+    v = values.reshape((-1, 1, size ** ndim))
+    out = shell_sums_grid(v.contiguous().to(REAL), size, ndim, n_shells, halfspace)
     return out.reshape(lead + (n_shells,))
 
 
@@ -137,11 +238,8 @@ def fsc(a: torch.Tensor, b: torch.Tensor, n_shells: int,
     ndim = a.ndim if ndim is None else ndim
     size = a.shape[-1]
     lead = a.shape[:a.ndim - ndim]
-    vals = torch.stack([(a * b.conj()).real, a.abs() ** 2, b.abs() ** 2],
-                       dim=-ndim - 1)
-    u, half = shell_geometry(size, ndim, a.device)
-    s = shell_sums(vals.reshape((-1, 3, u.shape[0])).contiguous().to(REAL),
-                   u, n_shells, half)
+    s = fsc_sums(a.reshape((-1, size ** ndim)), b.reshape((-1, size ** ndim)),
+                 size, ndim, n_shells)
     num, pa, pb = s[:, 0], s[:, 1], s[:, 2]
     den = torch.sqrt(pa * pb)
     out = torch.where(den > 0, num / torch.clamp(den, min=1e-30),
