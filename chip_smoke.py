@@ -7,7 +7,7 @@ loudly.
 Run from the root of a checkout.  It needs one CUDA device and exits
 non-zero, printing no result, without one (or without the package).
 
-Phase 0 builds the eleven hand-written Hopper kernels (one nvcc per
+Phase 0 builds the thirteen hand-written Hopper kernels (one nvcc per
 source, sm_90a) and times an empty kernel launched the same way, as a
 replayed CUDA graph: the floor under any launch.  Phase 1 holds the 3D
 kernels (HK1-HK4) against their plain PyTorch versions at the 3D path's
@@ -52,7 +52,25 @@ averages finite, the .mrcs and Class_Info files written, ``res_A``
 finer than the 60 A start (a gate this data cannot fail: see
 phase_slice_2d), class purity at least 5/K, HK5, HK6, HK2 and HK4
 launched, and HK2 launched once a rotation block a hemisphere in every
-global search.  Both runs split HK4's launches by what called it (the
+global search.  Phase 5 runs configs/demo.json's refinement (160 px, K =
+1, C4, CTF search, core FSC, grading, mLD = 9) through the CLI on 256
+images of the sharp C4 phantom whose defocus is 1.03 times what the .thu
+carries: leg (a) from the phantom low-passed to 40 A and, the one value
+changed, an "Initial Resolution" of 20 A (r_init 12, where the rule that
+lets r grow no longer turns on chance: see SIZE_R below), global rounds
+until the state machine enters local search, then local and CTF rounds
+until it stops or ROUNDS_A rounds have run (r past
+r_global, search type 1, res_A finer at the end than at the first local
+round, HK7 once a reconstruction); leg (b) resumed from the generator's
+blurred poses with "Global Search" off until CTF search has run at least
+two rounds (HK8 once a phase, the median defocus factor moved from 1
+toward 1.03); if the state machine has not entered CTF search by round
+CTF_FORCE_ROUND the search type is set there, and the run says which
+happened.  Phase 6 runs configs/demo_3D.json's classification (K = 4,
+C4) for four rounds on 256 images of two sharp C4 species (HK2 once a
+rotation block a hemisphere, HK7 over the 2K grids in one launch, class
+purity above 1.5/K).  A local round, a CTF round and a K = 4 round run
+under torch.profiler.  The runs split HK4's launches by what called it (the
 FSC / FRC, the preprocess spectra, the sigma stage) and the projection
 kernels' by global search, phase loop and sigma pass.  Phases 2 and 4 each run one round (3D round 1, 2D round
 4) under torch.profiler, without per-stage syncs, and print its device
@@ -97,6 +115,36 @@ SIZE_2D, K_2D, N_2D, ROUNDS_2D = 160, 30, 10000, 6
 PROFILE_3D, PROFILE_2D = 1, 4
 R_2D, R_GLOBAL_2D, R_U_2D, N_ROT_2D, N_TRANS_2D = 5, 15, 31, 100, 151
 INIT_RES_2D = 60.0
+# configs/demo.json and configs/demo_3D.json as THUNDER ships them: 160
+# px, C4, mS 10000 (2,560 rotations a hemisphere with C4), mLR 125, mLT 9,
+# mLD 9; r_init 5, r_global 18, max_r 78.  256 images of the sharp C4
+# phantom, their defocus DEFOCUS_FACTOR times the .thu's.  r grows when the
+# median translation spread has not shrunk by 2 % for two rounds running
+# (Model::updateR).  At the shipped "Initial Resolution" of 60 A (r = 5)
+# that median wanders 0.10-0.30 px above its 0.1 px floor from round to
+# round (every global search draws one grid for all images), so the first
+# step of r is a matter of chance: rounds 10 and 27 at SNR 1.5 in two runs
+# on an H100, round 14 at SNR 3, none in 24 rounds at SNR 8
+# (thunder_tpu_torch/micro/r_step_probe.py).  From r = 12 on the median is
+# the floor and r steps every third round.  Leg (a) therefore changes one shipped value, "Initial
+# Resolution" to INIT_RES_A (r_init 12), and runs at SNR_A for at most
+# ROUNDS_A rounds (the run ends itself when the state machine stops); leg
+# (b) and the classification keep every shipped value and run at SNR_R.
+SIZE_R, N_REFINE, DEFOCUS_FACTOR, SNR_A, SNR_R = 160, 256, 1.03, 1.5, 8.0
+INIT_RES_A = 20.0
+ROUNDS_A, ROUNDS_B, CTF_FORCE_ROUND = 30, 13, 9
+LOCAL_START_RES_A = 12.0     # leg (b)'s start model: the phantom low-passed to here
+K_3D, ROUNDS_3D, PROFILE_K4 = 4, 4, 2
+# HK7's cases (label, group, grids, box): the hemisphere pair of a K = 1
+# round at r_u 36, the eight grids of a K = 4 round at the first rounds'
+# r_u 31, one grid at the 160 px box's full band
+HK7_CASES = (("C4 K=1 pair", "C4", 2, 152), ("D2 K=1 pair", "D2", 2, 152),
+             ("C4 K=4, 2K grids", "C4", 8, 132), ("C4 one grid, full band", "C4", 1, 320))
+# HK1 with the 2K = 8 tables of a K = 4 round (band, rotations an image,
+# lane of the packing): the phase loop at r_global 18 (76^3 tables: 112
+# MiB of quads) and at r 22 (92^3: 199 MiB), the sigma pass at r_u 31
+# (128^3: 537 MiB)
+K4_BANDS = ((18, 125, None), (22, 125, None), (31, 1, 512))
 # an H100 SXM's published peaks (HBM3 rate, FP32 vector rate), for bounds
 HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
 # a record whose call takes less is also timed apart from its wrapper
@@ -821,8 +869,11 @@ def phase_kernels_2d(dev):
     return results
 
 
-def run_cli_counting_global(argv: list, profile_round: int) -> tuple:
-    """The port's CLI on ``argv`` with Optimiser.expectation_global
+def run_cli_counting_global(argv: list, profile_round, before_round=None) -> tuple:
+    """The port's CLI on ``argv`` (``profile_round``: a round's number,
+    or a function of (optimiser, round number) that picks the first round
+    it is true for; ``before_round``: called with the same two at the
+    start of every round) with Optimiser.expectation_global
     wrapped to count HK2's launches in each global search, it and
     Optimiser.local_phases wrapped to count the projection kernels'
     launches there, and torch.profiler (CPU activity for the optimiser's
@@ -861,8 +912,13 @@ def run_cli_counting_global(argv: list, profile_round: int) -> tuple:
         return phases
 
     def profiled(self, i_round):
-        if i_round != profile_round:
+        if before_round is not None:
+            before_round(self, i_round)
+        wanted = (profile_round(self, i_round) if callable(profile_round)
+                  else i_round == profile_round)
+        if not wanted or "events" in got:
             return run_round(self, i_round)
+        got["round"] = i_round
         timing = os.environ.pop("THUNDER_STAGE_TIMING", None)
         torch.cuda.synchronize()
         try:
@@ -1067,7 +1123,7 @@ def demo_3d(tmp: str, dev) -> tuple:
     return cfg_path, truth, start
 
 
-def profile_summary(got: dict, target: int, label: str) -> dict:
+def profile_summary(got: dict, target, label: str) -> dict:
     """Device time (the sum of the CUDA kernel events), idle share (1 -
     device time / the round's wall time under the profiler), kernel and
     launch counts, and the heaviest kernels of the profiled round; then
@@ -1081,7 +1137,8 @@ def profile_summary(got: dict, target: int, label: str) -> dict:
     from torch.autograd import DeviceType
 
     if "events" not in got:
-        fail(f"profile {label}: round {target} was not profiled")
+        fail(f"profile {label}: no round was profiled (wanted: {target})")
+    target = got["round"]
     levels = {"phase/": [], "round/": []}    # (start, end, name), innermost level first
     calls, device = [], []
     for e in got["events"]:
@@ -1224,6 +1281,449 @@ def phase_slice(dev, wrappers):
     return launches, recs, prof
 
 
+def sym_grid_sample_call(f, t, mats):
+    """HK7's function as F.grid_sample calls, one a mate: (re, im, T) as
+    the channels of a 5D input, the rotated cell coordinates built
+    outside the timed calls (border padding clamps the coordinate where
+    HK7 clamps each tap: they agree inside the band)."""
+    import torch
+    import torch.nn.functional as F
+
+    big = f.shape[-1]
+    g = f.reshape(-1, big, big, big)
+    inp = torch.cat([torch.view_as_real(g).movedim(-1, 1),
+                     t.reshape(-1, 1, big, big, big)], 1).contiguous()
+    k = torch.arange(big, dtype=torch.float32, device=f.device) - big // 2
+    kz, ky, kx = torch.meshgrid(k, k, k, indexing="ij")
+    pos = torch.stack([kx, ky, kz], -1)
+    grids = [((pos @ m.T + big // 2) * (2.0 / (big - 1)) - 1)[None].expand(
+        inp.shape[0], -1, -1, -1, -1).contiguous() for m in mats[1:]]
+    return lambda: [F.grid_sample(inp, gr, mode="bilinear", padding_mode="border",
+                                  align_corners=True) for gr in grids]
+
+
+def hk8_operands(dev, gen, n_l: int, n_d: int, n_r: int, n_t: int, r: int, size: int):
+    """HK8's inputs at one phase of CTF search: L noisy images' dat_s and
+    s_pack (sigRcp near -1/2), astigmatic CTFs of 0.8 to 2 um, defocus
+    factors scattered by 0.01 around 1, per-image projections,
+    translations of a pixel and priors."""
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.ops.fourier import pack_rings, translate_phases
+    from thunder_tpu_torch.physics.ctf import ctf_params
+
+    rings = pack_rings(size, r, 1, device=dev)
+    n_p = rings.i_col.numel()
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    cplx = lambda *s: torch.complex(rnd(*s), rnd(*s))
+    rand = lambda *s: torch.rand(s, generator=gen, device=dev)
+    s_pack = -0.5 * rings.mask * (0.5 + rand(n_l, n_p))
+    dat = cplx(n_l, n_p)
+    rng = np.random.default_rng(8)
+    defocus = rng.uniform(8000, 20000, n_l)
+    ctf = ctf_params(np.full(n_l, 300e3), defocus, defocus * rng.uniform(0.9, 1.1, n_l),
+                     rng.uniform(0, 3, n_l), np.full(n_l, 2e7), np.full(n_l, 0.1),
+                     np.zeros(n_l), device=dev)
+    # projections scaled so that dvp spreads over a few units, as on the path
+    pri = (0.3 / n_p ** 0.5) * cplx(n_l, n_r, n_p) + 0.05 * dat[:, None, :]
+    return ((s_pack * dat).to(torch.complex64), s_pack, ctf, 1 + 0.01 * rnd(n_l, n_d),
+            rings.i_col, rings.i_row, size, PIXEL_SIZE, pri.to(torch.complex64),
+            translate_phases(rings, rnd(n_l, n_t, 2)), (s_pack * dat.abs() ** 2).sum(-1),
+            rand(n_l, n_r), rand(n_l, n_t), rand(n_l, n_d))
+
+
+def phase_kernels_refine(dev):
+    """HK7 and HK8 against their plain versions at the shapes of the 160
+    px refinement and classification, HK3 with a defocus factor a slice,
+    and HK1 from the quad table and from the plain cube with the eight
+    tables of a K = 4 round."""
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.device import generator
+    from thunder_tpu_torch.geometry.quaternion import random_quat, rotate3d
+    from thunder_tpu_torch.geometry.symmetry import Symmetry
+    from thunder_tpu_torch.micro.launch_floor import graph_ms
+    from thunder_tpu_torch.ops import insert, likelihood, projector
+    from thunder_tpu_torch.ops.fourier import pack_rings
+    from thunder_tpu_torch.optimiser import proj_crop_size, reco_grid_size
+    from thunder_tpu_torch.physics.ctf import ctf_params
+    from thunder_tpu_torch.recon import reconstructor
+
+    gen = generator(3, dev)
+    results = {}
+    why = "same coordinates, weights and tap order; the sums may contract into FMAs"
+
+    recs = []
+    for label, sym, n_g, big in HK7_CASES:
+        f = torch.complex(torch.randn(n_g, big, big, big, generator=gen, device=dev),
+                          torch.randn(n_g, big, big, big, generator=gen, device=dev))
+        t = torch.rand(n_g, big, big, big, generator=gen, device=dev)
+        mats = Symmetry(sym, dev).matrices
+        rad = float(big // 2 - 6)
+        shape = f"{label}: {sym} G={n_g} big={big}^3 band {rad:.0f}"
+        call = lambda: reconstructor.symmetrize_ft(f, t, mats, rad)
+        got = call()
+        (ref, plain_ms) = timed_once(lambda: reconstructor.symmetrize_ft_plain(f, t, mats, rad))
+        err = max(compare("symmetrize_ft", f"F {shape}", torch.view_as_real(got[0]),
+                          torch.view_as_real(ref[0]), 1e-5, why),
+                  compare("symmetrize_ft", "T", got[1], ref[1], 1e-5, why))
+        lib = sym_grid_sample_call(f, t, mats)
+        inside = ((torch.arange(big, device=dev) - big // 2) ** 2)
+        inside = (inside[:, None, None] + inside[None, :, None] + inside[None, None, :]) < rad ** 2
+        lib_sum = sum(lib())
+        lib_f = torch.complex(lib_sum[:, 0], lib_sum[:, 1]) * inside + f
+        compare("grid_sample (HK7's library yardstick)", shape, torch.view_as_real(lib_f),
+                torch.view_as_real(ref[0]), 1e-4, "trilinear weights from normalised coordinates")
+        del ref, got, lib_sum, lib_f
+        n_in = int(inside.sum())
+        recs.append(record(
+            "symmetrize_ft", shape, err, timed(call, 10 if big < 300 else 3), plain_ms,
+            2 * n_g * big ** 3 * 12 + mats.numel() * 4,
+            n_g * n_in * (mats.shape[0] - 1) * 75, library_ms=timed(lambda: lib(), 3, warm=1),
+            alone=call, grids=n_g, mates=int(mats.shape[0] - 1)))
+        del f, t, lib
+    results["symmetrize_ft"] = dict(recs[0], other_shapes=recs[1:],
+                                    max_abs_err=max(r["max_abs_err"] for r in recs))
+
+    # HK8 at a CTF phase of both halves (256 images), at r = 22's P = 728
+    # and at the box's widest band (max_r 78); the plain version's einsums
+    # run 32 images at a time at the wide band (its (L, D, R, P)
+    # intermediates would take tens of GB)
+    recs = []
+    for r, chunk in ((R_GLOBAL, 256), (SIZE_R // 2 - 2, 32)):
+        ops = hk8_operands(dev, gen, N_REFINE, 9, 125, 9, r, SIZE_R)
+        n_l, n_p = ops[8].shape[0], ops[8].shape[2]
+        shape = f"L={n_l} D=9 R=125 T=9 P={n_p} (r={r})"
+        call = lambda: likelihood.likelihood_local_ctf(*ops)
+
+        def plain():
+            outs = []
+            for lo in range(0, n_l, chunk):
+                sl = slice(lo, lo + chunk)
+                part = [o[sl] if torch.is_tensor(o) and o.shape[:1] == (n_l,) else o for o in ops]
+                part[2] = ops[2].map(lambda a: a[sl])
+                outs.append(likelihood.likelihood_local_ctf_plain(*part))
+            return [torch.cat(x) for x in zip(*outs)]
+
+        got = call()
+        ref, plain_ms = timed_once(plain)
+        # dvp = (a + B) + C is rounded to float32 at |a| ~ 0.75 P, where one
+        # ulp in the exponent moves exp by that much: four ulps of |a|, and
+        # no less than the 1e-4 of the other kernels
+        tol = max(1e-4, 4 * 1.1920929e-07 * float(ops[10].abs().max()))
+        err = max(compare("likelihood_local_ctf", f"{shape} {nm}", g, rr, tol,
+                          "P-long sums in another order and CTFs formed in the kernel; "
+                          "exp amplifies one float32 ulp of a + B + C, |a| ~ 0.75 P")
+                  for nm, g, rr in zip(("u_r", "u_t", "u_d"), got, ref))
+        spread = float((ref[0].amax(1) / ref[0].mean(1)).median())
+        say(f"  likelihood_local_ctf {shape}: median max/mean of u_r {spread:.2f} "
+            "(the block is neither flat nor one spike)")
+        del got, ref
+        n_bytes = sum(4 * o.numel() * (2 if o.is_complex() else 1)
+                      for o in ops if torch.is_tensor(o)) + n_l * 28 + n_l * (9 + 125 + 9) * 4
+        # what the function needs, not what an einsum over (d, r, t, p)
+        # spends: Re(x conj(pri)) does not depend on d, so a (r, t, pixel)
+        # costs 2 multiply-adds for it and D more over the defocus axis;
+        # then B (|pri|^2 once a (r, pixel), s ctf^2 once a (d, pixel), one
+        # multiply-add a (d, r, pixel)), x = dat conj(tra), the CTFs
+        # (~30 operations a (d, pixel)) and the epilogue
+        n_d, n_r, n_t = 9, 125, 9
+        n_flops = n_l * (n_r * n_t * n_p * (4 + 2 * n_d) + n_d * n_r * n_p * 2 + n_r * n_p * 4
+                         + n_d * n_p * 2 + n_t * n_p * 6 + n_d * n_p * 30
+                         + 12 * n_d * n_r * n_t)
+        # the wrapper forms the CTF constants and the pixels' geometry in a
+        # score of small launches, so on a slow host the call is theirs:
+        # the kernel's own time is read whatever the call took
+        rec = record("likelihood_local_ctf", shape, err, timed(call, 10), plain_ms,
+                     n_bytes, n_flops, plan=likelihood.likelihood_ctf_plan(n_d, n_r, n_t))
+        rec["alone_ms"] = graph_ms(call)
+        say(f"  likelihood_local_ctf [{shape}]: kernel_alone_ms {rec['alone_ms']:.4f}  "
+            f"share of that {rec['bound_ms'] / rec['alone_ms']:.4f}")
+        recs.append(rec)
+        del ops
+    results["likelihood_local_ctf"] = dict(recs[0], widest_band=recs[1],
+                                           max_abs_err=max(r["max_abs_err"] for r in recs))
+
+    # HK3 with a defocus factor a slice (CTF rounds' use_d): 1,024 slices
+    # into the 152^3 grid
+    n_l, n_s, r_u = 64, 1024, R_U
+    big = reco_grid_size(SIZE_R, r_u) * 2
+    rng = np.random.default_rng(4)
+    ft = torch.fft.fftshift(torch.fft.fft2(torch.randn(n_l, SIZE_R, SIZE_R, generator=gen,
+                                                       device=dev)),
+                            dim=(-2, -1)).to(torch.complex64).contiguous()
+    defocus = rng.uniform(8000, 20000, n_l)
+    ctf = ctf_params(np.full(n_l, 300e3), defocus, defocus * 1.05, rng.uniform(0, 3, n_l),
+                     np.full(n_l, 2e7), np.full(n_l, 0.1), np.zeros(n_l), device=dev)
+    some = (ft, ctf, torch.arange(n_s, device=dev) % n_l, rotate3d(random_quat(gen, (n_s,), dev)),
+            3 * torch.randn(n_s, 2, generator=gen, device=dev),
+            torch.rand(n_s, generator=gen, device=dev), r_u, 2, SIZE_R, PIXEL_SIZE)
+    d = 1 + 0.03 * torch.randn(n_s, generator=gen, device=dev)
+    fk, tk = insert.insert_trilinear(*some, big, d=d)
+    fp, tp = insert.insert_trilinear_plain(
+        *some, torch.zeros((big,) * 3, dtype=torch.complex64, device=dev),
+        torch.zeros((big,) * 3, device=dev), d)
+    results["insert_trilinear_d"] = max(
+        compare("insert_trilinear", f"F, a defocus factor a slice, slices={n_s} big={big}",
+                torch.view_as_real(fk), torch.view_as_real(fp), 1e-4, "atomicAdd order"),
+        compare("insert_trilinear", "T, the same", tk, tp, 1e-4, "atomicAdd order"))
+    del fk, tk, fp, tp, ft
+
+    # HK1 with the 2K = 8 tables of a K = 4 round: quad table against plain
+    # cube
+    quad_k4 = []
+    for r, n_rot, lane in K4_BANDS:
+        rings = (pack_rings(SIZE_R, r, 1, device=dev) if lane is None
+                 else pack_rings(SIZE_R, r, 0, lane=lane, device=dev))
+        crop = proj_crop_size(SIZE_R, 2, r)
+        table = torch.randn(2 * K_3D, crop, crop, crop, dtype=torch.complex64, device=dev)
+        quads = projector.quad_taps(table)
+        tail = (rotate3d(random_quat(gen, (N_REFINE, n_rot), dev)), rings.i_col, rings.i_row, 2,
+                torch.randint(0, 2 * K_3D, (N_REFINE,), generator=gen, device=dev))
+        compare("project_slices", f"K=4: 8 tables of {crop}^3, quad table against plain cube",
+                projector.project_slices(quads, *tail), projector.project_slices(table, *tail),
+                1e-5, why)
+        ms_q = timed(lambda: projector.project_slices(quads, *tail), 10)
+        ms_c = timed(lambda: projector.project_slices(table, *tail), 10)
+        mib = quads.numel() * 4 / 2 ** 20
+        say(f"  project_slices K=4 r={r} R={n_rot} P={rings.i_col.numel()} crop={crop}^3: "
+            f"quad table ({mib:.0f} MiB) {ms_q:.4f} ms, plain cube {ms_c:.4f} ms, "
+            f"quad_fits says {projector.quad_fits(2 * K_3D, crop)}")
+        quad_k4.append(dict(r=r, rotations=n_rot, crop=crop, quad_mib=mib, quad_ms=ms_q,
+                            cube_ms=ms_c, quad_fits=projector.quad_fits(2 * K_3D, crop)))
+        del table, quads
+    results["project_slices_k4"] = quad_k4
+    return results
+
+
+def demo_160(tmp: str, dev, config_name: str, k: int, rounds: int, start_res_a: float,
+             local_resume: bool = False, defocus_factor: float = 1.0,
+             snr: float = SNR_R, init_res_a: float | None = None) -> tuple:
+    """A 160 px dataset of N_REFINE images of ``k`` sharp C4 species under
+    ``tmp``, and configs/<config_name> pointed at it with every other
+    value as shipped: the start model is the mean phantom low-passed to
+    ``start_res_a``; ``local_resume`` turns "Global Search" off and reads
+    the generator's blurred poses; ``init_res_a`` replaces "Initial
+    Resolution".  Returns (config path, phantom)."""
+    from thunder_tpu_torch.io.mrc import read_mrc, write_mrc
+    from thunder_tpu_torch.pipeline.synthetic import write_demo
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    write_demo(tmp, n=N_REFINE, size=SIZE_R, snr=snr, seed=0, device=dev, k=k, kind="sharp",
+               sym="C4", defocus_factor=defocus_factor)
+    say(f"  dataset {N_REFINE} x {SIZE_R} px at SNR {snr}, {k} sharp C4 species, defocus x "
+        f"{defocus_factor}, written in {time.time() - t0:.1f} s")
+    truth, _ = read_mrc(os.path.join(tmp, "init_model.mrc"))
+    write_mrc(os.path.join(tmp, "start_model.mrc"),
+              low_pass(truth, SIZE_R * PIXEL_SIZE / start_res_a), PIXEL_SIZE)
+    with open(os.path.join(here, "configs", config_name)) as f:
+        cfg = json.load(f)
+    cfg["Basic"].update({
+        "Initial Model": os.path.join(tmp, "start_model.mrc"),
+        ".thu File Storing Paths and CTFs of Images":
+            os.path.join(tmp, "particles_local.thu" if local_resume else "particles.thu"),
+        "Path of Particles": tmp + "/",
+        "Path of Output": os.path.join(tmp, "output") + "/"})
+    if local_resume:
+        cfg["Basic"]["Global Search"] = False
+    if init_res_a is not None:
+        cfg["Basic"]["Initial Resolution (Angstrom)"] = init_res_a
+    cfg["Advanced"]["Max Number of Iteration"] = rounds
+    cfg_path = os.path.join(tmp, config_name)
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f, indent=2)
+    return cfg_path, truth
+
+
+def run_160(label: str, dev, wrappers: dict, cfg_path: str, profile_round,
+            before_round=None) -> tuple:
+    """One run of the CLI with every wrapper's count set to 0 just before
+    and read just after: (launches, round records, output directory's
+    path, global searches seen, profile summary)."""
+    import torch
+
+    os.environ["THUNDER_STAGE_TIMING"] = "1"
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.time()
+    rc, seen, got = run_cli_counting_global([cfg_path, "--device", str(dev)], profile_round,
+                                            before_round)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    if rc != 0:
+        fail(f"{label}: thunder main returned {rc}")
+    out = os.path.join(os.path.dirname(cfg_path), "output")
+    with open(os.path.join(out, "round_metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    for rec in recs:
+        say(f"  {label} round {rec['round']}: r={rec['r']} search {rec['search_type']}->"
+            f"{rec['search_type_after']} phases={rec['n_phases']} res={rec['res_A']:.3f} A  "
+            f"t_vari={[round(v, 4) for v in rec['t_vari']]}  {rec['elapsed_s']:.3f} s  {N_REFINE / rec['elapsed_s']:.2f} img/s  "
+            f"stage_ms={json.dumps(rec.get('stage_ms', 'profiled'))}")
+    say(f"  {label} wall {wall:.1f} s, launches {launches}")
+    return launches, recs, out, seen, profile_summary(got, "a round", label)
+
+
+def check_maps(label: str, out: str, rounds: int, k: int) -> None:
+    import numpy as np
+
+    from thunder_tpu_torch.io.mrc import read_mrc
+
+    need = [f"Reference_{t:03d}{x}_Final.mrc" for t in range(k) for x in ("", "_A", "_B")]
+    need += [f"{p}_Round_{i:03d}{x}" for i in range(rounds)
+             for p, x in [("FSC", ".txt"), ("Meta", ".thu"), ("Class_Info", ".txt")]
+             + [(f"Reference_{t:03d}_{h}", ".mrc") for t in range(k) for h in "AB"]]
+    missing = [n for n in need if not os.path.exists(os.path.join(out, n))]
+    if missing:
+        fail(f"{label}: missing outputs {missing}")
+    for i in range(rounds):
+        fsc = np.loadtxt(os.path.join(out, f"FSC_Round_{i:03d}.txt"))
+        if fsc.size == 0 or not np.isfinite(fsc).all():
+            fail(f"{label} round {i}: FSC not finite")
+    for t in range(k):
+        m, _ = read_mrc(os.path.join(out, f"Reference_{t:03d}_Final.mrc"))
+        if m.shape != (SIZE_R,) * 3 or not np.isfinite(m).all():
+            fail(f"{label}: final map {t} bad shape or non-finite")
+
+
+def phase_refine_a(dev, wrappers):
+    """configs/demo.json's refinement from a 40 A start model and r_init
+    12: global rounds until the state machine enters local search, then local rounds, the
+    first of them under the profiler.  Returns (launches, profile)."""
+    from thunder_tpu_torch.config import ThunderConfig
+    from thunder_tpu_torch.model import SEARCH_TYPE_CTF, SEARCH_TYPE_LOCAL
+
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_refine_a_") as tmp:
+        cfg_path, truth = demo_160(tmp, dev, "demo.json", 1, ROUNDS_A, INIT_MODEL_RES_A,
+                                   defocus_factor=DEFOCUS_FACTOR, snr=SNR_A,
+                                   init_res_a=INIT_RES_A)
+        launches["refine_a"], recs, out, seen, prof = run_160(
+            "5a", dev, wrappers, cfg_path,
+            lambda opt, i: opt.model.search_type == SEARCH_TYPE_LOCAL)
+        check_global_launches("5a", seen)
+        check_maps("5a", out, len(recs), 1)
+        r_global = ThunderConfig.from_json(cfg_path).r_global
+        local = [r for r in recs if r["search_type"] == SEARCH_TYPE_LOCAL]
+        say(f"  5a: r_global {r_global}; local search from round "
+            f"{local[0]['round'] if local else None}; r by round {[r['r'] for r in recs]}")
+        if not local:
+            fail(f"5a: the state machine never entered local search in {len(recs)} rounds")
+        if not max(r["r"] for r in recs) > r_global:
+            fail(f"5a: r never grew past r_global {r_global}")
+        if not recs[-1]["res_A"] < local[0]["res_A"]:
+            fail(f"5a: res_A {recs[-1]['res_A']:.3f} at the end is no finer than "
+                 f"{local[0]['res_A']:.3f} at the first local round")
+        if launches["refine_a"]["symmetrize_ft"] != len(recs) + 1:
+            fail(f"5a: HK7 launched {launches['refine_a']['symmetrize_ft']} times in "
+                 f"{len(recs)} rounds and the final reconstruction")
+        if launches["refine_a"]["likelihood_local_ctf"] and not any(
+                r["search_type"] == SEARCH_TYPE_CTF for r in recs):
+            fail("5a: HK8 launched outside CTF search")
+    return launches["refine_a"], prof
+
+
+def phase_refine_b(dev, wrappers):
+    """The same refinement resumed in local search from the generator's
+    blurred poses, until CTF search has run at least two rounds, the
+    first of them under the profiler.  Returns (launches, profile)."""
+    import numpy as np
+
+    from thunder_tpu_torch.io.thu import read_thu
+    from thunder_tpu_torch.model import SEARCH_TYPE_CTF, SEARCH_TYPE_LOCAL
+
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_refine_b_") as tmp:
+        cfg_path, truth = demo_160(tmp, dev, "demo.json", 1, ROUNDS_B, LOCAL_START_RES_A,
+                                   local_resume=True, defocus_factor=DEFOCUS_FACTOR)
+        forced = []
+
+        def force_ctf(opt, i):
+            if i == CTF_FORCE_ROUND and opt.model.search_type == SEARCH_TYPE_LOCAL:
+                opt.model.search_type = SEARCH_TYPE_CTF
+                opt.model._reset_after_transition()
+                forced.append(i)
+
+        launches["refine_b"], recs, out, seen, prof = run_160(
+            "5b", dev, wrappers, cfg_path,
+            lambda opt, i: opt.model.search_type == SEARCH_TYPE_CTF, force_ctf)
+        check_maps("5b", out, len(recs), 1)
+        if seen or recs[0]["search_type"] != SEARCH_TYPE_LOCAL:
+            fail("5b: the resumed run did not start in local search")
+        ctf_rounds = [r for r in recs if r["search_type"] == SEARCH_TYPE_CTF]
+        say(f"  5b: CTF search from round {ctf_rounds[0]['round'] if ctf_rounds else None} "
+            + (f"(search type set at round {forced[0]}: update_search_type had not got there)"
+               if forced else "(entered by update_search_type)")
+            + f"; r by round {[r['r'] for r in recs]}")
+        if len(ctf_rounds) < 2:
+            fail(f"5b: {len(ctf_rounds)} CTF rounds, expected at least two")
+        want = sum(max(r["n_phases"]) for r in ctf_rounds)
+        got_8 = launches["refine_b"]["likelihood_local_ctf"]
+        say(f"  5b: HK8 launches {got_8}, phases of the CTF rounds {want}")
+        if got_8 != want:
+            fail(f"5b: HK8 launched {got_8} times for {want} phases of CTF search")
+        if launches["refine_b"]["symmetrize_ft"] != len(recs) + 1:
+            fail(f"5b: HK7 launched {launches['refine_b']['symmetrize_ft']} times in "
+                 f"{len(recs)} rounds and the final reconstruction")
+        meds = []
+        for r in recs:
+            meta = read_thu(os.path.join(out, f"Meta_Round_{r['round']:03d}.thu"))
+            meds.append(float(np.median(meta.defocus_factor)))
+        say(f"  5b: median defocus factor by round {[round(m, 4) for m in meds]} "
+            f"(the images' true factor {DEFOCUS_FACTOR})")
+        first, last = ctf_rounds[0]["round"], ctf_rounds[-1]["round"]
+        if any(m != 1.0 for m in meds[:first]):
+            fail("5b: the defocus factor moved before CTF search")
+        if not 1.0 + 0.1 * (DEFOCUS_FACTOR - 1) < meds[last] < DEFOCUS_FACTOR + 0.02:
+            fail(f"5b: median defocus factor {meds[last]:.4f} after CTF search did not move "
+                 f"from 1 toward {DEFOCUS_FACTOR}")
+    return launches["refine_b"], prof
+
+
+def phase_classify_3d(dev, wrappers):
+    """configs/demo_3D.json's classification (K = 4, C4) for ROUNDS_3D
+    rounds on two sharp C4 species, round PROFILE_K4 under the profiler."""
+    import numpy as np
+
+    from thunder_tpu_torch.io.thu import read_thu
+    from thunder_tpu_torch.recon.reconstructor import symmetrize_ft
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_3d_classes_") as tmp:
+        cfg_path, _ = demo_160(tmp, dev, "demo_3D.json", 2, ROUNDS_3D, INIT_MODEL_RES_A)
+        truth = np.load(os.path.join(tmp, "truth.npy"))
+        launches, recs, out, seen, prof = run_160("6", dev, wrappers, cfg_path, PROFILE_K4)
+        check_global_launches("6 (K = 4)", seen)
+        check_maps("6", out, len(recs), K_3D)
+        if len(recs) != ROUNDS_3D:
+            fail(f"6: {len(recs)} round records, expected {ROUNDS_3D}")
+        if launches["symmetrize_ft"] != ROUNDS_3D + 1 or symmetrize_ft.last_grids != 2 * K_3D:
+            fail(f"6: HK7 launched {launches['symmetrize_ft']} times over "
+                 f"{symmetrize_ft.last_grids} grids, expected one launch over {2 * K_3D} grids "
+                 f"in each of {ROUNDS_3D} rounds and the final reconstruction")
+        purities = []
+        for i in range(ROUNDS_3D):
+            meta = read_thu(os.path.join(out, f"Meta_Round_{i:03d}.thu"))
+            idx = np.array([int(p.split("@")[0]) - 1 for p in meta.particle_path])
+            cls = np.asarray(meta.class_id)
+            purities.append(purity(cls, truth[idx], K_3D))
+            say(f"  6 round {i}: purity {purities[-1]:.4f}, class sizes "
+                f"{np.bincount(cls, minlength=K_3D).tolist()}, reborn "
+                f"{recs[i].get('reborn_classes', [])}")
+        share = float(max(np.mean(truth == 0), np.mean(truth == 1)))
+        say(f"  6: purity gate 1.5/K = {1.5 / K_3D:.4f}; with two species a blind split "
+            f"already reads {share:.4f}")
+        if not purities[-1] > 1.5 / K_3D:
+            fail(f"6: class purity {purities[-1]:.4f} not above 1.5/K = {1.5 / K_3D:.4f}")
+        prof["purity"] = purities
+    return launches, prof
+
+
+
 def main() -> None:
     try:
         import torch
@@ -1237,9 +1737,10 @@ def main() -> None:
         from thunder_tpu_torch import _native
         from thunder_tpu_torch.ops import gather
         from thunder_tpu_torch.ops.insert import insert_bilinear_2d, insert_trilinear
-        from thunder_tpu_torch.ops.likelihood import likelihood_block
+        from thunder_tpu_torch.ops.likelihood import likelihood_block, likelihood_local_ctf
         from thunder_tpu_torch.ops.projector import project_slices, project_slices_2d
         from thunder_tpu_torch.physics.spectrum import shell_sums
+        from thunder_tpu_torch.recon.reconstructor import symmetrize_ft
     except ImportError as e:
         fail(f"thunder_tpu_torch not importable ({e}); run from a checkout of the repo")
 
@@ -1273,6 +1774,10 @@ def main() -> None:
     say(f"[{time.time() - t_start:.1f} s] phase 1b: 2D kernels against their plain versions")
     results_2d = phase_kernels_2d(dev)
     torch.cuda.synchronize()
+    say(f"[{time.time() - t_start:.1f} s] phase 1c: HK7, HK8 and the K = 4 shapes against "
+        "their plain versions")
+    results_r = phase_kernels_refine(dev)
+    torch.cuda.synchronize()
 
     wrappers = {"project_slices": project_slices, "likelihood_block": likelihood_block,
                 "insert_trilinear": insert_trilinear, "shell_sums": shell_sums}
@@ -1292,7 +1797,21 @@ def main() -> None:
     say(f"[{time.time() - t_start:.1f} s] phase 4: 2D classification")
     launches_2d, _, prof_2d = phase_slice_2d(dev, wrappers_2d)
     torch.cuda.synchronize()
-    profiles = [prof_3d, prof_2d]
+
+    wrappers_r = dict(wrappers, symmetrize_ft=symmetrize_ft,
+                      likelihood_local_ctf=likelihood_local_ctf)
+    say(f"[{time.time() - t_start:.1f} s] phase 5a: refinement as shipped (configs/demo.json)")
+    launches_a, prof_a = phase_refine_a(dev, wrappers_r)
+    say(f"[{time.time() - t_start:.1f} s] phase 5b: the same, resumed in local search")
+    launches_b, prof_b = phase_refine_b(dev, wrappers_r)
+    say(f"[{time.time() - t_start:.1f} s] phase 6: 3D classification (configs/demo_3D.json)")
+    launches_k4, prof_k4 = phase_classify_3d(dev, wrappers_r)
+    torch.cuda.synchronize()
+    profiles = [prof_3d, prof_2d, prof_a, prof_b, prof_k4]
+    later = dict(refine_a=launches_a, refine_b=launches_b, classify_3d=launches_k4)
+    for name in ("symmetrize_ft", "likelihood_local_ctf"):
+        if sum(path[name] for path in later.values()) <= 0:
+            fail(f"{name} was never launched by phases 5 and 6")
 
     meta = {
         "project_slices": ("HK1", "thunder_tpu_torch/csrc/project_slices.cu",
@@ -1307,6 +1826,10 @@ def main() -> None:
                               "thunder_tpu/ops/projector.py:372"),
         "insert_bilinear_2d": ("HK6", "thunder_tpu_torch/csrc/insert_bilinear_2d.cu",
                                "thunder_tpu/ops/insert.py:721"),
+        "symmetrize_ft": ("HK7", "thunder_tpu_torch/csrc/symmetrize_ft.cu",
+                          "thunder_tpu/recon/reconstructor.py:309"),
+        "likelihood_local_ctf": ("HK8", "thunder_tpu_torch/csrc/likelihood_local_ctf.cu",
+                                 "thunder_tpu/ops/likelihood.py:100"),
     }
     # HK2's record is the 2D global block (the heaviest launch a round);
     # its other main-path blocks ride along.  HK4's is the hemisphere FSC
@@ -1317,15 +1840,19 @@ def main() -> None:
                   for k, r in recs_4.items()}
     more_lk = results["likelihood_block_3d"] + results_2d["likelihood_block_more"]
     recs = {
-        "project_slices": results["project_slices"],
+        "project_slices": dict(results["project_slices"],
+                               k4_tables=results_r["project_slices_k4"]),
         "likelihood_block": dict(
             results_2d["likelihood_block"], other_shapes=more_lk,
             max_abs_err=max(r["max_abs_err"] for r in more_lk + [results_2d["likelihood_block"]])),
-        "insert_trilinear": results["insert_trilinear"],
+        "insert_trilinear": dict(results["insert_trilinear"], max_abs_err=max(
+            results["insert_trilinear"]["max_abs_err"], results_r["insert_trilinear_d"])),
         "shell_sums": dict(results["shell_sums"]["pair"], shapes=hk4_shapes,
                            max_abs_err=max(r["max_abs_err"] for r in hk4_shapes.values())),
         "project_slices_2d": results_2d["project_slices_2d"],
         "insert_bilinear_2d": results_2d["insert_bilinear_2d"],
+        "symmetrize_ft": results_r["symmetrize_ft"],
+        "likelihood_local_ctf": results_r["likelihood_local_ctf"],
     }
     # the projection kernels' launches by caller: global search, the
     # phase loop, and the rest (the sigma / norm stage's rank-1 pass)
@@ -1333,6 +1860,7 @@ def main() -> None:
     kernels = []
     for name, r in recs.items():
         by_path = {"3d": launches.get(name, 0), "2d": launches_2d.get(name, 0)}
+        by_path.update({path: counts.get(name, 0) for path, counts in later.items()})
         if name in split:
             n, by = split[name][0][name], split[name][1]["project_launches"]
             r = dict(r, launches_by_caller=dict(by, sigma=n - by["global"] - by["phase"]))

@@ -348,3 +348,94 @@ def test_gathers(dev):
              (gather.take_rows, gather.take_rows_plain, (tab, rows))]
     for fn, plain, args in cases:
         assert torch.equal(fn(*args), plain(*args)), fn.__name__
+
+
+def _ctf_fields(dev, n, seed):
+    rng = np.random.default_rng(seed)
+    defocus = rng.uniform(8000, 20000, n)
+    return ctf_params(np.full(n, 300e3), defocus, defocus * rng.uniform(0.9, 1.1, n),
+                      rng.uniform(0, 3, n), np.full(n, 2e7), np.full(n, 0.1), np.zeros(n),
+                      device=dev)
+
+
+@pytest.mark.parametrize("sym,big", [("C4", 40), ("D2", 40), ("C4", 37), ("I1", 24)])
+def test_symmetrize_ft(dev, sym, big):
+    """HK7 against its plain version on 2K = 4 grids (F and T in one
+    launch), even and odd boxes, the cut inside and past the box's faces
+    (clipped taps); 1e-5: the same coordinates, weights and tap order,
+    the sums may contract into FMAs."""
+    from thunder_tpu_torch.geometry.symmetry import Symmetry
+    from thunder_tpu_torch.recon import reconstructor
+
+    g = generator(11, dev)
+    shape = (2, 2, big, big, big)
+    f = torch.complex(torch.randn(shape, generator=g, device=dev),
+                      torch.randn(shape, generator=g, device=dev))
+    t = torch.rand(shape, generator=g, device=dev)
+    mats = Symmetry(sym, dev).matrices
+    for radius in (big // 2 - 3.0, big * 0.9):
+        n0 = reconstructor.symmetrize_ft.launches
+        got = reconstructor.symmetrize_ft(f, t, mats, radius)
+        assert reconstructor.symmetrize_ft.launches == n0 + 1
+        ref = reconstructor.symmetrize_ft_plain(f, t, mats, radius)
+        assert rel_err(torch.view_as_real(got[0]), torch.view_as_real(ref[0])) < 1e-5
+        assert rel_err(got[1], ref[1]) < 1e-5
+    with pytest.raises(ValueError):
+        reconstructor.symmetrize_ft(f, t.double(), mats, 5.0)
+
+
+@pytest.mark.parametrize("n_d,n_r,n_t,band", [(9, 125, 9, 12), (4, 7, 5, 6), (1, 64, 9, 6),
+                                              (10, 33, 13, 9)])
+def test_likelihood_local_ctf(dev, n_d, n_r, n_t, band):
+    """HK8 against its plain version (ctf_packed_scaled, the einsums of
+    log_dvp_local_ctf, max / exp / marginals) at the path's tile counts
+    and at ragged ones; 1e-4: P-long sums in another order and CTFs
+    formed in the kernel, amplified by exp."""
+    g = generator(12, dev)
+    size, n_l = 64, 6
+    rings = pack_rings(size, band, 1, device=dev)
+    p = rings.i_col.numel()
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=dev)
+    cplx = lambda *sh: torch.complex(rnd(*sh), rnd(*sh))
+    s_pack = -0.5 * rings.mask * (0.5 + torch.rand(n_l, p, generator=g, device=dev))
+    dat = cplx(n_l, p)
+    ph = 0.3 * rnd(n_l, n_t, p)
+    args = ((s_pack * dat).to(torch.complex64), s_pack, _ctf_fields(dev, n_l, 3),
+            1 + 0.02 * rnd(n_l, n_d), rings.i_col, rings.i_row, size, 1.32,
+            0.3 * cplx(n_l, n_r, p), torch.polar(torch.ones_like(ph), ph),
+            (s_pack * dat.abs() ** 2).sum(-1),
+            torch.rand(n_l, n_r, generator=g, device=dev),
+            torch.rand(n_l, n_t, generator=g, device=dev),
+            torch.rand(n_l, n_d, generator=g, device=dev))
+    n0 = likelihood.likelihood_local_ctf.launches
+    got = likelihood.likelihood_local_ctf(*args)
+    assert likelihood.likelihood_local_ctf.launches == n0 + 1
+    ref = likelihood.likelihood_local_ctf_plain(*args)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and rel_err(a, b) < 1e-4
+
+
+def test_insert_trilinear_defocus_factor(dev):
+    """HK3 with a defocus factor a slice against its plain version, and
+    with factors of 1 against the call without them."""
+    g = generator(13, dev)
+    n_l, size, r_u, big = 5, 32, 9, 44
+    ft = torch.fft.fftshift(torch.fft.fft2(torch.randn(n_l, size, size, generator=g, device=dev)),
+                            dim=(-2, -1)).to(torch.complex64).contiguous()
+    ctf = _ctf_fields(dev, n_l, 4)
+    n_s = 40
+    img = torch.randint(0, n_l, (n_s,), generator=g, device=dev)
+    some = (ft, ctf, img, rotate3d(random_quat(g, (n_s,), dev)),
+            2 * torch.randn(n_s, 2, generator=g, device=dev),
+            torch.rand(n_s, generator=g, device=dev), r_u, 2, size, 1.32)
+    d = 1 + 0.1 * torch.randn(n_s, generator=g, device=dev)
+    zeros = lambda: (torch.zeros((big,) * 3, dtype=torch.complex64, device=dev),
+                     torch.zeros((big,) * 3, device=dev))
+    fk, tk = insert.insert_trilinear(*some, big, d=d)
+    fp, tp = insert.insert_trilinear_plain(*some, *zeros(), d)
+    assert rel_err(torch.view_as_real(fk), torch.view_as_real(fp)) < 1e-4
+    assert rel_err(tk, tp) < 1e-4
+    f1, t1 = insert.insert_trilinear(*some, big, d=torch.ones_like(d))
+    f0, t0 = insert.insert_trilinear(*some, big)
+    assert rel_err(torch.view_as_real(f1), torch.view_as_real(f0)) < 1e-4
+    assert rel_err(torch.view_as_real(f0), torch.view_as_real(fp)) > 1e-3

@@ -31,7 +31,8 @@ SRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("project_slices.cu", "likelihood_block.cu",
            "insert_trilinear.cu", "shell_sums.cu", "project_slices_2d.cu",
-           "insert_bilinear_2d.cu", "gather.cu", "launch_floor.cu")
+           "insert_bilinear_2d.cu", "symmetrize_ft.cu",
+           "likelihood_local_ctf.cu", "gather.cu", "launch_floor.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,7 +46,7 @@ _SIGNATURES = {
     "thunder_project_slices": [_P, _I, _I, _P, _P, _L, _I, _I, _P, _P, _I,
                                _I, _P, _P],
     "thunder_likelihood_block": [_P, _I, _I, _I, _I, _P],
-    "thunder_insert_trilinear": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+    "thunder_insert_trilinear": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                                  _F, _F, _P, _P, _P, _I, _P],
     "thunder_shell_sums": [_P, _L, _I, _I, _L, _P, _P, _I, _I, _P, _P],
     "thunder_shell_sums_grid": [_P, _L, _I, _I, _I, _I, _I, _I, _P, _P],
@@ -55,6 +56,8 @@ _SIGNATURES = {
     "thunder_insert_bilinear_2d": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                                    _P, _I, _I, _I, _I, _F, _F, _F, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _P],
+    "thunder_symmetrize_ft": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "thunder_likelihood_local_ctf": [_P, _I, _I, _P],
     "thunder_take_flat": [_P, _L, _P, _L, _P, _P],
     "thunder_take_along": [_P, _I, _P, _P, _L, _I, _I, _P, _P],
     "thunder_take_rows": [_P, _I, _I, _P, _L, _P, _P],

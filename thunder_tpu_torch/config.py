@@ -55,6 +55,7 @@ class ThunderConfig:
     m_l_r: int = 125                    # local rotation support (3D)
     m_l_r_2d: int = 9                   # local rotation support (2D)
     m_l_t: int = 9                      # local translation support
+    m_l_d: int = 9                      # local defocus support
     m_reco: int = 100                   # poses drawn per image in reconstruction
     ignore_res: float = 200.0           # Ignore Signal Under (Angstrom)
     sclCor_res: float = 40.0            # scale-correction resolution
@@ -62,6 +63,7 @@ class ThunderConfig:
     thres_report_fsc: float = 0.143
     group_scl: bool = False
     zero_mask: bool = True
+    ctf_refine_s: float = 0.01          # CTF Refine Standard Deviation
     save_refs_each_iter: bool = True
     save_thu_each_iter: bool = True
 
@@ -69,6 +71,7 @@ class ThunderConfig:
     trans_search_factor: float = 1.0
     perturb_factor_s_global: float = 0.5
     perturb_factor_s_local: float = 0.5
+    perturb_factor_s_ctf: float = 0.5
     skip_e: bool = False
     skip_m: bool = False
     skip_r: bool = False
@@ -171,6 +174,7 @@ _JSON_KEYS = {
         "Number of Sampling Points of Rotation in Local Search (3D)": "m_l_r",
         "Number of Sampling Points of Rotation in Local Search (2D)": "m_l_r_2d",
         "Number of Sampling Points of Translation in Local Search": "m_l_t",
+        "Number of Sampling Points of Defocus in Local Search": "m_l_d",
         "Number of Sampling Points Used in Reconstruction": "m_reco",
         "Ignore Signal Under (Angstrom)": "ignore_res",
         "Correct Intensity Scale Using Signal Under (Angstrom)": "sclCor_res",
@@ -178,11 +182,13 @@ _JSON_KEYS = {
         "FSC Threshold for Reporting Resolution": "thres_report_fsc",
         "Grouping when Correcting Intensity Scale": "group_scl",
         "Mask Images with Zero Noise": "zero_mask",
+        "CTF Refine Standard Deviation": "ctf_refine_s",
     },
     "Professional": {
         "Translation Search Factor": "trans_search_factor",
         "Perturbation Factor (Small, Global)": "perturb_factor_s_global",
         "Perturbation Factor (Small, Local)": "perturb_factor_s_local",
+        "Perturbation Factor (Small, CTF)": "perturb_factor_s_ctf",
         "Skip Expectation": "skip_e",
         "Skip Maximization": "skip_m",
         "Skip Reconstruction": "skip_r",

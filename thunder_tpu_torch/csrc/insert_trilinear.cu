@@ -12,7 +12,8 @@
 //   val    = ft[img[s], c + vr, c + vc] * conj(tra_s) * ctf * mask_d * w[s]
 //   c2w    = ctf^2 * mask_d * w[s]
 // (tra_s the translation phase ramp, ctf evaluated from the image's
-// per-image constants), takes the position rot[s] . (pf vc, pf vr, 0),
+// per-image constants, its defocus scaled by the slice's factor dfac[s]
+// where one is given: CTF search's use_d, ctf_packed_scaled), takes the position rot[s] . (pf vc, pf vr, 0),
 // applies the padded-radius cut |pos| < max_radius_pad of
 // insert_slices_3d, and adds the 8 trilinear taps (indices clipped to
 // [0, big-1]).
@@ -43,7 +44,7 @@ __global__ void insert_trilinear_kernel(
     const float2* __restrict__ ft, int size, const float* __restrict__ ctfk,
     const int* __restrict__ img_idx, const float* __restrict__ rot,
     const float* __restrict__ trans, const float* __restrict__ wsl,
-    int r_u, int pf, float max_radius_pad, float box_a, float tpos,
+    const float* __restrict__ dfac, int r_u, int pf, float max_radius_pad, float box_a, float tpos,
     float4* __restrict__ G, int big, long long total) {
   long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -80,8 +81,10 @@ __global__ void insert_trilinear_kernel(
   float ang = atan2f((float)vr, (float)vc);
   float du = k[4], dv = k[5];
   float defocus = -(du + dv + (du - dv) * cosf(2.f * (ang - k[6]))) / 2.f;
-  float f2 = f * f;
-  float chi = k[0] * defocus * f2 + k[1] * (f2 * f2) - k[7];
+  // ctf_packed squares f; ctf_packed_scaled takes fx^2 + fy^2 as it is
+  float f2 = dfac ? fx * fx + fy * fy : f * f;
+  float dd = dfac ? dfac[s] : 1.f;
+  float chi = k[0] * defocus * dd * f2 + k[1] * (f2 * f2) - k[7];
   float ctf = -k[2] * sinf(chi) + k[3] * cosf(chi);
 
   float cm = ctf * mask_d;
@@ -131,12 +134,13 @@ __global__ void insert_split_kernel(const float4* __restrict__ G, float2* __rest
 
 }  // namespace
 
+// dfac: (n_slices,) float32 defocus factors, or null (all 1);
 // G: scratch (big^3, 4) float32, zeroed by the caller; F (big^3)
 // complex64 and T (big^3) float32 are accumulated into
 extern "C" int thunder_insert_trilinear(
     const void* ft, int size, const void* ctfk, const void* img_idx,
-    const void* rot, const void* trans, const void* w, int n_slices,
-    int r_u, int pf, float max_radius_pad, float box_a, float tpos, void* F,
+    const void* rot, const void* trans, const void* w, const void* dfac,
+    int n_slices, int r_u, int pf, float max_radius_pad, float box_a, float tpos, void* F,
     void* T, void* G, int big, void* stream) {
   int nk = 2 * r_u - 1;
   long long total = (long long)n_slices * nk * nk;
@@ -146,7 +150,8 @@ extern "C" int thunder_insert_trilinear(
     insert_trilinear_kernel<<<(unsigned)blocks, threads, 0,
                                (cudaStream_t)stream>>>(
         (const float2*)ft, size, (const float*)ctfk, (const int*)img_idx,
-        (const float*)rot, (const float*)trans, (const float*)w, r_u, pf,
+        (const float*)rot, (const float*)trans, (const float*)w,
+        (const float*)dfac, r_u, pf,
         max_radius_pad, box_a, tpos, (float4*)G, big, total);
     long long cells = (long long)big * big * big;
     insert_split_kernel<<<(unsigned)((cells + threads - 1) / threads), threads, 0,

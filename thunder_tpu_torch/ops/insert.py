@@ -22,7 +22,8 @@ import torch
 from thunder_tpu_torch import _native
 from thunder_tpu_torch.device import COMPLEX, REAL
 from thunder_tpu_torch.ops.fourier import translate_phases_view
-from thunder_tpu_torch.physics.ctf import CtfParams, ctf_packed, wavelength
+from thunder_tpu_torch.physics.ctf import (CtfParams, ctf_constants,
+                                           ctf_packed, ctf_packed_scaled)
 
 
 def insert_slices_3d(f_grid: torch.Tensor, t_grid: torch.Tensor,
@@ -125,18 +126,6 @@ def hermitianize_real(t_grid: torch.Tensor, nd: int = 3) -> torch.Tensor:
 
 # -- HK3 ----------------------------------------------------------------
 
-def ctf_constants(params: CtfParams) -> torch.Tensor:
-    """Per-image CTF constants (L, 8): [pi lambda, pi/2 Cs lambda^3, w1,
-    w2, defocus_u, defocus_v, defocus_theta, phase_shift] — the factors
-    ctf_packed evaluates, computed once per image for the kernel."""
-    lam = wavelength(params.voltage)
-    w2 = params.amplitude_contrast
-    return torch.stack([math.pi * lam, math.pi / 2 * params.cs * lam ** 3,
-                        torch.sqrt(1 - w2 * w2), w2, params.defocus_u,
-                        params.defocus_v, params.defocus_theta,
-                        params.phase_shift], dim=-1).to(REAL).contiguous()
-
-
 def dense_window(r_u: int, device=None):
     """Dense (vc, vr) pixels of the nk x nk window, nk = 2 r_u - 1, and
     the insertion mask: |k| < r_u - 1 (the padded-radius cut) with the
@@ -152,16 +141,19 @@ def dense_window(r_u: int, device=None):
 
 
 def dense_slice_values(ft: torch.Tensor, ctf: CtfParams, img_idx, trans,
-                       w, r_u: int, size: int, pixel_size: float):
+                       w, r_u: int, size: int, pixel_size: float, d=None):
     """The value formation HK3 fuses: (vals (B, nk^2) complex,
     ctf2w (B, nk^2), vc, vr) for slices of images img_idx with
-    translations trans (B, 2) and weights w (B,)."""
+    translations trans (B, 2), weights w (B,) and, where given, defocus
+    factors d (B,) scaling each slice's CTF (ctf_packed_scaled)."""
     vc, vr, mask_d = dense_window(r_u, ft.device)
     c = size // 2
     idx = img_idx.long()
     dat = ft[idx][:, (c + vr).long(), (c + vc).long()]
     tra = translate_phases_view(vc, vr, size, trans)
-    ct = ctf_packed(ctf.map(lambda f: f[idx]), vc, vr, size, pixel_size)
+    ctf_s = ctf.map(lambda f: f[idx])
+    ct = (ctf_packed(ctf_s, vc, vr, size, pixel_size) if d is None else
+          ctf_packed_scaled(ctf_s, vc, vr, size, pixel_size, d[:, None])[:, 0])
     vals = dat * tra.conj() * (ct * mask_d) * w[:, None]
     ctf2w = ct * ct * mask_d * w[:, None]
     return vals, ctf2w, vc, vr
@@ -169,7 +161,7 @@ def dense_slice_values(ft: torch.Tensor, ctf: CtfParams, img_idx, trans,
 
 def insert_trilinear_plain(ft, ctf, img_idx, rot, trans, w, r_u: int,
                            pf: int, size: int, pixel_size: float,
-                           f_grid: torch.Tensor, t_grid: torch.Tensor):
+                           f_grid: torch.Tensor, t_grid: torch.Tensor, d=None):
     """Plain version of HK3: value formation then the exact trilinear
     scatter, 256 slices at a time (bounds the dense temporaries).
     Returns the new (F, T)."""
@@ -177,7 +169,8 @@ def insert_trilinear_plain(ft, ctf, img_idx, rot, trans, w, r_u: int,
     for lo in range(0, rot.shape[0], 256):
         sl = slice(lo, lo + 256)
         vals, c2w, vc, vr = dense_slice_values(
-            ft, ctf, img_idx[sl], trans[sl], w[sl], r_u, size, pixel_size)
+            ft, ctf, img_idx[sl], trans[sl], w[sl], r_u, size, pixel_size,
+            None if d is None else d[sl])
         f_grid, t_grid = insert_slices_3d(f_grid, t_grid, vals, c2w,
                                           rot[sl], vc, vr, pf, max_rad)
     return f_grid, t_grid
@@ -187,13 +180,15 @@ def insert_trilinear(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
                      rot: torch.Tensor, trans: torch.Tensor, w: torch.Tensor,
                      r_u: int, pf: int, size: int, pixel_size: float,
                      big: int, f_grid: torch.Tensor | None = None,
-                     t_grid: torch.Tensor | None = None):
+                     t_grid: torch.Tensor | None = None,
+                     d: torch.Tensor | None = None):
     """Insert B compacted slices into (F, T) (big^3, centered), forming
     each dense-window value in place (see :func:`dense_slice_values`).
 
     ft (L, size, size) complex64 image spectra; ctf fields (L,);
     img_idx (B,) image of each slice; rot (B, 3, 3); trans (B, 2)
-    against the original images; w (B,) slice weights.  Accumulates into
+    against the original images; w (B,) slice weights; d (B,) defocus
+    factors scaling each slice's CTF (None: 1).  Accumulates into
     the given grids (zeros when None) and returns them.  CPU tensors take
     :func:`insert_trilinear_plain`; CUDA tensors launch
     csrc/insert_trilinear.cu, which scatters into an interleaved
@@ -206,8 +201,12 @@ def insert_trilinear(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
     if t_grid is None:
         t_grid = torch.zeros((big,) * 3, dtype=REAL, device=dev)
     if not ft.is_cuda:
-        return insert_trilinear_plain(ft, ctf, img_idx, rot, trans, w, r_u,
-                                      pf, size, pixel_size, f_grid, t_grid)
+        f_new, t_new = insert_trilinear_plain(ft, ctf, img_idx, rot, trans, w,
+                                              r_u, pf, size, pixel_size,
+                                              f_grid, t_grid, d)
+        f_grid.copy_(f_new)
+        t_grid.copy_(t_new)
+        return f_grid, t_grid
     _native.require(ft.dtype == COMPLEX and ft.is_contiguous()
                     and ft.shape[-2:] == (size, size),
                     "insert_trilinear: ft must be contiguous (L, size, size) complex64")
@@ -223,6 +222,9 @@ def insert_trilinear(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
     rot = rot.to(REAL).reshape(n_s, 9).contiguous()
     trans = trans.to(REAL).contiguous()
     w = w.to(REAL).contiguous()
+    if d is not None:
+        d = d.to(REAL).contiguous()
+        _native.require(d.shape == (n_s,), "insert_trilinear: d must be (B,)")
     if n_s == 0:
         return f_grid, t_grid
     scratch = torch.zeros((big ** 3, 4), dtype=REAL, device=dev)
@@ -230,7 +232,8 @@ def insert_trilinear(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
     insert_trilinear.launches += 1
     _native.check(lib.thunder_insert_trilinear(
         ft.data_ptr(), size, ctfk.data_ptr(), img_idx.data_ptr(),
-        rot.data_ptr(), trans.data_ptr(), w.data_ptr(), n_s, r_u, pf,
+        rot.data_ptr(), trans.data_ptr(), w.data_ptr(),
+        None if d is None else d.data_ptr(), n_s, r_u, pf,
         float((r_u - 1) * pf), float(pixel_size * size),
         float(2 * np.pi / size), f_grid.data_ptr(), t_grid.data_ptr(),
         scratch.data_ptr(), big, _native.stream_ptr(ft)), "insert_trilinear")

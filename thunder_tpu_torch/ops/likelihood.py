@@ -8,6 +8,9 @@ Reference semantics (Optimiser.cpp:9187): with s = sigRcp,
     B[l,r]     = sum_p (s ctf^2)[l,p] |pri[r,p]|^2
     C[l,r,t]   = -2 Re sum_p (s ctf dat conj(tra_t))[l,p] conj(pri[r,p])
 
+CTF search adds a defocus axis: dvp[l,d,r,t] with the CTF of each
+defocus factor inside B and C (HK8, ``likelihood_local_ctf``).
+
 On the card HK2 computes B, C and the epilogue (block max, baseline
 rescale, exp, the rotation / translation marginals) in one kernel, all
 classes of a rotation block in one launch.  Its plain version, the CPU
@@ -24,6 +27,8 @@ import torch
 
 from thunder_tpu_torch import _native
 from thunder_tpu_torch.device import COMPLEX, REAL
+from thunder_tpu_torch.physics.ctf import (CtfParams, ctf_constants,
+                                           ctf_packed_scaled)
 
 
 def split_ri(z: torch.Tensor) -> torch.Tensor:
@@ -251,3 +256,136 @@ def local_marginals(dat_w, sctf2, a, pri, tra, w_r, w_t):
     u_t = torch.empty((1, n_l, n_t), dtype=REAL, device=dev)
     likelihood_block(dat_w, sctf2, a, pri[None], tra, w_r, w_t, base, acc_c, u_r, u_t)
     return u_r[0], u_t[0]
+
+
+# -- HK8 ----------------------------------------------------------------
+
+def log_dvp_local_ctf(dat_s, s_pack, ctf_d, pri, tra, a_term) -> torch.Tensor:
+    """Local search with defocus refinement (thunder_tpu
+    ops/likelihood.py log_dvp_local_ctf): dat_s (L, P) complex = sigRcp
+    dat, s_pack (L, P) = sigRcp, ctf_d (L, D, P) the CTF of each defocus
+    support point, pri (L, R, P), tra (L, T, P) -> dvp (L, D, R, T)."""
+    b = torch.einsum("lp,ldp,lrp->ldr", s_pack, ctf_d ** 2, pri.abs() ** 2)
+    x = dat_s[:, None, :] * tra.conj()                          # (L, T, P)
+    xc = x[:, None, :, :] * ctf_d[:, :, None, :]                # (L, D, T, P)
+    c = -2.0 * torch.einsum("ldtq,lrq->ldrt", split_ri(xc), split_ri(pri))
+    return a_term[:, None, None, None] + b[..., None] + c
+
+
+def ctf_marginals(dvp: torch.Tensor, w_r, w_t, w_d):
+    """Per-image max, exp and the three marginals of dvp (L, D, R, T),
+    each weighted by the other two axes' priors
+    (optimiser._phase_body_ctf): u_r (L, R), u_t (L, T), u_d (L, D)."""
+    w = torch.exp(dvp - torch.amax(dvp, dim=(1, 2, 3), keepdim=True))
+    return (torch.einsum("ldrt,lt,ld->lr", w, w_t, w_d),
+            torch.einsum("ldrt,lr,ld->lt", w, w_r, w_d),
+            torch.einsum("ldrt,lr,lt->ld", w, w_r, w_t))
+
+
+def likelihood_local_ctf_plain(dat_s, s_pack, ctf: CtfParams, d, i_col, i_row,
+                               size: int, pixel_size: float, pri, tra, a_term,
+                               w_r, w_t, w_d):
+    """Plain version of HK8 (see :func:`likelihood_local_ctf`):
+    ctf_packed_scaled, log_dvp_local_ctf, ctf_marginals."""
+    ctf_d = ctf_packed_scaled(ctf, i_col, i_row, size, pixel_size, d)
+    return ctf_marginals(log_dvp_local_ctf(dat_s, s_pack, ctf_d, pri, tra, a_term),
+                         w_r, w_t, w_d)
+
+
+LC_PC, LC_TR, LC_TT, LC_TD = (_native.csrc_constant("likelihood_local_ctf.cu", n)
+                              for n in ("PC", "TR", "TT", "TD"))
+
+
+def likelihood_ctf_plan(n_d: int, n_r: int, n_t: int) -> dict:
+    """Launch plan of HK8 for a (D x R x T) block an image: the register
+    tiles a block walks (``items``: rotation pairs x translation tiles x
+    defocus tiles), the threads (the multiple of 32 up to 256 that
+    leaves the fewest idle threads in the last pass over the items, the
+    larger on a tie) and the shared-memory bytes (the staged pixels, the
+    image's dvp block, B, the row sums and a reduction scratch).  Raises
+    where the block does not fit Hopper's shared memory."""
+    up = lambda n, m: -(-n // m) * m
+    d3, t3, r2 = up(n_d, LC_TD), up(n_t, LC_TT), up(n_r, LC_TR)
+    items = (d3 // LC_TD) * (t3 // LC_TT) * (r2 // LC_TR)
+    threads = min(range(256, 32, -32), key=lambda n: up(items, n))
+    smem = 4 * (2 * LC_PC * r2 + 2 * t3 * LC_PC + d3 * LC_PC + LC_PC
+                + d3 * t3 * r2 + d3 * r2 + d3 * t3 + 32)
+    if smem > _native.SMEM_MAX:
+        raise ValueError(f"likelihood_local_ctf: a {n_d} x {n_r} x {n_t} block "
+                         f"takes {smem} bytes of shared memory")
+    return dict(items=items, threads=threads, smem=smem)
+
+
+class _LcArgs(ctypes.Structure):
+    """csrc/likelihood_local_ctf.cu's LcArgs."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "dat_s", "s_pack", "ctfk", "f2", "ang", "dfac", "pri", "tra", "a",
+        "w_r", "w_t", "w_d", "u_r", "u_t", "u_d")] + [
+        (n, ctypes.c_int) for n in ("L", "D", "R", "T", "P")]
+
+
+def likelihood_local_ctf(dat_s: torch.Tensor, s_pack: torch.Tensor,
+                         ctf: CtfParams, d: torch.Tensor, i_col: torch.Tensor,
+                         i_row: torch.Tensor, size: int, pixel_size: float,
+                         pri: torch.Tensor, tra: torch.Tensor,
+                         a_term: torch.Tensor, w_r: torch.Tensor,
+                         w_t: torch.Tensor, w_d: torch.Tensor):
+    """The marginals of one CTF-search phase over per-image supports:
+
+      ctf[l,d,p]   = CTF of image l with its defocus scaled by d[l,d]
+      B[l,d,r]     = sum_p s_pack[l,p] ctf[l,d,p]^2 |pri[l,r,p]|^2
+      C[l,d,r,t]   = -2 Re sum_p ctf[l,d,p] dat_s[l,p] conj(tra[l,t,p])
+                     conj(pri[l,r,p])
+      dvp = a_term[l] + B + C;  w = exp(dvp - max_{d,r,t} dvp)
+      u_r[l,r] = sum_{d,t} w w_t[l,t] w_d[l,d]   (u_t, u_d alike)
+
+    dat_s (L, P) complex64; s_pack (L, P); ctf fields (L,); d (L, D);
+    pixels (P,); pri (L, R, P) and tra (L, T, P) complex64; a_term (L,);
+    priors w_r (L, R), w_t (L, T), w_d (L, D).  Returns (u_r, u_t, u_d);
+    the (L, D, R, T) tensor is never formed on the card.  CPU tensors
+    take :func:`likelihood_local_ctf_plain`; CUDA tensors launch
+    csrc/likelihood_local_ctf.cu, one launch."""
+    if not dat_s.is_cuda:
+        return likelihood_local_ctf_plain(dat_s, s_pack, ctf, d, i_col, i_row,
+                                          size, pixel_size, pri, tra, a_term,
+                                          w_r, w_t, w_d)
+    n_l, n_r, n_p = pri.shape
+    n_t, n_d = tra.shape[1], d.shape[1]
+    for name, x, dt in (("dat_s", dat_s, COMPLEX), ("s_pack", s_pack, REAL),
+                        ("d", d, REAL), ("pri", pri, COMPLEX), ("tra", tra, COMPLEX),
+                        ("a_term", a_term, REAL), ("w_r", w_r, REAL),
+                        ("w_t", w_t, REAL), ("w_d", w_d, REAL)):
+        _native.require(x.dtype == dt and x.is_cuda,
+                        f"likelihood_local_ctf: {name} must be {dt} on the card")
+    _native.require(dat_s.shape == (n_l, n_p) and s_pack.shape == (n_l, n_p)
+                    and tra.shape == (n_l, n_t, n_p) and a_term.shape == (n_l,)
+                    and w_r.shape == (n_l, n_r) and w_t.shape == (n_l, n_t)
+                    and w_d.shape == (n_l, n_d) and i_col.shape == (n_p,)
+                    and i_row.shape == (n_p,)
+                    and all(f.shape == (n_l,) for f in ctf),
+                    "likelihood_local_ctf: inconsistent shapes")
+    plan = likelihood_ctf_plan(n_d, n_r, n_t)
+    dev = dat_s.device
+    u_r = torch.empty((n_l, n_r), dtype=REAL, device=dev)
+    u_t = torch.empty((n_l, n_t), dtype=REAL, device=dev)
+    u_d = torch.empty((n_l, n_d), dtype=REAL, device=dev)
+    if n_l == 0:
+        return u_r, u_t, u_d
+    fcol, frow = i_col.to(REAL), i_row.to(REAL)
+    fx, fy = fcol / (pixel_size * size), frow / (pixel_size * size)
+    f2 = (fx * fx + fy * fy).contiguous()
+    ang = torch.atan2(frow, fcol).contiguous()
+    ctfk = ctf_constants(ctf)
+    keep = [t.contiguous() for t in (dat_s, s_pack, ctfk, f2, ang, d, pri, tra,
+                                     a_term, w_r, w_t, w_d)]
+    args = _LcArgs(*[t.data_ptr() for t in keep], u_r.data_ptr(), u_t.data_ptr(),
+                   u_d.data_ptr(), n_l, n_d, n_r, n_t, n_p)
+    lib = _native.library()
+    likelihood_local_ctf.launches += 1
+    _native.check(lib.thunder_likelihood_local_ctf(
+        ctypes.addressof(args), plan["threads"], plan["smem"],
+        _native.stream_ptr(dat_s)), "likelihood_local_ctf")
+    return u_r, u_t, u_d
+
+
+likelihood_local_ctf.launches = 0

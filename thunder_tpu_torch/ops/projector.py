@@ -102,10 +102,12 @@ def prepare_projectee_3d_cropped(ref_rl: torch.Tensor, pf: int,
 # -- HK1 ----------------------------------------------------------------
 
 # HK1's quad table pays while it stays near the 50 MB L2 cache of an
-# H100: with two classes, 256 images x 125 rotations, measured faster than
+# H100: with two tables, 256 images x 125 rotations, measured faster than
 # the plain cube at 48, 86 and 128 MiB and slower at 214 and 333 MiB
-# (micro/hk_candidates.py --big)
-QUAD_TABLE_MAX_BYTES = 128 * 2 ** 20
+# (micro/hk_candidates.py --big); with the eight tables of a K = 4 round
+# faster at 107 MiB (0.37 against 0.47 ms) and still at 190 MiB (0.67
+# against 0.75 ms; chip_smoke.py phase 1c)
+QUAD_TABLE_MAX_BYTES = 192 * 2 ** 20
 
 
 def quad_taps(table: torch.Tensor) -> torch.Tensor:

@@ -16,14 +16,18 @@ Hemispheres A and B (gold standard) are a leading axis of size 2 on
 every state tensor; both run batched on one device.  The hot spots are
 the hand-written kernels: HK1 project_slices / HK5 project_slices_2d
 (global search, phases, statistics), HK2 likelihood_block (global
-search, phases), HK3 insert_trilinear / HK6 insert_bilinear_2d
-(insertion) and HK4 shell_sums (FSC, sigma).
+search, phases), HK8 likelihood_local_ctf (the phases of CTF search),
+HK3 insert_trilinear / HK6 insert_bilinear_2d (insertion), HK7
+symmetrize_ft (point-group symmetrisation of the 3D grids) and HK4
+shell_sums (FSC, sigma).
 
-Supported here: 3D refinement (K = 1, symmetry C1) and 2D
-classification (any K; the config's symmetry is ignored in 2D, as in
-thunder_tpu), CTF search off.  The JAX package's TPU-only machinery
+Supported here: 3D refinement and 3D classification (any K, any point
+group, global, local and CTF search) and 2D classification (any K; the
+config's symmetry is ignored in 2D, as in thunder_tpu).  The JAX
+package's pose-side symmetry expansion belongs to its sharded inserter
+and has no counterpart, nor has its TPU-only machinery
 (residency planning, hemisphere sequencing, brick tables and routing,
-static insert buckets, the sweep inserters) has no counterpart.
+static insert buckets, the sweep inserters).
 """
 
 from __future__ import annotations
@@ -56,7 +60,9 @@ from thunder_tpu_torch.geometry.quaternion import (random_quat,
                                                    rotate2d_from_unit, rotate3d)
 from thunder_tpu_torch.geometry.symmetry import Symmetry
 from thunder_tpu_torch.model import (
+    SEARCH_TYPE_CTF,
     SEARCH_TYPE_GLOBAL,
+    SEARCH_TYPE_LOCAL,
     SEARCH_TYPE_STOP,
     ModelState,
     true_fsc_batch,
@@ -74,7 +80,9 @@ from thunder_tpu_torch.ops.fourier import (
     translate_phases_view,
 )
 from thunder_tpu_torch.ops.insert import insert_bilinear_2d, insert_trilinear
-from thunder_tpu_torch.ops.likelihood import likelihood_block, local_marginals
+from thunder_tpu_torch.ops.likelihood import (likelihood_block,
+                                              likelihood_local_ctf,
+                                              local_marginals)
 from thunder_tpu_torch.ops.projector import (
     prepare_projectee_2d_cropped,
     prepare_projectee_3d_cropped,
@@ -92,7 +100,9 @@ from thunder_tpu_torch.pipeline.preprocess import (
     preprocess_images,
     sigma_to_sig_rcp,
 )
-from thunder_tpu_torch.recon.reconstructor import reconstruct, reconstruct_two_pass
+from thunder_tpu_torch.recon.reconstructor import (reconstruct,
+                                                   reconstruct_two_pass,
+                                                   symmetrize_ft)
 
 PARTICLE_FILTER_DECREASE_FACTOR = 0.95  # include/Optimiser.h:60
 CLASS_BALANCE_FACTOR = 0.05             # include/Optimiser.h:71
@@ -181,6 +191,19 @@ def pack_inputs(ft_masked: torch.Tensor, ctf: CtfParams, sigma: torch.Tensor,
     sctf2 = sig_rcp * ctf_p * ctf_p
     a_term = torch.sum(sig_rcp * dat.abs() ** 2, dim=-1)
     return dat_w, sctf2, a_term
+
+
+def pack_inputs_ctf(ft_masked: torch.Tensor, sigma: torch.Tensor,
+                    group_id: torch.Tensor, rings: PackedRings):
+    """The CTF-search phases' operands, which carry no CTF
+    (optimiser._phase_loop_ctf_h): dat_s = sigRcp dat (2, L, P) complex,
+    s_pack = sigRcp (2, L, P), a_term (2, L)."""
+    dat = extract_packed(ft_masked, rings)
+    h = torch.arange(sigma.shape[0], device=sigma.device)[:, None, None]
+    sig = sigma[h, group_id[..., None], rings.i_sig.long()[None, None, :]]
+    s_rcp = sigma_to_sig_rcp(sig) * rings.mask
+    return (s_rcp.to(COMPLEX) * dat, s_rcp,
+            torch.sum(s_rcp * dat.abs() ** 2, dim=-1))
 
 
 def rotations(quats: torch.Tensor, nd: int) -> torch.Tensor:
@@ -308,12 +331,12 @@ class Optimiser:
                  group_id: np.ndarray, init_refs: np.ndarray | None = None,
                  hemi_of: np.ndarray | None = None, resume_thu=None,
                  device=None, seed: int | None = None):
-        if cfg.c_search or (not cfg.mode_2d and cfg.k != 1):
-            raise NotImplementedError(
-                "the port runs 3D refinement with K = 1 and 2D "
-                "classification, both with CTF search off")
-        if not cfg.mode_2d and (cfg.sym or "C1").strip().upper() != "C1":
-            raise NotImplementedError("the port runs symmetry C1 only")
+        mask_px = cfg.mask_radius / cfg.pixel_size
+        if not np.any(radial_grid(cfg.size, 2) > mask_px):
+            raise ValueError(
+                f"the image mask of {cfg.mask_radius} A ({mask_px:.1f} px) covers the "
+                f"whole {cfg.size} px box: no pixel is left outside it to estimate the "
+                "background from (Radius of Mask on Images)")
         self.cfg = cfg
         self.nd = nd = 2 if cfg.mode_2d else 3
         self.mode = pt.MODE_2D if cfg.mode_2d else pt.MODE_3D
@@ -332,7 +355,7 @@ class Optimiser:
             r_init=cfg.r_init, r_global=cfg.r_global, max_r=cfg.max_r,
             l_search=cfg.l_search, c_search=cfg.c_search)
         if not cfg.g_search:
-            self.model.search_type = 1
+            self.model.search_type = SEARCH_TYPE_LOCAL
             self.model.r = min(cfg.max_r, max(self.model.r, self.model.r_global))
 
         sel = [np.nonzero(hemi_of == h)[0] for h in (0, 1)]
@@ -366,19 +389,20 @@ class Optimiser:
             refs = np.repeat(refs[None], cfg.k, axis=0)
         refs2 = torch.as_tensor(np.stack([refs] * 2), device=dev)
 
+        n_d = cfg.m_l_d if cfg.c_search else 1
         if resume_thu is not None and not cfg.g_search:
             t = resume_thu
             par = pt.from_thu(
                 t.quat[flat], t.trans[flat], t.std_trans[flat],
                 np.stack([t.k1[flat], t.k2[flat], t.k3[flat]], axis=1),
                 t.defocus_factor[flat], t.std_defocus_factor[flat],
-                cfg.n_rot_local, cfg.m_l_t, 1, self.gen, dev, self.mode)
+                cfg.n_rot_local, cfg.m_l_t, n_d, self.gen, dev, self.mode)
             par = par.map(lambda a: a.reshape((2, L) + a.shape[1:]))
             cls = torch.as_tensor(np.clip(t.class_id[flat], 0, cfg.k - 1)
                                   .astype(np.int64).reshape(2, L), device=dev)
         else:
             par = pt.init_particles(self.gen, (2, L), cfg.n_rot_local,
-                                    cfg.m_l_t, 1, cfg.trans_s, dev, self.mode)
+                                    cfg.m_l_t, n_d, cfg.trans_s, dev, self.mode)
             # random initial classes (thunder_tpu optimiser.py:2013-2014)
             cls = (torch.randint(0, cfg.k, (2, L), generator=self.gen, device=dev)
                    if cfg.k > 1 else
@@ -527,11 +551,17 @@ class Optimiser:
         s.cls = cls
 
     def phase_step(self, par: pt.ParticleState, hemis: list, rings,
-                   table, dat_w, sctf2, a_term, pf_small: float):
+                   table, dat_w, sctf2, a_term, pf_small: float,
+                   is_ctf: bool = False):
         """One particle-filter phase for hemispheres ``hemis``: perturb ->
         project (HK1 / HK5) -> likelihood (HK2) -> clip -> resample ->
-        variance inference (Optimiser.cpp:1183-1614).  ``par`` holds the
-        selected hemispheres; returns (par, vari (len(hemis), 4))."""
+        variance inference (Optimiser.cpp:1183-1614).  With ``is_ctf``
+        the defocus axis is perturbed, evaluated (HK8 in place of HK2,
+        the CTF of every defocus support point formed there) and
+        resampled too, and ``dat_w`` / ``sctf2`` are the CTF-free
+        operands of :func:`pack_inputs_ctf` (dat_s, s_pack).  ``par``
+        holds the selected hemispheres; returns (par, vari
+        (len(hemis), 4))."""
         cfg = self.cfg
         mode, nd = self.mode, self.nd
         hs = torch.as_tensor(hemis, device=self.device)
@@ -539,6 +569,9 @@ class Optimiser:
             par = pt.perturb_r(self.gen, par, pf_small, mode=mode)
         with _range("phase/perturb_t"):
             par = pt.perturb_t(self.gen, par, pf_small, float(cfg.trans_s))
+        if is_ctf:
+            with _range("phase/perturb_d"):
+                par = pt.perturb_d(self.gen, par, pf_small)
         nh, n_l, n_r = par.r.shape[:3]
         k_cls = table.shape[1]
         with _range("phase/translate_rotate"):
@@ -549,11 +582,19 @@ class Optimiser:
             pri = project_any(table.reshape((-1,) + table.shape[2:]), rot,
                               rings.i_col, rings.i_row, cfg.pf, cls)
         flat = lambda x: x[hs].reshape((nh * n_l,) + x.shape[2:])
+        fold = lambda x: x.reshape((nh * n_l,) + x.shape[2:])
         with _range("phase/local_marginals"):
-            u_r, u_t = local_marginals(flat(dat_w), flat(sctf2), flat(a_term), pri,
-                                       tra.reshape((nh * n_l,) + tra.shape[2:]),
-                                       par.w_r.reshape(nh * n_l, -1),
-                                       par.w_t.reshape(nh * n_l, -1))
+            if is_ctf:
+                u_r, u_t, u_d = likelihood_local_ctf(
+                    flat(dat_w), flat(sctf2), self.data.ctf_params.map(flat),
+                    fold(par.d), rings.i_col, rings.i_row, cfg.size,
+                    float(cfg.pixel_size), pri, fold(tra), flat(a_term),
+                    fold(par.w_r), fold(par.w_t), fold(par.w_d))
+                par = par._replace(u_d=u_d.reshape(nh, n_l, -1))
+            else:
+                u_r, u_t = local_marginals(flat(dat_w), flat(sctf2), flat(a_term),
+                                           pri, fold(tra), fold(par.w_r),
+                                           fold(par.w_t))
             par = par._replace(u_r=u_r.reshape(nh, n_l, -1),
                                u_t=u_t.reshape(nh, n_l, -1))
         with _range("phase/clip_u_r"):
@@ -562,10 +603,15 @@ class Optimiser:
             par = pt.resample_r(self.gen, par, n_r)
         with _range("phase/resample_t"):
             par = pt.resample_t(self.gen, par, par.t.shape[-2])
+        if is_ctf:
+            with _range("phase/resample_d"):
+                par = pt.resample_d(self.gen, par, par.d.shape[-1])
         with _range("phase/cal_vari_r"):
             par = pt.cal_vari_r(par, mode)
         with _range("phase/cal_vari_t"):
             par = pt.cal_vari_t(par)
+            if is_ctf:
+                par = pt.cal_vari_d(par)
             vari = torch.stack([par.k1.mean(-1), par.s0.mean(-1), par.s1.mean(-1),
                                 par.s_d.mean(-1)], dim=-1)
         return par, vari
@@ -574,16 +620,27 @@ class Optimiser:
         """The adaptive phase loop with the variance-stall rule checked on
         the host after every phase, per hemisphere
         (PARTICLE_FILTER_DECREASE_FACTOR 0.95, N_PHASE_WITH_NO_VARI_DECREASE
-        1, stalls counted from the minimum phase count on).  Returns the
-        phase count of each hemisphere."""
+        1, stalls counted from the minimum phase count on; the defocus
+        variance is the rule's fourth term, constant outside CTF search).
+        A CTF-search round scatters the defocus support anew around 1 at
+        its start (Particle::initD, Optimiser.cpp:1195-1196).  Returns
+        the phase count of each hemisphere."""
         cfg = self.cfg
         s = self.state
         is_global = self.model.search_type == SEARCH_TYPE_GLOBAL
+        is_ctf = self.model.search_type == SEARCH_TYPE_CTF and cfg.c_search
         min_phase = (MIN_N_PHASE_PER_ITER_GLOBAL if is_global
                      else MIN_N_PHASE_PER_ITER_LOCAL)
         pf_small = float(cfg.perturb_factor_s_global if is_global
-                         else cfg.perturb_factor_s_local)
-        dat_w, sctf2, a_term = self._pack_inputs(rings)
+                         else (cfg.perturb_factor_s_ctf if is_ctf
+                               else cfg.perturb_factor_s_local))
+        if is_ctf:
+            s.par = pt.init_d_round(self.gen, s.par, float(cfg.ctf_refine_s))
+            d = self.data
+            dat_w, sctf2, a_term = pack_inputs_ctf(d.ft_masked, s.sigma,
+                                                   d.group_id, rings)
+        else:
+            dat_w, sctf2, a_term = self._pack_inputs(rings)
         table = self.proj_table(rings.r_u)
         f = PARTICLE_FILTER_DECREASE_FACTOR
         big = float(np.finfo(np.float32).max)
@@ -601,7 +658,7 @@ class Optimiser:
                 break
             sub = par if len(hemis) == 2 else par.map(lambda a: a[hemis])
             sub, vari = self.phase_step(sub, hemis, rings, table, dat_w,
-                                        sctf2, a_term, pf_small)
+                                        sctf2, a_term, pf_small, is_ctf)
             if len(hemis) == 2:
                 par = sub
             else:
@@ -617,7 +674,10 @@ class Optimiser:
                     if phase[h] + 1 >= min_phase else 0
                 phase[h] += 1
                 prev[h] = [k1, s0, s1, sd]
-        s.par = pt.symmetrise_top(pt.cal_score(par, self.mode), self.sym)
+        par = pt.cal_score(par, self.mode)
+        # the rank-1 rotation folds into the asymmetric unit in 3D only
+        # (thunder_tpu's _finish_phases: sym.order > 1 and not 2D)
+        s.par = par if cfg.mode_2d else pt.symmetrise_top(par, self.sym)
         return phase
 
     # -- maximization ---------------------------------------------------
@@ -718,15 +778,58 @@ class Optimiser:
                                    ft_ori=d.ft_ori / per_img[..., None, None])
             s.sigma = s.sigma / scale_g[..., None] ** 2
 
+    def correct_scale(self) -> None:
+        """Divide the images and the noise spectra by the intensity scale
+        of the data against the references, sum Re(dat conj(ctf pri)) /
+        sum ctf^2 |pri|^2 below the scale-correction shell at the rank-1
+        pose, per group with ``group_scl`` (refreshScale + correctScale,
+        Optimiser.cpp:5749-6063, 5103-5143).  No round calls it: a
+        round's own rescale is ``maximization_stats``'s, which knows only
+        the per-group form.  This is the entry for a caller who starts
+        from images on another scale than the references (a run set
+        straight into local or CTF search on a given model), as
+        thunder_tpu's ``correct_scale(init=False)`` is."""
+        cfg = self.cfg
+        s, d = self.state, self.data
+        r_s = max(2, min(int(self.model.r), cfg.res_a2p(cfg.sclCor_res)))
+        rings = pack_rings(cfg.size, r_s, 0, lane=512, device=self.device)
+        table = self.proj_table(r_s)
+        n_l, nd = self.n_img, self.nd
+        dat = extract_packed(d.ft_ori, rings)
+        ctf = ctf_packed(d.ctf_params, rings.i_col, rings.i_row, cfg.size,
+                         float(cfg.pixel_size))
+        hs = torch.arange(2, device=self.device)[:, None]
+        pri = project_any(table.reshape((-1,) + table.shape[2:]),
+                          rotations(s.par.top_r, nd).reshape(2 * n_l, 1, nd, nd),
+                          rings.i_col, rings.i_row, cfg.pf,
+                          (s.cls + hs * table.shape[1]).reshape(-1)).reshape(2, n_l, -1)
+        prit = pri * translate_phases_view(
+            rings.i_col, rings.i_row, cfg.size,
+            (s.par.top_t - self.offset)[..., None, :])[..., 0, :]
+        xa = torch.sum((dat * prit.conj()).real * ctf * rings.mask, -1) * self.valid_dev
+        aa = torch.sum(prit.abs() ** 2 * ctf * ctf * rings.mask, -1) * self.valid_dev
+        if cfg.group_scl:
+            zero = torch.zeros((2, self.n_group), dtype=REAL, device=self.device)
+            scale = (zero.scatter_add(1, d.group_id, xa)
+                     / torch.clamp(zero.scatter_add(1, d.group_id, aa), min=1e-30))
+        else:
+            scale = (xa.sum(1) / torch.clamp(aa.sum(1), min=1e-30))[:, None].expand(
+                2, self.n_group)
+        per_img = torch.gather(scale, 1, d.group_id)[..., None, None]
+        self.data = d._replace(ft_masked=d.ft_masked / per_img, ft_ori=d.ft_ori / per_img)
+        s.sigma = s.sigma / scale[..., None] ** 2
+
     # -- reconstruction -------------------------------------------------
 
     def reconstruct_round(self, draws=None):
         """Draw poses, compact them, and insert both hemispheres' slices
-        into per-class (F, T) grids — HK3 in 3D, HK6 in 2D (one launch
-        for both hemispheres' 2K planes) (reconstructRef,
-        Optimiser.cpp:6711-7233).  ``draws`` injects (quats, trans, d, w)
-        of shape (2, L, S, ...).  Returns (F (2, K, big^nd), T, r_u,
-        grid_size)."""
+        into per-class (F, T) grids — in 3D HK3 once a hemisphere and
+        class on that class's slices, then HK7 over the 2K grids where
+        the point group has mates; in 2D HK6 (one launch for both
+        hemispheres' 2K planes) (reconstructRef, Optimiser.cpp:6711-7233).
+        In a CTF-search round each slice's CTF takes its drawn defocus
+        factor.  ``draws`` injects (quats, trans, d, w) of shape (2, L,
+        S, ...).  Returns (F (2, K, big^nd), T, r_u, grid_size)."""
         cfg = self.cfg
         s = self.state
         r_u = int(self.model.r_u)
@@ -737,8 +840,9 @@ class Optimiser:
             n_draw = min(cfg.m_reco, s.par.r.shape[2] * s.par.t.shape[2])
             n_slots = min(n_draw, RECO_COMPACT_SLOTS)
             draws = pt.draw_poses_compact(self.gen, s.par, n_draw, n_slots)
-        quats, trans, _, w_draw = draws
+        quats, trans, d_draw, w_draw = draws
         trans = trans - self.offset[:, :, None, :]
+        use_d = cfg.c_search and self.model.search_type == SEARCH_TYPE_CTF
         # grading only in refinement (parGra && k == 1,
         # Optimiser.cpp:6726-6761)
         if cfg.par_gra and cfg.k == 1:
@@ -750,17 +854,24 @@ class Optimiser:
         n_slots = w.shape[-1]
         if self.nd == 2:
             return self._insert_2d(quats, trans, w, r_u, big) + (r_u, grid_size)
-        fs, ts = [], []
+        f2 = torch.zeros((2, cfg.k) + (big,) * 3, dtype=COMPLEX, device=self.device)
+        t2 = torch.zeros((2, cfg.k) + (big,) * 3, dtype=REAL, device=self.device)
         for h in (0, 1):
-            sel = torch.nonzero(w[h].reshape(-1) > 0)[:, 0]
-            f_h, t_h = insert_trilinear(
-                self.data.ft_ori[h], self.data.ctf_params.map(lambda a: a[h]),
-                sel // n_slots, rotate3d(quats[h].reshape(-1, 4)[sel]),
-                trans[h].reshape(-1, 2)[sel], w[h].reshape(-1)[sel], r_u,
-                cfg.pf, cfg.size, float(cfg.pixel_size), big)
-            fs.append(f_h[None])
-            ts.append(t_h[None])
-        return torch.stack(fs), torch.stack(ts), r_u, grid_size
+            w_h = w[h].reshape(-1)
+            cls_s = s.cls[h][:, None].expand(-1, n_slots).reshape(-1)
+            ctf_h = self.data.ctf_params.map(lambda a: a[h])
+            for k in range(cfg.k):
+                sel = torch.nonzero((w_h > 0) & (cls_s == k))[:, 0]
+                insert_trilinear(
+                    self.data.ft_ori[h], ctf_h, sel // n_slots,
+                    rotate3d(quats[h].reshape(-1, 4)[sel]),
+                    trans[h].reshape(-1, 2)[sel], w_h[sel], r_u, cfg.pf,
+                    cfg.size, float(cfg.pixel_size), big, f2[h, k], t2[h, k],
+                    d_draw[h].reshape(-1)[sel] if use_d else None)
+        if self.sym.order > 1:
+            f2, t2 = symmetrize_ft(f2, t2, self.sym.matrices,
+                                   float((r_u - 1) * cfg.pf))
+        return f2, t2, r_u, grid_size
 
     def _insert_2d(self, quats, trans, w, r_u: int, big: int):
         """Both hemispheres' slices with non-zero weight into 2K class
@@ -944,6 +1055,8 @@ class Optimiser:
             np.degrees(2.0 * np.arccos(np.clip(rot_med, -1.0, 1.0))))
         self.model.set_t_vari(_median(s.par.s0, self.valid_dev),
                               _median(s.par.s1, self.valid_dev))
+        # what update_r's 2 % stagnation test reads
+        record["t_vari"] = [self.model.t_vari_s0, self.model.t_vari_s1]
         # the class distribution after expectation drives rebirth
         distr = self.class_distribution().cpu().numpy() if cfg.k > 1 else None
 

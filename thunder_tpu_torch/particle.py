@@ -152,6 +152,21 @@ def from_thu(quat, trans, std_trans, k123, defocus, std_d, n_r: int,
         score=torch.zeros(b, dtype=REAL, device=device))
 
 
+def init_d_round(gen: torch.Generator, state: ParticleState, s_d: float,
+                 noise: torch.Tensor | None = None) -> ParticleState:
+    """Particle::initD at the start of every CTF-search round
+    (Optimiser.cpp:1195-1196): the defocus support is scattered anew
+    around 1 with std ``s_d`` (ctfRefineS), its weights made uniform (as
+    thunder_tpu.particle.init_d_round has them) and s_d measured from the
+    fresh sample; top_d keeps the running estimate.  ``noise`` injects
+    the normals, of d's shape."""
+    if noise is None:
+        noise = _randn(gen, state.d.shape, state.d.device)
+    uni = _uniform(state.d.shape[-1], tuple(state.d.shape[:-1]), state.d.device)
+    return cal_vari_d(state._replace(d=(1.0 + noise * s_d).to(REAL), w_d=uni,
+                                     u_d=uni.clone()))
+
+
 # -- variance inference (Particle::calVari, Particle.cpp:1004-1142) -----
 
 def cal_vari_r(state: ParticleState, mode: int = MODE_3D) -> ParticleState:
@@ -229,6 +244,14 @@ def perturb_t(gen: torch.Generator, state: ParticleState, pf: float,
     return balance_weight_t(state._replace(t=t))
 
 
+def perturb_d(gen: torch.Generator, state: ParticleState, pf: float,
+              noise: torch.Tensor | None = None) -> ParticleState:
+    """Gaussian kick of the defocus support scaled by its current std."""
+    if noise is None:
+        noise = _randn(gen, state.d.shape, state.d.device)
+    return state._replace(d=state.d + noise * state.s_d[..., None] * pf)
+
+
 # -- proposal balancing (Particle::balanceWeight) -----------------------
 
 def _inv_pdf_weights(pdf: torch.Tensor) -> torch.Tensor:
@@ -280,6 +303,16 @@ def balance_weight_t(state: ParticleState) -> ParticleState:
     pdf = (torch.exp(-0.5 * torch.sum(z * z, dim=-1))
            / (2 * np.pi * (s0 * s1)[..., None]))
     return state._replace(w_t=_inv_pdf_weights(pdf))
+
+
+def balance_weight_d(state: ParticleState) -> ParticleState:
+    """w_d = 1 / gaussian pdf fit of the current defocus cloud."""
+    d = state.d
+    m = torch.mean(d, dim=-1, keepdim=True)
+    s = torch.clamp(torch.std(d, dim=-1, correction=0), min=1e-6)[..., None]
+    z = (d - m) / s
+    pdf = torch.exp(-0.5 * z * z) / (s * np.sqrt(2 * np.pi))
+    return state._replace(w_d=_inv_pdf_weights(pdf))
 
 
 # -- peak clipping (Particle.cpp:1893-2002) -----------------------------
@@ -372,6 +405,15 @@ def resample_t(gen, state: ParticleState, n_new: int,
     idx, new_w = systematic_resample(gen, state.w_t, state.u_t, n_new, u0)
     return state._replace(t=_take_rows(state.t, idx), w_t=new_w,
                           u_t=torch.ones_like(new_w), top_t=top_t)
+
+
+def resample_d(gen, state: ParticleState, n_new: int,
+               u0: torch.Tensor | None = None) -> ParticleState:
+    top_d = torch.gather(state.d, -1, torch.argmax(state.w_d * state.u_d, dim=-1,
+                                                   keepdim=True))[..., 0]
+    idx, new_w = systematic_resample(gen, state.w_d, state.u_d, n_new, u0)
+    return state._replace(d=torch.gather(state.d, -1, idx), w_d=new_w,
+                          u_d=torch.ones_like(new_w), top_d=top_d)
 
 
 # -- insertion draws (Particle::rand, Particle.cpp:2109-2191) ----------

@@ -50,6 +50,19 @@ def wavelength(voltage: torch.Tensor) -> torch.Tensor:
     return CTF_LAMBDA_A / torch.sqrt(voltage * (1 + voltage * CTF_LAMBDA_B))
 
 
+def ctf_constants(params: CtfParams) -> torch.Tensor:
+    """Per-image CTF constants (L, 8): [pi lambda, pi/2 Cs lambda^3, w1,
+    w2, defocus_u, defocus_v, defocus_theta, phase_shift], the factors
+    ctf_packed evaluates, formed once an image for the kernels that
+    evaluate the CTF themselves."""
+    lam = wavelength(params.voltage)
+    w2 = params.amplitude_contrast
+    return torch.stack([np.pi * lam, np.pi / 2 * params.cs * lam ** 3,
+                        torch.sqrt(1 - w2 * w2), w2, params.defocus_u,
+                        params.defocus_v, params.defocus_theta,
+                        params.phase_shift], dim=-1).to(REAL).contiguous()
+
+
 def ctf_packed(params: CtfParams, i_col: torch.Tensor, i_row: torch.Tensor,
                size: int, pixel_size: float) -> torch.Tensor:
     """CTF at packed integer frequencies; params (...,), pixels (p,)
@@ -73,6 +86,35 @@ def ctf_packed(params: CtfParams, i_col: torch.Tensor, i_row: torch.Tensor,
     defocus = -(du + dv + (du - dv) * torch.cos(2 * rel)) / 2
     chi = k1 * defocus * f ** 2 + k2 * f ** 4 - params.phase_shift[..., None]
     return -w1[..., None] * torch.sin(chi) + w2[..., None] * torch.cos(chi)
+
+
+def ctf_packed_scaled(params: CtfParams, i_col: torch.Tensor, i_row: torch.Tensor,
+                      size: int, pixel_size: float,
+                      defocus_factor: torch.Tensor) -> torch.Tensor:
+    """CTF with a multiplicative defocus factor d (the particle filter's
+    fifth latent axis, CTF search): params (...,), defocus_factor
+    (..., nd), pixels (p,) -> (..., nd, p)."""
+    fcol = i_col.to(REAL)
+    frow = i_row.to(REAL)
+    fx = fcol / (pixel_size * size)
+    fy = frow / (pixel_size * size)
+    f2 = fx * fx + fy * fy
+    angle = torch.atan2(frow, fcol)
+
+    lam = wavelength(params.voltage)
+    w2 = params.amplitude_contrast
+    w1 = torch.sqrt(1 - w2 * w2)
+    k1 = np.pi * lam
+    k2 = np.pi / 2 * params.cs * lam ** 3
+
+    rel = angle - params.defocus_theta[..., None]
+    du = params.defocus_u[..., None]
+    dv = params.defocus_v[..., None]
+    defocus = -(du + dv + (du - dv) * torch.cos(2 * rel)) / 2   # (..., p)
+    e = (Ellipsis, None, None)
+    chi = (k1[e] * defocus[..., None, :] * defocus_factor[..., :, None] * f2
+           + k2[e] * f2 * f2 - params.phase_shift[e])
+    return -w1[e] * torch.sin(chi) + w2[e] * torch.cos(chi)
 
 
 def ctf_image(params: CtfParams, size: int, pixel_size: float) -> torch.Tensor:

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from thunder_tpu_torch import _native
 from thunder_tpu_torch.constants import (
     C_ABS_MIN,
     DEFAULT_MKB_A,
@@ -29,7 +30,7 @@ from thunder_tpu_torch.constants import (
     T_MIN,
     WIENER_FACTOR_MIN_R,
 )
-from thunder_tpu_torch.device import REAL
+from thunder_tpu_torch.device import COMPLEX, REAL
 from thunder_tpu_torch.ops.fourier import (
     centered_quad_dev,
     centered_shell_dev,
@@ -205,3 +206,85 @@ def reconstruct_two_pass(f_grid, t_grid, fsc_curve, size: int, pf: int,
     rec = finalize_reconstruction(f_grid.unsqueeze(0), w12, size, pf,
                                   max_radius, nd)
     return rec[0], rec[1]
+
+
+# -- HK7 ----------------------------------------------------------------
+
+def symmetrize_ft_plain(f_grid: torch.Tensor, t_grid: torch.Tensor,
+                        sym_mats: torch.Tensor, max_radius_pad: float):
+    """Plain version of HK7 (thunder_tpu's symmetrize_ft arithmetic, on F
+    and on T): see :func:`symmetrize_ft`."""
+    big = f_grid.shape[-1]
+    c = big // 2
+    k = torch.arange(big, dtype=REAL, device=f_grid.device) - c
+    kz, ky, kx = torch.meshgrid(k, k, k, indexing="ij")
+    inside = (kx * kx + ky * ky + kz * kz) < max_radius_pad ** 2
+    lead = f_grid.shape[:-3]
+    ff = f_grid.reshape((-1, big ** 3))
+    tf = t_grid.reshape((-1, big ** 3))
+    f_out, t_out = f_grid.clone(), t_grid.clone()
+    for rot in sym_mats[1:].to(REAL):
+        x = rot[0, 0] * kx + rot[0, 1] * ky + rot[0, 2] * kz
+        y = rot[1, 0] * kx + rot[1, 1] * ky + rot[1, 2] * kz
+        z = rot[2, 0] * kx + rot[2, 1] * ky + rot[2, 2] * kz
+        flx, fly, flz = torch.floor(x), torch.floor(y), torch.floor(z)
+        wx, wy, wz = x - flx, y - fly, z - flz
+        ix, iy, iz = flx.long() + c, fly.long() + c, flz.long() + c
+        gf = gt = None
+        for dz, dy, dx in ((0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1),
+                           (1, 0, 0), (1, 0, 1), (1, 1, 0), (1, 1, 1)):
+            w = ((wz if dz else 1 - wz) * (wy if dy else 1 - wy)
+                 * (wx if dx else 1 - wx))
+            lin = ((torch.clamp(iz + dz, 0, big - 1) * big
+                    + torch.clamp(iy + dy, 0, big - 1)) * big
+                   + torch.clamp(ix + dx, 0, big - 1)).reshape(-1)
+            w = w.reshape(-1)
+            gf = ff[:, lin] * w if gf is None else gf + ff[:, lin] * w
+            gt = tf[:, lin] * w if gt is None else gt + tf[:, lin] * w
+        f_out = f_out + torch.where(inside, gf.reshape(lead + (big,) * 3), 0)
+        t_out = t_out + torch.where(inside, gt.reshape(lead + (big,) * 3), 0)
+    return f_out, t_out
+
+
+def symmetrize_ft(f_grid: torch.Tensor, t_grid: torch.Tensor,
+                  sym_mats: torch.Tensor, max_radius_pad: float):
+    """Sum F and T over the symmetry group (SYMMETRIZE_FT,
+    include/Geometry/Transformation.h:170-195):
+
+        out(f) = grid(f) + sum_{s >= 1} [|f| < max_radius_pad]
+                 trilinear(grid, R_s f)
+
+    f_grid (..., big, big, big) complex64 and t_grid float32 of the same
+    shape, centered; sym_mats (order, 3, 3), the identity first.  Returns
+    new (F, T).  CPU tensors take :func:`symmetrize_ft_plain`; CUDA
+    tensors launch csrc/symmetrize_ft.cu, one launch for every leading
+    grid and for F and T together."""
+    if sym_mats.shape[0] <= 1:
+        return f_grid, t_grid
+    if not f_grid.is_cuda:
+        return symmetrize_ft_plain(f_grid, t_grid, sym_mats, max_radius_pad)
+    big = f_grid.shape[-1]
+    _native.require(f_grid.dtype == COMPLEX and t_grid.dtype == REAL
+                    and t_grid.is_cuda and f_grid.shape == t_grid.shape
+                    and f_grid.ndim >= 3 and f_grid.shape[-3:] == (big,) * 3
+                    and f_grid.is_contiguous() and t_grid.is_contiguous(),
+                    "symmetrize_ft: F complex64 and T float32, contiguous "
+                    "(..., big, big, big) on the card")
+    n_grids = f_grid.numel() // big ** 3
+    _native.require(n_grids <= 65535, "symmetrize_ft: more than 65535 grids")
+    mats = sym_mats.to(device=f_grid.device, dtype=REAL).contiguous()
+    f_out, t_out = torch.empty_like(f_grid), torch.empty_like(t_grid)
+    if n_grids == 0:
+        return f_out, t_out
+    lib = _native.library()
+    symmetrize_ft.launches += 1
+    symmetrize_ft.last_grids = n_grids
+    _native.check(lib.thunder_symmetrize_ft(
+        f_grid.data_ptr(), t_grid.data_ptr(), f_out.data_ptr(), t_out.data_ptr(),
+        mats.data_ptr(), mats.shape[0] - 1, n_grids, big, float(max_radius_pad),
+        _native.stream_ptr(f_grid)), "symmetrize_ft")
+    return f_out, t_out
+
+
+symmetrize_ft.launches = 0
+symmetrize_ft.last_grids = 0    # the grids of the last launch
