@@ -25,7 +25,11 @@ round into 2K = 60 planes at r_u = 31, 12 and 40; HK2, the likelihood
 with its products fused in, at the global-search block of all 30
 classes at r = 5 and 15 and at the phase loop's; HK4 at the ring FRC and
 the sigma shapes); phase 1 also holds HK2 at the 3D global block of 256
-rotations x 151 translations, configs/demo_3D.json's grid.  Each
+rotations x 151 translations, configs/demo_3D.json's grid.  Phase 1c
+holds HK7 (in the orbit form its C4 and D2 take) and HK8 at the 160 px
+refinement's and classification's shapes against their plain versions,
+checks that two calls of each give identical bits and times each alone,
+and times HK3's launches of those paths with their bounds.  Each
 kernel's timing line gives kernel_ms and plain_ms (CUDA events),
 library_ms (one PyTorch call computing the same function: F.grid_sample
 for HK1 and HK5, torch.bincount for HK4; none exists for HK2, HK3 and
@@ -140,6 +144,12 @@ K_3D, ROUNDS_3D, PROFILE_K4 = 4, 4, 2
 # r_u 31, one grid at the 160 px box's full band
 HK7_CASES = (("C4 K=1 pair", "C4", 2, 152), ("D2 K=1 pair", "D2", 2, 152),
              ("C4 K=4, 2K grids", "C4", 8, 132), ("C4 one grid, full band", "C4", 1, 320))
+# HK3's launches on these paths, timed with their bounds (label, images,
+# r_u, a defocus factor a slice): a class and hemisphere of a K = 4 round
+# (128 images a hemisphere over 4 classes, r_u 31: 132^3) and a hemisphere
+# of a CTF round (r_u 74: 304^3)
+HK3_REFINE = (("K=4, a class and hemisphere", 32, 31, False),
+              ("CTF round, a defocus factor a slice", 128, 74, True))
 # HK1 with the 2K = 8 tables of a K = 4 round (band, rotations an image,
 # lane of the packing): the phase loop at r_global 18 (76^3 tables: 112
 # MiB of quads) and at r 22 (92^3: 199 MiB), the sigma pass at r_u 31
@@ -1311,6 +1321,7 @@ def hk8_operands(dev, gen, n_l: int, n_d: int, n_r: int, n_t: int, r: int, size:
     import torch
 
     from thunder_tpu_torch.ops.fourier import pack_rings, translate_phases
+    from thunder_tpu_torch.ops.likelihood import ctf_terms
     from thunder_tpu_torch.physics.ctf import ctf_params
 
     rings = pack_rings(size, r, 1, device=dev)
@@ -1327,10 +1338,10 @@ def hk8_operands(dev, gen, n_l: int, n_d: int, n_r: int, n_t: int, r: int, size:
                      np.zeros(n_l), device=dev)
     # projections scaled so that dvp spreads over a few units, as on the path
     pri = (0.3 / n_p ** 0.5) * cplx(n_l, n_r, n_p) + 0.05 * dat[:, None, :]
-    return ((s_pack * dat).to(torch.complex64), s_pack, ctf, 1 + 0.01 * rnd(n_l, n_d),
-            rings.i_col, rings.i_row, size, PIXEL_SIZE, pri.to(torch.complex64),
-            translate_phases(rings, rnd(n_l, n_t, 2)), (s_pack * dat.abs() ** 2).sum(-1),
-            rand(n_l, n_r), rand(n_l, n_t), rand(n_l, n_d))
+    return ((s_pack * dat).to(torch.complex64), s_pack,
+            ctf_terms(ctf, rings.i_col, rings.i_row, size, PIXEL_SIZE), 1 + 0.01 * rnd(n_l, n_d),
+            pri.to(torch.complex64), translate_phases(rings, rnd(n_l, n_t, 2)),
+            (s_pack * dat.abs() ** 2).sum(-1), rand(n_l, n_r), rand(n_l, n_t), rand(n_l, n_d))
 
 
 def phase_kernels_refine(dev):
@@ -1361,10 +1372,15 @@ def phase_kernels_refine(dev):
                           torch.randn(n_g, big, big, big, generator=gen, device=dev))
         t = torch.rand(n_g, big, big, big, generator=gen, device=dev)
         mats = Symmetry(sym, dev).matrices
+        form = reconstructor.symmetrize_form(mats)
         rad = float(big // 2 - 6)
-        shape = f"{label}: {sym} G={n_g} big={big}^3 band {rad:.0f}"
-        call = lambda: reconstructor.symmetrize_ft(f, t, mats, rad)
+        shape = f"{label}: {sym} G={n_g} big={big}^3 band {rad:.0f}, {form} form"
+        call = lambda: reconstructor.symmetrize_ft(f, t, mats, rad, form)
         got = call()
+        again = call()
+        if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+            fail(f"symmetrize_ft {shape}: two calls on the same inputs differ")
+        del again
         (ref, plain_ms) = timed_once(lambda: reconstructor.symmetrize_ft_plain(f, t, mats, rad))
         err = max(compare("symmetrize_ft", f"F {shape}", torch.view_as_real(got[0]),
                           torch.view_as_real(ref[0]), 1e-5, why),
@@ -1378,11 +1394,15 @@ def phase_kernels_refine(dev):
                 torch.view_as_real(ref[0]), 1e-4, "trilinear weights from normalised coordinates")
         del ref, got, lib_sum, lib_f
         n_in = int(inside.sum())
-        recs.append(record(
+        rec = record(
             "symmetrize_ft", shape, err, timed(call, 10 if big < 300 else 3), plain_ms,
             2 * n_g * big ** 3 * 12 + mats.numel() * 4,
             n_g * n_in * (mats.shape[0] - 1) * 75, library_ms=timed(lambda: lib(), 3, warm=1),
-            alone=call, grids=n_g, mates=int(mats.shape[0] - 1)))
+            grids=n_g, mates=int(mats.shape[0] - 1), form=form)
+        rec["alone_ms"] = graph_ms(call, calls=10 if big < 300 else 3)
+        say(f"  symmetrize_ft [{shape}]: kernel_alone_ms {rec['alone_ms']:.4f}  "
+            f"share of that {rec['bound_ms'] / rec['alone_ms']:.4f}")
+        recs.append(rec)
         del f, t, lib
     results["symmetrize_ft"] = dict(recs[0], other_shapes=recs[1:],
                                     max_abs_err=max(r["max_abs_err"] for r in recs))
@@ -1394,7 +1414,7 @@ def phase_kernels_refine(dev):
     recs = []
     for r, chunk in ((R_GLOBAL, 256), (SIZE_R // 2 - 2, 32)):
         ops = hk8_operands(dev, gen, N_REFINE, 9, 125, 9, r, SIZE_R)
-        n_l, n_p = ops[8].shape[0], ops[8].shape[2]
+        n_l, n_p = ops[4].shape[0], ops[4].shape[2]
         shape = f"L={n_l} D=9 R=125 T=9 P={n_p} (r={r})"
         call = lambda: likelihood.likelihood_local_ctf(*ops)
 
@@ -1402,17 +1422,21 @@ def phase_kernels_refine(dev):
             outs = []
             for lo in range(0, n_l, chunk):
                 sl = slice(lo, lo + chunk)
-                part = [o[sl] if torch.is_tensor(o) and o.shape[:1] == (n_l,) else o for o in ops]
-                part[2] = ops[2].map(lambda a: a[sl])
+                part = [o[sl] if torch.is_tensor(o) else o for o in ops]
+                part[2] = ops[2].images(lambda a: a[sl])
                 outs.append(likelihood.likelihood_local_ctf_plain(*part))
             return [torch.cat(x) for x in zip(*outs)]
 
         got = call()
+        again = call()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"likelihood_local_ctf {shape}: two calls on the same inputs differ")
+        del again
         ref, plain_ms = timed_once(plain)
         # dvp = (a + B) + C is rounded to float32 at |a| ~ 0.75 P, where one
         # ulp in the exponent moves exp by that much: four ulps of |a|, and
         # no less than the 1e-4 of the other kernels
-        tol = max(1e-4, 4 * 1.1920929e-07 * float(ops[10].abs().max()))
+        tol = max(1e-4, 4 * 1.1920929e-07 * float(ops[6].abs().max()))
         err = max(compare("likelihood_local_ctf", f"{shape} {nm}", g, rr, tol,
                           "P-long sums in another order and CTFs formed in the kernel; "
                           "exp amplifies one float32 ulp of a + B + C, |a| ~ 0.75 P")
@@ -1421,8 +1445,9 @@ def phase_kernels_refine(dev):
         say(f"  likelihood_local_ctf {shape}: median max/mean of u_r {spread:.2f} "
             "(the block is neither flat nor one spike)")
         del got, ref
-        n_bytes = sum(4 * o.numel() * (2 if o.is_complex() else 1)
-                      for o in ops if torch.is_tensor(o)) + n_l * 28 + n_l * (9 + 125 + 9) * 4
+        n_bytes = (sum(4 * o.numel() * (2 if o.is_complex() else 1)
+                       for o in ops if torch.is_tensor(o))
+                   + n_l * 32 + n_p * 8 + n_l * (9 + 125 + 9) * 4)
         # what the function needs, not what an einsum over (d, r, t, p)
         # spends: Re(x conj(pri)) does not depend on d, so a (r, t, pixel)
         # costs 2 multiply-adds for it and D more over the defocus axis;
@@ -1433,9 +1458,8 @@ def phase_kernels_refine(dev):
         n_flops = n_l * (n_r * n_t * n_p * (4 + 2 * n_d) + n_d * n_r * n_p * 2 + n_r * n_p * 4
                          + n_d * n_p * 2 + n_t * n_p * 6 + n_d * n_p * 30
                          + 12 * n_d * n_r * n_t)
-        # the wrapper forms the CTF constants and the pixels' geometry in a
-        # score of small launches, so on a slow host the call is theirs:
-        # the kernel's own time is read whatever the call took
+        # the kernel's own time (a replayed CUDA graph) is read whatever
+        # the call took: on a slow host CUDA events read the host
         rec = record("likelihood_local_ctf", shape, err, timed(call, 10), plain_ms,
                      n_bytes, n_flops, plan=likelihood.likelihood_ctf_plan(n_d, n_r, n_t))
         rec["alone_ms"] = graph_ms(call)
@@ -1470,6 +1494,37 @@ def phase_kernels_refine(dev):
                 torch.view_as_real(fk), torch.view_as_real(fp), 1e-4, "atomicAdd order"),
         compare("insert_trilinear", "T, the same", tk, tp, 1e-4, "atomicAdd order"))
     del fk, tk, fp, tp, ft
+    hk3 = []
+    for label, n_i, r_u3, use_d in HK3_REFINE:
+        big3 = reco_grid_size(SIZE_R, r_u3) * 2
+        ft3 = torch.fft.fftshift(torch.fft.fft2(torch.randn(n_i, SIZE_R, SIZE_R, generator=gen,
+                                                            device=dev)),
+                                 dim=(-2, -1)).to(torch.complex64).contiguous()
+        defocus = rng.uniform(8000, 20000, n_i)
+        n_s3 = n_i * 48
+        args3 = (ft3, ctf_params(np.full(n_i, 300e3), defocus, defocus * 1.05,
+                                 rng.uniform(0, 3, n_i), np.full(n_i, 2e7), np.full(n_i, 0.1),
+                                 np.zeros(n_i), device=dev),
+                 torch.arange(n_s3, device=dev) // 48, rotate3d(random_quat(gen, (n_s3,), dev)),
+                 3 * torch.randn(n_s3, 2, generator=gen, device=dev),
+                 torch.rand(n_s3, generator=gen, device=dev) / 48, r_u3, 2, SIZE_R, PIXEL_SIZE)
+        d3 = 1 + 0.03 * torch.randn(n_s3, generator=gen, device=dev) if use_d else None
+        call3 = lambda: insert.insert_trilinear(*args3, big3, d=d3)
+        fk, tk = call3()
+        (fp, tp), plain_ms = timed_once(lambda: insert.insert_trilinear_plain(
+            *args3, torch.zeros((big3,) * 3, dtype=torch.complex64, device=dev),
+            torch.zeros((big3,) * 3, device=dev), d3))
+        shape3 = f"{label}: slices={n_s3} r_u={r_u3} big={big3}^3"
+        err3 = max(compare("insert_trilinear", f"F {shape3}", torch.view_as_real(fk),
+                           torch.view_as_real(fp), 1e-4, "atomicAdd order"),
+                   compare("insert_trilinear", "T, the same", tk, tp, 1e-4, "atomicAdd order"))
+        del fk, tk, fp, tp
+        npx3 = int((insert.dense_window(r_u3)[2] > 0).sum())
+        hk3.append(record("insert_trilinear", shape3, err3, timed(call3, 3), plain_ms,
+                          n_i * npx3 * 8 + n_i * 32 + n_s3 * 64 + big3 ** 3 * 12,
+                          n_s3 * npx3 * 110))
+        del ft3, args3
+    results["insert_trilinear_refine"] = hk3
 
     # HK1 with the 2K = 8 tables of a K = 4 round: quad table against plain
     # cube
@@ -1845,8 +1900,11 @@ def main() -> None:
         "likelihood_block": dict(
             results_2d["likelihood_block"], other_shapes=more_lk,
             max_abs_err=max(r["max_abs_err"] for r in more_lk + [results_2d["likelihood_block"]])),
-        "insert_trilinear": dict(results["insert_trilinear"], max_abs_err=max(
-            results["insert_trilinear"]["max_abs_err"], results_r["insert_trilinear_d"])),
+        "insert_trilinear": dict(
+            results["insert_trilinear"], refine_shapes=results_r["insert_trilinear_refine"],
+            max_abs_err=max(results["insert_trilinear"]["max_abs_err"],
+                            results_r["insert_trilinear_d"],
+                            *(r["max_abs_err"] for r in results_r["insert_trilinear_refine"]))),
         "shell_sums": dict(results["shell_sums"]["pair"], shapes=hk4_shapes,
                            max_abs_err=max(r["max_abs_err"] for r in hk4_shapes.values())),
         "project_slices_2d": results_2d["project_slices_2d"],

@@ -144,21 +144,22 @@ def test_log_dvp_local_ctf_and_marginals_match_jax():
                                    x["size"], 1.32, tt("d"))
     dvp_t = tlk.log_dvp_local_ctf(tt("dat_s"), tt("s_pack"), ctf_t, tt("pri"), tt("tra"), tt("a"))
     close(dvp_t, dvp_j, 1e-5)
-    got = tlk.likelihood_local_ctf(
-        tt("dat_s"), tt("s_pack"), tctf.ctf_params(*x["cols"]), tt("d"), t(rings.i_col),
-        t(rings.i_row), x["size"], 1.32, tt("pri"), tt("tra"), tt("a"), tt("w_r"), tt("w_t"),
-        tt("w_d"))
+    terms = tlk.ctf_terms(tctf.ctf_params(*x["cols"]), t(rings.i_col), t(rings.i_row),
+                          x["size"], 1.32)
+    got = tlk.likelihood_local_ctf(tt("dat_s"), tt("s_pack"), terms, tt("d"), tt("pri"),
+                                   tt("tra"), tt("a"), tt("w_r"), tt("w_t"), tt("w_d"))
     assert tlk.likelihood_local_ctf.launches == 0       # CPU tensors: the plain version
     for a, b in zip(got, ref):
         close(a, b, 1e-4)
 
 
 def test_likelihood_ctf_plan():
-    """HK8's launch plan at the path's block (D 9, R 125, T 9): 567
-    tiles of 2 x 3 x 3 in 3 passes of 192 threads, 81,652 bytes."""
+    """HK8's launch plan at the path's block (D 9, R 125, T 9): register
+    tiles of 4 x 3 x 9, one warp of 32 rotation tiles a translation tile,
+    three warps a pixel group, four groups (384 threads), 77,904 bytes."""
     plan = tlk.likelihood_ctf_plan(9, 125, 9)
-    assert plan == dict(items=567, threads=192, smem=81652)
-    assert tlk.likelihood_ctf_plan(1, 1, 1)["threads"] == 64
+    assert plan == dict(n_rg=1, n_tt=3, n_dt=1, groups=4, threads=384, smem=77904)
+    assert tlk.likelihood_ctf_plan(1, 1, 1)["threads"] == 384
     with pytest.raises(ValueError, match="shared memory"):
         tlk.likelihood_ctf_plan(30, 256, 30)
 

@@ -358,12 +358,16 @@ def _ctf_fields(dev, n, seed):
                       device=dev)
 
 
-@pytest.mark.parametrize("sym,big", [("C4", 40), ("D2", 40), ("C4", 37), ("I1", 24)])
+@pytest.mark.parametrize("sym,big", [("C4", 40), ("D2", 40), ("C4", 37), ("I1", 24),
+                                     ("O", 26), ("D2", 33), ("C3", 31), ("O", 21)])
 def test_symmetrize_ft(dev, sym, big):
     """HK7 against its plain version on 2K = 4 grids (F and T in one
-    launch), even and odd boxes, the cut inside and past the box's faces
-    (clipped taps); 1e-5: the same coordinates, weights and tap order,
-    the sums may contract into FMAs."""
+    launch), in the form the group takes (flat orbit bricks for C4 and
+    D2, cubic ones for O, the staged box for C3 and I1), even and odd
+    boxes, the cut inside and
+    past the box's faces (clipped taps); 1e-5: the same coordinates,
+    weights and tap order, the sums may contract into FMAs.  Two calls
+    give identical bits."""
     from thunder_tpu_torch.geometry.symmetry import Symmetry
     from thunder_tpu_torch.recon import reconstructor
 
@@ -373,35 +377,45 @@ def test_symmetrize_ft(dev, sym, big):
                       torch.randn(shape, generator=g, device=dev))
     t = torch.rand(shape, generator=g, device=dev)
     mats = Symmetry(sym, dev).matrices
+    form = reconstructor.symmetrize_form(mats)
+    assert form == {"C3": "box", "I1": "box", "O": "orbit-cube"}.get(sym, "orbit")
     for radius in (big // 2 - 3.0, big * 0.9):
         n0 = reconstructor.symmetrize_ft.launches
-        got = reconstructor.symmetrize_ft(f, t, mats, radius)
+        got = reconstructor.symmetrize_ft(f, t, mats, radius, form)
         assert reconstructor.symmetrize_ft.launches == n0 + 1
         ref = reconstructor.symmetrize_ft_plain(f, t, mats, radius)
         assert rel_err(torch.view_as_real(got[0]), torch.view_as_real(ref[0])) < 1e-5
         assert rel_err(got[1], ref[1]) < 1e-5
+        again = reconstructor.symmetrize_ft(f, t, mats, radius, form)
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     with pytest.raises(ValueError):
         reconstructor.symmetrize_ft(f, t.double(), mats, 5.0)
 
 
 @pytest.mark.parametrize("n_d,n_r,n_t,band", [(9, 125, 9, 12), (4, 7, 5, 6), (1, 64, 9, 6),
-                                              (10, 33, 13, 9)])
+                                              (10, 33, 13, 9), (13, 7, 13, 7),
+                                              (9, 200, 2, 5), (2, 129, 1, 10)])
 def test_likelihood_local_ctf(dev, n_d, n_r, n_t, band):
     """HK8 against its plain version (ctf_packed_scaled, the einsums of
     log_dvp_local_ctf, max / exp / marginals) at the path's tile counts
-    and at ragged ones; 1e-4: P-long sums in another order and CTFs
-    formed in the kernel, amplified by exp."""
+    and at ragged ones (D of 1, 2, 13, R of 7 and past one warp of
+    rotation tiles, T of 1 and 13; P = 210, 48, 112, 68, 34, 146, no
+    multiple of the 32-pixel chunk or, in the last chunk, of the pixel
+    groups); 1e-4:
+    P-long sums in another order and CTFs formed in the kernel,
+    amplified by exp.  One launch a call; two calls give identical
+    bits."""
     g = generator(12, dev)
     size, n_l = 64, 6
-    rings = pack_rings(size, band, 1, device=dev)
+    rings = pack_rings(size, band, 1, lane=1, device=dev)
     p = rings.i_col.numel()
     rnd = lambda *sh: torch.randn(sh, generator=g, device=dev)
     cplx = lambda *sh: torch.complex(rnd(*sh), rnd(*sh))
     s_pack = -0.5 * rings.mask * (0.5 + torch.rand(n_l, p, generator=g, device=dev))
     dat = cplx(n_l, p)
     ph = 0.3 * rnd(n_l, n_t, p)
-    args = ((s_pack * dat).to(torch.complex64), s_pack, _ctf_fields(dev, n_l, 3),
-            1 + 0.02 * rnd(n_l, n_d), rings.i_col, rings.i_row, size, 1.32,
+    terms = likelihood.ctf_terms(_ctf_fields(dev, n_l, 3), rings.i_col, rings.i_row, size, 1.32)
+    args = ((s_pack * dat).to(torch.complex64), s_pack, terms, 1 + 0.02 * rnd(n_l, n_d),
             0.3 * cplx(n_l, n_r, p), torch.polar(torch.ones_like(ph), ph),
             (s_pack * dat.abs() ** 2).sum(-1),
             torch.rand(n_l, n_r, generator=g, device=dev),
@@ -413,6 +427,8 @@ def test_likelihood_local_ctf(dev, n_d, n_r, n_t, band):
     ref = likelihood.likelihood_local_ctf_plain(*args)
     for a, b in zip(got, ref):
         assert a.shape == b.shape and rel_err(a, b) < 1e-4
+    again = likelihood.likelihood_local_ctf(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_insert_trilinear_defocus_factor(dev):

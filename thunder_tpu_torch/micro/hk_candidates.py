@@ -1,12 +1,14 @@
 """Candidate designs of HK1 ``project_slices``, HK3 ``insert_trilinear``,
-HK4 ``shell_sums`` and HK5 ``project_slices_2d`` timed in turns on the
-card, at the main paths' shapes.
+HK4 ``shell_sums``, HK5 ``project_slices_2d``, HK7 ``symmetrize_ft`` and
+HK8 ``likelihood_local_ctf`` timed in turns on the card, at the main
+paths' shapes.
 
-    python -m thunder_tpu_torch.micro.hk_candidates [--kernels hk4,hk5] [--big] [--reps N]
+    python -m thunder_tpu_torch.micro.hk_candidates [--kernels hk4,hk5|hk7,hk8] [--big] [--reps N]
 
-Builds ``micro/cand/hk1_cand.cu`` and ``hk3_cand.cu``, or ``hk4_cand.cu``
-and ``hk5_cand.cu`` (the designs that were measured before the kernels
-in ``csrc/`` were chosen; they are not part of the kernel library),
+Builds ``micro/cand/hk1_cand.cu`` and ``hk3_cand.cu``, ``hk4_cand.cu``
+and ``hk5_cand.cu``, or ``hk7_cand.cu`` and ``hk8_cand.cu`` (the designs
+that were measured before the kernels in ``csrc/`` were chosen; they
+are not part of the kernel library),
 checks every variant against the plain version, and times the variants
 one after another, forwards then backwards, with CUDA events.  ``--big``
 adds HK1's and HK3's shapes of a 256 px box at its global radius, where
@@ -302,7 +304,8 @@ def hk3_shape(lib, dev, gen, rng, name, size, r_u, n_l, slots, reps, results, va
 def report(kernel, shape, ms, errs, labels, tol, results, **extra):
     say(f"{kernel} {shape}")
     for k, v in ms.items():
-        say(f"  {k:<18s} {v[0]:.4f} {v[1]:.4f} ms  rel_err {errs.get(k)}  {labels.get(k, '')}")
+        say(f"  {k:<18s} {' '.join(f'{x:.4f}' for x in v)} ms  rel_err {errs.get(k)}  "
+            f"{labels.get(k, '')}")
     results.append(dict(kernel=kernel, shape=shape, ms=ms, rel_err=errs, **extra))
     bad = {k: e for k, e in errs.items() if not e <= tol}
     if bad:
@@ -431,11 +434,267 @@ def main_45(dev, gen, reps, results):
     hk5_shape(lib, dev, gen, "phase, one class", 15, 10000, 9, False, reps, results, n_k=1)
 
 
+def build_78() -> ctypes.CDLL:
+    """nvcc the first designs of HK7 and HK8 into one library."""
+    os.makedirs(_native.BUILD_DIR, exist_ok=True)
+    out = os.path.join(_native.BUILD_DIR, "libhk78_candidates.so")
+    srcs = [os.path.join(CAND_DIR, s) for s in ("hk7_cand.cu", "hk7_plan_cand.cu",
+                                                 "hk8_cand.cu", "hk8_plan_cand.cu")]
+    res = subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-shared", "-o", out, *srcs],
+                         capture_output=True, text=True)
+    say(f"build {' '.join(os.path.basename(x) for x in srcs)}: rc {res.returncode}")
+    for line in (res.stdout + res.stderr).splitlines():
+        if res.returncode != 0 or "registers" in line or "spill" in line:
+            say("  " + line.strip()[:200])
+    if res.returncode != 0:
+        raise RuntimeError("the HK7 / HK8 candidates did not build")
+    lib = ctypes.CDLL(out)
+    lib.cand_symmetrize_ft_first.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P]
+    lib.cand_likelihood_local_ctf_first.argtypes = [_P, _I, _I, _P]
+    lib.cand_likelihood_local_ctf_tf32.argtypes = [_P, _I, _P]
+    lib.cand_likelihood_local_ctf_variant.argtypes = [_P, _I, _I, _I, _P]
+    lib.cand_symmetrize_ft_variant.argtypes = [_P, _I, _I, _I, _I, _P]
+    return lib
+
+
+# hk7_plan_cand.cu's instances of csrc/symmetrize_ft.cu: (blocks an SM the
+# registers allow, the orbit form's (xy, z) brick edges or None for the plan's)
+HK7_VARIANTS = {"m1": (1, None), "m3": (3, None), "31x31x1": (2, (31, 1)),
+                "27x27x1": (2, (27, 1)), "25x25x1": (2, (25, 1)), "23x23x1": (2, (23, 1)),
+                "11^3": (2, (11, 11)), "9^3": (2, (9, 9))}
+
+
+# hk8_plan_cand.cu's instances of csrc/likelihood_local_ctf.cu: (pixels a
+# chunk, threads, blocks an SM)
+HK8_VARIANTS = {0: (32, 384, 1), 1: (64, 384, 1), 2: (32, 192, 1), 3: (64, 192, 1),
+                4: (32, 192, 2), 5: (16, 384, 1)}
+
+
+def cur_stream() -> int:
+    """The current stream at the call (a capture's, inside a CUDA graph)."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+class _LcArgsFirst(ctypes.Structure):
+    """hk8_cand.cu's LcArgs (the first design)."""
+    _fields_ = [(n, _P) for n in ("dat_s", "s_pack", "ctfk", "f2", "ang", "dfac", "pri", "tra",
+                                  "a", "w_r", "w_t", "w_d", "u_r", "u_t", "u_d")] + [
+        (n, _I) for n in ("L", "D", "R", "T", "P")]
+
+
+def hk8_first_plan(n_d: int, n_r: int, n_t: int) -> dict:
+    """The first design's launch plan of HK8: 2 x 3 x 3 tiles walked by 64-256
+    threads, the image's (D, R, T) block in shared memory."""
+    up = lambda n, m: -(-n // m) * m
+    d3, t3, r2 = up(n_d, 3), up(n_t, 3), up(n_r, 2)
+    items = (d3 // 3) * (t3 // 3) * (r2 // 2)
+    threads = min(range(256, 32, -32), key=lambda n: up(items, n))
+    smem = 4 * (2 * 32 * r2 + 2 * t3 * 32 + d3 * 32 + 32 + d3 * t3 * r2 + d3 * r2 + d3 * t3
+                + 32)
+    return dict(threads=threads, smem=smem)
+
+
+def alone(fn) -> float:
+    from thunder_tpu_torch.micro.launch_floor import graph_ms
+
+    return graph_ms(fn)
+
+
+def hk7_shape(lib, dev, gen, label, sym, n_g, big, reps, results):
+    """HK7 at one shape: the first design, the kernel in csrc/ (the form its
+    group takes), the plain version; errors against the plain version."""
+    from thunder_tpu_torch.geometry.symmetry import Symmetry
+    from thunder_tpu_torch.recon import reconstructor
+
+    f = torch.complex(torch.randn(n_g, big, big, big, generator=gen, device=dev),
+                      torch.randn(n_g, big, big, big, generator=gen, device=dev))
+    t = torch.rand(n_g, big, big, big, generator=gen, device=dev)
+    mats = Symmetry(sym, dev).matrices
+    form = reconstructor.symmetrize_form(mats)
+    rad = float(big // 2 - 6)
+    fo, to = torch.empty_like(f), torch.empty_like(t)
+
+    def first():
+        _native.check(lib.cand_symmetrize_ft_first(
+            f.data_ptr(), t.data_ptr(), fo.data_ptr(), to.data_ptr(), mats.data_ptr(),
+            mats.shape[0] - 1, n_g, big, rad, cur_stream()), "hk7 first")
+        return fo, to
+
+    new = lambda: reconstructor.symmetrize_ft(f, t, mats, rad, form)
+    variants = {k: v for k, v in HK7_VARIANTS.items() if form != "box" or v[1] is None}
+    v_args = {}
+    for k, (mb, b) in variants.items():
+        plan = reconstructor.symmetrize_plan(form, mats.shape[0], big, b)
+        table = form.reps(plan, dev) if plan["orbit"] else None
+        v_args[k] = (mb, plan, reconstructor._SymArgs(
+            f.data_ptr(), t.data_ptr(), fo.data_ptr(), to.data_ptr(), mats.data_ptr(),
+            None if table is None else table.data_ptr(), mats.shape[0] - 1, big, plan["orbit"],
+            *plan["edges"], *plan["n"], len(table) if plan["orbit"] else int(np.prod(plan["n"])),
+            rad * rad))
+
+    def variant(k):
+        mb, plan, args = v_args[k]
+        _native.check(lib.cand_symmetrize_ft_variant(ctypes.addressof(args), mb, n_g,
+                                                     plan["threads"], plan["smem"],
+                                                     cur_stream()), f"hk7 variant {k}")
+        return fo, to
+
+    ref, plain_ms = timed_once(lambda: reconstructor.symmetrize_ft_plain(f, t, mats, rad))
+    err = lambda o: max(rel_err(torch.view_as_real(o[0]), torch.view_as_real(ref[0])),
+                        rel_err(o[1], ref[1]))
+    errs = {"first": err(first()), "csrc": err(new())}
+    errs.update({f"v {k}": err(variant(k)) for k in variants})
+    del ref
+    fns = {"first": first, "csrc": new}
+    fns.update({f"v {k}": (lambda k=k: variant(k)) for k in variants})
+    ms = turns(fns, reps)
+    ms_alone = {k: alone(fn) for k, fn in fns.items()}
+    ms["plain"] = [plain_ms]
+    bound = 2 * n_g * big ** 3 * 12 / 3.35e12 * 1e3
+    labels = {"first": "the first design: a thread a cell, taps from device memory",
+              "csrc": f"csrc/symmetrize_ft.cu, {form} form", "plain": "symmetrize_ft_plain, once"}
+    say("  alone ms: " + "  ".join(f"{k} {v:.4f}" for k, v in ms_alone.items())
+        + f"; bytes bound {bound:.4f} ms (share of csrc alone {bound / ms_alone['csrc']:.3f})")
+    report("HK7", f"{label}: {sym} G={n_g} big={big}^3 band {rad:.0f}", ms, errs, labels, 1e-5,
+           results, alone_ms=ms_alone, bound_ms=bound, form=form)
+
+
+def timed_once(fn):
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def hk8_shape(lib, dev, gen, r, reps, results, n_l=256, n_d=9, n_r=125, n_t=9):
+    """HK8 at one CTF phase (both halves' images, r's band of the 160 px
+    box): the first design, the kernel in csrc/, the plain version (32
+    images at a time) and the yardstick of its dominant product,
+    torch.bmm of (L, R, 2P) by (L, 2P, D T) in full fp32."""
+    from thunder_tpu_torch.ops import likelihood
+    from thunder_tpu_torch.ops.fourier import pack_rings, translate_phases
+    from thunder_tpu_torch.physics.ctf import ctf_params
+
+    size = 160
+    rings = pack_rings(size, r, 1, device=dev)
+    n_p = rings.i_col.numel()
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    rand = lambda *s: torch.rand(s, generator=gen, device=dev)
+    cplx = lambda *s: torch.complex(rnd(*s), rnd(*s))
+    s_pack = -0.5 * rings.mask * (0.5 + rand(n_l, n_p))
+    dat = cplx(n_l, n_p)
+    rng = np.random.default_rng(8)
+    defocus = rng.uniform(8000, 20000, n_l)
+    ctf = ctf_params(np.full(n_l, 300e3), defocus, defocus * rng.uniform(0.9, 1.1, n_l),
+                     rng.uniform(0, 3, n_l), np.full(n_l, 2e7), np.full(n_l, 0.1),
+                     np.zeros(n_l), device=dev)
+    terms = likelihood.ctf_terms(ctf, rings.i_col, rings.i_row, size, 1.32)
+    pri = ((0.3 / n_p ** 0.5) * cplx(n_l, n_r, n_p) + 0.05 * dat[:, None, :]).to(torch.complex64)
+    ops = ((s_pack * dat).to(torch.complex64), s_pack, terms, 1 + 0.01 * rnd(n_l, n_d), pri,
+           translate_phases(rings, rnd(n_l, n_t, 2)), (s_pack * dat.abs() ** 2).sum(-1),
+           rand(n_l, n_r), rand(n_l, n_t), rand(n_l, n_d))
+    new = lambda: likelihood.likelihood_local_ctf(*ops)
+    outs = [torch.empty(n_l, k, device=dev) for k in (n_r, n_t, n_d)]
+    t_ops = [o for o in ops if torch.is_tensor(o)]
+    old_args = _LcArgsFirst(t_ops[0].data_ptr(), t_ops[1].data_ptr(), terms.consts.data_ptr(),
+                          terms.f2.data_ptr(), terms.ang.data_ptr(),
+                          *[o.data_ptr() for o in t_ops[2:]], *[o.data_ptr() for o in outs],
+                          n_l, n_d, n_r, n_t, n_p)
+    plan_first = hk8_first_plan(n_d, n_r, n_t)
+
+    def first():
+        _native.check(lib.cand_likelihood_local_ctf_first(
+            ctypes.addressof(old_args), plan_first["threads"], plan_first["smem"], cur_stream()),
+            "hk8 first")
+        return outs
+
+    v_args = {}
+    for v, (pc, thr, _) in HK8_VARIANTS.items():
+        plan = likelihood.likelihood_ctf_plan(n_d, n_r, n_t, pc, thr)
+        v_args[v] = (plan, likelihood._LcArgs(
+            t_ops[0].data_ptr(), t_ops[1].data_ptr(), terms.consts.data_ptr(), terms.f2.data_ptr(),
+            terms.ang.data_ptr(), *[o.data_ptr() for o in t_ops[2:]],
+            *[o.data_ptr() for o in outs], n_l, n_d, n_r, n_t, n_p, plan["n_rg"], plan["n_tt"],
+            plan["n_dt"], plan["groups"]))
+
+    def variant(v):
+        plan, args = v_args[v]
+        _native.check(lib.cand_likelihood_local_ctf_variant(
+            ctypes.addressof(args), v, plan["threads"], plan["smem"], cur_stream()),
+            f"hk8 variant {v}")
+        return outs
+
+    def plain():
+        parts = []
+        for lo in range(0, n_l, 32):
+            sl = slice(lo, lo + 32)
+            part = [o[sl] if torch.is_tensor(o) else o for o in ops]
+            part[2] = terms.images(lambda a: a[sl])
+            parts.append(likelihood.likelihood_local_ctf_plain(*part))
+        return [torch.cat(x) for x in zip(*parts)]
+
+    def tf32(split):
+        _native.check(lib.cand_likelihood_local_ctf_tf32(ctypes.addressof(old_args), split,
+                                                         cur_stream()), "hk8 tf32")
+        return outs
+
+    ref, plain_ms = timed_once(plain)
+    tol = max(1e-4, 4 * 1.1920929e-07 * float(ops[6].abs().max()))
+    err = lambda got: max(rel_err(g, rr) for g, rr in zip(got, ref))
+    errs = {"first": err(first()), "csrc": err(new())}
+    errs.update({f"v{v}": err(variant(v)) for v in HK8_VARIANTS})
+    # the tensor-core candidates are reported, not held to the tolerance
+    tf32_errs = {"tf32x3": err(tf32(3)), "tf32": err(tf32(1))}
+    say(f"  mma.sync candidates' rel_err: 3xTF32 {tf32_errs['tf32x3']:.3e}, plain TF32 "
+        f"{tf32_errs['tf32']:.3e} (tolerance {tol:.3e})")
+    # the dominant product's yardstick: C's (L, R, 2P) x (L, 2P, D T) in fp32
+    a_mat = torch.randn(n_l, n_r, 2 * n_p, generator=gen, device=dev)
+    b_mat = torch.randn(n_l, 2 * n_p, n_d * n_t, generator=gen, device=dev)
+    fns = {"first": first, "csrc": new, "tf32x3": lambda: tf32(3), "tf32": lambda: tf32(1),
+           "bmm": lambda: torch.bmm(a_mat, b_mat)}
+    fns.update({f"v{v}": (lambda v=v: variant(v)) for v in HK8_VARIANTS})
+    ms = turns(fns, reps)
+    ms_alone = {k: alone(fn) for k, fn in fns.items()}
+    ms["plain"] = [plain_ms]
+    n_flops = n_l * (n_r * n_t * n_p * (4 + 2 * n_d) + n_d * n_r * n_p * 2 + n_r * n_p * 4
+                     + n_d * n_p * 2 + n_t * n_p * 6 + n_d * n_p * 30 + 12 * n_d * n_r * n_t)
+    bound = n_flops / 67e12 * 1e3
+    labels = {"first": "the first design: 2 x 3 x 3 tiles, (D, R, T) block in shared memory",
+              "csrc": "csrc/likelihood_local_ctf.cu: 4 x 3 x 9 register tiles, pixel groups",
+              "tf32x3": "hk8_cand.cu: C by mma.sync m16n8k8, 3xTF32",
+              "tf32": "hk8_cand.cu: C by mma.sync m16n8k8, plain TF32",
+              "bmm": "torch.bmm (L, R, 2P) x (L, 2P, D T) fp32: the dominant product alone",
+              **{f"v{v}": f"csrc's template: {pc} pixels a chunk, {thr} threads, {mb} "
+                           f"block(s) an SM" for v, (pc, thr, mb) in HK8_VARIANTS.items()},
+              "plain": "likelihood_local_ctf_plain, once, 32 images at a time"}
+    say("  alone ms: " + "  ".join(f"{k} {v:.4f}" for k, v in ms_alone.items())
+        + f"; operations bound {bound:.4f} ms (share of csrc alone "
+        f"{bound / ms_alone['csrc']:.3f})")
+    report("HK8", f"L={n_l} D={n_d} R={n_r} T={n_t} P={n_p} (r={r})", ms, errs, labels, tol,
+           results, alone_ms=ms_alone, bound_ms=bound, candidate_rel_err=tf32_errs)
+
+
+def main_78(dev, gen, reps, results):
+    lib = build_78()
+    _native.library()
+    for label, sym, n_g, big in (("C4 K=1 pair", "C4", 2, 152), ("D2 K=1 pair", "D2", 2, 152),
+                                 ("C4 K=4, 2K grids", "C4", 8, 132),
+                                 ("C4 one grid, full band", "C4", 1, 320),
+                                 ("C3 K=1 pair (box form)", "C3", 2, 152),
+                                 ("I1, the kernel test's grids", "I1", 4, 24)):
+        hk7_shape(lib, dev, gen, label, sym, n_g, big, reps if big < 300 else 3, results)
+    hk8_shape(lib, dev, gen, 22, reps, results)
+    hk8_shape(lib, dev, gen, 78, max(2, reps // 3), results)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--big", action="store_true", help="add the 256 px shapes")
     ap.add_argument("--kernels", default="hk1,hk3",
-                    help="hk1,hk3 (the default) and / or hk4,hk5")
+                    help="hk1,hk3 (the default) and / or hk4,hk5, hk7,hk8")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None, help="also write the JSON line to this file")
     args = ap.parse_args(argv)
@@ -455,6 +714,8 @@ def main(argv=None) -> int:
     results = []
     if "hk4" in args.kernels or "hk5" in args.kernels:
         main_45(dev, gen, args.reps, results)
+    if "hk7" in args.kernels or "hk8" in args.kernels:
+        main_78(dev, gen, args.reps, results)
     if "hk1" in args.kernels or "hk3" in args.kernels:
         main_13(dev, gen, rng, args, results)
     line = json.dumps({"card": card, "results": results})

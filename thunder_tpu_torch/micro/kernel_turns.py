@@ -1,6 +1,7 @@
-"""HK1 ``project_slices``, HK3 ``insert_trilinear``, HK4 ``shell_sums``
-and HK5 ``project_slices_2d`` of two checkouts timed in turns on one
-card, at the shapes ``chip_smoke.py`` times.
+"""HK1 ``project_slices``, HK3 ``insert_trilinear``, HK4 ``shell_sums``,
+HK5 ``project_slices_2d``, HK7 ``symmetrize_ft`` and HK8
+``likelihood_local_ctf`` of two checkouts timed in turns on one card, at
+the shapes ``chip_smoke.py`` times.
 
     python thunder_tpu_torch/micro/kernel_turns.py PARENT_TREE [THIS_TREE]
 
@@ -9,9 +10,12 @@ with its own tree first on the module path (so each builds and loads its
 own kernels), and prints each turn's times and a last JSON line.  A turn
 calls only the kernels' public functions, with the table as that tree's
 ``Optimiser.proj_table`` would hand it over (the quad table where the
-tree has one and it fits) and the shell sums of a centered grid through
-the entry that tree's ``spectrum.fsc`` takes, so the same file measures
-both trees.  Needs a CUDA device and nvcc.
+tree has one and it fits), the shell sums of a centered grid through
+the entry that tree's ``spectrum.fsc`` takes, and HK7 and HK8 with the
+arguments that tree's wrappers take (HK7's form and HK8's round terms
+where it has them), so the same file measures both trees.  HK7 and HK8
+are also timed alone (``... alone``: the calls replayed as a CUDA graph,
+``micro/launch_floor.py``).  Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -138,6 +142,67 @@ def one_turn() -> dict:
             rot, cls = rot2d((n_l, n_r)), torch.randint(0, 60, (n_l,), device=dev)
         out[f"HK5 {name}"] = timed(lambda: projector.project_slices_2d(
             table, rot, rings.i_col, rings.i_row, 2, cls), 50 if n_l * n_r < 50000 else 20)
+    del table
+    out.update(turn_78(dev, gen, rng, timed))
+    return out
+
+
+def turn_78(dev, gen, rng, timed) -> dict:
+    """HK7 (C4: the K = 1 pair of 152^3, the eight 132^3 grids of a K = 4
+    round, one 320^3 grid) and HK8 (256 images, D 9, R 125, T 9 at P =
+    728 and 9,448), each by CUDA events and alone."""
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.geometry.symmetry import Symmetry
+    from thunder_tpu_torch.micro.launch_floor import graph_ms
+    from thunder_tpu_torch.ops import likelihood
+    from thunder_tpu_torch.ops.fourier import pack_rings, translate_phases
+    from thunder_tpu_torch.physics.ctf import ctf_params
+    from thunder_tpu_torch.recon import reconstructor
+
+    out = {}
+    mats = Symmetry("C4", dev).matrices
+    form = getattr(reconstructor, "symmetrize_form", None)
+    extra = () if form is None else (form(mats),)
+    for n_g, big in ((2, 152), (8, 132), (1, 320)):
+        f = torch.complex(torch.randn(n_g, big, big, big, generator=gen, device=dev),
+                          torch.randn(n_g, big, big, big, generator=gen, device=dev))
+        t = torch.rand(n_g, big, big, big, generator=gen, device=dev)
+        call = lambda: reconstructor.symmetrize_ft(f, t, mats, float(big // 2 - 6), *extra)
+        name = f"HK7 C4 {n_g} x {big}^3"
+        out[name] = timed(call, 10 if big < 300 else 3)
+        out[f"{name} alone"] = graph_ms(call, calls=10 if big < 300 else 3)
+        del f, t
+    n_l, n_d, n_r, n_t, size = 256, 9, 125, 9, 160
+    defocus = rng.uniform(8000, 20000, n_l)
+    ctf = ctf_params(np.full(n_l, 300e3), defocus, defocus * rng.uniform(0.9, 1.1, n_l),
+                     rng.uniform(0, 3, n_l), np.full(n_l, 2e7), np.full(n_l, 0.1),
+                     np.zeros(n_l), device=dev)
+    for r in (22, 78):
+        rings = pack_rings(size, r, 1, device=dev)
+        n_p = rings.i_col.numel()
+        rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+        s_pack = -0.5 * rings.mask * (0.5 + torch.rand(n_l, n_p, generator=gen, device=dev))
+        dat = torch.complex(rnd(n_l, n_p), rnd(n_l, n_p))
+        pri = ((0.3 / n_p ** 0.5) * torch.complex(rnd(n_l, n_r, n_p), rnd(n_l, n_r, n_p))
+               + 0.05 * dat[:, None, :]).to(torch.complex64)
+        head = ((s_pack * dat).to(torch.complex64), s_pack)
+        tail = (pri, translate_phases(rings, rnd(n_l, n_t, 2)), (s_pack * dat.abs() ** 2).sum(-1),
+                torch.rand(n_l, n_r, generator=gen, device=dev),
+                torch.rand(n_l, n_t, generator=gen, device=dev),
+                torch.rand(n_l, n_d, generator=gen, device=dev))
+        d = 1 + 0.01 * rnd(n_l, n_d)
+        if hasattr(likelihood, "ctf_terms"):
+            terms = likelihood.ctf_terms(ctf, rings.i_col, rings.i_row, size, 1.32)
+            args = head + (terms, d) + tail
+        else:
+            args = head + (ctf, d, rings.i_col, rings.i_row, size, 1.32) + tail
+        call = lambda: likelihood.likelihood_local_ctf(*args)
+        name = f"HK8 P={n_p}"
+        out[name] = timed(call, 10 if r < 50 else 3)
+        out[f"{name} alone"] = graph_ms(call, calls=10 if r < 50 else 3)
+        del args, pri
     return out
 
 

@@ -22,13 +22,14 @@ device.py), where the JAX package leaves them to XLA einsums
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from thunder_tpu_torch import _native
 from thunder_tpu_torch.device import COMPLEX, REAL
 from thunder_tpu_torch.physics.ctf import (CtfParams, ctf_constants,
-                                           ctf_packed_scaled)
+                                           ctf_packed_scaled, pixel_geometry)
 
 
 def split_ri(z: torch.Tensor) -> torch.Tensor:
@@ -282,38 +283,84 @@ def ctf_marginals(dvp: torch.Tensor, w_r, w_t, w_d):
             torch.einsum("ldrt,lr,lt->ld", w, w_r, w_t))
 
 
-def likelihood_local_ctf_plain(dat_s, s_pack, ctf: CtfParams, d, i_col, i_row,
-                               size: int, pixel_size: float, pri, tra, a_term,
+class CtfTerms(NamedTuple):
+    """What HK8 reads of the images' CTFs and the pixels, formed once a
+    round (:func:`ctf_terms`): the round's rings and CTF parameters do
+    not change between its phases, so a phase's call launches HK8 and
+    nothing else."""
+
+    params: CtfParams      # per image, (..., L) each
+    consts: torch.Tensor   # (..., L, 8): physics.ctf.ctf_constants
+    i_col: torch.Tensor    # (P,) the packed pixels
+    i_row: torch.Tensor
+    f2: torch.Tensor       # (P,) fx^2 + fy^2
+    ang: torch.Tensor      # (P,) atan2(row, col)
+    size: int
+    pixel_size: float
+
+    def images(self, fn) -> "CtfTerms":
+        """The same terms with ``fn`` applied to every per-image field."""
+        return self._replace(params=self.params.map(fn), consts=fn(self.consts))
+
+
+def ctf_terms(ctf: CtfParams, i_col: torch.Tensor, i_row: torch.Tensor, size: int,
+              pixel_size: float) -> CtfTerms:
+    """HK8's CTF operands of a round: the per-image constants and the
+    pixels' geometry, as ``ctf_packed_scaled`` forms them."""
+    f2, ang = pixel_geometry(i_col, i_row, size, pixel_size)
+    return CtfTerms(ctf, ctf_constants(ctf), i_col, i_row, f2.contiguous(),
+                    ang.contiguous(), int(size), float(pixel_size))
+
+
+def likelihood_local_ctf_plain(dat_s, s_pack, terms: CtfTerms, d, pri, tra, a_term,
                                w_r, w_t, w_d):
     """Plain version of HK8 (see :func:`likelihood_local_ctf`):
     ctf_packed_scaled, log_dvp_local_ctf, ctf_marginals."""
-    ctf_d = ctf_packed_scaled(ctf, i_col, i_row, size, pixel_size, d)
+    ctf_d = ctf_packed_scaled(terms.params, terms.i_col, terms.i_row, terms.size,
+                              terms.pixel_size, d)
     return ctf_marginals(log_dvp_local_ctf(dat_s, s_pack, ctf_d, pri, tra, a_term),
                          w_r, w_t, w_d)
 
 
-LC_PC, LC_TR, LC_TT, LC_TD = (_native.csrc_constant("likelihood_local_ctf.cu", n)
-                              for n in ("PC", "TR", "TT", "TD"))
+LC_PC, LC_TR, LC_TT, LC_TD, LC_TB, LC_CS, LC_THREADS = (
+    _native.csrc_constant("likelihood_local_ctf.cu", n)
+    for n in ("PC", "TR", "TT", "TD", "TB", "CS", "MAX_THREADS"))
 
 
-def likelihood_ctf_plan(n_d: int, n_r: int, n_t: int) -> dict:
-    """Launch plan of HK8 for a (D x R x T) block an image: the register
-    tiles a block walks (``items``: rotation pairs x translation tiles x
-    defocus tiles), the threads (the multiple of 32 up to 256 that
-    leaves the fewest idle threads in the last pass over the items, the
-    larger on a tie) and the shared-memory bytes (the staged pixels, the
-    image's dvp block, B, the row sums and a reduction scratch).  Raises
-    where the block does not fit Hopper's shared memory."""
-    up = lambda n, m: -(-n // m) * m
-    d3, t3, r2 = up(n_d, LC_TD), up(n_t, LC_TT), up(n_r, LC_TR)
-    items = (d3 // LC_TD) * (t3 // LC_TT) * (r2 // LC_TR)
-    threads = min(range(256, 32, -32), key=lambda n: up(items, n))
-    smem = 4 * (2 * LC_PC * r2 + 2 * t3 * LC_PC + d3 * LC_PC + LC_PC
-                + d3 * t3 * r2 + d3 * r2 + d3 * t3 + 32)
+def likelihood_ctf_plan(n_d: int, n_r: int, n_t: int, pc: int = LC_PC,
+                        max_threads: int = LC_THREADS) -> dict:
+    """Launch plan of HK8 for a (D x R x T) block an image.  A thread's
+    register tile is LC_TR rotations x LC_TT translations x LC_TD defocus
+    factors; a warp holds 32 rotation tiles, so the block's warps are
+    ``n_rg`` rotation groups x ``n_tt`` translation tiles x ``n_dt`` d
+    tiles (``n_tt`` at least LC_TD / LC_TB, so that every factor's B has
+    a translation tile to sum it), repeated over ``groups`` pixel groups
+    up to LC_THREADS threads.  Shared memory: the image's constants, two
+    staging buffers of LC_PC pixels (pri in rows padded by 16 bytes, tra,
+    dat, s, f^2, angle), the chunk's x, CTF and s ctf^2 rows; after the
+    pixel loop the same bytes hold the (D, T, R) block, B, the row sums
+    and a reduction scratch.  Raises where the block does not fit the
+    shared memory or the threads of one block.  ``pc`` and
+    ``max_threads``: another instance of the kernel's template."""
+    up = lambda n, m: -(-n // m)
+    n_rg = up(n_r, 32 * LC_TR)
+    n_tt = max(up(n_t, LC_TT), up(LC_TD, LC_TB))
+    n_dt = up(n_d, LC_TD)
+    r4, t3, d9 = n_rg * 32 * LC_TR, n_tt * LC_TT, n_dt * LC_TD
+    stage = pc * (2 * r4 + 4) + pc * t3 * 2 + 5 * pc
+    loop = 2 * stage + pc * t3 * 2 + 2 * pc * n_dt * LC_CS
+    epilogue = d9 * t3 * r4 + d9 * r4 + d9 * t3 + 32
+    smem = 4 * (up(8 + d9, 4) * 4 + max(loop, epilogue))
     if smem > _native.SMEM_MAX:
         raise ValueError(f"likelihood_local_ctf: a {n_d} x {n_r} x {n_t} block "
                          f"takes {smem} bytes of shared memory")
-    return dict(items=items, threads=threads, smem=smem)
+    warps = n_rg * n_tt * n_dt
+    if 32 * warps > max_threads:
+        raise ValueError(f"likelihood_local_ctf: a {n_d} x {n_r} x {n_t} block needs "
+                         f"{warps} warps of register tiles, more than {max_threads} threads")
+    groups = max_threads // (32 * warps)
+    return dict(n_rg=n_rg, n_tt=n_tt, n_dt=n_dt, groups=groups,
+                threads=32 * warps * groups, smem=smem)
 
 
 class _LcArgs(ctypes.Structure):
@@ -321,15 +368,14 @@ class _LcArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "dat_s", "s_pack", "ctfk", "f2", "ang", "dfac", "pri", "tra", "a",
         "w_r", "w_t", "w_d", "u_r", "u_t", "u_d")] + [
-        (n, ctypes.c_int) for n in ("L", "D", "R", "T", "P")]
+        (n, ctypes.c_int) for n in ("L", "D", "R", "T", "P", "n_rg", "n_tt", "n_dt",
+                                    "groups")]
 
 
-def likelihood_local_ctf(dat_s: torch.Tensor, s_pack: torch.Tensor,
-                         ctf: CtfParams, d: torch.Tensor, i_col: torch.Tensor,
-                         i_row: torch.Tensor, size: int, pixel_size: float,
-                         pri: torch.Tensor, tra: torch.Tensor,
-                         a_term: torch.Tensor, w_r: torch.Tensor,
-                         w_t: torch.Tensor, w_d: torch.Tensor):
+def likelihood_local_ctf(dat_s: torch.Tensor, s_pack: torch.Tensor, terms: CtfTerms,
+                         d: torch.Tensor, pri: torch.Tensor, tra: torch.Tensor,
+                         a_term: torch.Tensor, w_r: torch.Tensor, w_t: torch.Tensor,
+                         w_d: torch.Tensor):
     """The marginals of one CTF-search phase over per-image supports:
 
       ctf[l,d,p]   = CTF of image l with its defocus scaled by d[l,d]
@@ -339,30 +385,31 @@ def likelihood_local_ctf(dat_s: torch.Tensor, s_pack: torch.Tensor,
       dvp = a_term[l] + B + C;  w = exp(dvp - max_{d,r,t} dvp)
       u_r[l,r] = sum_{d,t} w w_t[l,t] w_d[l,d]   (u_t, u_d alike)
 
-    dat_s (L, P) complex64; s_pack (L, P); ctf fields (L,); d (L, D);
-    pixels (P,); pri (L, R, P) and tra (L, T, P) complex64; a_term (L,);
-    priors w_r (L, R), w_t (L, T), w_d (L, D).  Returns (u_r, u_t, u_d);
-    the (L, D, R, T) tensor is never formed on the card.  CPU tensors
-    take :func:`likelihood_local_ctf_plain`; CUDA tensors launch
-    csrc/likelihood_local_ctf.cu, one launch."""
+    dat_s (L, P) complex64; s_pack (L, P); terms the round's
+    :func:`ctf_terms` with per-image fields of L images; d (L, D); pri
+    (L, R, P) and tra (L, T, P) complex64; a_term (L,); priors w_r (L,
+    R), w_t (L, T), w_d (L, D).  Returns (u_r, u_t, u_d); the (L, D, R,
+    T) tensor is never formed on the card.  CPU tensors take
+    :func:`likelihood_local_ctf_plain`; CUDA tensors, all contiguous,
+    launch csrc/likelihood_local_ctf.cu once and nothing else."""
     if not dat_s.is_cuda:
-        return likelihood_local_ctf_plain(dat_s, s_pack, ctf, d, i_col, i_row,
-                                          size, pixel_size, pri, tra, a_term,
+        return likelihood_local_ctf_plain(dat_s, s_pack, terms, d, pri, tra, a_term,
                                           w_r, w_t, w_d)
     n_l, n_r, n_p = pri.shape
     n_t, n_d = tra.shape[1], d.shape[1]
-    for name, x, dt in (("dat_s", dat_s, COMPLEX), ("s_pack", s_pack, REAL),
-                        ("d", d, REAL), ("pri", pri, COMPLEX), ("tra", tra, COMPLEX),
-                        ("a_term", a_term, REAL), ("w_r", w_r, REAL),
-                        ("w_t", w_t, REAL), ("w_d", w_d, REAL)):
-        _native.require(x.dtype == dt and x.is_cuda,
-                        f"likelihood_local_ctf: {name} must be {dt} on the card")
+    ops = (("dat_s", dat_s, COMPLEX), ("s_pack", s_pack, REAL), ("ctf constants",
+           terms.consts, REAL), ("f2", terms.f2, REAL), ("angle", terms.ang, REAL),
+           ("d", d, REAL), ("pri", pri, COMPLEX), ("tra", tra, COMPLEX),
+           ("a_term", a_term, REAL), ("w_r", w_r, REAL), ("w_t", w_t, REAL),
+           ("w_d", w_d, REAL))
+    for name, x, dt in ops:
+        _native.require(x.dtype == dt and x.is_cuda and x.is_contiguous(),
+                        f"likelihood_local_ctf: {name} must be contiguous {dt} on the card")
     _native.require(dat_s.shape == (n_l, n_p) and s_pack.shape == (n_l, n_p)
                     and tra.shape == (n_l, n_t, n_p) and a_term.shape == (n_l,)
                     and w_r.shape == (n_l, n_r) and w_t.shape == (n_l, n_t)
-                    and w_d.shape == (n_l, n_d) and i_col.shape == (n_p,)
-                    and i_row.shape == (n_p,)
-                    and all(f.shape == (n_l,) for f in ctf),
+                    and w_d.shape == (n_l, n_d) and terms.f2.shape == (n_p,)
+                    and terms.ang.shape == (n_p,) and terms.consts.shape == (n_l, 8),
                     "likelihood_local_ctf: inconsistent shapes")
     plan = likelihood_ctf_plan(n_d, n_r, n_t)
     dev = dat_s.device
@@ -371,15 +418,11 @@ def likelihood_local_ctf(dat_s: torch.Tensor, s_pack: torch.Tensor,
     u_d = torch.empty((n_l, n_d), dtype=REAL, device=dev)
     if n_l == 0:
         return u_r, u_t, u_d
-    fcol, frow = i_col.to(REAL), i_row.to(REAL)
-    fx, fy = fcol / (pixel_size * size), frow / (pixel_size * size)
-    f2 = (fx * fx + fy * fy).contiguous()
-    ang = torch.atan2(frow, fcol).contiguous()
-    ctfk = ctf_constants(ctf)
-    keep = [t.contiguous() for t in (dat_s, s_pack, ctfk, f2, ang, d, pri, tra,
-                                     a_term, w_r, w_t, w_d)]
-    args = _LcArgs(*[t.data_ptr() for t in keep], u_r.data_ptr(), u_t.data_ptr(),
-                   u_d.data_ptr(), n_l, n_d, n_r, n_t, n_p)
+    args = _LcArgs(*[x.data_ptr() for _, x, _ in ops[:2]], terms.consts.data_ptr(),
+                   terms.f2.data_ptr(), terms.ang.data_ptr(),
+                   *[x.data_ptr() for _, x, _ in ops[5:]], u_r.data_ptr(), u_t.data_ptr(),
+                   u_d.data_ptr(), n_l, n_d, n_r, n_t, n_p, plan["n_rg"], plan["n_tt"],
+                   plan["n_dt"], plan["groups"])
     lib = _native.library()
     likelihood_local_ctf.launches += 1
     _native.check(lib.thunder_likelihood_local_ctf(

@@ -88,18 +88,24 @@ def ctf_packed(params: CtfParams, i_col: torch.Tensor, i_row: torch.Tensor,
     return -w1[..., None] * torch.sin(chi) + w2[..., None] * torch.cos(chi)
 
 
+def pixel_geometry(i_col: torch.Tensor, i_row: torch.Tensor, size: int,
+                   pixel_size: float) -> tuple:
+    """(f^2, angle) of packed integer frequencies (p,): fx^2 + fy^2 in
+    1/A^2 and atan2(row, col), as :func:`ctf_packed_scaled` forms them."""
+    fcol = i_col.to(REAL)
+    frow = i_row.to(REAL)
+    fx = fcol / (pixel_size * size)
+    fy = frow / (pixel_size * size)
+    return fx * fx + fy * fy, torch.atan2(frow, fcol)
+
+
 def ctf_packed_scaled(params: CtfParams, i_col: torch.Tensor, i_row: torch.Tensor,
                       size: int, pixel_size: float,
                       defocus_factor: torch.Tensor) -> torch.Tensor:
     """CTF with a multiplicative defocus factor d (the particle filter's
     fifth latent axis, CTF search): params (...,), defocus_factor
     (..., nd), pixels (p,) -> (..., nd, p)."""
-    fcol = i_col.to(REAL)
-    frow = i_row.to(REAL)
-    fx = fcol / (pixel_size * size)
-    fy = frow / (pixel_size * size)
-    f2 = fx * fx + fy * fy
-    angle = torch.atan2(frow, fcol)
+    f2, angle = pixel_geometry(i_col, i_row, size, pixel_size)
 
     lam = wavelength(params.voltage)
     w2 = params.amplitude_contrast

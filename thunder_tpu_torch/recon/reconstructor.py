@@ -12,6 +12,8 @@ while_loop does), with one host check per iteration.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -246,8 +248,98 @@ def symmetrize_ft_plain(f_grid: torch.Tensor, t_grid: torch.Tensor,
     return f_out, t_out
 
 
+SYM_BOX_BRICK, SYM_BOX_MAX, SYM_ORBIT_THREADS, SYM_MAX_ORBIT = (
+    _native.csrc_constant("symmetrize_ft.cu", n)
+    for n in ("BOX_BRICK", "BOX_MAX", "ORBIT_THREADS", "MAX_ORBIT"))
+SYM_ORBIT_SMEM = 56 * 1024      # the orbit form's bricks: four blocks of 512 threads an SM
+
+
+class SymForm(str):
+    """HK7's form for a group, a str ("orbit", "orbit-cube" or "box"; see
+    :func:`symmetrize_form`), carrying the group's signed permutations
+    (orbit forms) and the tables of orbit representatives it has built,
+    one a plan and device, so that a call reads nothing back from the
+    card."""
+
+    perms: np.ndarray | None = None
+
+    def reps(self, plan: dict, device) -> torch.Tensor:
+        """The least brick index of each orbit of ``plan``'s bricks under
+        the group, int32 on ``device`` (built on first use)."""
+        key = (plan["edges"], tuple(plan["n"]), str(device))
+        cache = self.__dict__.setdefault("_reps", {})
+        if key not in cache:
+            n = np.asarray(plan["n"])
+            half = n // 2
+            idx = np.arange(int(n.prod()))
+            m = np.stack([idx % n[0], idx // n[0] % n[1], idx // (n[0] * n[1])], -1) - half
+            least = idx.copy()
+            for p in self.perms[1:]:
+                q = m @ p.T + half
+                least = np.minimum(least, (q[:, 2] * n[1] + q[:, 1]) * n[0] + q[:, 0])
+            cache[key] = torch.as_tensor(idx[least == idx].astype(np.int32), device=device)
+        return cache[key]
+
+
+def symmetrize_form(sym_mats) -> SymForm:
+    """HK7's form for a group's matrices (order, 3, 3): "orbit" where every
+    mate is a signed permutation (each entry within 1e-6 of 0 or +-1, one
+    +-1 a row) that keeps z on its axis (C2, C4, D2, D4), "orbit-cube"
+    where signed permutations move z onto x or y (O), else "box".  Reads
+    the matrices on the host: form it once a group."""
+    m = np.asarray(torch.as_tensor(sym_mats).detach().cpu(), np.float64)
+    r = np.round(m)
+    signed = (np.abs(m - r).max() < 1e-6 and np.all(np.abs(r).sum(-1) == 1)
+              and np.all(np.abs(r).sum(-2) == 1))
+    if not signed or m.shape[0] > SYM_MAX_ORBIT:
+        return SymForm("box")
+    form = SymForm("orbit" if np.all(np.abs(r[:, 2, 2]) == 1) else "orbit-cube")
+    form.perms = r.astype(np.int64)
+    return form
+
+
+def symmetrize_plan(form: str, order: int, big: int, brick: tuple | None = None) -> dict:
+    """Launch plan of HK7 (see csrc/symmetrize_ft.cu).  Orbit forms: odd
+    bricks centered on multiples of their edges, indices -M..M an axis
+    covering the centered grid, an orbit a block.  Where z stays on its
+    axis ("orbit") the bricks are flat, b x b x 1 cells (long rows), b
+    of 31, 29, 27, 25, 23 the edge whose bricks cover the grid's side
+    most tightly (the larger on a tie), or 15 where those orbits of
+    ``order`` bricks (F and T, 12 bytes a cell) pass SYM_ORBIT_SMEM;
+    else ("orbit-cube") the largest cube of 11, 9, 7, 5 cells that fits.
+    Box form: an 8^3 brick a block, two BOX_MAX^3 buffers and each
+    mate's box.  ``brick``: other (xy, z) edges for an orbit form."""
+    c = big // 2
+    side = lambda b: 2 * max(-(((b - 1) // 2 - c) // b), (big - 1 - c + (b - 1) // 2) // b) + 1
+    if form.startswith("orbit"):
+        fits = lambda b, z: order * b * b * z * 12 <= SYM_ORBIT_SMEM
+        if brick is not None:
+            bxy, bz = brick
+        elif form == "orbit":
+            flat = [b for b in (31, 29, 27, 25, 23) if fits(b, 1)]
+            bxy, bz = (min(flat, key=lambda b: (side(b) * b, -b)) if flat else 15), 1
+        else:
+            bxy = bz = next(b for b in (11, 9, 7, 5) if fits(b, b))
+        edges = (bxy, bxy, bz)
+        n = [side(b) for b in edges]
+        return dict(orbit=1, edges=edges, n=n, threads=SYM_ORBIT_THREADS,
+                    smem=order * bxy * bxy * bz * 12)
+    nb = -(-big // SYM_BOX_BRICK)
+    return dict(orbit=0, edges=(SYM_BOX_BRICK,) * 3, n=[nb] * 3, threads=SYM_BOX_BRICK ** 3,
+                smem=2 * SYM_BOX_MAX ** 3 * 12 + 24 * (order - 1))
+
+
+class _SymArgs(ctypes.Structure):
+    """csrc/symmetrize_ft.cu's SymArgs."""
+    _fields_ = [(n, ctypes.c_void_p) for n in ("f_in", "t_in", "f_out", "t_out", "mats",
+                                                "reps")] + [
+        (n, ctypes.c_int) for n in ("n_mates", "big", "orbit", "bx", "by", "bz", "nx", "ny",
+                                    "nz", "blocks")] + [
+        ("r2max", ctypes.c_float)]
+
+
 def symmetrize_ft(f_grid: torch.Tensor, t_grid: torch.Tensor,
-                  sym_mats: torch.Tensor, max_radius_pad: float):
+                  sym_mats: torch.Tensor, max_radius_pad: float, form: SymForm | None = None):
     """Sum F and T over the symmetry group (SYMMETRIZE_FT,
     include/Geometry/Transformation.h:170-195):
 
@@ -255,10 +347,12 @@ def symmetrize_ft(f_grid: torch.Tensor, t_grid: torch.Tensor,
                  trilinear(grid, R_s f)
 
     f_grid (..., big, big, big) complex64 and t_grid float32 of the same
-    shape, centered; sym_mats (order, 3, 3), the identity first.  Returns
-    new (F, T).  CPU tensors take :func:`symmetrize_ft_plain`; CUDA
-    tensors launch csrc/symmetrize_ft.cu, one launch for every leading
-    grid and for F and T together."""
+    shape, centered; sym_mats (order, 3, 3), the identity first; ``form``
+    the group's :func:`symmetrize_form` (formed here, reading the matrices
+    on the host, where not given; a new grid size builds its table of
+    orbits once).  Returns new (F, T).  CPU tensors take
+    :func:`symmetrize_ft_plain`; CUDA tensors launch csrc/symmetrize_ft.cu,
+    one launch for every leading grid and for F and T together."""
     if sym_mats.shape[0] <= 1:
         return f_grid, t_grid
     if not f_grid.is_cuda:
@@ -273,15 +367,26 @@ def symmetrize_ft(f_grid: torch.Tensor, t_grid: torch.Tensor,
     n_grids = f_grid.numel() // big ** 3
     _native.require(n_grids <= 65535, "symmetrize_ft: more than 65535 grids")
     mats = sym_mats.to(device=f_grid.device, dtype=REAL).contiguous()
+    form = form or symmetrize_form(sym_mats)
+    _native.require(form == "box" or (form in ("orbit", "orbit-cube")
+                                      and getattr(form, "perms", None) is not None
+                                      and len(form.perms) == mats.shape[0]),
+                    f"symmetrize_ft: no form {form!r} for a group of {mats.shape[0]}")
+    plan = symmetrize_plan(form, mats.shape[0], big)
+    reps = form.reps(plan, f_grid.device) if plan["orbit"] else None
+    blocks = len(reps) if plan["orbit"] else int(np.prod(plan["n"]))
     f_out, t_out = torch.empty_like(f_grid), torch.empty_like(t_grid)
     if n_grids == 0:
         return f_out, t_out
+    args = _SymArgs(f_grid.data_ptr(), t_grid.data_ptr(), f_out.data_ptr(), t_out.data_ptr(),
+                    mats.data_ptr(), None if reps is None else reps.data_ptr(),
+                    mats.shape[0] - 1, big, plan["orbit"], *plan["edges"], *plan["n"], blocks,
+                    float(max_radius_pad) * float(max_radius_pad))
     lib = _native.library()
     symmetrize_ft.launches += 1
     symmetrize_ft.last_grids = n_grids
     _native.check(lib.thunder_symmetrize_ft(
-        f_grid.data_ptr(), t_grid.data_ptr(), f_out.data_ptr(), t_out.data_ptr(),
-        mats.data_ptr(), mats.shape[0] - 1, n_grids, big, float(max_radius_pad),
+        ctypes.addressof(args), n_grids, plan["threads"], plan["smem"],
         _native.stream_ptr(f_grid)), "symmetrize_ft")
     return f_out, t_out
 
