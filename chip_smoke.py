@@ -73,7 +73,22 @@ CTF_FORCE_ROUND the search type is set there, and the run says which
 happened.  Phase 6 runs configs/demo_3D.json's classification (K = 4,
 C4) for four rounds on 256 images of two sharp C4 species (HK2 once a
 rotation block a hemisphere, HK7 over the 2K grids in one launch, class
-purity above 1.5/K).  A local round, a CTF round and a K = 4 round run
+purity above 1.5/K).  Phase 7 runs the post-refinement paths through
+their CLIs on 1,024 images of the sharp C4 phantom at 160 px (SNR 8):
+``tools genmask`` of the phantom; configs/demo.json resumed in local
+search for two rounds with that mask and signal subtraction
+(Subtract.mrcs and Subtract.thu written and consistent, HK1 launched
+once a hemisphere by save_subtract, the power left inside the image mask
+within SUBTRACT_ADD of what the noise and the mask's left-out share
+predict); ``reconstruct --sym C4`` from the run's last .thu (HK3 and HK7;
+FSC 0.5 against the phantom finer than 12 A and within 3 shells of the
+run's own final map); ``postprocess`` of the half maps with the mask and
+with the auto-mask (78 FSC rows, finer than 10 A, a finite B factor and
+sharpened map, HK4's pair and full-space forms); ``project`` of the
+phantom at 2,000 random poses, then ``reconstruct --no-ctf`` (correlation
+with the phantom above 0.95); the volume tools on the run's maps and the
+STAR converter there and back; then HK1, HK3 and HK4 timed at those
+paths' new shapes.  A local round, a CTF round and a K = 4 round run
 under torch.profiler.  The runs split HK4's launches by what called it (the
 FSC / FRC, the preprocess spectra, the sigma stage) and the projection
 kernels' by global search, phase loop and sigma pass.  Phases 2 and 4 each run one round (3D round 1, 2D round
@@ -155,6 +170,42 @@ HK3_REFINE = (("K=4, a class and hemisphere", 32, 31, False),
 # MiB of quads) and at r 22 (92^3: 199 MiB), the sigma pass at r_u 31
 # (128^3: 537 MiB)
 K4_BANDS = ((18, 125, None), (22, 125, None), (31, 1, 512))
+# phase 7, the post-refinement paths: N_POST 160 px images of the sharp C4
+# phantom at SNR_POST (defocus factor 1), ROUNDS_POST local rounds of
+# configs/demo.json with a provided mask and signal subtraction, then
+# thunder_reconstruct, thunder_postprocess, thunder_project at N_PROJ
+# random poses, the volume tools and the STAR converter.  The images'
+# signal has SNR_POST times the noise's unit std over the box, so inside
+# the 80 A image mask (45 % of the box, where the phantom lies) the
+# originals carry P ~ 1 + 64 / 0.45 ~ 140 of power a pixel.  Subtraction
+# takes the projection of the masked reference away and leaves the noise
+# and the projection of what the mask leaves out; the auto-mask keeps the
+# phantom's largest connected part only, and the sharp phantom's small
+# blobs lie apart from it.  So the run measures f, the share of the
+# phantom's projected power that the mask leaves out (the phantom and the
+# phantom times (1 - mask) projected by HK1's plain version at random
+# poses), and expects the ratio (1 + f (P - 1)) / P; the errors of the
+# rank-1 poses and the noise of the reconstructed reference add to it
+# (0.0701-0.0712 in five calls against an expectation of 0.0166 after
+# two local rounds: PERF.md section 6).  Gate: the expectation plus
+# SUBTRACT_ADD, about 0.1: a third above what was measured
+N_POST, SNR_POST, ROUNDS_POST, N_PROJ = 1024, 8.0, 2, 2000
+SUBTRACT_ADD = 0.08
+# 7c holds reconstruct's FSC-0.5 crossing against the phantom within
+# CROSSING_SPREAD shells of 7b's final map's.  Both maps come from
+# MAP-free gridding at r_u = 78 (recon/reconstructor.py: balance_weights,
+# as in thunder_tpu): the balance treats |k| < r_u pf, insertion fills
+# |k| < (r_u - 1) pf, and in the ring between, where only trilinear spill
+# lands, W grows by orders of magnitude; what F W holds there reaches the
+# top shells through the real-space crop, by an amount that depends on
+# the poses.  Over five calls on the same data reconstruct's crossing lay
+# at shells 67-76, the final map's at 69-73 (PERF.md section 6); on the
+# CPU, thunder_tpu's reconstruct crosses where the port's does on the
+# same stack and poses, and both move by 3 shells between pose sets blurred
+# alike (tests/test_torch_band_edge.py).  So the gate is one path's
+# measured spread from call to call; 7c prints T, W and the crossing
+# with W = 1 / T near the edge
+CROSSING_SPREAD = 9
 # an H100 SXM's published peaks (HBM3 rate, FP32 vector rate), for bounds
 HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
 # a record whose call takes less is also timed apart from its wrapper
@@ -236,17 +287,59 @@ def low_pass(vol, shell: float, edge: float = 2.0):
     return np.real(np.fft.ifftn(np.fft.fftn(vol) * w)).astype(np.float32)
 
 
-def agreement_res(vol, truth) -> float:
-    """Resolution (A) at which the FSC of ``vol`` against ``truth`` first
-    drops below 0.5."""
+def agreement_shell(vol, truth) -> int:
+    """The last shell before the FSC of ``vol`` against ``truth`` (host
+    arrays of one box) first drops below 0.5 (the last of size / 2 - 2
+    shells when it never does)."""
     import torch
 
     from thunder_tpu_torch.ops.fourier import fft3_centered
     from thunder_tpu_torch.physics import spectrum
 
     a, b = (fft3_centered(torch.as_tensor(v)) for v in (vol, truth))
-    curve = spectrum.fsc(a, b, SIZE // 2 - 2).numpy()
-    return SIZE * PIXEL_SIZE / max(spectrum.res_p(curve, 0.5), 1)
+    curve = spectrum.fsc(a, b, vol.shape[-1] // 2 - 2).numpy()
+    return max(spectrum.res_p(curve, 0.5), 1)
+
+
+def agreement_res(vol, truth) -> float:
+    """Resolution (A) at which the FSC of ``vol`` against ``truth`` first
+    drops below 0.5."""
+    return vol.shape[-1] * PIXEL_SIZE / agreement_shell(vol, truth)
+
+
+def band_edge_report(f_grid, t_grid, truth) -> None:
+    """What MAP-free gridding does at the band's edge of one pair of
+    (size pf)^3 grids (F, T): the mean T and W (balance_weights) by
+    padded shell from 2 (r_u - 3) to 2 r_u + 1, and the FSC-0.5 crossing
+    against ``truth`` of the map made with W = 1 / T (T floored at 1e-6
+    of its largest value) in place of the balance."""
+    import torch
+
+    from thunder_tpu_torch.recon import reconstructor as rc
+
+    size, pf = truth.shape[-1], f_grid.shape[-1] // truth.shape[-1]
+    r_u, big, dev = size // 2 - 2, f_grid.shape[-1], f_grid.device
+    k = (torch.arange(big, device=dev) - big // 2).float()
+    u = torch.sqrt(k[:, None, None] ** 2 + k[None, :, None] ** 2
+                   + k[None, None, :] ** 2).round().long().reshape(-1)
+    count = torch.bincount(u, minlength=big).clamp(min=1)
+    first, last = 2 * (r_u - 3), 2 * r_u + 1
+
+    def by_shell(x):
+        m = (torch.bincount(u, x.reshape(-1).double(), minlength=big) / count).cpu()
+        return " ".join(f"{float(v):.3g}" for v in m[first:last + 1])
+
+    w = rc.balance_weights(t_grid, pf, r_u)
+    say(f"  7c band edge (insertion fills padded |k| < {(r_u - 1) * pf}, the balance treats "
+        f"|k| < {r_u * pf}): mean T by padded shell {first}-{last}: {by_shell(t_grid)}")
+    say(f"  7c band edge: mean W by padded shell {first}-{last}: {by_shell(w)}")
+    del w
+    inside = rc._quad_inside(big, r_u * pf, dev)
+    w_t = torch.where(inside, 1.0 / torch.clamp(t_grid, min=1e-6 * float(t_grid.max())),
+                      torch.zeros_like(t_grid))
+    vol = rc.finalize_reconstruction(f_grid, w_t, size, pf, r_u).cpu().numpy()
+    say(f"  7c band edge: the same grids with W = 1 / T cross FSC 0.5 against the phantom "
+        f"at shell {agreement_shell(vol, truth)}")
 
 
 def grid_sample_call(table, rot, i_col, i_row, pf: int, cls):
@@ -506,10 +599,13 @@ def hk4_by_caller(shapes: dict) -> dict:
     count by (form, B, C, N): spectrum.fsc (the hemisphere FSC, the ring
     FRC, the final maps' FSC) takes the pair form, the preprocess
     spectra the coordinate form, the sigma stage the row form with
-    three fields, with one, and once an image-less count (B = 1)."""
-    out = {"fsc_frc": 0, "preprocess": 0, "sigma_c3": 0, "sigma_c1": 0, "count": 0}
+    three fields, with one, and once an image-less count (B = 1); the
+    B-factor fit of postprocess the coordinate form over every cell."""
+    out = {"fsc_frc": 0, "preprocess": 0, "sigma_c3": 0, "sigma_c1": 0, "count": 0,
+           "b_factor": 0}
     for (form, n_b, n_c, _), k in shapes.items():
         key = ("fsc_frc" if form == "pair" else "preprocess" if form == "grid"
+               else "b_factor" if form == "full"
                else "sigma_c3" if n_c == 3 else "count" if n_b == 1 else "sigma_c1")
         out[key] += k
     return out
@@ -1555,8 +1651,9 @@ def phase_kernels_refine(dev):
 
 def demo_160(tmp: str, dev, config_name: str, k: int, rounds: int, start_res_a: float,
              local_resume: bool = False, defocus_factor: float = 1.0,
-             snr: float = SNR_R, init_res_a: float | None = None) -> tuple:
-    """A 160 px dataset of N_REFINE images of ``k`` sharp C4 species under
+             snr: float = SNR_R, init_res_a: float | None = None,
+             n: int = N_REFINE) -> tuple:
+    """A 160 px dataset of ``n`` images of ``k`` sharp C4 species under
     ``tmp``, and configs/<config_name> pointed at it with every other
     value as shipped: the start model is the mean phantom low-passed to
     ``start_res_a``; ``local_resume`` turns "Global Search" off and reads
@@ -1567,9 +1664,9 @@ def demo_160(tmp: str, dev, config_name: str, k: int, rounds: int, start_res_a: 
 
     here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.time()
-    write_demo(tmp, n=N_REFINE, size=SIZE_R, snr=snr, seed=0, device=dev, k=k, kind="sharp",
+    write_demo(tmp, n=n, size=SIZE_R, snr=snr, seed=0, device=dev, k=k, kind="sharp",
                sym="C4", defocus_factor=defocus_factor)
-    say(f"  dataset {N_REFINE} x {SIZE_R} px at SNR {snr}, {k} sharp C4 species, defocus x "
+    say(f"  dataset {n} x {SIZE_R} px at SNR {snr}, {k} sharp C4 species, defocus x "
         f"{defocus_factor}, written in {time.time() - t0:.1f} s")
     truth, _ = read_mrc(os.path.join(tmp, "init_model.mrc"))
     write_mrc(os.path.join(tmp, "start_model.mrc"),
@@ -1779,6 +1876,389 @@ def phase_classify_3d(dev, wrappers):
 
 
 
+def post_records(dev, tmp: str, meta_path: str, fit_shells: int) -> dict:
+    """HK1, HK3 and HK4 against their plain versions at phase 7's new
+    shapes, timed with their bounds: HK1 as save_subtract launches it
+    (a hemisphere's 512 images, one pose each, over all 160^2 pixels of
+    the box, from the 320^3 padded cube of the phantom; its taps clip at
+    the cube's faces at the image corners, which the subtraction zeroes),
+    HK3 as thunder_reconstruct launches it (the dataset's images at the
+    poses of ``meta_path``, r_u 78, into 320^3) and HK4's coordinate form
+    over every cell of a 160^3 spectrum, as the B-factor fit of
+    thunder_postprocess launches it (``fit_shells`` shells)."""
+    import torch
+
+    from thunder_tpu_torch.device import generator
+    from thunder_tpu_torch.geometry.quaternion import random_quat, rotate3d
+    from thunder_tpu_torch.io.loader import load_images
+    from thunder_tpu_torch.io.mrc import read_mrc
+    from thunder_tpu_torch.io.thu import read_thu
+    from thunder_tpu_torch.ops import insert, projector
+    from thunder_tpu_torch.ops.fourier import fft2_centered, fft3_centered
+    from thunder_tpu_torch.physics import spectrum
+    from thunder_tpu_torch.physics.ctf import ctf_params
+
+    gen = generator(7, dev)
+    size, pf, n_l = SIZE_R, 2, N_POST // 2
+    out = {}
+    vol = torch.as_tensor(read_mrc(os.path.join(tmp, "init_model.mrc"))[0], device=dev)
+    table = projector.prepare_projectee_3d(vol, pf).ft[None].contiguous()
+    k = torch.arange(size, dtype=torch.int32, device=dev) - size // 2
+    ky, kx = (g.reshape(-1) for g in torch.meshgrid(k, k, indexing="ij"))
+    n_p = kx.numel()
+    tail = (rotate3d(random_quat(gen, (n_l, 1), dev)), kx, ky, pf,
+            torch.zeros(n_l, dtype=torch.long, device=dev))
+    call = lambda: projector.project_slices(table, *tail)
+    got, ref = call(), projector.project_slices_plain(table, *tail)
+    shape = f"subtract L={n_l} R=1 P={n_p} from the {size * pf}^3 cube"
+    err = compare("project_slices", shape, got, ref, 1e-5,
+                  "same coordinates and tap order; the sums may contract into FMAs")
+    lib, lib_out = grid_sample_call(table, *tail)
+    inside = (kx * kx + ky * ky < (size // 2 - 1) ** 2)
+    compare("grid_sample (HK1's library yardstick)", "inside the radius the subtraction keeps",
+            lib_out(lib())[..., inside], got[..., inside], 1e-4,
+            "border clamps the coordinate where HK1 clamps each tap")
+    del got, ref
+    out["project_slices"] = record(
+        "project_slices", shape, err, timed(call, 10),
+        timed(lambda: projector.project_slices_plain(table, *tail), 2, warm=1),
+        table.numel() * 8 + n_l * 36 + 8 * n_p + 4 * n_l + n_l * n_p * 8, n_l * n_p * 60,
+        library_ms=timed(lib, 5))
+    del table, lib, vol
+
+    meta = read_thu(meta_path)
+    n_s = len(meta)
+    imgs = load_images(meta, tmp + "/")
+    ft = fft2_centered(torch.as_tensor(imgs, device=dev)).to(torch.complex64).contiguous()
+    ctf = ctf_params(meta.voltage, meta.defocus_u, meta.defocus_v, meta.defocus_theta, meta.cs,
+                     meta.amplitude_contrast, meta.phase_shift, device=dev)
+    r_u, big = size // 2 - 2, size * pf
+    some = (ft, ctf, torch.arange(n_s, device=dev),
+            rotate3d(torch.as_tensor(meta.quat, dtype=torch.float32, device=dev)),
+            torch.as_tensor(meta.trans, dtype=torch.float32, device=dev),
+            torch.full((n_s,), 1.0 / n_s, device=dev), r_u, pf, size, PIXEL_SIZE)
+    zeros = lambda: (torch.zeros((big,) * 3, dtype=torch.complex64, device=dev),
+                     torch.zeros((big,) * 3, device=dev))
+    (fk, tk), ((fp, tp), plain_ms) = (insert.insert_trilinear(*some, big),
+                                      timed_once(lambda: insert.insert_trilinear_plain(
+                                          *some, *zeros())))
+    shape = f"reconstruct slices={n_s} r_u={r_u} big={big}^3"
+    err = max(compare("insert_trilinear", f"F {shape}", torch.view_as_real(fk),
+                      torch.view_as_real(fp), 1e-4, "atomicAdd order varies from run to run"),
+              compare("insert_trilinear", "T", tk, tp, 1e-4, "atomicAdd order"))
+    del fk, tk, fp, tp
+    npx = int((insert.dense_window(r_u)[2] > 0).sum())
+    out["insert_trilinear"] = record(
+        "insert_trilinear", shape, err, timed(lambda: insert.insert_trilinear(*some, big), 3),
+        plain_ms, n_s * npx * 8 + n_s * 32 + n_s * 64 + big ** 3 * 12, n_s * npx * 110)
+    del ft, some
+
+    avg = read_mrc(os.path.join(tmp, "pp_mask_Reference_Average.mrc"))[0]
+    vals = fft3_centered(torch.as_tensor(avg, device=dev)).abs().reshape(1, 1, -1).contiguous()
+    n = vals.shape[-1]
+    u, _ = spectrum.shell_geometry(size, 3, dev)
+    call = lambda: spectrum.shell_sums_grid(vals, size, 3, fit_shells, False)
+    ref = spectrum.shell_sums_grid_plain(vals, size, 3, fit_shells, False)
+    shape = f"full space B=1 C=1 N={size}^3 shells={fit_shells}"
+    why = "float32 sums in another order, run-dependent where atomics add them"
+    err = compare("shell_sums", shape, call(), ref, 1e-4, why)
+    lib, lib_out = bincount_call(vals, u, fit_shells, None)
+    compare("bincount (HK4's library yardstick)", shape, lib_out(lib()), ref, 1e-4,
+            "float32 sums in another order")
+    out["shell_sums"] = record(
+        "shell_sums", shape, err, timed(call, 50),
+        timed(lambda: spectrum.shell_sums_grid_plain(vals, size, 3, fit_shells, False), 5),
+        4 * n + 4 * fit_shells, 2 * n, library_ms=timed(lib, 20), alone=call)
+    return out
+
+
+def left_out_share(dev, truth, mask, disc) -> float:
+    """The share of the phantom's projected power, inside ``disc``, that
+    ``mask`` leaves out: the phantom and the phantom times (1 - mask),
+    padded and projected at 64 random poses over every pixel by HK1's
+    plain version (no launch is counted), zero past the box's half
+    width."""
+    import torch
+
+    from thunder_tpu_torch.device import generator
+    from thunder_tpu_torch.geometry.quaternion import random_quat, rotate3d
+    from thunder_tpu_torch.ops.fourier import ifft2_centered
+    from thunder_tpu_torch.ops.projector import prepare_projectee_3d, project_slices_plain
+
+    size = truth.shape[-1]
+    t = torch.as_tensor(truth, device=dev)
+    table = torch.stack([prepare_projectee_3d(v, 2).ft
+                         for v in (t, t * (1 - torch.as_tensor(mask, device=dev)))])
+    k = torch.arange(size, device=dev) - size // 2
+    ky, kx = (g.reshape(-1) for g in torch.meshgrid(k, k, indexing="ij"))
+    rot = rotate3d(random_quat(generator(3, dev), (1, 64), dev)).expand(2, 64, 3, 3)
+    ft = project_slices_plain(table, rot, kx, ky, 2, torch.arange(2, device=dev))
+    ft = torch.where(kx * kx + ky * ky < (size // 2 - 1) ** 2, ft, torch.zeros_like(ft))
+    img = ifft2_centered(ft.reshape(2, 64, size, size))[..., torch.as_tensor(disc, device=dev)]
+    return float((img[1] ** 2).sum() / (img[0] ** 2).sum())
+
+
+def phase_post(dev, wrappers):
+    """Phase 7: the post-refinement paths through their CLIs on one 160 px
+    dataset (N_POST images of the sharp C4 phantom, SNR_POST): 7a
+    ``tools genmask`` of the phantom; 7b configs/demo.json resumed in
+    local search for ROUNDS_POST rounds with that mask and signal
+    subtraction; 7c ``reconstruct --sym C4`` from 7b's last .thu; 7d
+    ``postprocess`` of 7b's half maps with the mask and with the
+    auto-mask; 7e ``project`` of the phantom at N_PROJ random poses, then
+    ``reconstruct --no-ctf``; 7f the volume tools on 7b's maps and
+    ``star_convert`` there and back (see N_POST for the subtraction's
+    expected power).  Every count is set to 0 before 7a
+    and read after 7f; then the kernel records at the new shapes.
+    Returns (launches, records, step walls)."""
+    import contextlib
+    import io
+    import re
+
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.cli import postprocess as cli_post
+    from thunder_tpu_torch.cli import project as cli_project
+    from thunder_tpu_torch.cli import reconstruct as cli_reco
+    from thunder_tpu_torch.cli import star_convert, thunder, tools
+    from thunder_tpu_torch.io.mrc import MrcFile, read_mrc
+    from thunder_tpu_torch.io.thu import read_thu
+    from thunder_tpu_torch.optimiser import Optimiser
+    from thunder_tpu_torch.physics.mask import radial_grid
+    from thunder_tpu_torch.physics.spectrum import res_a2p, shell_sums
+    from thunder_tpu_torch.postprocess import B_FACTOR_EST_LOW_RES
+    from thunder_tpu_torch.recon import reconstructor as rc
+
+    walls, steps = {}, {}
+    dv = ["--device", str(dev)]
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        before = {k: w.launches for k, w in wrappers.items()}
+        t0 = time.time()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.time() - t0
+        steps[name] = {k: w.launches - before[k] for k, w in wrappers.items()}
+        say(f"  7{name}: {walls[name]:.2f} s, launches "
+            f"{ {k: c for k, c in steps[name].items() if c} }")
+        if rc not in (None, 0):
+            fail(f"7{name}: returned {rc}")
+        return buf.getvalue()
+
+    def finite_volume(label, path, shape):
+        v, _ = read_mrc(path)
+        if v.shape != shape or not np.isfinite(v).all():
+            fail(f"{label}: {os.path.basename(path)} has shape {v.shape} (expected {shape}) "
+                 "or non-finite values")
+        return v
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_post_") as tmp:
+        j = lambda *p: os.path.join(tmp, *p)
+        cfg_path, truth = demo_160(tmp, dev, "demo.json", 1, ROUNDS_POST, LOCAL_START_RES_A,
+                                   local_resume=True, snr=SNR_POST, n=N_POST)
+        box = (SIZE_R,) * 3
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        shell_sums.shapes.clear()
+
+        step("a tools genmask", lambda: tools.main(
+            ["genmask", "-i", j("init_model.mrc"), "-o", j("mask.mrc")] + dv))
+        mask = finite_volume("7a", j("mask.mrc"), box)
+        inside = float((truth[mask >= 0.5] ** 2).sum() / (truth ** 2).sum())
+        say(f"  7a: mask of {int((mask >= 0.5).sum())} voxels at 0.5 or more, values in "
+            f"[{mask.min():.3f}, {mask.max():.3f}], holding {inside:.4f} of the phantom's "
+            "power (the largest connected part)")
+        if not (mask.max() == 1.0 and mask.min() >= 0.0 and inside > 0.1):
+            fail("7a: the auto-mask is not a [0, 1] mask around the phantom's density")
+
+        with open(cfg_path) as f:
+            cfg = json.load(f)
+        cfg["Reference Mask"].update({"Perform Reference Mask": True,
+                                      "Provided Mask": j("mask.mrc")})
+        cfg["Subtract"]["Subtract Masked Region Reference From Images"] = True
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f, indent=2)
+        save_subtract, sub = Optimiser.save_subtract, {}
+
+        def counted(self, m, chunk=512):
+            before = wrappers["project_slices"].launches
+            res = save_subtract(self, m, chunk)
+            sub["hk1"], sub["n_img"] = wrappers["project_slices"].launches - before, self.n_img
+            return res
+
+        Optimiser.save_subtract = counted
+        try:
+            step("b thunder", lambda: thunder.main([cfg_path] + dv))
+        finally:
+            Optimiser.save_subtract = save_subtract
+        out = j("output")
+        with open(os.path.join(out, "round_metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        for rec in recs:
+            say(f"  7b round {rec['round']}: r={rec['r']} search {rec['search_type']}->"
+                f"{rec['search_type_after']} phases={rec['n_phases']} res={rec['res_A']:.3f} A  "
+                f"{rec['elapsed_s']:.3f} s")
+        check_maps("7b", out, len(recs), 1)
+        meta_path = os.path.join(out, f"Meta_Round_{len(recs) - 1:03d}.thu")
+        stack = os.path.join(out, "Subtract.mrcs")
+        if not (os.path.exists(stack) and os.path.exists(os.path.join(out, "Subtract.thu"))):
+            fail("7b: Subtract.mrcs or Subtract.thu not written")
+        sub_mrc = MrcFile(stack)
+        if (sub_mrc.nz, sub_mrc.ny, sub_mrc.nx) != (N_POST, SIZE_R, SIZE_R):
+            fail(f"7b: Subtract.mrcs holds {(sub_mrc.nz, sub_mrc.ny, sub_mrc.nx)}")
+        subtracted = sub_mrc.read_slices(list(range(N_POST)))
+        if not np.isfinite(subtracted).all():
+            fail("7b: Subtract.mrcs has non-finite values")
+        s_thu, meta = read_thu(os.path.join(out, "Subtract.thu")), read_thu(meta_path)
+        if s_thu.particle_path != [f"{i + 1}@{stack}" for i in range(N_POST)]:
+            fail("7b: Subtract.thu entry i does not name slice i of Subtract.mrcs")
+        if not np.array_equal(s_thu.quat, meta.quat):
+            fail("7b: Subtract.thu does not carry the last round's poses")
+        want_hk1 = 2 * -(-sub.get("n_img", 0) // 512)
+        say(f"  7b: save_subtract launched HK1 {sub.get('hk1')} times "
+            f"({sub.get('n_img')} images a hemisphere, 512 a launch: {want_hk1})")
+        if sub.get("hk1") != want_hk1 or want_hk1 == 0:
+            fail(f"7b: save_subtract launched HK1 {sub.get('hk1')} times, expected {want_hk1}")
+        orig = MrcFile(j("particles.mrcs")).read_slices(
+            [int(p.split("@")[0]) - 1 for p in meta.particle_path])
+        disc = radial_grid(SIZE_R, 2) < cfg["Basic"]["Radius of Mask on Images (Angstrom)"] / PIXEL_SIZE
+        p_orig = float((orig[:, disc] ** 2).mean())
+        ratio = float((subtracted[:, disc] ** 2).mean()) / p_orig
+        f_out = left_out_share(dev, truth, mask, disc)
+        want = (1 + f_out * (p_orig - 1)) / p_orig
+        gate = want + SUBTRACT_ADD
+        say(f"  7b: mean power a pixel inside the image mask: originals {p_orig:.3f} (noise 1), "
+            f"subtracted / originals {ratio:.5f}; the mask leaves out {f_out:.4f} of the "
+            f"phantom's projected power, so expected {want:.5f}; gate {gate:.5f}")
+        if not ratio <= gate:
+            fail(f"7b: subtracted images keep {ratio:.4f} of the originals' power inside the "
+                 f"mask, more than {gate:.4f}")
+        del subtracted, orig
+
+        grids, reco_fn = {}, rc.reconstruct
+
+        def keep_grids(f_grid, t_grid, *args, **kwargs):
+            grids["f"], grids["t"] = f_grid, t_grid
+            return reco_fn(f_grid, t_grid, *args, **kwargs)
+
+        rc.reconstruct = keep_grids
+        try:
+            step("c reconstruct", lambda: cli_reco.main(
+                ["--thu", meta_path, "-o", j("reco_c4.mrc"), "--size", str(SIZE_R),
+                 "--pixelsize", str(PIXEL_SIZE), "--prefix", tmp + "/", "--sym", "C4"] + dv))
+        finally:
+            rc.reconstruct = reco_fn
+        if not (steps["c reconstruct"]["insert_trilinear"] >= 1
+                and steps["c reconstruct"]["symmetrize_ft"] == 1):
+            fail(f"7c: HK3 or HK7 not launched: {steps['c reconstruct']}")
+        reco = finite_volume("7c", j("reco_c4.mrc"), box)
+        final = read_mrc(os.path.join(out, "Reference_000_Final.mrc"))[0]
+        sh_c, sh_b = agreement_shell(reco, truth), agreement_shell(final, truth)
+        res_c = SIZE_R * PIXEL_SIZE / sh_c
+        say(f"  7c: FSC-0.5 against the phantom: reconstruct shell {sh_c} ({res_c:.3f} A), "
+            f"7b's Reference_000_Final shell {sh_b} ({SIZE_R * PIXEL_SIZE / sh_b:.3f} A)")
+        band_edge_report(grids.pop("f"), grids.pop("t"), truth)
+        if not res_c < 12.0:
+            fail(f"7c: the map agrees with the phantom to {res_c:.2f} A, not finer than 12 A")
+        if abs(sh_c - sh_b) > CROSSING_SPREAD:
+            fail(f"7c: reconstruct's crossing is at shell {sh_c}, 7b's final map's at {sh_b}: "
+                 f"more than {CROSSING_SPREAD} apart")
+
+        fit = {}
+        shell_sums.shapes.clear()
+        for tag, extra in (("mask", ["-m", j("mask.mrc")]), ("auto", [])):
+            line = step(f"d postprocess ({tag})", lambda: cli_post.main(
+                ["-a", os.path.join(out, "Reference_000_A_Final.mrc"),
+                 "-b", os.path.join(out, "Reference_000_B_Final.mrc"), "--pixelsize",
+                 str(PIXEL_SIZE), "--out-prefix", j(f"pp_{tag}_")] + extra + dv)).strip()
+            say(f"  7d ({tag}): {line}")
+            m = re.match(r"resolution: (\S+) A \(shell (\d+)\), B factor: (\S+)", line)
+            if m is None:
+                fail(f"7d ({tag}): no result line")
+            res_a, shell, b_fac = float(m.group(1)), int(m.group(2)), float(m.group(3))
+            fsc = np.loadtxt(j(f"pp_{tag}_Postprocess_FSC.txt"))
+            if fsc.shape != (SIZE_R // 2 - 2, 5) or not np.isfinite(fsc).all():
+                fail(f"7d ({tag}): Postprocess_FSC.txt has shape {fsc.shape} or non-finite "
+                     "values (expected shells 1-78, five columns)")
+            finite_volume(f"7d ({tag})", j(f"pp_{tag}_Reference_Sharp.mrc"), box)
+            if not (res_a < 10.0 and np.isfinite(b_fac)):
+                fail(f"7d ({tag}): resolution {res_a} A not finer than 10 A or B factor "
+                     f"{b_fac} not finite")
+            low = int(round(res_a2p(1.0 / B_FACTOR_EST_LOW_RES, SIZE_R, PIXEL_SIZE)))
+            fit[tag] = max(shell, low + 2)
+        forms = {key[0] for key in shell_sums.shapes}
+        say(f"  7d: HK4 launches by (form, B, C, N): {dict(shell_sums.shapes)}")
+        if not {"pair", "full"} <= forms:
+            fail(f"7d: HK4's pair and full-space forms not both launched: {sorted(forms)}")
+
+        n_before = wrappers["project_slices"].launches
+        step("e project", lambda: cli_project.main(
+            ["-i", j("init_model.mrc"), "-o", j("proj.mrcs"), "-n", str(N_PROJ), "--save-thu",
+             j("proj.thu")] + dv))
+        if wrappers["project_slices"].launches - n_before != -(-N_PROJ // 512):
+            fail(f"7e: project launched HK1 {wrappers['project_slices'].launches - n_before} "
+                 f"times for {N_PROJ} images, 512 a launch")
+        step("e reconstruct --no-ctf", lambda: cli_reco.main(
+            ["--thu", j("proj.thu"), "-o", j("reco_proj.mrc"), "--size", str(SIZE_R),
+             "--pixelsize", str(PIXEL_SIZE), "--no-ctf"] + dv))
+        rp = finite_volume("7e", j("reco_proj.mrc"), box)
+        inner = radial_grid(SIZE_R, 3) < SIZE_R // 2 - 4
+        corr = float(np.corrcoef(rp[inner], truth[inner])[0, 1])
+        say(f"  7e: project -> reconstruct correlation with the phantom inside r < "
+            f"{SIZE_R // 2 - 4}: {corr:.5f} (gate 0.95)")
+        if not corr > 0.95:
+            fail(f"7e: correlation {corr:.4f} with the phantom, not above 0.95")
+
+        a_map, b_map = (os.path.join(out, f"Reference_000_{h}_Final.mrc") for h in "AB")
+        small = (128,) * 3
+        for name, argv, shape in (
+                ("lowpass", ["-i", a_map, "-o", j("t_lp.mrc"), "--res", "8", "--pixelsize",
+                             str(PIXEL_SIZE)], box),
+                ("bfactor", ["-i", a_map, "-o", j("t_bf.mrc"), "--bfactor", "60"], box),
+                ("resize", ["-i", a_map, "-o", j("t_128.mrc"), "--size", "128"], small),
+                ("resize", ["-i", j("t_128.mrc"), "-o", j("t_160.mrc"), "--size",
+                            str(SIZE_R)], box),
+                ("mask", ["-i", a_map, "-o", j("t_mask.mrc"), "--mask", j("mask.mrc")], box),
+                ("average", ["-i", a_map, b_map, "-o", j("t_avg.mrc")], box),
+                ("minus", ["-a", a_map, "-b", b_map, "-o", j("t_minus.mrc")], box),
+                ("alignz", ["-i", a_map, "-o", j("t_alignz.mrc")], box),
+                ("genmask_shell", ["-o", j("t_shell.mrc"), "--size", str(SIZE_R), "--rin",
+                                   "20", "--rout", "60", "--pixelsize", str(PIXEL_SIZE)], box)):
+            label = f"f tools {name}" + (f" to {argv[-1]}" if name == "resize" else "")
+            step(label, lambda: tools.main([name] + argv + dv))
+            finite_volume(f"7f tools {name}", argv[argv.index("-o") + 1], shape)
+        shown = step("f tools view", lambda: tools.main(["view", "-i", a_map] + dv))
+        if f"shape={box}" not in shown:
+            fail(f"7f tools view printed {shown[:200]!r}")
+        step("f star_convert", lambda: (
+            star_convert.main(["thu2star", "-i", meta_path, "-o", j("meta.star"),
+                               "--pixelsize", str(PIXEL_SIZE)])
+            or star_convert.main(["star2thu", "-i", j("meta.star"), "-o", j("back.thu")])))
+        back = read_thu(j("back.thu"))
+        dq = np.abs(np.abs(np.sum(back.quat * meta.quat, axis=1)) - 1).max()
+        errs = {"quat": dq, "trans": np.abs(back.trans - meta.trans).max()}
+        for f_ in ("voltage", "defocus_u", "defocus_v", "defocus_theta", "cs",
+                   "amplitude_contrast", "phase_shift"):
+            a_, b_ = getattr(back, f_), getattr(meta, f_)
+            errs[f_] = float(np.abs(a_ - b_).max() / max(np.abs(b_).max(), 1.0))
+        say(f"  7f star round trip, largest errors: {json.dumps(errs, default=float)}")
+        if back.particle_path != meta.particle_path or max(errs.values()) > 1e-4:
+            fail("7f: thu -> star -> thu did not give back the poses and CTFs within 1e-4")
+
+        launches = {name: w.launches for name, w in wrappers.items()}
+        say(f"  phase 7 launches {launches}; walls {json.dumps(walls, default=float)}")
+        for name in ("project_slices", "insert_trilinear", "shell_sums", "symmetrize_ft"):
+            if launches[name] <= 0:
+                fail(f"phase 7: {name} never launched")
+        say("  phase 7 kernel records at the new shapes")
+        recs_post = post_records(dev, tmp, meta_path, fit["mask"])
+    return launches, recs_post, walls
+
 def main() -> None:
     try:
         import torch
@@ -1862,8 +2342,13 @@ def main() -> None:
     say(f"[{time.time() - t_start:.1f} s] phase 6: 3D classification (configs/demo_3D.json)")
     launches_k4, prof_k4 = phase_classify_3d(dev, wrappers_r)
     torch.cuda.synchronize()
+    say(f"[{time.time() - t_start:.1f} s] phase 7: the post-refinement paths (genmask, "
+        "subtraction, reconstruct, postprocess, project, tools, STAR)")
+    launches_post, results_post, walls_post = phase_post(dev, wrappers_r)
+    torch.cuda.synchronize()
     profiles = [prof_3d, prof_2d, prof_a, prof_b, prof_k4]
-    later = dict(refine_a=launches_a, refine_b=launches_b, classify_3d=launches_k4)
+    later = dict(refine_a=launches_a, refine_b=launches_b, classify_3d=launches_k4,
+                 post=launches_post)
     for name in ("symmetrize_ft", "likelihood_local_ctf"):
         if sum(path[name] for path in later.values()) <= 0:
             fail(f"{name} was never launched by phases 5 and 6")
@@ -1893,17 +2378,23 @@ def main() -> None:
     hk4_shapes = {f"{path} {k}": r for path, recs_4 in (("3d", results["shell_sums"]),
                                                         ("2d", results_2d["shell_sums_2d"]))
                   for k, r in recs_4.items()}
+    hk4_shapes["post full"] = results_post["shell_sums"]
     more_lk = results["likelihood_block_3d"] + results_2d["likelihood_block_more"]
     recs = {
-        "project_slices": dict(results["project_slices"],
-                               k4_tables=results_r["project_slices_k4"]),
+        "project_slices": dict(
+            results["project_slices"], k4_tables=results_r["project_slices_k4"],
+            subtract_shape=results_post["project_slices"],
+            max_abs_err=max(results["project_slices"]["max_abs_err"],
+                            results_post["project_slices"]["max_abs_err"])),
         "likelihood_block": dict(
             results_2d["likelihood_block"], other_shapes=more_lk,
             max_abs_err=max(r["max_abs_err"] for r in more_lk + [results_2d["likelihood_block"]])),
         "insert_trilinear": dict(
             results["insert_trilinear"], refine_shapes=results_r["insert_trilinear_refine"],
+            reconstruct_shape=results_post["insert_trilinear"],
             max_abs_err=max(results["insert_trilinear"]["max_abs_err"],
                             results_r["insert_trilinear_d"],
+                            results_post["insert_trilinear"]["max_abs_err"],
                             *(r["max_abs_err"] for r in results_r["insert_trilinear_refine"]))),
         "shell_sums": dict(results["shell_sums"]["pair"], shapes=hk4_shapes,
                            max_abs_err=max(r["max_abs_err"] for r in hk4_shapes.values())),
@@ -1950,7 +2441,8 @@ def main() -> None:
     say(f"[{time.time() - t_start:.1f} s] done")
     say(card)
     say(json.dumps({"profiles": profiles}))
-    say(json.dumps({"kernels": kernels, "empty_launch_ms": floor_ms}))
+    say(json.dumps({"kernels": kernels, "empty_launch_ms": floor_ms,
+                    "post_walls_s": walls_post}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

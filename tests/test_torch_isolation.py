@@ -5,6 +5,7 @@ on the card unless the caller asks for the CPU."""
 
 import ast
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -46,11 +47,22 @@ def test_source_imports_neither_jax_nor_thunder_tpu(path):
     assert not bad, f"{path} imports {bad}"
 
 
-@pytest.mark.parametrize("name", ["demo_2D.json", "demo_3D.json", "demo.json"])
-def test_config_from_json_matches_thunder_tpu(name):
+@pytest.mark.parametrize("name", ["demo_2D.json", "demo_3D.json", "demo.json",
+                                  "demo.json, subtraction on"])
+def test_config_from_json_matches_thunder_tpu(name, tmp_path):
     """Every field of the port's config, and the derived bands (r_global
-    included), equal thunder_tpu's on the repo's reference configs."""
-    path = os.path.join(REPO, "configs", name)
+    included), equal thunder_tpu's on the repo's reference configs, and
+    on configs/demo.json with its "Subtract" section turned on."""
+    path = os.path.join(REPO, "configs", name.split(",")[0])
+    if name.endswith("subtraction on"):
+        with open(path) as f:
+            raw = json.load(f)
+        raw["Subtract"] = {"Subtract Masked Region Reference From Images": True,
+                           "Region Need to Be Centred": "region.mrc"}
+        path = str(tmp_path / "subtract.json")
+        with open(path, "w") as f:
+            json.dump(raw, f)
+        assert TConfig.from_json(path).subtract and JConfig.from_json(path).subtract
     tc, jc = TConfig.from_json(path), JConfig.from_json(path)
     for f in dataclasses.fields(TConfig):
         assert getattr(tc, f.name) == getattr(jc, f.name), f.name
@@ -128,10 +140,13 @@ def test_as_device_raises_without_a_card(no_card):
 
 def test_entry_points_raise_without_a_card(no_card, tmp_path):
     """With no card and no explicit CPU, the synthetic generators, the
-    Optimiser and the CLI raise instead of running on the CPU."""
+    Optimiser, postprocess() and every CLI that computes raise instead of
+    running on the CPU."""
+    from thunder_tpu_torch.cli import postprocess, project, reconstruct, tools
     from thunder_tpu_torch.cli.thunder import main
     from thunder_tpu_torch.optimiser import Optimiser
     from thunder_tpu_torch.pipeline import synthetic
+    from thunder_tpu_torch.postprocess import postprocess as postprocess_maps
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         synthetic.make_dataset_2d(16, 4, 2)
@@ -145,3 +160,15 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         Optimiser(cfg, imgs, ctf, np.zeros(8, np.int64))
     with pytest.raises(RuntimeError, match="--device cpu"):
         main([cfg_path])
+    vol = str(tmp_path / "v.mrc")
+    tmrc.write_mrc(vol, np.ones((8, 8, 8), np.float32), 1.0)
+    for cli, argv in (
+            (reconstruct, ["--thu", "x.thu", "-o", "o.mrc", "--size", "8", "--pixelsize", "1"]),
+            (project, ["-i", vol, "-o", "o.mrcs", "-n", "2"]),
+            (postprocess, ["-a", vol, "-b", vol, "-m", vol, "--pixelsize", "1"]),
+            (tools, ["lowpass", "-i", vol, "-o", "o.mrc", "--res", "4"]),
+            (tools, ["genmask", "-i", vol, "-o", "o.mrc"])):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            cli.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        postprocess_maps(np.ones((8,) * 3), np.ones((8,) * 3), np.ones((8,) * 3), 1.0)

@@ -455,3 +455,28 @@ def test_insert_trilinear_defocus_factor(dev):
     f0, t0 = insert.insert_trilinear(*some, big)
     assert rel_err(torch.view_as_real(f1), torch.view_as_real(f0)) < 1e-4
     assert rel_err(torch.view_as_real(f0), torch.view_as_real(fp)) > 1e-3
+
+
+def test_post_refinement_paths(dev):
+    """The post-refinement paths' kernel calls against the same calls on
+    the CPU: signal subtraction (HK1 over every pixel of the box from the
+    whole padded cube, taps clipped at its faces at the image corners,
+    zeroed past the radius) and the B-factor fit (HK4's coordinate form
+    over every cell); 1e-4: float32 sums in another order."""
+    from thunder_tpu_torch.optimiser import subtract_batch, subtract_table
+
+    g = generator(17, dev)
+    size, n_b = 40, 12
+    refs = torch.randn(2, size, size, size, generator=g, device=dev)
+    ft = torch.complex(torch.randn(n_b, size, size, generator=g, device=dev),
+                       torch.randn(n_b, size, size, generator=g, device=dev))
+    args = (_ctf_fields(dev, n_b, 5), torch.randint(0, 2, (n_b,), generator=g, device=dev),
+            random_quat(g, (n_b,), dev), 2 * torch.randn(n_b, 2, generator=g, device=dev))
+    cpu = lambda t: t.cpu() if torch.is_tensor(t) else t.map(lambda f: f.cpu())
+    got = subtract_batch(ft, args[0], subtract_table(refs, 2, 3), *args[1:], size, 2, 1.32)
+    ref = subtract_batch(ft.cpu(), cpu(args[0]), subtract_table(refs.cpu(), 2, 3),
+                         *map(cpu, args[1:]), size, 2, 1.32)
+    assert rel_err(got.cpu(), ref) < 1e-4
+    spec = torch.fft.fftshift(torch.fft.fftn(refs[0]))
+    b_dev, b_cpu = (spectrum.b_factor_est(s, 17, 4) for s in (spec, spec.cpu()))
+    assert abs(b_dev - b_cpu) <= 1e-4 * abs(b_cpu)

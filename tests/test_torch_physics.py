@@ -236,7 +236,8 @@ def test_shell_sums_plan(n_b, n, pieces):
 
 def test_chip_smoke_splits_hk4_launches_by_caller():
     """chip_smoke.py's split of HK4's launch count, from the wrapper's
-    count by (form, B, C, N)."""
+    count by (form, B, C, N); the full-space coordinate form is the
+    B-factor fit's."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -246,9 +247,10 @@ def test_chip_smoke_splits_hk4_launches_by_caller():
     spec.loader.exec_module(smoke)
     shapes = {("pair", 1, 3, 128 ** 3): 7, ("pair", 30, 3, 160 ** 2): 2,
               ("grid", 1, 1, 160 ** 2): 4, ("rows", 256, 3, 2048): 3,
-              ("rows", 256, 1, 4096): 3, ("rows", 1, 1, 2048): 5, ("rows", 1, 1, 4096): 1}
+              ("rows", 256, 1, 4096): 3, ("rows", 1, 1, 2048): 5, ("rows", 1, 1, 4096): 1,
+              ("full", 1, 1, 160 ** 3): 2}
     assert smoke.hk4_by_caller(shapes) == {"fsc_frc": 9, "preprocess": 4, "sigma_c3": 3,
-                                           "sigma_c1": 3, "count": 6}
+                                           "sigma_c1": 3, "count": 6, "b_factor": 2}
 
 
 def test_fsc_golden_and_res_p():

@@ -58,8 +58,8 @@ def run_rounds(package: str, cfg_path: str, rounds: int, seed: int):
         from thunder_tpu.physics.ctf import ctf_params
         kw = {}
     else:
-        from thunder_tpu_torch.cli.thunder import load_images
         from thunder_tpu_torch.config import ThunderConfig
+        from thunder_tpu_torch.io.loader import load_images
         from thunder_tpu_torch.io.mrc import read_mrc
         from thunder_tpu_torch.io.thu import read_thu
         from thunder_tpu_torch.optimiser import Optimiser

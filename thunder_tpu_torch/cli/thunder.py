@@ -9,8 +9,11 @@ reference's per-round artifacts (FSC_Round_xxx.txt,
 Class_Info_Round_xxx.txt with each class's occupancy and resolution,
 Meta_Round_xxx.thu, and the references: Reference_xxx_{A,B}_Round_xxx.mrc
 in 3D, the stack of K class averages Reference_Round_xxx.mrcs in 2D)
-and the final maps (Reference_Final.mrcs in 2D).  Stacks are read with
-the numpy MRC reader, so no native library is needed.
+and the final maps (Reference_Final.mrcs in 2D); in 3D with "Subtract
+Masked Region Reference From Images" and a provided mask, the
+signal-subtracted images Subtract.mrcs and their .thu, Subtract.thu.
+Particles are read by io/loader.py (MRC stacks with the numpy reader,
+8-bit BMP files), so no native library is needed.
 """
 
 from __future__ import annotations
@@ -23,24 +26,6 @@ import sys
 import numpy as np
 
 log = logging.getLogger("thunder")
-
-
-def load_images(thu, prefix: str = "") -> np.ndarray:
-    """(n, size, size) float32 stack, internal FFT layout, in .thu order."""
-    from thunder_tpu_torch.io.mrc import MrcFile
-    from thunder_tpu_torch.io.thu import parse_stack_ref
-
-    per_file: dict = {}
-    for pos, ref in enumerate(thu.particle_path):
-        fname, slc = parse_stack_ref(ref)
-        per_file.setdefault(prefix + fname, []).append(
-            (pos, 0 if slc is None else slc - 1))
-    out = [None] * len(thu)
-    for path, entries in per_file.items():
-        imgs = MrcFile(path).read_slices([s for _, s in entries])
-        for (pos, _), img in zip(entries, imgs):
-            out[pos] = img
-    return np.stack(out)
 
 
 def save_round_artifacts(opt, thu, out_dir: str, i_round: int) -> None:
@@ -94,8 +79,9 @@ def main(argv=None) -> int:
 
     from thunder_tpu_torch.config import ThunderConfig
     from thunder_tpu_torch.device import as_device
+    from thunder_tpu_torch.io.loader import load_images
     from thunder_tpu_torch.io.mrc import read_mrc, write_mrc
-    from thunder_tpu_torch.io.thu import read_thu
+    from thunder_tpu_torch.io.thu import read_thu, write_thu
     from thunder_tpu_torch.model import SEARCH_TYPE_STOP
     from thunder_tpu_torch.optimiser import Optimiser
     from thunder_tpu_torch.utils.logging import RoundMetrics
@@ -150,6 +136,17 @@ def main(argv=None) -> int:
             for h, tag in ((0, "A"), (1, "B")):
                 write_mrc(os.path.join(out_dir, f"Reference_{t:03d}_{tag}_Final.mrc"),
                           refs[h, t], cfg.pixel_size)
+    if cfg.subtract and not cfg.mode_2d:
+        log.info("signal subtraction")
+        if opt._ref_mask is None:
+            log.warning("subtraction requested but no mask provided; skipped")
+        else:
+            stack_path = os.path.join(out_dir, "Subtract.mrcs")
+            write_mrc(stack_path, opt.save_subtract(opt._ref_mask), cfg.pixel_size,
+                      is_stack=True)
+            sub_thu = opt.export_thu(thu)
+            sub_thu.particle_path = [f"{i + 1}@{stack_path}" for i in range(len(sub_thu))]
+            write_thu(os.path.join(out_dir, "Subtract.thu"), sub_thu)
     log.info("final resolution: %.2f A",
              opt.model.res_angstrom(cfg.thres_report_fsc))
     return 0

@@ -4,9 +4,9 @@ include/Optimiser.h:80-453), with the fields and defaults of
 thunder_tpu.config.ThunderConfig that the port uses.
 
 ``ThunderConfig.from_json`` accepts the reference's section layout
-(Basic / Reference Mask / Advanced / Professional), so the demo configs
-(configs/demo_2D.json etc.) run unmodified; keys the port does not use
-are ignored.
+(Basic / Reference Mask / Advanced / Professional / Subtract), so the
+demo configs (configs/demo_2D.json etc.) run unmodified; keys the port
+does not use are ignored.
 """
 
 from __future__ import annotations
@@ -75,6 +75,10 @@ class ThunderConfig:
     skip_e: bool = False
     skip_m: bool = False
     skip_r: bool = False
+
+    # --- Subtract ---
+    subtract: bool = False              # Subtract Masked Region Reference From Images
+    centre_region: str = ""             # Region Need to Be Centred
 
     # --- not in the reference config ---
     seed: int = 20260816
@@ -192,5 +196,9 @@ _JSON_KEYS = {
         "Skip Expectation": "skip_e",
         "Skip Maximization": "skip_m",
         "Skip Reconstruction": "skip_r",
+    },
+    "Subtract": {
+        "Subtract Masked Region Reference From Images": "subtract",
+        "Region Need to Be Centred": "centre_region",
     },
 }

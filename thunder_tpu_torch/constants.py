@@ -28,6 +28,7 @@ T_MIN = 1e-25          # floor on T before W iteration (Reconstructor.cpp:1322)
 C_ABS_MIN = 1e-6       # floor on |C| in W update (Reconstructor.cpp:1466)
 
 # --- soft edges (include/Macro.h:94-99) ---
+EDGE_WIDTH_FT = 4
 EDGE_WIDTH_RL = 6
 
 # --- default gridding kernel parameters (include/Optimiser.h:434-436) ---

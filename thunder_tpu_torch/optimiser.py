@@ -22,8 +22,10 @@ symmetrize_ft (point-group symmetrisation of the 3D grids) and HK4
 shell_sums (FSC, sigma).
 
 Supported here: 3D refinement and 3D classification (any K, any point
-group, global, local and CTF search) and 2D classification (any K; the
-config's symmetry is ignored in 2D, as in thunder_tpu).  The JAX
+group, global, local and CTF search), 2D classification (any K; the
+config's symmetry is ignored in 2D, as in thunder_tpu) and, once the
+search stops, signal subtraction (``save_subtract``: HK1 / HK5 over
+every pixel of the box).  The JAX
 package's pose-side symmetry expansion belongs to its sharded inserter
 and has no counterpart, nor has its TPU-only machinery
 (residency planning, hemisphere sequencing, brick tables and routing,
@@ -85,14 +87,16 @@ from thunder_tpu_torch.ops.likelihood import (CtfTerms, ctf_terms,
                                               likelihood_local_ctf,
                                               local_marginals)
 from thunder_tpu_torch.ops.projector import (
+    prepare_projectee_2d,
     prepare_projectee_2d_cropped,
+    prepare_projectee_3d,
     prepare_projectee_3d_cropped,
     project_slices,
     project_slices_2d,
     quad_fits,
     quad_taps,
 )
-from thunder_tpu_torch.physics.ctf import CtfParams, ctf_packed
+from thunder_tpu_torch.physics.ctf import CtfParams, ctf_image, ctf_packed
 from thunder_tpu_torch.physics.mask import radial_grid, soft_mask_weight
 from thunder_tpu_torch.physics import spectrum
 from thunder_tpu_torch.physics.spectrum import shell_sums
@@ -302,6 +306,38 @@ def recentre_refs(refs: torch.Tensor, o_class: torch.Tensor,
     phase = (2 * math.pi / size) * (k * ox + k[:, None] * oy)
     ft = ft * torch.polar(torch.ones_like(phase), phase)
     return torch.fft.ifftn(torch.fft.ifftshift(ft, dim=ax), dim=ax).real
+
+
+def subtract_table(refs: torch.Tensor, pf: int, nd: int) -> torch.Tensor:
+    """The padded, grid-corrected spectra of K references (K, n^nd), the
+    whole (pf n)^nd box that projection over every pixel of an image
+    reaches: (K, pf n, ...) complex64."""
+    if nd == 2:
+        return prepare_projectee_2d(refs, pf).ft.contiguous()
+    return torch.stack([prepare_projectee_3d(r, pf).ft for r in refs]).contiguous()
+
+
+def subtract_batch(ft_ori: torch.Tensor, ctf: CtfParams, table: torch.Tensor,
+                   cls: torch.Tensor, top_r: torch.Tensor, eff_t: torch.Tensor,
+                   size: int, pf: int, pixel_size: float) -> torch.Tensor:
+    """Signal subtraction for a batch of images (saveSubtract,
+    Optimiser.cpp:8418; thunder_tpu optimiser._subtract_batch): each
+    image's class reference in ``table`` (:func:`subtract_table`),
+    projected at its rank-1 pose over all size^2 pixels (HK1 in 3D, HK5
+    in 2D; one launch for the batch), zero from radius size/2 - 1 on,
+    shifted by ``eff_t`` (top_t - offset), times the full-image CTF, is
+    taken from the original spectrum ``ft_ori`` (B, size, size); returns
+    the real-space differences (B, size, size)."""
+    nd = table.ndim - 1
+    k = torch.arange(size, dtype=torch.int32, device=ft_ori.device) - size // 2
+    ky, kx = torch.meshgrid(k, k, indexing="ij")
+    i_col, i_row = kx.reshape(-1), ky.reshape(-1)
+    pri = project_any(table, rotations(top_r, nd)[:, None], i_col, i_row, pf, cls)[:, 0]
+    inside = (kx * kx + ky * ky < (size // 2 - 1) ** 2).reshape(-1)
+    pri = torch.where(inside, pri, torch.zeros_like(pri))
+    pri = pri * translate_phases_view(i_col, i_row, size, eff_t)
+    return ifft2_centered(ft_ori - ctf_image(ctf, size, pixel_size)
+                          * pri.reshape(-1, size, size))
 
 
 # -- orchestration ------------------------------------------------------
@@ -1119,6 +1155,31 @@ class Optimiser:
         self.set_refs(refs.contiguous())
         self._refs_report = None
         return ((refs[0] + refs[1]) / 2).cpu().numpy()
+
+    def save_subtract(self, mask, chunk: int = 512) -> np.ndarray:
+        """Signal subtraction (saveSubtract, Optimiser.cpp:8418-...): from
+        each original image, the CTF times the projection of its class's
+        masked reference at its rank-1 pose (:func:`subtract_batch`, one
+        launch a chunk of a hemisphere's images).  ``mask`` (n^nd), real
+        space, FFT layout.  Returns (n, size, size) float32 real-space
+        images in the original particle order."""
+        cfg = self.cfg
+        out = np.zeros((self.n_total, cfg.size, cfg.size), np.float32)
+        w = torch.as_tensor(mask, dtype=REAL, device=self.device)
+        s = self.state
+        for h in (0, 1):
+            table = subtract_table(s.refs[h] * w, cfg.pf, self.nd)
+            eff_t = s.par.top_t[h] - self.offset[h]
+            idx, val = self.index[h], self.valid[h]
+            for lo in range(0, self.n_img, chunk):
+                sl = slice(lo, min(self.n_img, lo + chunk))
+                diff = subtract_batch(
+                    self.data.ft_ori[h, sl], self.data.ctf_params.map(lambda a: a[h, sl]),
+                    table, s.cls[h, sl], s.par.top_r[h, sl], eff_t[sl], cfg.size, cfg.pf,
+                    float(cfg.pixel_size))
+                ok = val[sl]
+                out[idx[sl][ok]] = diff.cpu().numpy()[ok]
+        return out
 
     # -- checkpoints and exports ---------------------------------------
 

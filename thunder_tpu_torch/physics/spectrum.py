@@ -1,5 +1,6 @@
-"""Spectral statistics: shell sums, FSC, resolution conversion, phase
-randomisation — and the host of kernel HK4 (``shell_sums``).
+"""Spectral statistics: shell sums and averages, power spectra, FSC,
+resolution conversion, B-factor estimation, phase randomisation — and
+the host of kernel HK4 (``shell_sums``).
 
 Layout: centered full-space Fourier arrays; shell sums mask to the
 half-space kx >= 0 (plus the kx = -c Nyquist column), matching the
@@ -16,6 +17,10 @@ import torch
 
 from thunder_tpu_torch import _native
 from thunder_tpu_torch.device import COMPLEX, REAL
+
+
+def nyquist(pixel_size: float) -> float:
+    return 2.0 / pixel_size
 
 
 def res_p2a(res_p, image_size: int, pixel_size: float):
@@ -141,7 +146,8 @@ def shell_sums(values: torch.Tensor, shell: torch.Tensor, n_shells: int,
 
 
 shell_sums.launches = 0
-shell_sums.shapes = {}    # (form, B, C, N) -> launches, all three entries
+shell_sums.shapes = {}    # (form, B, C, N) -> launches, all three entries; form "rows",
+                          # "grid" (half space), "full" (every cell) or "pair"
 
 
 def shell_sums_grid_plain(values: torch.Tensor, size: int, ndim: int,
@@ -169,7 +175,7 @@ def shell_sums_grid(values: torch.Tensor, size: int, ndim: int,
     if out.numel() == 0 or n == 0:
         return out
     lib = _native.library()
-    _count_launch("grid", b, c, n)
+    _count_launch("grid" if halfspace else "full", b, c, n)
     _native.check(lib.thunder_shell_sums_grid(
         values.data_ptr(), values.stride(0), b, c, size, ndim, int(halfspace),
         n_shells, out.data_ptr(), _native.stream_ptr(values)), "shell_sums_grid")
@@ -222,13 +228,27 @@ def shell_sum(values: torch.Tensor, size: int, ndim: int, n_shells: int,
     return out.reshape(lead + (n_shells,))
 
 
-def shell_count(size: int, ndim: int, n_shells: int,
-                device=None) -> torch.Tensor:
-    """Half-space cells per shell, (n_shells,)."""
+def shell_count(size: int, ndim: int, n_shells: int, device=None,
+                halfspace: bool = True) -> torch.Tensor:
+    """Cells per shell, (n_shells,), over the half space (see
+    :func:`shell_sum`) or every cell."""
     u, half = _shell_geometry_np(size, ndim)
     cnt = np.bincount(np.minimum(u.reshape(-1), n_shells),
-                      weights=half.reshape(-1), minlength=n_shells + 1)
+                      weights=half.reshape(-1) if halfspace else None,
+                      minlength=n_shells + 1)
     return torch.as_tensor(cnt[:n_shells].astype(np.float32), device=device)
+
+
+def shell_average(values: torch.Tensor, n_shells: int) -> torch.Tensor:
+    """Radial average of a real centered array (Spectrum.cpp:129-159)."""
+    size, ndim = values.shape[-1], values.ndim
+    s = shell_sum(values, size, ndim, n_shells)
+    return s / torch.clamp(shell_count(size, ndim, n_shells, values.device), min=1.0)
+
+
+def power_spectrum(ft: torch.Tensor, n_shells: int) -> torch.Tensor:
+    """Mean |F|^2 per shell (Spectrum.cpp:161-221)."""
+    return shell_average(ft.abs() ** 2, n_shells)
 
 
 def fsc(a: torch.Tensor, b: torch.Tensor, n_shells: int,
@@ -276,3 +296,23 @@ def random_phase(ft: torch.Tensor, r, gen: torch.Generator,
     r = torch.as_tensor(r, device=ft.device)
     r = r.reshape(r.shape + (1,) * ndim)
     return torch.where(u > r, ft * rot, ft)
+
+
+def b_factor_est(ft: torch.Tensor, r_u: int, r_l: int) -> float:
+    """Guinier-fit B factor: fit log(mean |F|) against (u / N)^2 over
+    shells [r_l, r_u); B = 2 slope (Spectrum.cpp:414-453).  The mean is
+    over full shells: HK4's coordinate form with the half space off."""
+    size, ndim = ft.shape[-1], ft.ndim
+    n = int(r_u)
+    amp = shell_sum(ft.abs(), size, ndim, n, halfspace=False)
+    cnt = shell_count(size, ndim, n, ft.device, halfspace=False)
+    u = torch.arange(n, dtype=REAL, device=ft.device)
+    y = torch.log(torch.clamp(amp / torch.clamp(cnt, min=1.0), min=1e-30))
+    x = (u / size) ** 2
+    w = (u >= r_l).to(REAL)        # weighted least squares over selected shells
+    sw = torch.sum(w)
+    mx = torch.sum(w * x) / sw
+    my = torch.sum(w * y) / sw
+    slope = (torch.sum(w * (x - mx) * (y - my))
+             / torch.clamp(torch.sum(w * (x - mx) ** 2), min=1e-30))
+    return float(2.0 * slope)
