@@ -7,7 +7,7 @@ loudly.
 Run from the root of a checkout.  It needs one CUDA device and exits
 non-zero, printing no result, without one (or without the package).
 
-Phase 0 builds the thirteen hand-written Hopper kernels (one nvcc per
+Phase 0 builds the fourteen hand-written Hopper kernels (one nvcc per
 source, sm_90a) and times an empty kernel launched the same way, as a
 replayed CUDA graph: the floor under any launch.  Phase 1 holds the 3D
 kernels (HK1-HK4) against their plain PyTorch versions at the 3D path's
@@ -88,7 +88,22 @@ sharpened map, HK4's pair and full-space forms); ``project`` of the
 phantom at 2,000 random poses, then ``reconstruct --no-ctf`` (correlation
 with the phantom above 0.95); the volume tools on the run's maps and the
 STAR converter there and back; then HK1, HK3 and HK4 timed at those
-paths' new shapes.  A local round, a CTF round and a K = 4 round run
+paths' new shapes.  Phase 8 runs ranks that share the card over gloo
+(each a process of this script, ``--rank``, with a timeout; any rank's
+failure fails the script): 8a the CLI with ``--coordinator /
+--num-processes / --process-id`` on 1, 2 (hemi 2 x data 1) and 4 (hemi
+2 x data 2) ranks, configs/demo.json resumed in local search on phase
+7's 1,024 images for two rounds (each rank loads only its rows, rank 0's
+files are read back, each round's FSC-0.143 shell within 3 of the one
+process's; the backend, the rank-to-device map and each collective's
+calls and bytes printed); 8b the slab path (vol_shard_min_mb 0, HK9
+into z-slabs, the slab FFTs) of a round's maps from the same data and
+injected draws on 4 ranks against one process; 8c the slab path at a
+320 px box's padded 640^3 grid (512 poses of the sharp C4 phantom,
+r_u 150) on 4 ranks against one process with whole grids (HK3, HK7),
+with each rank's time, peak memory and transpose bytes (both gates:
+relative L2 at most 1e-4); and HK9 against its plain twin at 8b's and
+8c's shapes.  A local round, a CTF round and a K = 4 round run
 under torch.profiler.  The runs split HK4's launches by what called it (the
 FSC / FRC, the preprocess spectra, the sigma stage) and the projection
 kernels' by global search, phase loop and sigma pass.  Phases 2 and 4 each run one round (3D round 1, 2D round
@@ -206,6 +221,27 @@ SUBTRACT_ADD = 0.08
 # measured spread from call to call; 7c prints T, W and the crossing
 # with W = 1 / T near the edge
 CROSSING_SPREAD = 9
+# phase 8, ranks sharing the one card over gloo.  8a: the CLI on RANKS_8
+# ranks (1, hemi 2 x data 1, hemi 2 x data 2) on phase 7's 1,024 images,
+# configs/demo.json resumed in local search for ROUNDS_8 rounds; each
+# round's FSC-0.143 shell within SHELL_GATE_8 of the one-process run's.
+# 8b / 8c: the slab path against one process, relative L2 at most
+# SLAB_TOL (C4's mates are lattice permutations, so pose-side HK9 equals
+# HK3 then HK7 up to float order; the balance iterates in full space on
+# slabs and in half space on one grid).  8c: a 320 px box at r_u 150, its
+# padded 640^3 grid, N_8C poses of the sharp C4 phantom
+RANKS_8, ROUNDS_8, SHELL_GATE_8, SLAB_TOL = (1, 2, 4), 2, 3, 1e-4
+SIZE_8C, R_U_8C, N_8C = 320, 150, 512
+# 8c's maps: at 640^3 with 512 poses the one-grid path itself moved by
+# 1.7e-2 (relative L2) between two calls on an NVIDIA H100 80GB HBM3 at
+# 700 W (HK3's atomics add in another order, and the balance loop carries
+# that rounding into the maps; the same grids twice give the same map).  So the maps are held to SLAB_TOL
+# or SPREAD_FACTOR_8C times that spread, measured in the same call, and
+# HK9's slab to HK3 then HK7 at SLAB_TOL
+SPREAD_FACTOR_8C = 2
+RANK_TIMEOUT_S = 600
+PATH_KERNELS_8A = ("project_slices", "likelihood_block", "insert_trilinear", "shell_sums",
+                   "symmetrize_ft")
 # an H100 SXM's published peaks (HBM3 rate, FP32 vector rate), for bounds
 HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
 # a record whose call takes less is also timed apart from its wrapper
@@ -2259,6 +2295,486 @@ def phase_post(dev, wrappers):
         recs_post = post_records(dev, tmp, meta_path, fit["mask"])
     return launches, recs_post, walls
 
+# -- phase 8: ranks ----------------------------------------------------
+
+
+def kernel_wrappers() -> dict:
+    """Every hand kernel's wrapper by name (each counts its launches)."""
+    from thunder_tpu_torch.ops.insert import (insert_bilinear_2d, insert_trilinear,
+                                              insert_trilinear_slab)
+    from thunder_tpu_torch.ops.likelihood import likelihood_block, likelihood_local_ctf
+    from thunder_tpu_torch.ops.projector import project_slices, project_slices_2d
+    from thunder_tpu_torch.physics.spectrum import shell_sums
+    from thunder_tpu_torch.recon.reconstructor import symmetrize_ft
+
+    return {f.__name__: f for f in (project_slices, likelihood_block, insert_trilinear,
+                                    shell_sums, project_slices_2d, insert_bilinear_2d,
+                                    symmetrize_ft, likelihood_local_ctf,
+                                    insert_trilinear_slab)}
+
+
+def run_ranks(kind: str, spec: dict, world: int) -> list:
+    """``world`` processes of this script, each one rank of phase 8's
+    ``kind`` (rank_entry), joined over a free local port; fails the
+    script when any rank fails or RANK_TIMEOUT_S passes (the others are
+    stopped).  Returns each rank's report, rank order."""
+    from thunder_tpu_torch.cli.thunder import free_port
+
+    spec_path = os.path.join(spec["dir"], f"{spec['tag']}.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    port = free_port()
+    logs = [open(os.path.join(spec["dir"], f"{spec['tag']}_rank{r}.log"), "w")
+            for r in range(world)]
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"), "--rank",
+                               kind, spec_path, str(r), str(world), str(port)],
+                              stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    t0, bad = time.time(), None
+    while bad is None and any(p.poll() is None for p in procs):
+        bad = next((r for r, p in enumerate(procs) if p.returncode not in (None, 0)), None)
+        if time.time() - t0 > RANK_TIMEOUT_S:
+            bad = -1
+        time.sleep(0.2)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    for f in logs:
+        f.close()
+    bad = bad if bad is not None else next((r for r, p in enumerate(procs) if p.returncode), None)
+    if bad is not None:
+        r = max(bad, 0)
+        with open(os.path.join(spec["dir"], f"{spec['tag']}_rank{r}.log")) as f:
+            tail = f.read()[-4000:]
+        fail(f"phase 8 {spec['tag']}: " + (f"ranks still running after {RANK_TIMEOUT_S} s"
+                                           if bad < 0 else f"rank {r} exited "
+                                           f"{procs[r].returncode}") + f"; its log ends:\n{tail}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(spec["dir"], f"{spec['tag']}_rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def rank_entry(kind: str, spec_path: str, rank: int, world: int, port: int) -> None:
+    """One rank of phase 8 (this script run with --rank): every kernel's
+    count and the collectives' counts at 0, the rank's part, then its
+    report (launches, collectives, peak memory, what the part returns)
+    written beside the spec."""
+    import logging
+
+    import torch
+
+    from thunder_tpu_torch.parallel import comm
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    comm.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    if kind == "cli":
+        from thunder_tpu_torch.cli import thunder
+
+        lines = []
+
+        class Keep(logging.Handler):
+            def emit(self, rec):
+                lines.append(rec.getMessage())
+
+        logging.getLogger("thunder").addHandler(Keep())
+        flags = (["--no-mesh"] if world == 1 else
+                 ["--coordinator", f"127.0.0.1:{port}", "--num-processes", str(world),
+                  "--process-id", str(rank)])
+        rc = thunder.main([spec["cfg"], "--device", "cuda"] + flags)
+        if rc != 0:
+            fail(f"rank {rank}: thunder main returned {rc}")
+        loaded = [m for m in lines if m.startswith(("loading ", f"rank {rank} loaded"))]
+        report = dict(loaded=int(loaded[0].split()[3 if world > 1 else 1]),
+                      layout=next((m for m in lines if m.startswith(f"rank {rank}/")),
+                                  f"rank 0/1 one process, device {torch.cuda.current_device()}"))
+    else:
+        import torch.distributed as dist
+
+        from thunder_tpu_torch.parallel.distributed import default_mesh, init_multihost
+
+        init_multihost(f"127.0.0.1:{port}", world, rank, "cuda")
+        lay = default_mesh(device="cuda")
+        report = dict(layout=lay.describe(), **RANK_PARTS[kind](lay, spec))
+        dist.destroy_process_group()
+    torch.cuda.synchronize()
+    report.update(rank=rank, wall_s=time.time() - t0,
+                  launches={n: w.launches for n, w in wrappers.items()},
+                  comm=comm.STATS, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    with open(os.path.join(spec["dir"], f"{spec['tag']}_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def _slab_round_part(lay, spec) -> dict:
+    """8b on one rank: the Optimiser at vol_shard_min_mb 0 from the
+    config's data, the injected draws' rows of this rank, a round's maps
+    through the slab path; rank j = 0 of each hemisphere saves them."""
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch import particle as pt
+    from thunder_tpu_torch.cli import thunder
+    from thunder_tpu_torch.config import ThunderConfig
+    from thunder_tpu_torch.optimiser import reco_grid_size
+
+    cfg = ThunderConfig.from_json(spec["cfg"])
+    cfg.vol_shard_min_mb = 0
+    opt, _ = thunder.build_optimiser(cfg, lay.device, lay)
+    z = np.load(spec["draws"])
+    draws = tuple(torch.as_tensor(np.ascontiguousarray(lay.take(z[k])), device=lay.device)
+                  for k in ("quats", "trans", "d", "w"))
+    opt.state.par = pt.cal_score(opt.state.par, opt.mode)
+    grid = reco_grid_size(cfg.size, int(opt.model.r_u))
+    if not opt._vol_sharded(grid):
+        fail(f"8b: rank {lay.rank} did not route a {grid * cfg.pf}^3 grid to the slab path")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fsc, mp, r_u = opt.reconstruct_maps(draws)
+    torch.cuda.synchronize()
+    if lay.j == 0:
+        np.savez(os.path.join(spec["dir"], f"slab_round_h{lay.h}.npz"), fsc=fsc[0].cpu().numpy(),
+                 map=mp[0].cpu().numpy())
+    return dict(ms=(time.time() - t0) * 1e3, big=grid * cfg.pf, r_u=r_u)
+
+
+def _slab_big_part(lay, spec) -> dict:
+    """8c on one rank: its images' dense-window values formed, gathered
+    over the data group, HK9 into this rank's z-slab of the 640^3 grid
+    with C4's mates, then the MAP-free reconstruction on slabs."""
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.geometry.quaternion import rotate3d
+    from thunder_tpu_torch.geometry.symmetry import Symmetry
+    from thunder_tpu_torch.ops.insert import dense_slice_values, insert_trilinear_slab
+    from thunder_tpu_torch.parallel import comm
+    from thunder_tpu_torch.physics.ctf import ctf_params
+    from thunder_tpu_torch.recon.sharded import reconstruct_all_sharded, sharded_grid_specs
+
+    dev, n = lay.device, spec["n"]
+    index = np.stack([np.arange(0, n, 2), np.arange(1, n, 2)])
+    ids = np.ascontiguousarray(lay.take(index)).reshape(-1)
+    ft = torch.as_tensor(np.load(spec["ft"], mmap_mode="r")[ids], device=dev)
+    cols = np.load(spec["ctf"])[:, ids]
+    quats = torch.as_tensor(np.load(spec["quats"])[ids], device=dev)
+    size, r_u, big = spec["size"], spec["r_u"], 2 * spec["size"]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    m = len(ids)
+    vals, c2w, _, _ = dense_slice_values(
+        ft, ctf_params(*cols, device=dev), torch.arange(m, device=dev),
+        torch.zeros(m, 2, device=dev), torch.ones(m, device=dev), r_u, size, PIXEL_SIZE)
+    del ft
+    gather = lambda x: comm.gather_slabs(lay, x.contiguous(), axis=0)
+    vals, c2w, rot = gather(vals), gather(c2w), gather(rotate3d(quats))
+    z0, bz = sharded_grid_specs(lay, big)
+    f, t = insert_trilinear_slab(vals, c2w, rot, torch.zeros(rot.shape[0], dtype=torch.int32,
+                                                               device=dev),
+                                 r_u, 2, Symmetry("C4", dev).matrices, 1, big, z0, bz)
+    del vals, c2w
+    torch.cuda.synchronize()
+    t_insert = time.time() - t0
+    vol = reconstruct_all_sharded(lay, f, t, None, size, 2, r_u, False, False, size)
+    torch.cuda.synchronize()
+    if lay.j == 0:
+        np.save(os.path.join(spec["dir"], f"slab_big_h{lay.h}.npy"), vol[0].cpu().numpy())
+    return dict(insert_s=t_insert, total_s=time.time() - t0, slab=[bz, big, big])
+
+
+RANK_PARTS = {"slab_round": _slab_round_part, "slab_big": _slab_big_part}
+
+
+def _rel_l2(a, b) -> float:
+    import numpy as np
+
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _rank_lines(label: str, ranks: list) -> None:
+    for r in ranks:
+        said = {k: v for k, v in r["launches"].items() if v}
+        loaded = f"loaded {r['loaded']} images, " if "loaded" in r else ""
+        say(f"  {label} {r['layout']}: {loaded}wall {r['wall_s']:.2f} s, peak "
+            f"{r['peak_gb']:.3f} GB, launches {said}")
+        say(f"  {label} rank {r['rank']} collectives (calls, bytes, staged bytes): "
+            + json.dumps({k: [v['calls'], v['bytes'], v['staged_bytes']]
+                          for k, v in r['comm'].items()}))
+
+
+def hk9_record(label: str, dev, vals, c2w, rot, r_u: int, big: int, bz: int, mats) -> dict:
+    """HK9 against its plain twin on the first slab of ``big``^3, timed
+    (kernel with CUDA events, its scratch and split pass included; the
+    twin once), with its bound: the slab's F and T written once and the
+    slices read once, against every mate's rotation and 8 taps."""
+    import torch
+
+    from thunder_tpu_torch.ops import insert
+
+    n_s = rot.shape[0]
+    cls = torch.zeros(n_s, dtype=torch.int32, device=dev)
+    k = lambda: insert.insert_trilinear_slab(vals, c2w, rot, cls, r_u, 2, mats, 1, big, 0, bz)
+    f, t = k()
+    (fp, tp), plain_ms = timed_once(lambda: insert.insert_trilinear_slab_plain(
+        vals, c2w, rot, cls, r_u, 2, mats,
+        torch.zeros((1, bz, big, big), dtype=torch.complex64, device=dev),
+        torch.zeros((1, bz, big, big), device=dev), 0))
+    shape = f"{label}: slices={n_s} nk^2={vals.shape[1]} mates={mats.shape[0]} slab={bz}x{big}^2"
+    err = max(compare("insert_trilinear_slab", shape, torch.view_as_real(f),
+                      torch.view_as_real(fp), 1e-4, "atomicAdd order varies from run to run"),
+              compare("insert_trilinear_slab", "T", t, tp, 1e-4, "atomicAdd order"))
+    del f, t, fp, tp
+    npx = int(((vals != 0) | (c2w != 0)).sum())
+    n_bytes = n_s * vals.shape[1] * 12 + n_s * 40 + bz * big * big * 12
+    return record("insert_trilinear_slab", shape, err, timed(k, 3), plain_ms, n_bytes,
+                  npx * mats.shape[0] * 63)
+
+
+def phase_ranks(dev, wrappers):
+    """Phase 8: ranks on the one card, sharing it over gloo.  8a the CLI
+    on 1, 2 and 4 ranks (configs/demo.json resumed in local search on
+    phase 7's data, ROUNDS_8 rounds): each rank loads only its rows, rank
+    0's files are read back, each round's FSC-0.143 shell within
+    SHELL_GATE_8 of the one-process run's.  8b a round's maps from the
+    same data and injected draws on 4 ranks through the slab path against
+    one process.  8c the slab path at a 320 px box's padded 640^3 grid
+    (N_8C poses of the sharp C4 phantom) on 4 ranks against one process
+    with whole grids (HK3, HK7).  HK9 against its twin at 8b's and 8c's
+    shapes.  Returns (launches summed over every rank, HK9's records)."""
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch import particle as pt
+    from thunder_tpu_torch.cli import thunder
+    from thunder_tpu_torch.config import ThunderConfig
+    from thunder_tpu_torch.device import generator
+    from thunder_tpu_torch.geometry.quaternion import random_quat, rotate3d
+    from thunder_tpu_torch.geometry.symmetry import Symmetry
+    from thunder_tpu_torch.io.thu import read_thu
+    from thunder_tpu_torch.ops import insert
+    from thunder_tpu_torch.ops.projector import prepare_projectee_3d, project_full_3d
+    from thunder_tpu_torch.optimiser import RECO_COMPACT_SLOTS
+    from thunder_tpu_torch.physics.ctf import ctf_params
+    from thunder_tpu_torch.pipeline.synthetic import phantom
+    from thunder_tpu_torch.recon.reconstructor import (reconstruct, symmetrize_form,
+                                                       symmetrize_ft)
+
+    launches = {n: 0 for n in wrappers}
+
+    def add(ranks):
+        for r in ranks:
+            for n, c in r["launches"].items():
+                launches[n] = launches.get(n, 0) + c
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        cfg_path, _ = demo_160(tmp, dev, "demo.json", 1, ROUNDS_8, LOCAL_START_RES_A,
+                               local_resume=True, snr=SNR_POST, n=N_POST)
+        with open(cfg_path) as f:
+            base = json.load(f)
+        res, walls = {}, {}
+        for world in RANKS_8:
+            out = os.path.join(tmp, f"out_{world}")
+            base["Basic"]["Path of Output"] = out + "/"
+            cfg_w = os.path.join(tmp, f"demo_{world}.json")
+            with open(cfg_w, "w") as f:
+                json.dump(base, f)
+            t0 = time.time()
+            ranks = run_ranks("cli", dict(dir=tmp, tag=f"cli{world}", cfg=cfg_w), world)
+            walls[world] = time.time() - t0
+            add(ranks)
+            _rank_lines(f"8a {world} ranks", ranks)
+            want = N_POST // world if world > 1 else N_POST
+            for r in ranks:
+                if r["loaded"] != want:
+                    fail(f"8a: rank {r['rank']} of {world} loaded {r['loaded']} images, not "
+                         f"its {want} rows")
+                idle = [n for n in PATH_KERNELS_8A if r["launches"][n] <= 0]
+                if idle:
+                    fail(f"8a: rank {r['rank']} of {world} never launched {idle}")
+            check_maps(f"8a {world} ranks", out, ROUNDS_8, 1)
+            if len(read_thu(os.path.join(out, f"Meta_Round_{ROUNDS_8 - 1:03d}.thu"))) != N_POST:
+                fail(f"8a {world} ranks: the last .thu does not hold every image")
+            with open(os.path.join(out, "round_metrics.jsonl")) as f:
+                res[world] = [json.loads(line) for line in f]
+            for rec in res[world]:
+                say(f"  8a {world} ranks round {rec['round']}: res {rec['res_A']:.3f} A (shell "
+                    f"{rec['res_shell']}), phases {rec['n_phases']}, {rec['elapsed_s']:.3f} s")
+            say(f"  8a {world} ranks: wall {walls[world]:.1f} s (processes included)")
+        for world in RANKS_8[1:]:
+            for a, b in zip(res[world], res[1]):
+                if abs(a["res_shell"] - b["res_shell"]) > SHELL_GATE_8:
+                    fail(f"8a: {world} ranks' round {a['round']} crosses at shell "
+                         f"{a['res_shell']}, one process at {b['res_shell']}")
+
+        # 8b: one process and 4 ranks from the same draws
+        cfg = ThunderConfig.from_json(cfg_path)
+        opt, _ = thunder.build_optimiser(cfg, dev)
+        s = opt.state
+        # the grading weights of a round: each image's score from its
+        # resumed cloud (a round's phases set them before insertion)
+        s.par = pt.cal_score(s.par, opt.mode)
+        n_draw = min(cfg.m_reco, s.par.r.shape[2] * s.par.t.shape[2])
+        draws = pt.draw_poses_compact(opt.gen, s.par, n_draw, min(n_draw, RECO_COMPACT_SLOTS))
+        draws_path = os.path.join(tmp, "draws.npz")
+        np.savez(draws_path, **{k: v.cpu().numpy() for k, v in
+                                zip(("quats", "trans", "d", "w"), draws)})
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fsc1, map1, r_u = opt.reconstruct_maps(draws)
+        torch.cuda.synchronize()
+        one_ms = (time.time() - t0) * 1e3
+        # the one-grid path against itself: HK3's and HK7's atomics add
+        # in another order in a second call
+        again = opt.reconstruct_maps(draws)
+        spread_b = max(_rel_l2(again[i].cpu().numpy(), x.cpu().numpy())
+                       for i, x in ((0, fsc1), (1, map1)))
+        del again
+        ranks = run_ranks("slab_round", dict(dir=tmp, tag="slab_round", cfg=cfg_path,
+                                             draws=draws_path), 4)
+        add(ranks)
+        _rank_lines("8b", ranks)
+        errs_b = []
+        for h in (0, 1):
+            got = np.load(os.path.join(tmp, f"slab_round_h{h}.npz"))
+            errs_b += [_rel_l2(got["fsc"], fsc1[h].cpu().numpy()),
+                       _rel_l2(got["map"], map1[h].cpu().numpy())]
+        big_b = ranks[0]["big"]
+        say(f"  8b: r_u {r_u}, {big_b}^3 grids in slabs of {big_b // 2}; relative L2 of the "
+            f"slab path's maps against one process (A fsc, A map, B fsc, B map): "
+            f"{[f'{e:.3e}' for e in errs_b]}; one process against itself {spread_b:.3e}; "
+            f"balance iterations a rank {[r['comm']['max_data']['calls'] for r in ranks]}; "
+            f"one process {one_ms:.1f} ms, ranks {[round(r['ms'], 1) for r in ranks]} ms")
+        if any(r["launches"]["insert_trilinear_slab"] < 1 or r["launches"]["insert_trilinear"]
+               for r in ranks):
+            fail("8b: a rank did not insert through HK9 alone")
+        # HK9 at 8b's shape: hemisphere A's slices, the first slab
+        w = (opt.valid_dev[0][:, None] * draws[3][0]).reshape(-1)
+        sel = torch.nonzero(w > 0)[:, 0]
+        n_slots = draws[3].shape[-1]
+        vals, c2w, _, _ = insert.dense_slice_values(
+            opt.data.ft_ori[0], opt.data.ctf_params.map(lambda a: a[0]), sel // n_slots,
+            draws[1][0].reshape(-1, 2)[sel], w[sel], r_u, cfg.size, PIXEL_SIZE)
+        rec_b = hk9_record("8b", dev, vals, c2w, rotate3d(draws[0][0].reshape(-1, 4)[sel]),
+                           r_u, big_b, big_b // 2, opt.sym.matrices)
+        del opt, draws, vals, c2w, fsc1, map1
+        torch.cuda.empty_cache()
+
+        # 8c: a 320 px box's padded grid
+        rng = np.random.default_rng(8)
+        vol = torch.as_tensor(phantom(SIZE_8C, rng, "sharp", "C4"), device=dev)
+        quats = random_quat(generator(9, dev), (N_8C,), dev)
+        rot = rotate3d(quats)
+        table = prepare_projectee_3d(vol, 2)
+        ft = torch.cat([project_full_3d(table, rot[i:i + 64]) for i in range(0, N_8C, 64)])
+        del table, vol
+        defocus = rng.uniform(8000, 20000, N_8C)
+        cols = np.stack([np.full(N_8C, 300e3), defocus, defocus, np.zeros(N_8C),
+                         np.full(N_8C, 2.7e7), np.full(N_8C, 0.1), np.zeros(N_8C)])
+        paths = {k: os.path.join(tmp, f"8c_{k}.npy") for k in ("ft", "ctf", "quats")}
+        np.save(paths["ft"], ft.cpu().numpy())
+        np.save(paths["ctf"], cols)
+        np.save(paths["quats"], quats.cpu().numpy())
+        big = 2 * SIZE_8C
+        mats = Symmetry("C4", dev).matrices
+        form = symmetrize_form(mats)
+        ctf = ctf_params(*cols, device=dev)
+        bz_c = big // 2
+
+        def one_grid(h):
+            """Hemisphere h's (F, T) on one grid: HK3 then HK7."""
+            ids = torch.arange(h, N_8C, 2, device=dev)
+            f, t = insert.insert_trilinear(ft[ids].contiguous(), ctf.map(lambda a: a[ids]),
+                                           torch.arange(ids.numel(), device=dev), rot[ids],
+                                           torch.zeros(ids.numel(), 2, device=dev),
+                                           torch.ones(ids.numel(), device=dev), R_U_8C, 2,
+                                           SIZE_8C, PIXEL_SIZE, big)
+            return symmetrize_ft(f, t, mats, float((R_U_8C - 1) * 2), form)
+
+        # the one-grid path three times a hemisphere: HK3's atomics add in
+        # another order each time, and MAP-free gridding's balance carries
+        # that rounding into the maps (its spread from call to call); the
+        # same grids twice show what the balance and FFTs do alone
+        calls, t_one, same, first_slab = [[], []], 0.0, None, None
+        for rep in range(3):
+            for h in (0, 1):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                f, t = one_grid(h)
+                vol = reconstruct(f, t, SIZE_8C, 2, R_U_8C)
+                torch.cuda.synchronize()
+                t_one += (time.time() - t0) if rep == 0 else 0.0
+                if rep == 0 and h == 0:
+                    same = _rel_l2(reconstruct(f, t, SIZE_8C, 2, R_U_8C).cpu().numpy(),
+                                   vol.cpu().numpy())
+                    first_slab = (f[:bz_c].clone(), t[:bz_c].clone())
+                calls[h].append(vol.cpu().numpy())
+                del f, t, vol
+                torch.cuda.empty_cache()
+        one = [c[0] for c in calls]
+        spreads = [max(_rel_l2(c[i], c[j]) for i, j in ((0, 1), (0, 2), (1, 2)))
+                   for c in calls]
+        peak_one = torch.cuda.max_memory_allocated() / 1e9
+        # HK9 at 8c's shape: hemisphere A's 256 slices into the first slab
+        ids = torch.arange(0, N_8C, 2, device=dev)
+        vals, c2w, _, _ = insert.dense_slice_values(
+            ft[ids], ctf.map(lambda a: a[ids]), torch.arange(ids.numel(), device=dev),
+            torch.zeros(ids.numel(), 2, device=dev), torch.ones(ids.numel(), device=dev),
+            R_U_8C, SIZE_8C, PIXEL_SIZE)
+        f9, t9 = insert.insert_trilinear_slab(
+            vals, c2w, rot[ids], torch.zeros(ids.numel(), dtype=torch.int32, device=dev),
+            R_U_8C, 2, mats, 1, big, 0, bz_c)
+        err_ft = [_rel_l2(torch.view_as_real(f9[0]).cpu().numpy(),
+                          torch.view_as_real(first_slab[0]).cpu().numpy()),
+                  _rel_l2(t9[0].cpu().numpy(), first_slab[1].cpu().numpy())]
+        del f9, t9, first_slab
+        rec_c = hk9_record("8c", dev, vals, c2w, rot[ids], R_U_8C, big, bz_c, mats)
+        del vals, c2w, ft
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        ranks = run_ranks("slab_big", dict(dir=tmp, tag="slab_big", n=N_8C, size=SIZE_8C,
+                                           r_u=R_U_8C, **paths), 4)
+        wall_c = time.time() - t0
+        add(ranks)
+        _rank_lines("8c", ranks)
+        errs = [_rel_l2(np.load(os.path.join(tmp, f"slab_big_h{h}.npy")), one[h])
+                for h in (0, 1)]
+        iters = [r["comm"]["max_data"]["calls"] for r in ranks]
+        moved = [r["comm"].get("all_to_all_z", {}).get("bytes", 0) for r in ranks]
+        say(f"  8c: {SIZE_8C} px box, {big}^3 grids, slabs {ranks[0]['slab']}, {N_8C} poses, C4, "
+            f"r_u {R_U_8C}: HK9's first slab of A against HK3 then HK7 (F, T) "
+            f"{[f'{e:.3e}' for e in err_ft]}; the maps' relative L2 against one process (A, B) "
+            f"{[f'{e:.3e}' for e in errs]}, one process against itself in three calls (A, B) "
+            f"{[f'{e:.3e}' for e in spreads]}, the same grids twice {same:.3e}; balance "
+            f"iterations a rank {iters}; "
+            f"one process {t_one:.2f} s (peak {peak_one:.2f} GB), ranks insert "
+            f"{[round(r['insert_s'], 2) for r in ranks]} s and all "
+            f"{[round(r['total_s'], 2) for r in ranks]} s (wall {wall_c:.1f} s with the "
+            f"processes' start), peak {[round(r['peak_gb'], 2) for r in ranks]} GB, "
+            f"transpose bytes a rank {moved}")
+        if max(errs_b) > SLAB_TOL:
+            fail(f"8b: the slab path's maps differ from one process's by {max(errs_b):.3e} > "
+                 f"{SLAB_TOL:g}")
+        if max(err_ft) > SLAB_TOL:
+            fail(f"8c: HK9's slab differs from HK3 then HK7 by {max(err_ft):.3e} > {SLAB_TOL:g}")
+        for h, (e, sp) in enumerate(zip(errs, spreads)):
+            if e > max(SLAB_TOL, SPREAD_FACTOR_8C * sp):
+                fail(f"8c: hemisphere {h}'s slab-path map differs from one process's by {e:.3e}, "
+                     f"more than {SLAB_TOL:g} and {SPREAD_FACTOR_8C} times the one-process "
+                     f"path's own spread {sp:.3e}")
+    hk9 = [r["launches"]["insert_trilinear_slab"] for r in ranks]
+    if min(hk9) < 1:
+        fail(f"8c: HK9 launches by rank {hk9}")
+    return launches, dict(rec_c, shape_8b=rec_b, max_abs_err=max(rec_b["max_abs_err"],
+                                                                 rec_c["max_abs_err"]))
+
+
 def main() -> None:
     try:
         import torch
@@ -2346,9 +2862,13 @@ def main() -> None:
         "subtraction, reconstruct, postprocess, project, tools, STAR)")
     launches_post, results_post, walls_post = phase_post(dev, wrappers_r)
     torch.cuda.synchronize()
+    say(f"[{time.time() - t_start:.1f} s] phase 8: ranks sharing the card over gloo (the CLI "
+        "on 1, 2 and 4 ranks; the slab path, HK9, at the demo's grid and at a 320 px box's)")
+    launches_ranks, rec_hk9 = phase_ranks(dev, kernel_wrappers())
+    torch.cuda.synchronize()
     profiles = [prof_3d, prof_2d, prof_a, prof_b, prof_k4]
     later = dict(refine_a=launches_a, refine_b=launches_b, classify_3d=launches_k4,
-                 post=launches_post)
+                 post=launches_post, ranks=launches_ranks)
     for name in ("symmetrize_ft", "likelihood_local_ctf"):
         if sum(path[name] for path in later.values()) <= 0:
             fail(f"{name} was never launched by phases 5 and 6")
@@ -2370,6 +2890,8 @@ def main() -> None:
                           "thunder_tpu/recon/reconstructor.py:309"),
         "likelihood_local_ctf": ("HK8", "thunder_tpu_torch/csrc/likelihood_local_ctf.cu",
                                  "thunder_tpu/ops/likelihood.py:100"),
+        "insert_trilinear_slab": ("HK9", "thunder_tpu_torch/csrc/insert_trilinear_slab.cu",
+                                  "thunder_tpu/recon/sharded.py:300"),
     }
     # HK2's record is the 2D global block (the heaviest launch a round);
     # its other main-path blocks ride along.  HK4's is the hemisphere FSC
@@ -2402,6 +2924,7 @@ def main() -> None:
         "insert_bilinear_2d": results_2d["insert_bilinear_2d"],
         "symmetrize_ft": results_r["symmetrize_ft"],
         "likelihood_local_ctf": results_r["likelihood_local_ctf"],
+        "insert_trilinear_slab": rec_hk9,
     }
     # the projection kernels' launches by caller: global search, the
     # phase loop, and the rest (the sigma / norm stage's rank-1 pass)
@@ -2449,4 +2972,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1 and sys.argv[1] == "--rank":
+        # one rank of phase 8 (started by run_ranks)
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        rank_entry(sys.argv[2], sys.argv[3], *map(int, sys.argv[4:7]))
+    else:
+        main()

@@ -480,3 +480,51 @@ def test_post_refinement_paths(dev):
     spec = torch.fft.fftshift(torch.fft.fftn(refs[0]))
     b_dev, b_cpu = (spectrum.b_factor_est(s, 17, 4) for s in (spec, spec.cpu()))
     assert abs(b_dev - b_cpu) <= 1e-4 * abs(b_cpu)
+
+
+@pytest.mark.parametrize("sym,slabs", [("C4", 2), ("C1", 4), ("D2", 3)])
+def test_insert_trilinear_slab(dev, sym, slabs):
+    """HK9 against its plain twin slab by slab (zero-weight slices, two
+    classes, the mates' radius cut); the slabs together against HK3 then
+    HK7 for the signed-permutation groups; 1e-5: atomicAdd order."""
+    from thunder_tpu_torch.geometry.symmetry import Symmetry
+    from thunder_tpu_torch.recon.reconstructor import symmetrize_ft
+
+    g = generator(19, dev)
+    n_l, size, r_u, pf, n_s = 6, 32, 9, 2, 24
+    big = 2 * (r_u + 2) * pf + (slabs - 2 * (r_u + 2) * pf % slabs) % slabs
+    ft = torch.fft.fftshift(torch.fft.fft2(torch.randn(n_l, size, size, generator=g, device=dev)),
+                            dim=(-2, -1)).to(torch.complex64).contiguous()
+    ctf = _ctf_fields(dev, n_l, 5)
+    img = torch.randint(0, n_l, (n_s,), generator=g, device=dev)
+    rot = rotate3d(random_quat(g, (n_s,), dev))
+    trans = torch.randn(n_s, 2, generator=g, device=dev)
+    w = torch.rand(n_s, generator=g, device=dev)
+    w[::5] = 0.0
+    vals, c2w, _, _ = insert.dense_slice_values(ft, ctf, img, trans, w, r_u, size, 1.32)
+    cls = torch.randint(0, 2, (n_s,), generator=g, device=dev)
+    mats = Symmetry(sym, dev).matrices
+    bz = big // slabs
+    fk, tk = [], []
+    for j in range(slabs):
+        f, t = insert.insert_trilinear_slab(vals, c2w, rot, cls, r_u, pf, mats, 2, big,
+                                            j * bz, bz)
+        zeros = (torch.zeros_like(f), torch.zeros_like(t))
+        fp, tp = insert.insert_trilinear_slab_plain(vals, c2w, rot, cls, r_u, pf, mats,
+                                                    *zeros, j * bz)
+        assert rel_err(torch.view_as_real(f), torch.view_as_real(fp)) < 1e-5
+        assert rel_err(t, tp) < 1e-5
+        fk.append(f)
+        tk.append(t)
+    f9, t9 = torch.cat(fk, dim=1), torch.cat(tk, dim=1)
+    if sym == "C1":
+        return
+    f3 = torch.zeros((2,) + (big,) * 3, dtype=torch.complex64, device=dev)
+    t3 = torch.zeros((2,) + (big,) * 3, device=dev)
+    for k in range(2):
+        sel = torch.nonzero(cls == k)[:, 0]
+        insert.insert_trilinear(ft, ctf, img[sel], rot[sel], trans[sel], w[sel], r_u, pf, size,
+                                1.32, big, f3[k], t3[k])
+    f7, t7 = symmetrize_ft(f3, t3, mats, float((r_u - 1) * pf))
+    assert rel_err(torch.view_as_real(f9), torch.view_as_real(f7)) < 1e-5
+    assert rel_err(t9, t7) < 1e-5

@@ -32,7 +32,8 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("project_slices.cu", "likelihood_block.cu",
            "insert_trilinear.cu", "shell_sums.cu", "project_slices_2d.cu",
            "insert_bilinear_2d.cu", "symmetrize_ft.cu",
-           "likelihood_local_ctf.cu", "gather.cu", "launch_floor.cu")
+           "likelihood_local_ctf.cu", "gather.cu", "launch_floor.cu",
+           "insert_trilinear_slab.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -62,6 +63,8 @@ _SIGNATURES = {
     "thunder_take_along": [_P, _I, _P, _P, _L, _I, _I, _P, _P],
     "thunder_take_rows": [_P, _I, _I, _P, _L, _P, _P],
     "thunder_empty_launch": [_P],
+    "thunder_insert_trilinear_slab": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _P, _P, _P,
+                                      _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -82,6 +82,10 @@ class ThunderConfig:
 
     # --- not in the reference config ---
     seed: int = 20260816
+    # on several ranks, keep a 3D round's padded grids (F, T, W) as
+    # z-slabs over the data axis once one passes this many MB
+    # (recon/sharded.py; THUNDER held whole volumes a rank)
+    vol_shard_min_mb: int = 512
 
     @property
     def mode_2d(self) -> bool:

@@ -43,6 +43,26 @@ def synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def draw(gen, kind: str, shape, device=None, high: int | None = None) -> torch.Tensor:
+    """One random tensor of ``shape`` from ``gen``: "randn", "rand"
+    (float32), "randint" (int64 in [0, high)) or "exponential" (float32,
+    rate 1).  ``gen`` is a torch.Generator, or an object with
+    ``draw(kind, shape, high)`` that draws for a rank's rows
+    (particle.RowDraws)."""
+    shape = tuple(shape)
+    if not isinstance(gen, torch.Generator):
+        return gen.draw(kind, shape, high)
+    if kind == "randn":
+        return torch.randn(shape, generator=gen, device=device, dtype=REAL)
+    if kind == "rand":
+        return torch.rand(shape, generator=gen, device=device, dtype=REAL)
+    if kind == "randint":
+        return torch.randint(0, high, shape, generator=gen, device=device)
+    if kind == "exponential":
+        return torch.empty(shape, dtype=REAL, device=device).exponential_(1, generator=gen)
+    raise ValueError(f"no draw of kind {kind!r}")
+
+
 def generator(seed: int, device: torch.device) -> torch.Generator:
     """A seeded generator living on ``device`` (random tensors drawn
     with it are created there directly)."""

@@ -10,7 +10,7 @@ import math
 
 import torch
 
-from thunder_tpu_torch.device import REAL
+from thunder_tpu_torch.device import REAL, draw
 from thunder_tpu_torch.geometry.quaternion import quat_normalize
 
 _ACG_TOL = 1e-3
@@ -29,8 +29,7 @@ def sample_acg(gen: torch.Generator, k1, k2, k3, n: int,
                                     torch.as_tensor(k3, dtype=REAL).expand_as(k1)],
                                    dim=-1))
     if noise is None:
-        noise = torch.randn(k1.shape + (n, 4), generator=gen, device=k1.device,
-                            dtype=REAL)
+        noise = draw(gen, "randn", k1.shape + (n, 4), k1.device)
     return quat_normalize(noise * scale[..., None, :])
 
 
@@ -137,19 +136,18 @@ def sample_vms(gen: torch.Generator, mu: torch.Tensor, k: torch.Tensor,
     a = 1 + torch.sqrt(1 + 4 * kap * kap)
     b = (a - torch.sqrt(2 * a)) / (2 * kap)
     r = (1 + b * b) / (2 * b)
-    uz = torch.rand(batch + (n_rounds, n), generator=gen, device=dev, dtype=REAL)
+    uz = draw(gen, "rand", batch + (n_rounds, n), dev)
     z = torch.cos(math.pi * uz)
     f = (1 + r * z) / (r + z)
     c = kap * (r - f)
-    u2 = torch.clamp(torch.rand(batch + (n_rounds, n), generator=gen, device=dev,
-                                dtype=REAL), min=1e-12)
+    u2 = torch.clamp(draw(gen, "rand", batch + (n_rounds, n), dev), min=1e-12)
     accept = (c * (2 - c) > u2) | (torch.log(c / u2) + 1 - c >= 0)
     first = torch.argmax(accept.to(torch.int32), dim=-2, keepdim=True)
     f_sel = torch.where(accept.any(dim=-2),
                         torch.gather(f, -2, first)[..., 0, :],
                         torch.ones_like(f[..., 0, :]))
     delta = torch.sqrt(torch.clamp((1 - f_sel) * (1 + f_sel), min=0.0))
-    flip = torch.rand(batch + (n,), generator=gen, device=dev, dtype=REAL)
+    flip = draw(gen, "rand", batch + (n,), dev)
     sign = torch.where(flip > 0.5, 1.0, -1.0)
     mu = mu.to(REAL).expand(batch + (2,))
     m0, m1 = mu[..., 0:1], mu[..., 1:2]

@@ -390,3 +390,111 @@ def insert_bilinear_2d(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
 
 
 insert_bilinear_2d.launches = 0
+
+
+# -- HK9 ----------------------------------------------------------------
+
+def insert_trilinear_slab_plain(vals: torch.Tensor, ctf2w: torch.Tensor, rot: torch.Tensor,
+                                cls: torch.Tensor, r_u: int, pf: int, sym_mats: torch.Tensor,
+                                f_slab: torch.Tensor, t_slab: torch.Tensor, z0: int):
+    """Plain version of HK9 (see :func:`insert_trilinear_slab`), 256
+    slices at a time.  Returns the new (F, T) slabs."""
+    n_cls, bz, big = f_slab.shape[0], f_slab.shape[1], f_slab.shape[-1]
+    c = big // 2
+    r2 = float((r_u - 1) * pf) ** 2
+    vc, vr, _ = dense_window(r_u, vals.device)
+    fx, fy = (vc * pf).to(REAL), (vr * pf).to(REAL)
+    mats = sym_mats.to(device=vals.device, dtype=REAL)
+    g = torch.stack([f_slab.real.reshape(-1), f_slab.imag.reshape(-1),
+                     t_slab.reshape(-1)], dim=-1).to(REAL)
+    for lo in range(0, rot.shape[0], 256):
+        sl = slice(lo, lo + 256)
+        v, cw = vals[sl], ctf2w[sl].to(REAL)
+        base = cls[sl].long()[:, None] * (bz * big * big)
+        upd = torch.stack([v.real, v.imag, cw], dim=-1).reshape(-1, 3)
+        pos = rot[sl].to(REAL)[..., :, 0:1] * fx + rot[sl].to(REAL)[..., :, 1:2] * fy
+        inside = (pos * pos).sum(-2) < r2                               # (b, p)
+        for m, mat in enumerate(mats):
+            x, y, z = torch.einsum("ij,bjp->ibp", mat, pos)
+            flx, fly, flz = torch.floor(x), torch.floor(y), torch.floor(z)
+            wx, wy, wz = x - flx, y - fly, z - flz
+            ix, iy, iz = (flx.to(torch.int64) + c, fly.to(torch.int64) + c,
+                          flz.to(torch.int64) + c)
+            for dz in (0, 1):
+                for dy in (0, 1):
+                    for dx in (0, 1):
+                        w = ((wz if dz else 1 - wz) * (wy if dy else 1 - wy)
+                             * (wx if dx else 1 - wx))
+                        xi = torch.clamp(ix + dx, 0, big - 1)
+                        yi = torch.clamp(iy + dy, 0, big - 1)
+                        zi = torch.clamp(iz + dz, 0, big - 1)
+                        ok = inside & (zi >= z0) & (zi < z0 + bz)
+                        if m:       # a mate's taps land only inside the radius (HK7's cut)
+                            ok = ok & (((xi - c) ** 2 + (yi - c) ** 2 + (zi - c) ** 2) < r2)
+                        idx = base + ((zi - z0) * big + yi) * big + xi
+                        keep = ok.reshape(-1)
+                        g.index_add_(0, idx.reshape(-1)[keep],
+                                     upd[keep] * w.reshape(-1)[keep][:, None])
+    shape = f_slab.shape
+    return torch.complex(g[:, 0], g[:, 1]).reshape(shape), g[:, 2].reshape(shape)
+
+
+def insert_trilinear_slab(vals: torch.Tensor, ctf2w: torch.Tensor, rot: torch.Tensor,
+                          cls: torch.Tensor, r_u: int, pf: int, sym_mats: torch.Tensor,
+                          n_class: int, big: int, z0: int, bz: int,
+                          f_slab: torch.Tensor | None = None,
+                          t_slab: torch.Tensor | None = None):
+    """HK9: insert formed slices into this rank's z-slab of the (F, T)
+    grids, every mate of the point group pose-side.
+
+    vals (B, nk^2) complex64 and ctf2w (B, nk^2) float32 are the dense
+    window's values with their weights in (:func:`dense_slice_values`,
+    nk = 2 r_u - 1), rot (B, 3, 3), cls (B,) each slice's class;
+    sym_mats (n_sym, 3, 3), the identity first.  A sample at pos = rot .
+    (pf vc, pf vr, 0) with |pos| < (r_u - 1) pf adds its 8 trilinear taps
+    at M pos for every mate M, those whose z lies in [z0, z0 + bz); a
+    mate other than the identity adds only taps inside the radius, which
+    is HK7's cut, so that for a group of signed permutations (C2, C4, D2,
+    ...) the slabs equal HK3 followed by HK7 up to float order.  Returns
+    the slabs (K, bz, big, big), accumulated into those given (zeros
+    when None).  CPU tensors take :func:`insert_trilinear_slab_plain`;
+    CUDA tensors launch csrc/insert_trilinear_slab.cu."""
+    dev = vals.device
+    if f_slab is None:
+        f_slab = torch.zeros((n_class, bz, big, big), dtype=COMPLEX, device=dev)
+    if t_slab is None:
+        t_slab = torch.zeros((n_class, bz, big, big), dtype=REAL, device=dev)
+    if not vals.is_cuda:
+        f_new, t_new = insert_trilinear_slab_plain(vals, ctf2w, rot, cls, r_u, pf, sym_mats,
+                                                   f_slab, t_slab, z0)
+        f_slab.copy_(f_new)
+        t_slab.copy_(t_new)
+        return f_slab, t_slab
+    nk2 = (2 * r_u - 1) ** 2
+    n_s = rot.shape[0]
+    _native.require(vals.dtype == COMPLEX and vals.shape == (n_s, nk2)
+                    and ctf2w.shape == (n_s, nk2) and cls.shape == (n_s,),
+                    "insert_trilinear_slab: vals complex64 (B, nk^2), ctf2w (B, nk^2), cls (B,)")
+    _native.require(f_slab.shape == (n_class, bz, big, big) and f_slab.dtype == COMPLEX
+                    and t_slab.shape == f_slab.shape and t_slab.dtype == REAL
+                    and f_slab.is_contiguous() and t_slab.is_contiguous(),
+                    "insert_trilinear_slab: slabs must be contiguous (K, bz, big, big)")
+    if n_s == 0:
+        return f_slab, t_slab
+    vals = vals.contiguous()
+    ctf2w = ctf2w.to(REAL).contiguous()
+    rot = rot.to(REAL).reshape(n_s, 9).contiguous()
+    cls = cls.to(torch.int32).contiguous()
+    mats = sym_mats.to(device=dev, dtype=REAL).reshape(-1, 9).contiguous()
+    scratch = torch.zeros((n_class * bz * big * big, 4), dtype=REAL, device=dev)
+    lib = _native.library()
+    insert_trilinear_slab.launches += 1
+    _native.check(lib.thunder_insert_trilinear_slab(
+        vals.data_ptr(), ctf2w.data_ptr(), rot.data_ptr(), cls.data_ptr(), n_s, r_u, pf,
+        float((r_u - 1) * pf), mats.data_ptr(), mats.shape[0], f_slab.data_ptr(),
+        t_slab.data_ptr(), scratch.data_ptr(), n_class, big, z0, bz,
+        _native.stream_ptr(vals)), "insert_trilinear_slab")
+    return f_slab, t_slab
+
+
+insert_trilinear_slab.launches = 0

@@ -81,11 +81,15 @@ from thunder_tpu_torch.ops.fourier import (
     translate_phases,
     translate_phases_view,
 )
-from thunder_tpu_torch.ops.insert import insert_bilinear_2d, insert_trilinear
+from thunder_tpu_torch.ops.insert import (dense_slice_values, insert_bilinear_2d,
+                                          insert_trilinear, insert_trilinear_slab)
 from thunder_tpu_torch.ops.likelihood import (CtfTerms, ctf_terms,
                                               likelihood_block,
                                               likelihood_local_ctf,
                                               local_marginals)
+from thunder_tpu_torch.parallel import comm
+from thunder_tpu_torch.parallel.ingest import local_block, process_local_rows
+from thunder_tpu_torch.parallel.mesh import Layout, replicated_per_hemi, single
 from thunder_tpu_torch.ops.projector import (
     prepare_projectee_2d,
     prepare_projectee_2d_cropped,
@@ -102,9 +106,13 @@ from thunder_tpu_torch.physics import spectrum
 from thunder_tpu_torch.physics.spectrum import shell_sums
 from thunder_tpu_torch.pipeline.preprocess import (
     init_sigma,
+    init_sigma_from_moments,
     preprocess_images,
     sigma_to_sig_rcp,
 )
+from thunder_tpu_torch.recon.sharded import (reconstruct_all_sharded,
+                                             reconstruct_two_pass_sharded,
+                                             sharded_grid_specs)
 from thunder_tpu_torch.recon.reconstructor import (reconstruct,
                                                    reconstruct_two_pass,
                                                    symmetrize_form, symmetrize_ft)
@@ -343,31 +351,46 @@ def subtract_batch(ft_ori: torch.Tensor, ctf: CtfParams, table: torch.Tensor,
 # -- orchestration ------------------------------------------------------
 
 class StackedData(NamedTuple):
-    """Both hemispheres' images on a leading axis of size 2, padded to a
-    common L (pads repeat real images and carry no insertion weight)."""
+    """The images of a rank's hemispheres on a leading axis (2 on one
+    process), padded to a common L (pads repeat real images and carry no
+    insertion weight)."""
 
-    ft_masked: torch.Tensor    # (2, L, size, size) complex64
-    ft_ori: torch.Tensor       # (2, L, size, size) complex64
-    ctf_params: CtfParams      # fields (2, L)
-    group_id: torch.Tensor     # (2, L) int64
+    ft_masked: torch.Tensor    # (nh, L, size, size) complex64
+    ft_ori: torch.Tensor       # (nh, L, size, size) complex64
+    ctf_params: CtfParams      # fields (nh, L)
+    group_id: torch.Tensor     # (nh, L) int64
 
 
 @dataclass
 class StackedState:
-    refs: torch.Tensor         # (2, K, size^nd) real space
-    sigma: torch.Tensor        # (2, n_group, max_r)
-    par: pt.ParticleState      # fields (2, L, ...)
-    cls: torch.Tensor          # (2, L) int64
+    refs: torch.Tensor         # (nh, K, size^nd) real space
+    sigma: torch.Tensor        # (nh, n_group, max_r)
+    par: pt.ParticleState      # fields (nh, L, ...)
+    cls: torch.Tensor          # (nh, L) int64
 
 
 class Optimiser:
     """Host orchestration of one 3D refinement or 2D classification on
-    one device."""
+    one device, or on one rank of a (hemi, data) layout.
 
-    def __init__(self, cfg: ThunderConfig, images: np.ndarray, ctf,
+    With ``layout`` (parallel.mesh.Layout) the rank holds only its rows
+    of the global (2, L) image grid (L rounded up to a multiple of the
+    data extent, pads invalid) and its hemispheres' references, noise
+    spectra and F / T: every state tensor's leading axes are
+    (``self.nh`` hemispheres, ``self.n_img`` images).  The sums, maxima,
+    medians and cross-hemisphere meetings that thunder_tpu's partitioner
+    inserted are explicit calls of parallel.comm, each the identity on
+    one process.  Random draws are made at the global shape and cut to
+    the rank's rows (particle.RowDraws), and every host decision reads
+    reduced values, so that every rank takes the same branch.
+    ``image_loader(ids)`` reads the images of global ids (the rank's
+    own only) where ``images`` is None."""
+
+    def __init__(self, cfg: ThunderConfig, images: np.ndarray | None, ctf,
                  group_id: np.ndarray, init_refs: np.ndarray | None = None,
                  hemi_of: np.ndarray | None = None, resume_thu=None,
-                 device=None, seed: int | None = None):
+                 device=None, seed: int | None = None, layout: Layout | None = None,
+                 image_loader=None):
         mask_px = cfg.mask_radius / cfg.pixel_size
         if not np.any(radial_grid(cfg.size, 2) > mask_px):
             raise ValueError(
@@ -381,7 +404,8 @@ class Optimiser:
         self.gen = generator(cfg.seed if seed is None else seed, dev)
         self.sym = Symmetry("C1" if cfg.mode_2d else cfg.sym, dev)
         self.sym_form = symmetrize_form(self.sym.matrices)   # HK7's form, read once
-        n = images.shape[0]
+        self.layout = lay = layout if layout is not None else single(dev)
+        n = np.asarray(group_id).shape[0]
         if n < 2:
             raise ValueError("need at least one image per hemisphere")
         hemi_of = np.arange(n) % 2 if hemi_of is None else np.asarray(hemi_of)
@@ -399,35 +423,53 @@ class Optimiser:
         sel = [np.nonzero(hemi_of == h)[0] for h in (0, 1)]
         if min(len(s) for s in sel) == 0:
             raise ValueError("a hemisphere is empty; both halves need images")
-        L = max(len(s) for s in sel)
+        # pads repeat real images and carry no weight; L splits over the
+        # data axis (thunder_tpu optimiser.py:1905-1910)
+        L = _round_up(max(len(s) for s in sel), lay.data)
         self.index = np.stack([np.resize(s, L) for s in sel])
         self.valid = np.stack([np.arange(L) < len(s) for s in sel])
-        self.n_img = L
-        flat = self.index.reshape(-1)
+        self.n_img_all = L
+        # the rank's rows: thunder_tpu's per-process ingest
+        # (optimiser.py:1919-1960), a rectangle of the (2, L) grid
+        self.local_rows = h_sl, l_sl = local_block(process_local_rows(lay, L))
+        self.hemis = lay.hemis
+        self.nh = len(self.hemis)
+        ids = self.index[h_sl, l_sl]
+        self.n_img = ids.shape[1]
+        self.n_local_loaded = ids.size
+        flat = ids.reshape(-1)
+        imgs = (np.asarray(image_loader(flat), np.float32) if image_loader is not None
+                else np.asarray(images, np.float32)[flat])
 
         prep = preprocess_images(
-            torch.as_tensor(np.asarray(images, np.float32)[flat], device=dev),
+            torch.as_tensor(imgs, device=dev),
             cfg.mask_radius / cfg.pixel_size, zero_mask=cfg.zero_mask)
-        s2 = (2, L, cfg.size, cfg.size)
+        del imgs
+        nh, n_l = self.nh, self.n_img
+        s2 = (nh, n_l, cfg.size, cfg.size)
         ctf = CtfParams(*[torch.as_tensor(np.asarray(f, np.float32)[flat],
-                                          device=dev).reshape(2, L)
+                                          device=dev).reshape(nh, n_l)
                           for f in ctf])
         self.data = StackedData(
             ft_masked=prep.ft_masked.reshape(s2).contiguous(),
             ft_ori=prep.ft_ori.reshape(s2).contiguous(), ctf_params=ctf,
             group_id=torch.as_tensor(np.asarray(group_id)[flat].astype(np.int64),
-                                     device=dev).reshape(2, L))
+                                     device=dev).reshape(nh, n_l))
         sigma = torch.stack([
-            init_sigma(self.data.ft_ori[h], cfg.max_r).expand(
-                self.n_group, cfg.max_r) for h in (0, 1)]).contiguous()
+            self._init_sigma(self.data.ft_ori[h]).expand(self.n_group, cfg.max_r)
+            for h in range(nh)]).contiguous()
+        # draws at the global (2, L) shape, cut to this rank's rows
+        self.draws = (self.gen if lay.world == 1
+                      else pt.RowDraws(self.gen, self.hemis, L, l_sl))
 
         refs = (self._blank_refs() if init_refs is None
                 else np.asarray(init_refs, np.float32))
         if refs.ndim == nd:
             refs = np.repeat(refs[None], cfg.k, axis=0)
-        refs2 = torch.as_tensor(np.stack([refs] * 2), device=dev)
+        refs2 = torch.as_tensor(np.stack([refs] * nh), device=dev)
 
         n_d = cfg.m_l_d if cfg.c_search else 1
+        flat = self.index.reshape(-1)       # every rank draws the global clouds
         if resume_thu is not None and not cfg.g_search:
             t = resume_thu
             par = pt.from_thu(
@@ -435,9 +477,9 @@ class Optimiser:
                 np.stack([t.k1[flat], t.k2[flat], t.k3[flat]], axis=1),
                 t.defocus_factor[flat], t.std_defocus_factor[flat],
                 cfg.n_rot_local, cfg.m_l_t, n_d, self.gen, dev, self.mode)
-            par = par.map(lambda a: a.reshape((2, L) + a.shape[1:]))
-            cls = torch.as_tensor(np.clip(t.class_id[flat], 0, cfg.k - 1)
-                                  .astype(np.int64).reshape(2, L), device=dev)
+            par = par.map(lambda a: lay.take(a.reshape((2, L) + a.shape[1:])).contiguous())
+            cls = torch.as_tensor(lay.take(np.clip(t.class_id[flat], 0, cfg.k - 1)
+                                           .astype(np.int64).reshape(2, L)), device=dev)
         else:
             par = pt.init_particles(self.gen, (2, L), cfg.n_rot_local,
                                     cfg.m_l_t, n_d, cfg.trans_s, dev, self.mode)
@@ -445,9 +487,12 @@ class Optimiser:
             cls = (torch.randint(0, cfg.k, (2, L), generator=self.gen, device=dev)
                    if cfg.k > 1 else
                    torch.zeros((2, L), dtype=torch.int64, device=dev))
+            if lay.world > 1:
+                par, cls = par.map(lambda a: lay.take(a).contiguous()), lay.take(cls)
         self.state = StackedState(refs=refs2, sigma=sigma, par=par, cls=cls)
-        self.offset = torch.zeros((2, L, 2), dtype=REAL, device=dev)
-        self.valid_dev = torch.as_tensor(self.valid.astype(np.float32), device=dev)
+        self.offset = torch.zeros((nh, n_l, 2), dtype=REAL, device=dev)
+        self.valid_all = torch.as_tensor(self.valid.astype(np.float32), device=dev)
+        self.valid_dev = lay.take(self.valid_all).contiguous()
         self.round_records: list[dict] = []
         self._tables: dict = {}
         self._refs_report = None
@@ -470,6 +515,22 @@ class Optimiser:
         refs = np.repeat(blob[None], cfg.k, axis=0)
         rng = np.random.default_rng(cfg.seed)
         return refs * (1 + 0.01 * rng.standard_normal(refs.shape).astype(np.float32))
+
+    def _init_sigma(self, ft: torch.Tensor) -> torch.Tensor:
+        """Initial noise spectrum of one hemisphere from this rank's
+        rows ft (n_img, size, size), its moments summed over the data
+        group."""
+        lay = self.layout
+        if lay.data == 1:
+            return init_sigma(ft, self.cfg.max_r)
+        m = torch.stack([ft.sum(0), (ft.abs() ** 2).sum(0).to(COMPLEX)])
+        m = comm.sum_data(lay, m) / self.n_img_all
+        return init_sigma_from_moments(m[0], m[1].real, self.cfg.max_r)
+
+    def _median(self, x: torch.Tensor) -> float:
+        """Median of a per-image quantity (nh, n_img) over every valid
+        image of the run (all ranks' rows gathered)."""
+        return _median(comm.all_gather_rows(self.layout, x), self.valid_all)
 
     def set_refs(self, refs: torch.Tensor) -> None:
         """Rebind the references; cached projection tables are dropped."""
@@ -538,17 +599,19 @@ class Optimiser:
         if trans is None:
             trans = torch.randn((2, self._n_trans_global(), 2), generator=self.gen,
                                 device=dev, dtype=REAL) * cfg.trans_s
+        # one grid a hemisphere, drawn alike on every rank
+        quats, trans = (replicated_per_hemi(self.layout, x) for x in (quats, trans))
         n_rot = quats.shape[1]
         block = min(ROT_BLOCK, n_rot)
         if n_rot % block:
             raise ValueError("the rotation grid must fill whole blocks")
         nd = self.nd
-        rot = rotations(quats, nd).reshape(2, n_rot // block, block, nd, nd)
+        rot = rotations(quats, nd).reshape(self.nh, n_rot // block, block, nd, nd)
         dat_w, sctf2, a_term = self._pack_inputs(rings)
         tra = translate_phases(rings, trans)
         table = self.proj_table(rings.r_u)
         outs = [global_search(table[h], rot[h], rings, dat_w[h], sctf2[h],
-                              a_term[h], tra[h], cfg.pf) for h in (0, 1)]
+                              a_term[h], tra[h], cfg.pf) for h in range(self.nh)]
         w_c, w_r, w_t = (torch.stack([o[i] for o in outs]) for i in range(3))
         return dict(w_c=w_c, w_r=w_r, w_t=w_t, quats=quats, trans=trans)
 
@@ -561,8 +624,7 @@ class Optimiser:
         mode = self.mode
         w_c = pt.clip_u_class(g["w_c"])                       # (2, L, K)
         w_c = w_c / torch.clamp(w_c.sum(-1, keepdim=True), min=1e-30)
-        cls = torch.multinomial(w_c.reshape(-1, cfg.k) + 1e-30, 1,
-                                generator=self.gen).reshape(w_c.shape[:2])
+        cls = pt.draw_classes(self.draws, w_c + 1e-30)
         n_rot, n_t = g["w_r"].shape[-1], g["w_t"].shape[-1]
         take = lambda w: torch.gather(
             w.permute(0, 2, 1, 3), 2,
@@ -570,11 +632,11 @@ class Optimiser:
         u_r, u_t = take(g["w_r"]), take(g["w_t"])              # (2, L, .)
         n_l = u_r.shape[1]
         dev = self.device
-        b = (2, n_l)
+        b = (self.nh, n_l)
         ones = torch.ones(b, dtype=REAL, device=dev)
         par = pt.ParticleState(
-            r=g["quats"][:, None].expand(2, n_l, n_rot, 4),
-            t=g["trans"][:, None].expand(2, n_l, n_t, 2),
+            r=g["quats"][:, None].expand(self.nh, n_l, n_rot, 4),
+            t=g["trans"][:, None].expand(self.nh, n_l, n_t, 2),
             d=s.par.d, w_r=torch.full(b + (n_rot,), 1.0 / n_rot, device=dev),
             w_t=torch.full(b + (n_t,), 1.0 / n_t, device=dev),
             w_d=s.par.w_d, u_r=u_r, u_t=u_t, u_d=s.par.u_d,
@@ -583,8 +645,8 @@ class Optimiser:
             k1=ones, k2=ones, k3=ones, s0=ones, s1=ones,
             s_d=torch.zeros(b, device=dev), score=torch.zeros(b, device=dev))
         par = pt.clip_u_t(pt.clip_u_r(par, mode))
-        par = pt.resample_r(self.gen, par, cfg.n_rot_local)
-        par = pt.resample_t(self.gen, par, cfg.m_l_t)
+        par = pt.resample_r(self.draws, par, cfg.n_rot_local)
+        par = pt.resample_t(self.draws, par, cfg.m_l_t)
         s.par = pt.cal_vari_t(pt.cal_vari_r(par, mode))
         s.cls = cls
 
@@ -599,18 +661,20 @@ class Optimiser:
         every defocus support point formed there) and resampled too, and
         ``dat_w`` / ``sctf2`` are the CTF-free operands of
         :func:`pack_inputs_ctf` (dat_s, s_pack).  ``par`` holds the
-        selected hemispheres; returns (par, vari (len(hemis), 4))."""
+        selected hemispheres (indices into this rank's hemispheres; their
+        draws cover ``self.draws.running``); returns (par, vari
+        (len(hemis), 4), the means over this rank's images)."""
         cfg = self.cfg
         mode, nd = self.mode, self.nd
         is_ctf = ctf is not None
         hs = torch.as_tensor(hemis, device=self.device)
         with _range("phase/perturb_r"):
-            par = pt.perturb_r(self.gen, par, pf_small, mode=mode)
+            par = pt.perturb_r(self.draws, par, pf_small, mode=mode)
         with _range("phase/perturb_t"):
-            par = pt.perturb_t(self.gen, par, pf_small, float(cfg.trans_s))
+            par = pt.perturb_t(self.draws, par, pf_small, float(cfg.trans_s))
         if is_ctf:
             with _range("phase/perturb_d"):
-                par = pt.perturb_d(self.gen, par, pf_small)
+                par = pt.perturb_d(self.draws, par, pf_small)
         nh, n_l, n_r = par.r.shape[:3]
         k_cls = table.shape[1]
         with _range("phase/translate_rotate"):
@@ -623,7 +687,7 @@ class Optimiser:
         fold = lambda x: x.reshape((nh * n_l,) + x.shape[2:])
         # the selected hemispheres of a round's (2, L, ...) operand: views,
         # not gathers
-        flat = fold if nh == 2 else (lambda x: x[hemis[0]])
+        flat = fold if nh == self.nh else (lambda x: x[hemis[0]])
         with _range("phase/local_marginals"):
             if is_ctf:
                 u_r, u_t, u_d = likelihood_local_ctf(
@@ -640,12 +704,12 @@ class Optimiser:
         with _range("phase/clip_u_r"):
             par = pt.clip_u_r(par, mode)
         with _range("phase/resample_r"):
-            par = pt.resample_r(self.gen, par, n_r)
+            par = pt.resample_r(self.draws, par, n_r)
         with _range("phase/resample_t"):
-            par = pt.resample_t(self.gen, par, par.t.shape[-2])
+            par = pt.resample_t(self.draws, par, par.t.shape[-2])
         if is_ctf:
             with _range("phase/resample_d"):
-                par = pt.resample_d(self.gen, par, par.d.shape[-1])
+                par = pt.resample_d(self.draws, par, par.d.shape[-1])
         with _range("phase/cal_vari_r"):
             par = pt.cal_vari_r(par, mode)
         with _range("phase/cal_vari_t"):
@@ -675,7 +739,7 @@ class Optimiser:
                          else (cfg.perturb_factor_s_ctf if is_ctf
                                else cfg.perturb_factor_s_local))
         if is_ctf:
-            s.par = pt.init_d_round(self.gen, s.par, float(cfg.ctf_refine_s))
+            s.par = pt.init_d_round(self.draws, s.par, float(cfg.ctf_refine_s))
             d = self.data
             dat_w, sctf2, a_term = pack_inputs_ctf(d.ft_masked, s.sigma,
                                                    d.group_id, rings)
@@ -691,25 +755,40 @@ class Optimiser:
         prev = [[big] * 4, [big] * 4]
         par = s.par.map(lambda a: a.contiguous())
 
+        multi = self.layout.world > 1
+        step_log = None
+
         def running(h):
             return phase[h] < MAX_N_PHASE_PER_ITER and (
                 phase[h] < min_phase or n_no_dec[h] < N_PHASE_WITH_NO_VARI_DECREASE)
 
         while True:
-            hemis = [h for h in (0, 1) if running(h)]
-            if not hemis:
+            run = [h for h in (0, 1) if running(h)]
+            if not run:
                 break
-            sub = par if len(hemis) == 2 else par.map(lambda a: a[hemis])
-            sub, vari = self.phase_step(sub, hemis, rings, table, dat_w,
-                                        sctf2, a_term, pf_small, ctf)
-            if len(hemis) == 2:
-                par = sub
+            # this rank's hemispheres among those still running
+            mine = [i for i, h in enumerate(self.hemis) if h in run]
+            if multi:
+                self.draws.running = tuple(run)
+                self.draws.log = [] if mine else None
+            if mine:
+                sub = par if len(mine) == self.nh else par.map(lambda a: a[mine])
+                sub, vari = self.phase_step(sub, mine, rings, table, dat_w,
+                                            sctf2, a_term, pf_small, ctf)
+                if len(mine) == self.nh:
+                    par = sub
+                else:
+                    par = par.map(lambda a: a.clone())
+                    for fld, new in zip(par, sub):
+                        fld[mine] = new
+                step_log = self.draws.log if multi else None
             else:
-                par = par.map(lambda a: a.clone())
-                for fld, new in zip(par, sub):
-                    fld[hemis] = new
-            vari = vari.cpu().numpy()
-            for i, h in enumerate(hemis):
+                # this hemisphere has stopped, the other runs on: draw what
+                # its phase draws, so that the generator stays in step
+                self.draws.replay(step_log)
+                vari = None
+            vari = self._vari_means(vari, mine, run)
+            for i, h in enumerate(run):
                 k1, s0, s1, sd = (float(v) for v in vari[i])
                 pk1, ps0, ps1, psd = prev[h]
                 dec = k1 < pk1 * f or s0 < ps0 * f or s1 < ps1 * f or sd < psd * f
@@ -717,11 +796,28 @@ class Optimiser:
                     if phase[h] + 1 >= min_phase else 0
                 phase[h] += 1
                 prev[h] = [k1, s0, s1, sd]
+        if multi:
+            self.draws.running, self.draws.log = (0, 1), None
         par = pt.cal_score(par, self.mode)
         # the rank-1 rotation folds into the asymmetric unit in 3D only
         # (thunder_tpu's _finish_phases: sym.order > 1 and not 2D)
         s.par = par if cfg.mode_2d else pt.symmetrise_top(par, self.sym)
         return phase
+
+    def _vari_means(self, vari, mine: list, run: list) -> np.ndarray:
+        """The stall rule's variances (len(run), 4) of each running
+        hemisphere, averaged over all its images: ``vari`` holds this
+        rank's means (len(mine), 4) over its images (None when none of
+        its hemispheres runs); on several ranks the sums meet over the
+        world, so every rank reads the same values and runs the same
+        phases."""
+        if self.layout.world == 1:
+            return vari.cpu().numpy()
+        sums = torch.zeros((2, 4), dtype=torch.float64, device=self.device)
+        for i, li in enumerate(mine):
+            sums[self.hemis[li]] = vari[i].double() * self.n_img
+        sums = comm.sum_world(self.layout, sums) / self.n_img_all
+        return sums.cpu().numpy()[run]
 
     # -- maximization ---------------------------------------------------
 
@@ -748,19 +844,19 @@ class Optimiser:
                      cfg.r_low + 2)
         r_s = max(2, min(int(self.model.r), cfg.res_a2p(cfg.sclCor_res)))
 
-        n_l = self.n_img
+        n_l, nh, lay = self.n_img, self.nh, self.layout
         k_cls = table.shape[1]
-        dat = extract_packed(d.ft_ori, rings)                   # (2, L, P)
+        dat = extract_packed(d.ft_ori, rings)                   # (nh, L, P)
         dat_hi = extract_packed(d.ft_ori, rings_hi)
         ctf = ctf_packed(d.ctf_params, rings.i_col, rings.i_row, cfg.size,
                          float(cfg.pixel_size))
         nd = self.nd
-        rot = rotations(s.par.top_r, nd).reshape(2 * n_l, 1, nd, nd)
-        hs = torch.arange(2, device=dev)[:, None]
+        rot = rotations(s.par.top_r, nd).reshape(nh * n_l, 1, nd, nd)
+        hs = torch.arange(nh, device=dev)[:, None]
         cls = (s.cls + hs * k_cls).reshape(-1)
         pri = project_any(table.reshape((-1,) + table.shape[2:]), rot,
                           rings.i_col, rings.i_row, cfg.pf, cls)
-        pri = pri.reshape(2, n_l, -1)
+        pri = pri.reshape(nh, n_l, -1)
         tra = translate_phases_view(rings.i_col, rings.i_row, cfg.size,
                                     top_t[..., None, :])[..., 0, :]
         m = ctf * tra * pri
@@ -771,11 +867,11 @@ class Optimiser:
         n_sh = max_r + 1
         shell = torch.clamp(rings.i_sig, max=max_r)
         shell_hi = torch.clamp(rings_hi.i_sig, max=max_r)
-        per_px = torch.stack([d2px, xapx, aapx], dim=2).reshape(2 * n_l, 3, -1)
-        sums = shell_sums(per_px.contiguous(), shell, n_sh).reshape(2, n_l, 3, n_sh)
-        hi = (dat_hi.abs() ** 2 * rings_hi.mask).reshape(2 * n_l, 1, -1)
+        per_px = torch.stack([d2px, xapx, aapx], dim=2).reshape(nh * n_l, 3, -1)
+        sums = shell_sums(per_px.contiguous(), shell, n_sh).reshape(nh, n_l, 3, n_sh)
+        hi = (dat_hi.abs() ** 2 * rings_hi.mask).reshape(nh * n_l, 1, -1)
         d2 = sums[:, :, 0] + shell_sums(hi.contiguous(), shell_hi, n_sh
-                                        ).reshape(2, n_l, n_sh)
+                                        ).reshape(nh, n_l, n_sh)
         xa, aa = sums[:, :, 1], sums[:, :, 2]
 
         fi = rings.i_sig.to(REAL)
@@ -789,21 +885,24 @@ class Optimiser:
 
         valid = self.valid_dev
         if do_norm:
-            med = torch.nanquantile(torch.where(valid > 0, norm_l, float("nan")
+            # the median over every valid image of the run
+            norm_all = comm.all_gather_rows(lay, norm_l)
+            med = torch.nanquantile(torch.where(self.valid_all > 0, norm_all, float("nan")
                                                 ).reshape(-1), 0.5)
             s_norm = torch.sqrt(med / torch.clamp(norm_l, min=1e-30))
         else:
             s_norm = torch.ones_like(norm_l)
         s1 = s_norm[..., None]
-        sig = s1 * s1 * d2 - 2 * s1 * xa + aa                   # (2, L, S)
+        sig = s1 * s1 * d2 - 2 * s1 * xa + aa                   # (nh, L, S)
         g_onehot = ((d.group_id[..., None]
                      == torch.arange(self.n_group, device=dev)).to(REAL)
-                    * valid[..., None])                          # (2, L, G)
-        sig_sum = torch.einsum("hlg,hls->hgs", g_onehot, sig) / 2
+                    * valid[..., None])                          # (nh, L, G)
+        # each group's sums over the hemisphere's images (psum over data)
+        sig_sum = comm.sum_data(lay, torch.einsum("hlg,hls->hgs", g_onehot, sig)) / 2
         cnt_shell = (shell_sums(mask[None, None].contiguous(), shell, n_sh)[0, 0]
                      + shell_sums(rings_hi.mask[None, None].contiguous(),
                                   shell_hi, n_sh)[0, 0])
-        cnt_sum = g_onehot.sum(1)[..., None] * cnt_shell
+        cnt_sum = comm.sum_data(lay, g_onehot.sum(1))[..., None] * cnt_shell
         sigma = sig_sum[..., :max_r] / torch.clamp(cnt_sum[..., :max_r], min=1.0)
         s.sigma = torch.clamp(sigma, min=1e-6).contiguous()
 
@@ -813,8 +912,9 @@ class Optimiser:
         elif do_scale:
             # per-group scale (refreshScale with group_scl, as
             # thunder_tpu._max_stats_h's group branch)
-            scale_g = (torch.einsum("hlg,hl->hg", g_onehot, xa_l)
-                       / torch.clamp(torch.einsum("hlg,hl->hg", g_onehot, aa_l),
+            scale_g = (comm.sum_data(lay, torch.einsum("hlg,hl->hg", g_onehot, xa_l))
+                       / torch.clamp(comm.sum_data(lay, torch.einsum("hlg,hl->hg",
+                                                                     g_onehot, aa_l)),
                                      min=1e-30))
             per_img = torch.gather(scale_g, 1, d.group_id)
             self.data = d._replace(ft_masked=d.ft_masked / per_img[..., None, None],
@@ -837,27 +937,29 @@ class Optimiser:
         r_s = max(2, min(int(self.model.r), cfg.res_a2p(cfg.sclCor_res)))
         rings = pack_rings(cfg.size, r_s, 0, lane=512, device=self.device)
         table = self.proj_table(r_s)
-        n_l, nd = self.n_img, self.nd
+        n_l, nd, nh, lay = self.n_img, self.nd, self.nh, self.layout
         dat = extract_packed(d.ft_ori, rings)
         ctf = ctf_packed(d.ctf_params, rings.i_col, rings.i_row, cfg.size,
                          float(cfg.pixel_size))
-        hs = torch.arange(2, device=self.device)[:, None]
+        hs = torch.arange(nh, device=self.device)[:, None]
         pri = project_any(table.reshape((-1,) + table.shape[2:]),
-                          rotations(s.par.top_r, nd).reshape(2 * n_l, 1, nd, nd),
+                          rotations(s.par.top_r, nd).reshape(nh * n_l, 1, nd, nd),
                           rings.i_col, rings.i_row, cfg.pf,
-                          (s.cls + hs * table.shape[1]).reshape(-1)).reshape(2, n_l, -1)
+                          (s.cls + hs * table.shape[1]).reshape(-1)).reshape(nh, n_l, -1)
         prit = pri * translate_phases_view(
             rings.i_col, rings.i_row, cfg.size,
             (s.par.top_t - self.offset)[..., None, :])[..., 0, :]
         xa = torch.sum((dat * prit.conj()).real * ctf * rings.mask, -1) * self.valid_dev
         aa = torch.sum(prit.abs() ** 2 * ctf * ctf * rings.mask, -1) * self.valid_dev
         if cfg.group_scl:
-            zero = torch.zeros((2, self.n_group), dtype=REAL, device=self.device)
-            scale = (zero.scatter_add(1, d.group_id, xa)
-                     / torch.clamp(zero.scatter_add(1, d.group_id, aa), min=1e-30))
+            zero = torch.zeros((nh, self.n_group), dtype=REAL, device=self.device)
+            scale = (comm.sum_data(lay, zero.scatter_add(1, d.group_id, xa))
+                     / torch.clamp(comm.sum_data(lay, zero.scatter_add(1, d.group_id, aa)),
+                                   min=1e-30))
         else:
-            scale = (xa.sum(1) / torch.clamp(aa.sum(1), min=1e-30))[:, None].expand(
-                2, self.n_group)
+            scale = (comm.sum_data(lay, xa.sum(1))
+                     / torch.clamp(comm.sum_data(lay, aa.sum(1)), min=1e-30))[:, None].expand(
+                nh, self.n_group)
         per_img = torch.gather(scale, 1, d.group_id)[..., None, None]
         self.data = d._replace(ft_masked=d.ft_masked / per_img, ft_ori=d.ft_ori / per_img)
         s.sigma = s.sigma / scale[..., None] ** 2
@@ -871,8 +973,12 @@ class Optimiser:
         the point group has mates; in 2D HK6 (one launch for both
         hemispheres' 2K planes) (reconstructRef, Optimiser.cpp:6711-7233).
         In a CTF-search round each slice's CTF takes its drawn defocus
-        factor.  ``draws`` injects (quats, trans, d, w) of shape (2, L,
-        S, ...).  Returns (F (2, K, big^nd), T, r_u, grid_size)."""
+        factor.  ``draws`` injects (quats, trans, d, w) of shape (nh, L,
+        S, ...), this rank's rows.  On several ranks F and T are summed
+        over the data group before HK7; where :meth:`_vol_sharded` holds,
+        the slices go to this rank's z-slab instead (HK9, symmetry
+        pose-side).  Returns (F (nh, K, big^nd) or the slab (1, K, big /
+        d, big, big), T, r_u, grid_size)."""
         cfg = self.cfg
         s = self.state
         r_u = int(self.model.r_u)
@@ -882,24 +988,29 @@ class Optimiser:
         if draws is None:
             n_draw = min(cfg.m_reco, s.par.r.shape[2] * s.par.t.shape[2])
             n_slots = min(n_draw, RECO_COMPACT_SLOTS)
-            draws = pt.draw_poses_compact(self.gen, s.par, n_draw, n_slots)
+            draws = pt.draw_poses_compact(self.draws, s.par, n_draw, n_slots)
         quats, trans, d_draw, w_draw = draws
         trans = trans - self.offset[:, :, None, :]
         use_d = cfg.c_search and self.model.search_type == SEARCH_TYPE_CTF
         # grading only in refinement (parGra && k == 1,
         # Optimiser.cpp:6726-6761)
         if cfg.par_gra and cfg.k == 1:
-            w_img = s.par.score / torch.clamp(torch.max(s.par.score * self.valid_dev),
-                                              min=1e-12)
+            top = comm.max_world(self.layout, torch.max(s.par.score * self.valid_dev))
+            w_img = s.par.score / torch.clamp(top, min=1e-12)
         else:
             w_img = torch.ones_like(s.par.score)
         w = (w_img * self.valid_dev)[..., None] * w_draw        # (2, L, S)
         n_slots = w.shape[-1]
         if self.nd == 2:
-            return self._insert_2d(quats, trans, w, r_u, big) + (r_u, grid_size)
-        f2 = torch.zeros((2, cfg.k) + (big,) * 3, dtype=COMPLEX, device=self.device)
-        t2 = torch.zeros((2, cfg.k) + (big,) * 3, dtype=REAL, device=self.device)
-        for h in (0, 1):
+            f2, t2 = self._insert_2d(quats, trans, w, r_u, big)
+            return (comm.sum_data(self.layout, f2), comm.sum_data(self.layout, t2),
+                    r_u, grid_size)
+        if self._vol_sharded(grid_size):
+            return self._insert_slabs(quats, trans, d_draw, w, r_u, big, use_d) + (
+                r_u, grid_size)
+        f2 = torch.zeros((self.nh, cfg.k) + (big,) * 3, dtype=COMPLEX, device=self.device)
+        t2 = torch.zeros((self.nh, cfg.k) + (big,) * 3, dtype=REAL, device=self.device)
+        for h in range(self.nh):
             w_h = w[h].reshape(-1)
             cls_s = s.cls[h][:, None].expand(-1, n_slots).reshape(-1)
             ctf_h = self.data.ctf_params.map(lambda a: a[h])
@@ -911,15 +1022,58 @@ class Optimiser:
                     trans[h].reshape(-1, 2)[sel], w_h[sel], r_u, cfg.pf,
                     cfg.size, float(cfg.pixel_size), big, f2[h, k], t2[h, k],
                     d_draw[h].reshape(-1)[sel] if use_d else None)
+        comm.sum_data(self.layout, f2)
+        comm.sum_data(self.layout, t2)
         if self.sym.order > 1:
             f2, t2 = symmetrize_ft(f2, t2, self.sym.matrices,
                                    float((r_u - 1) * cfg.pf), self.sym_form)
         return f2, t2, r_u, grid_size
 
+    def _vol_sharded(self, grid_size: int) -> bool:
+        """True where a 3D round's padded grids lie as z-slabs over the
+        data axis (thunder_tpu optimiser.py:3172-3189): hemi extent 2, an
+        even data extent over 1 that splits the padded box, and grids of
+        at least ``vol_shard_min_mb``."""
+        cfg, lay = self.cfg, self.layout
+        big = grid_size * cfg.pf
+        return (not cfg.mode_2d and lay.hemi == 2 and lay.data > 1
+                and lay.data % 2 == 0 and big % lay.data == 0
+                and big ** 3 * 8 // 2 ** 20 >= cfg.vol_shard_min_mb)
+
+    def _insert_slabs(self, quats, trans, d_draw, w, r_u: int, big: int, use_d: bool):
+        """The slab path's insertion: this rank forms the dense-window
+        values of its slices with non-zero weight, the data group
+        gathers them (padded to the group's largest count with
+        zero-weight slices), and HK9 adds every slice of the hemisphere,
+        with every mate of the group, into this rank's slab."""
+        cfg, lay = self.cfg, self.layout
+        n_slots = w.shape[-1]
+        w_h = w[0].reshape(-1)
+        sel = torch.nonzero(w_h > 0)[:, 0]
+        vals, c2w, _, _ = dense_slice_values(
+            self.data.ft_ori[0], self.data.ctf_params.map(lambda a: a[0]), sel // n_slots,
+            trans[0].reshape(-1, 2)[sel], w_h[sel], r_u, cfg.size, float(cfg.pixel_size),
+            d_draw[0].reshape(-1)[sel] if use_d else None)
+        rot = rotate3d(quats[0].reshape(-1, 4)[sel]).reshape(-1, 9)
+        cls = self.state.cls[0][:, None].expand(-1, n_slots).reshape(-1)[sel]
+        pad = int(comm.max_data(lay, torch.tensor([sel.numel()], device=self.device))) \
+            - sel.numel()
+
+        def pack(x):
+            if pad:
+                x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+            return comm.gather_slabs(lay, x.contiguous(), axis=0)
+
+        vals, c2w, rot, cls = pack(vals), pack(c2w), pack(rot), pack(cls.to(torch.int32))
+        z0, bz = sharded_grid_specs(lay, big)
+        f, t = insert_trilinear_slab(vals, c2w, rot.reshape(-1, 3, 3), cls, r_u, cfg.pf,
+                                     self.sym.matrices, cfg.k, big, z0, bz)
+        return f[None], t[None]
+
     def _insert_2d(self, quats, trans, w, r_u: int, big: int):
-        """Both hemispheres' slices with non-zero weight into 2K class
-        planes in one HK6 launch: image l of hemisphere h is row h L + l
-        of the flattened stack, its class plane h K + cls."""
+        """This rank's hemispheres' slices with non-zero weight into nh K
+        class planes in one HK6 launch: image l of hemisphere h is row
+        h L + l of the flattened stack, its class plane h K + cls."""
         cfg = self.cfg
         n_l, n_slots = w.shape[1], w.shape[2]
         k = cfg.k
@@ -933,8 +1087,9 @@ class Optimiser:
             d.ctf_params.map(lambda a: a.reshape(-1)), img, cls,
             rotations(quats.reshape(-1, 4)[sel], 2),
             trans.reshape(-1, 2)[sel], w.reshape(-1)[sel], r_u, cfg.pf,
-            cfg.size, float(cfg.pixel_size), big, 2 * k)
-        return f2.reshape(2, k, big, big), t2.reshape(2, k, big, big)
+            cfg.size, float(cfg.pixel_size), big, self.nh * k)
+        return (f2.reshape(self.nh, k, big, big).contiguous(),
+                t2.reshape(self.nh, k, big, big).contiguous())
 
     def _recentre(self, refs: torch.Tensor) -> torch.Tensor:
         """Shift each class reference by minus the mean rank-1 translation
@@ -948,9 +1103,41 @@ class Optimiser:
         one_hot = ((s.cls[:, None, :] == torch.arange(cfg.k, device=self.device
                                                        )[None, :, None]).to(REAL)
                    * self.valid_dev[:, None, :])
-        cnt = torch.clamp(one_hot.sum(2), min=1.0)
-        o_class = torch.einsum("hkl,hlc->hkc", one_hot, eff_t) / cnt[..., None]
+        lay = self.layout
+        cnt = torch.clamp(comm.sum_data(lay, one_hot.sum(2)), min=1.0)
+        o_class = (comm.sum_data(lay, torch.einsum("hkl,hlc->hkc", one_hot, eff_t))
+                   / cnt[..., None])
         return recentre_refs(refs, o_class, self.nd)
+
+    def reconstruct_maps(self, draws=None, stage: _Stages | None = None):
+        """A round's maps from its (F, T): :meth:`reconstruct_round`
+        (``draws`` injected where given), then the MAP-free FSC pass and
+        the Wiener MAP pass with the previous round's FSC, on one grid or
+        on this rank's slabs, resized to the box.  Returns (refs_fsc,
+        refs_map, r_u), this rank's hemispheres (nh, K, size^nd)."""
+        cfg, nd = self.cfg, self.nd
+        if stage is not None:
+            stage.begin("reco_insert")
+        f2, t2, r_u, grid_size = (self.reconstruct_round() if draws is None
+                                  else self.reconstruct_round(draws))
+        if stage is not None:
+            stage.begin("reco_fsc")
+        # the previous round's per-class curves (one curve broadcast
+        # until the first reconstruction)
+        fsc_prev = np.asarray(self.model.fsc, np.float32)
+        if fsc_prev.shape[0] < cfg.k:
+            fsc_prev = np.broadcast_to(fsc_prev[:1], (cfg.k,) + fsc_prev.shape[1:])
+        fsc_prev = torch.as_tensor(np.ascontiguousarray(fsc_prev), device=self.device)
+        if self._vol_sharded(grid_size):
+            return tuple(r[None] for r in reconstruct_two_pass_sharded(
+                self.layout, f2[0], t2[0], fsc_prev, grid_size, cfg.pf, r_u, cfg.size)
+                ) + (r_u,)
+        refs_fsc, refs_map = reconstruct_two_pass(f2, t2, fsc_prev, grid_size, cfg.pf, r_u, nd)
+        del f2, t2
+        if grid_size != cfg.size:
+            refs_fsc = resize_rl(refs_fsc, cfg.size, nd=nd)
+            refs_map = resize_rl(refs_map, cfg.size, nd=nd)
+        return refs_fsc, refs_map, r_u
 
     def _reconstruct_and_compare(self, record: dict, stage: _Stages):
         """Two-pass reconstruction (MAP-free FSC pass + Wiener MAP pass
@@ -958,38 +1145,28 @@ class Optimiser:
         averaging below the 0.95 crossing (Optimiser.cpp:7310-7755)."""
         cfg = self.cfg
         nd = self.nd
-        stage.begin("reco_insert")
-        f2, t2, r_u, grid_size = self.reconstruct_round()
-        stage.begin("reco_fsc")
+        lay = self.layout
         n_shells = cfg.max_r
-        # the previous round's per-class curves (one curve broadcast
-        # until the first reconstruction)
-        fsc_prev = np.asarray(self.model.fsc, np.float32)
-        if fsc_prev.shape[0] < cfg.k:
-            fsc_prev = np.broadcast_to(fsc_prev[:1], (cfg.k,) + fsc_prev.shape[1:])
-        fsc_prev = torch.as_tensor(np.ascontiguousarray(fsc_prev), device=self.device)
-        refs_fsc, refs_map = reconstruct_two_pass(
-            f2, t2, fsc_prev, grid_size, cfg.pf, r_u, nd)
-        if grid_size != cfg.size:
-            refs_fsc = resize_rl(refs_fsc, cfg.size, nd=nd)
-            refs_map = resize_rl(refs_map, cfg.size, nd=nd)
+        refs_fsc, refs_map, r_u = self.reconstruct_maps(stage=stage)
         refs_fsc = self._recentre(refs_fsc)
         self._refs_report = refs_fsc
+        # the hemispheres meet here (every rank of a pair gets both)
+        both = comm.exchange_hemi(lay, refs_fsc)
         if nd == 3 and (cfg.core_fsc or cfg.mask_fsc):
             # core / masked true FSC in place of the plain curve
             # (Model.cpp:411-567)
             m = (self._ref_mask if cfg.mask_fsc and self._ref_mask is not None
                  else self._soft_mask)
-            fsc_dev = true_fsc_batch(refs_fsc[0], refs_fsc[1], m, self.gen,
-                                     n_shells)
+            fsc_dev = true_fsc_batch(both[0], both[1], m, self.gen, n_shells)
         else:
-            fsc_dev, _, _ = compare_refs(refs_fsc[0], refs_fsc[1], n_shells,
+            fsc_dev, _, _ = compare_refs(both[0], both[1], n_shells,
                                          want_avg=False, nd=nd)
+        del both
         fsc_all = fsc_dev.cpu().numpy().astype(np.float64)
         fsc_all[:, r_u:] = 0.0
         self._fsc_band = int(r_u)
         stage.begin("reco_wiener")
-        refs = self._recentre(refs_map)
+        refs = comm.exchange_hemi(lay, self._recentre(refs_map))
         stage.begin("reco_compare")
         if cfg.gold_standard and cfg.k == 1:
             _, ref_a, ref_b = compare_refs(refs[0], refs[1], n_shells,
@@ -999,7 +1176,7 @@ class Optimiser:
             # K > 1 (or no gold standard): the halves are fully averaged
             # every round (Model.cpp:679-690)
             refs = ((refs[0] + refs[1]) / 2)[None].expand(2, *refs.shape[1:])
-        self.set_refs(refs.contiguous())
+        self.set_refs(replicated_per_hemi(lay, refs).contiguous())
         self.model.set_fsc(fsc_all)
         self.model.update_res(cfg.thres_report_fsc)
 
@@ -1008,8 +1185,9 @@ class Optimiser:
         (refreshClassDistr, Optimiser.cpp:5484)."""
         one_hot = (self.state.cls[..., None]
                    == torch.arange(self.cfg.k, device=self.device)).to(REAL)
-        cnt = torch.sum(one_hot * self.valid_dev[..., None], dim=(0, 1))
-        return cnt / torch.clamp(torch.sum(self.valid_dev), min=1.0)
+        cnt = comm.sum_world(self.layout, torch.sum(one_hot * self.valid_dev[..., None],
+                                                    dim=(0, 1)))
+        return cnt / torch.clamp(torch.sum(self.valid_all), min=1.0)
 
     def balance_classes(self, distr: np.ndarray | None = None) -> list:
         """Class rebirth: every class holding less than
@@ -1093,11 +1271,10 @@ class Optimiser:
 
         stage.begin("host_stats")
         dot = torch.abs(torch.sum(prev_top_r * s.par.top_r, dim=-1))
-        rot_med = _median(dot, self.valid_dev)
+        rot_med = self._median(dot)
         record["rot_change_median_deg"] = float(
             np.degrees(2.0 * np.arccos(np.clip(rot_med, -1.0, 1.0))))
-        self.model.set_t_vari(_median(s.par.s0, self.valid_dev),
-                              _median(s.par.s1, self.valid_dev))
+        self.model.set_t_vari(self._median(s.par.s0), self._median(s.par.s1))
         # what update_r's 2 % stagnation test reads
         record["t_vari"] = [self.model.t_vari_s0, self.model.t_vari_s1]
         # the class distribution after expectation drives rebirth
@@ -1143,18 +1320,26 @@ class Optimiser:
     def final_reconstruction(self) -> np.ndarray:
         """Joint reconstruction at the full band after the search stops
         (Optimiser.cpp:4078-4129), MAP-free.  Returns (K, n^nd) maps
-        averaged over hemispheres; per-hemisphere maps stay in the state."""
+        averaged over hemispheres (on every rank); per-hemisphere maps stay
+        in the state."""
         cfg = self.cfg
         saved_r = self.model.r
         self.model.r = cfg.max_r - 3
         f2, t2, r_u, grid_size = self.reconstruct_round()
         self.model.r = saved_r
-        refs = reconstruct(f2, t2, grid_size, cfg.pf, r_u, self.nd)
-        if grid_size != cfg.size:
+        if self._vol_sharded(grid_size):
+            refs = reconstruct_all_sharded(
+                self.layout, f2[0], t2[0], None, grid_size, cfg.pf, r_u, False, False,
+                cfg.size)[None]
+        else:
+            refs = reconstruct(f2, t2, grid_size, cfg.pf, r_u, self.nd)
+        del f2, t2
+        if refs.shape[-1] != cfg.size:
             refs = resize_rl(refs, cfg.size, nd=self.nd)
         self.set_refs(refs.contiguous())
         self._refs_report = None
-        return ((refs[0] + refs[1]) / 2).cpu().numpy()
+        both = comm.exchange_hemi(self.layout, refs)
+        return ((both[0] + both[1]) / 2).cpu().numpy()
 
     def save_subtract(self, mask, chunk: int = 512) -> np.ndarray:
         """Signal subtraction (saveSubtract, Optimiser.cpp:8418-...): from
@@ -1162,36 +1347,48 @@ class Optimiser:
         masked reference at its rank-1 pose (:func:`subtract_batch`, one
         launch a chunk of a hemisphere's images).  ``mask`` (n^nd), real
         space, FFT layout.  Returns (n, size, size) float32 real-space
-        images in the original particle order."""
+        images in the original particle order (on rank 0; None on the
+        other ranks, which send their rows there)."""
         cfg = self.cfg
-        out = np.zeros((self.n_total, cfg.size, cfg.size), np.float32)
         w = torch.as_tensor(mask, dtype=REAL, device=self.device)
         s = self.state
-        for h in (0, 1):
+        mine = torch.empty((self.nh, self.n_img, cfg.size, cfg.size), dtype=REAL,
+                           device=self.device)
+        for h in range(self.nh):
             table = subtract_table(s.refs[h] * w, cfg.pf, self.nd)
             eff_t = s.par.top_t[h] - self.offset[h]
-            idx, val = self.index[h], self.valid[h]
             for lo in range(0, self.n_img, chunk):
                 sl = slice(lo, min(self.n_img, lo + chunk))
-                diff = subtract_batch(
+                mine[h, sl] = subtract_batch(
                     self.data.ft_ori[h, sl], self.data.ctf_params.map(lambda a: a[h, sl]),
                     table, s.cls[h, sl], s.par.top_r[h, sl], eff_t[sl], cfg.size, cfg.pf,
                     float(cfg.pixel_size))
-                ok = val[sl]
-                out[idx[sl][ok]] = diff.cpu().numpy()[ok]
+        rows = comm.gather_rows_to_lead(self.layout, mine)
+        if rows is None:
+            return None
+        rows = rows.cpu().numpy()
+        out = np.zeros((self.n_total, cfg.size, cfg.size), np.float32)
+        for h in (0, 1):
+            ok = self.valid[h]
+            out[self.index[h][ok]] = rows[h][ok]
         return out
 
     # -- checkpoints and exports ---------------------------------------
 
     def save_checkpoint(self, path: str) -> None:
-        """Full state (references, sigma, clouds, offsets, model state)."""
-        s = self.state
-        blobs = dict(refs=s.refs.cpu().numpy(), sigma=s.sigma.cpu().numpy(),
-                     cls=s.cls.cpu().numpy(), offset=self.offset.cpu().numpy(),
+        """Full state (references, sigma, clouds, offsets, model state),
+        every rank's rows gathered to rank 0, which alone writes."""
+        s, lay = self.state, self.layout
+        rows = {name: comm.gather_rows_to_lead(lay, arr)
+                for name, arr in [("cls", s.cls), ("offset", self.offset)]
+                + [(f"par_{n}", a) for n, a in zip(s.par._fields, s.par)]}
+        refs, sigma = comm.exchange_hemi(lay, s.refs), comm.exchange_hemi(lay, s.sigma)
+        if lay.rank != 0:
+            return
+        blobs = dict(refs=refs.cpu().numpy(), sigma=sigma.cpu().numpy(),
                      index=self.index, valid=self.valid,
                      fsc=np.asarray(self.model.fsc))
-        for name, arr in zip(s.par._fields, s.par):
-            blobs[f"par_{name}"] = arr.cpu().numpy()
+        blobs.update({name: a.cpu().numpy() for name, a in rows.items()})
         model = {f.name: getattr(self.model, f.name)
                  for f in dataclasses.fields(self.model) if f.name != "fsc"}
         blobs["model_json"] = np.frombuffer(json.dumps(model).encode(), np.uint8)
@@ -1199,16 +1396,23 @@ class Optimiser:
         np.savez_compressed(path, **blobs)
 
     def load_checkpoint(self, path: str) -> None:
+        """Restore :meth:`save_checkpoint`'s state; each rank keeps its
+        rows and hemispheres (the layout must split the saved L)."""
         z = np.load(path, allow_pickle=False)
-        dev = self.device
+        dev, lay = self.device, self.layout
         t = lambda a: torch.as_tensor(a, device=dev)
+        rows = lambda a: t(np.ascontiguousarray(lay.take(a)))
+        hem = lambda a: t(np.ascontiguousarray(replicated_per_hemi(lay, a)))
         s = self.state
-        self.set_refs(t(z["refs"]))
-        s.sigma, s.cls, self.offset = t(z["sigma"]), t(z["cls"]), t(z["offset"])
+        self.set_refs(hem(z["refs"]))
+        s.sigma, s.cls, self.offset = hem(z["sigma"]), rows(z["cls"]), rows(z["offset"])
         self.index, self.valid = z["index"], z["valid"]
-        self.n_img = self.index.shape[1]
-        self.valid_dev = t(self.valid.astype(np.float32))
-        s.par = pt.ParticleState(**{f: t(z[f"par_{f}"]) for f in s.par._fields})
+        self.n_img_all = self.index.shape[1]
+        self.local_rows = lay.rows(self.n_img_all)
+        self.valid_all = t(self.valid.astype(np.float32))
+        self.valid_dev = lay.take(self.valid_all).contiguous()
+        self.n_img = self.valid_dev.shape[1]
+        s.par = pt.ParticleState(**{f: rows(z[f"par_{f}"]) for f in s.par._fields})
         model = json.loads(bytes(z["model_json"]).decode())
         for f in dataclasses.fields(self.model):
             if f.name in model:
@@ -1217,8 +1421,9 @@ class Optimiser:
         self.gen.set_state(torch.as_tensor(z["rng"]))
 
     def class_assignments(self) -> np.ndarray:
+        """Each image's class in particle order (on every rank)."""
         out = np.zeros(self.n_total, dtype=np.int64)
-        cls = self.state.cls.cpu().numpy()
+        cls = comm.all_gather_rows(self.layout, self.state.cls).cpu().numpy()
         for h in (0, 1):
             v = self.valid[h]
             out[self.index[h][v]] = cls[h][v]
@@ -1227,20 +1432,33 @@ class Optimiser:
     def class_averages(self) -> np.ndarray:
         """Mean of the hemisphere references per class, (K, n^nd): from
         the MAP-free pass of the last round when there is one (the
-        reference saves those maps), else the current references."""
+        reference saves those maps), else the current references (both
+        hemispheres meet: every rank of a pair calls it)."""
         refs = self._refs_report if self._refs_report is not None else self.state.refs
+        refs = comm.exchange_hemi(self.layout, refs)
         return ((refs[0] + refs[1]) / 2).cpu().numpy()
+
+    def refs_both(self, report: bool = False) -> np.ndarray:
+        """Both hemispheres' references (2, K, n^nd) on every rank of a
+        pair; ``report``: the last MAP-free pass's where there is one."""
+        refs = (self._refs_report if report and self._refs_report is not None
+                else self.state.refs)
+        return comm.exchange_hemi(self.layout, refs).cpu().numpy()
 
     def export_thu(self, thu):
         """Write the particle-filter state back into a ThuTable
-        (saveDatabase, Optimiser.cpp:8250-8416)."""
-        out = copy.deepcopy(thu)
+        (saveDatabase, Optimiser.cpp:8250-8416); every rank's rows are
+        gathered to rank 0, which returns the table (None elsewhere)."""
         s = self.state
-        host = {k: v.cpu().numpy() for k, v in dict(
+        host = {k: comm.gather_rows_to_lead(self.layout, v) for k, v in dict(
             cls=s.cls, top_r=s.par.top_r, k1=s.par.k1, k2=s.par.k2,
             k3=s.par.k3, top_t=s.par.top_t, offset=self.offset, s0=s.par.s0,
             s1=s.par.s1, top_d=s.par.top_d, s_d=s.par.s_d,
             score=s.par.score).items()}
+        if self.layout.rank != 0:
+            return None
+        host = {k: v.cpu().numpy() for k, v in host.items()}
+        out = copy.deepcopy(thu)
         for h in (0, 1):
             v = self.valid[h]
             idx = self.index[h][v]

@@ -26,7 +26,7 @@ from thunder_tpu_torch.constants import (
     PEAK_FACTOR_MIN,
     PERTURB_K_MAX,
 )
-from thunder_tpu_torch.device import REAL
+from thunder_tpu_torch.device import REAL, draw
 from thunder_tpu_torch.geometry.directional import (
     infer_acg_k123,
     infer_acg_matrix,
@@ -77,7 +77,7 @@ class ParticleState(NamedTuple):
 
 
 def _randn(gen, shape, device):
-    return torch.randn(tuple(shape), generator=gen, device=device, dtype=REAL)
+    return draw(gen, "randn", shape, device)
 
 
 def _uniform(n: int, batch: tuple, device):
@@ -97,8 +97,7 @@ def init_particles(gen: torch.Generator, batch: tuple, n_r: int, n_t: int,
     defocus 1."""
     batch = tuple(batch)
     if mode == MODE_2D:
-        phi = torch.rand(batch + (n_r,), generator=gen, device=device,
-                         dtype=REAL) * (2 * np.pi)
+        phi = draw(gen, "rand", batch + (n_r,), device) * (2 * np.pi)
         r = _quat_2d(torch.stack([torch.cos(phi), torch.sin(phi)], dim=-1))
     else:
         r = quat_normalize(_randn(gen, batch + (n_r, 4), device))
@@ -370,8 +369,7 @@ def systematic_resample(gen: torch.Generator, support_w: torch.Tensor,
     cdf = torch.cumsum(w, dim=-1)
     cdf = (cdf / cdf[..., -1:]).contiguous()
     if u0 is None:
-        u0 = torch.rand(w.shape[:-1] + (1,), generator=gen, device=w.device,
-                        dtype=REAL)
+        u0 = draw(gen, "rand", w.shape[:-1] + (1,), w.device)
     pts = (u0 / n_new + torch.arange(n_new, dtype=REAL, device=w.device)
            / n_new).contiguous()
     n = w.shape[-1]
@@ -431,8 +429,7 @@ def draw_indices(gen: torch.Generator, state: ParticleState, n_draw: int):
     """Uniform support indices (ir, it, id), each (*B, n_draw)."""
     batch = state.r.shape[:-2]
     dev = state.r.device
-    ri = lambda n: torch.randint(0, n, batch + (n_draw,), generator=gen,
-                                 device=dev)
+    ri = lambda n: draw(gen, "randint", batch + (n_draw,), dev, n)
     return ri(state.r.shape[-2]), ri(state.t.shape[-2]), ri(state.d.shape[-1])
 
 
@@ -480,3 +477,58 @@ def symmetrise_top(state: ParticleState, sym) -> ParticleState:
     if sym is None or sym.order == 1:
         return state
     return state._replace(top_r=sym.counterpart(state.top_r))
+
+
+def draw_classes(gen, w_c: torch.Tensor) -> torch.Tensor:
+    """One class a row from the weights w_c (*B, K): argmax(w / q) with
+    q ~ Exp(1) of w's shape, which is what torch.multinomial(w, 1)
+    computes (its one-sample path), drawn through :func:`draw` so that a
+    rank draws its rows of the global shape."""
+    q = draw(gen, "exponential", w_c.shape, w_c.device)
+    return torch.argmax(w_c / q, dim=-1)
+
+
+class RowDraws:
+    """Random draws at the global (hemisphere, image) shape, cut to one
+    rank's rows, so that every rank of a layout draws what the
+    one-process run draws for those rows (the generator, seeded alike
+    on every rank, advances by the global shape).
+
+    A draw's shape is (hemispheres of ``running`` this rank holds, its
+    images, ...); the global shape is (len(running), n_img, ...).
+    ``running`` names the hemispheres a draw covers, (0, 1) unless a
+    phase loop runs one of them alone.  ``log`` (a list, when set)
+    records each draw's kind and trailing shape, and :meth:`replay`
+    draws such a record again at the current ``running`` and discards
+    it: a rank whose hemisphere has stopped keeps its generator in step
+    with the other hemisphere's."""
+
+    def __init__(self, gen: torch.Generator, hemis: tuple, n_img: int, l_sl: slice):
+        self.gen = gen
+        self.hemis = tuple(hemis)
+        self.n_img = n_img
+        self.l_sl = l_sl
+        self.running = (0, 1)
+        self.log = None
+
+    @property
+    def device(self):
+        return self.gen.device
+
+    def _full(self, kind: str, tail: tuple, high):
+        return draw(self.gen, kind, (len(self.running), self.n_img) + tail, self.device, high)
+
+    def draw(self, kind: str, shape: tuple, high: int | None = None) -> torch.Tensor:
+        rows = [i for i, h in enumerate(self.running) if h in self.hemis]
+        n_l = self.l_sl.stop - self.l_sl.start
+        if tuple(shape[:2]) != (len(rows), n_l):
+            raise ValueError(f"a draw of shape {shape} is not this rank's rows "
+                             f"({len(rows)} hemispheres x {n_l} images)")
+        if self.log is not None:
+            self.log.append((kind, tuple(shape[2:]), high))
+        full = self._full(kind, tuple(shape[2:]), high)
+        return full[rows, self.l_sl].contiguous()
+
+    def replay(self, log: list) -> None:
+        for kind, tail, high in log:
+            self._full(kind, tail, high)
