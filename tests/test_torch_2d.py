@@ -191,49 +191,47 @@ def test_insert_bilinear_2d_plain_matches_insert_class():
 
 @pytest.mark.parametrize("n_img,n_cls,per_img", [(40, 3, 1), (97, 5, 48), (10, 60, 48)])
 def test_insert_2d_work_covers_every_slice_once(n_img, n_cls, per_img):
-    """HK6's work: slices sorted by (class, image); every slice in
-    exactly one run; a run is one image of one class; a work item holds
-    consecutive runs of one class, cut at image boundaries, within one
-    chunk of slices plus one image."""
+    """HK6's order of work: the slices sorted by (class, image), each
+    once, an image's slices in their given order; class k's run of the
+    order is [cls_start[k], cls_start[k + 1]), empty for a class no image
+    holds."""
     rng = np.random.default_rng(n_img)
     cls_img = rng.integers(0, n_cls, n_img)
     img = np.repeat(rng.permutation(n_img), per_img)
-    chunk = 64
-    order, runs, work = tins.insert_2d_work(t(img), t(cls_img[img]), chunk)
-    order, runs, work = order.numpy(), runs.numpy(), work.numpy()
+    order, cls_start = tins.insert_2d_work(t(img), t(cls_img[img]), n_cls)
+    order, cls_start = order.numpy(), cls_start.numpy()
     assert sorted(order) == list(range(img.size))
     img_s, cls_s = img[order], cls_img[img][order]
-    assert runs[0, 0] == 0 and runs[-1, 1] == img.size
-    assert (runs[1:, 0] == runs[:-1, 1]).all() and (runs[:, 1] > runs[:, 0]).all()
-    for s0, s1 in runs:
-        assert len(set(img_s[s0:s1])) == 1 and len(set(cls_s[s0:s1])) == 1
-    assert len({tuple(x) for x in np.stack([img_s[runs[:, 0]], cls_s[runs[:, 0]]], 1)}) \
-        == len(runs)
-    assert work[0, 1] == 0 and work[-1, 2] == len(runs)
-    assert (work[1:, 1] == work[:-1, 2]).all()
-    for k, r0, r1 in work:
-        assert (cls_s[runs[r0, 0]:runs[r1 - 1, 1]] == k).all()
-        assert runs[r1 - 1, 1] - runs[r0, 0] <= chunk + per_img
+    key = cls_s * n_img + img_s
+    assert (np.diff(key) >= 0).all()
+    assert all((np.diff(order[key == k]) > 0).all() for k in np.unique(key))
+    assert cls_start[0] == 0 and cls_start[-1] == img.size and cls_start.shape == (n_cls + 1,)
+    for k in range(n_cls):
+        assert (cls_s[cls_start[k]:cls_start[k + 1]] == k).all()
+        assert cls_start[k + 1] - cls_start[k] == int((cls_img[img] == k).sum())
 
 
 @pytest.mark.parametrize("r_u,big", [(31, 132), (12, 56), (40, 168), (75, 320), (7, 32)])
 def test_insert_2d_plan_fits_shared_memory(r_u, big):
     """HK6's plan at the 2D main path's bands (r_u 31 of the first
     rounds at 160 px, r_u 12 and 40, the final reconstruction's r_u 75)
-    and a test box: the window and a batch's ramp tables within Hopper's
-    227 KB, one band where the window fits, bands covering every row,
-    and the in-disc pixel list of the dense window's mask."""
+    and a test box: a staged batch within Hopper's 227 KB, tiles that
+    cover the window of cells a tap can reach, no face reached on the
+    path's grids (big = 2 reco_grid_size), and the in-disc pixel list of
+    the dense window's mask."""
     plan = tins.insert_2d_plan(r_u, 2, big)
     assert plan["smem"] <= 227 * 1024
-    assert plan["n_band"] * plan["band_h"] >= plan["win"]
-    assert (plan["n_band"] == 1) == (plan["smem"] - plan["band_h"] * plan["win"] * 12
-                                     + plan["win"] ** 2 * 12 <= 227 * 1024)
+    n_x, n_y = (-(-plan["win"] // t) for t in (tins.INSERT_2D_TILE_X, tins.INSERT_2D_TILE_Y))
+    assert plan["tiles"] == n_x * n_y
+    assert (n_x - 1) * tins.INSERT_2D_TILE_X < plan["win"] <= n_x * tins.INSERT_2D_TILE_X
+    assert (n_y - 1) * tins.INSERT_2D_TILE_Y < plan["win"] <= n_y * tins.INSERT_2D_TILE_Y
+    lo, hi = plan["win_lo"], plan["win_lo"] + plan["win"] - 1
+    assert (max(plan["vlo"], 0), min(plan["vhi"], big - 1)) == (lo, hi)
+    assert plan["vlo"] >= 0 and plan["vhi"] <= big - 1
     px = tins.in_disc_pixels(r_u)
     vc, vr, mask = tins.dense_window(r_u)
-    assert px.numel() == plan["npx"] == int((mask > 0).sum())
+    assert px.numel() == int((mask > 0).sum())
     assert bool(((vc[px.long()] ** 2 + vr[px.long()] ** 2) < (r_u - 1) ** 2).all())
-    assert plan["pxt"] * tins.INSERT_2D_THREADS >= min(plan["npx"], tins.INSERT_2D_PX_MAX
-                                                       * tins.INSERT_2D_THREADS)
 
 
 def test_hermitianize_2d_matches_jax():

@@ -173,7 +173,7 @@ def test_insert_trilinear(dev, given_grids):
     fp, tp = insert.insert_trilinear_plain(*args, f0.clone(), t0.clone())
     fk, tk = (insert.insert_trilinear(*args, big, f0.clone(), t0.clone()) if given_grids
               else insert.insert_trilinear(*args, big))
-    # atomicAdd order varies from run to run
+    # each cell sums its slices in another order than the twin's scatter
     assert rel_err(torch.view_as_real(fk), torch.view_as_real(fp)) < 1e-5
     assert rel_err(tk, tp) < 1e-5
 
@@ -182,8 +182,7 @@ def test_insert_trilinear(dev, given_grids):
                                   "overflow dropped", "pieces", "five fields"])
 def test_shell_sums(dev, case):
     """HK4 at small sizes of its four main-path shapes and at its edges;
-    1e-5: float32 sums added in another order than the plain version's,
-    run-dependent where atomics add them."""
+    1e-5: float32 sums added in another order than the plain version's."""
     g = generator(7, dev)
     rnd = lambda *sh: torch.randn(sh, generator=g, device=dev)
     if case in ("fsc 3D", "frc 2D", "overflow dropped"):
@@ -286,8 +285,7 @@ def test_project_slices_2d_clipped_taps(dev, n_rot):
 
 @pytest.mark.parametrize("r_u", [12, 40])
 def test_insert_bilinear_2d(dev, r_u):
-    """Several classes; r_u 40 at 160 px takes more than one band of the
-    shared-memory window."""
+    """Several classes, at the 2D path's band r_u 12 and at r_u 40."""
     rng = np.random.default_rng(1)
     size, n_img, n_s, pf, k = 2 * r_u + 8, 6, 300, 2, 4
     big = 2 * (r_u + 2) * pf
@@ -303,9 +301,9 @@ def test_insert_bilinear_2d(dev, r_u):
     zero = lambda dt: torch.zeros((k, big, big), dtype=dt, device=dev)
     fp, tp = insert.insert_bilinear_2d_plain(*args, zero(torch.complex64),
                                              zero(torch.float32))
-    # ~75 slices a class summed in float32 in a run-dependent order
-    # (shared then global atomics) against the twin's index_add order;
-    # random-signed values cancel, so the error is taken against max |F|
+    # ~75 slices a class summed in float32 in the gather's order against
+    # the twin's index_add order; random-signed values cancel, so the
+    # error is taken against max |F|
     assert rel_err(torch.view_as_real(fk), torch.view_as_real(fp)) < 1e-4
     assert rel_err(tk, tp) < 1e-4
 
@@ -462,7 +460,10 @@ def test_post_refinement_paths(dev):
     the CPU: signal subtraction (HK1 over every pixel of the box from the
     whole padded cube, taps clipped at its faces at the image corners,
     zeroed past the radius) and the B-factor fit (HK4's coordinate form
-    over every cell); 1e-4: float32 sums in another order."""
+    over every cell) of a spectrum with a Gaussian fall-off, B ~ -40 (on
+    white noise the fitted slope is ~0, and the float32 reductions of the
+    fit alone move it by 1e-3 of itself); 1e-4: float32 sums in another
+    order."""
     from thunder_tpu_torch.optimiser import subtract_batch, subtract_table
 
     g = generator(17, dev)
@@ -477,8 +478,11 @@ def test_post_refinement_paths(dev):
     ref = subtract_batch(ft.cpu(), cpu(args[0]), subtract_table(refs.cpu(), 2, 3),
                          *map(cpu, args[1:]), size, 2, 1.32)
     assert rel_err(got.cpu(), ref) < 1e-4
-    spec = torch.fft.fftshift(torch.fft.fftn(refs[0]))
+    k = (torch.arange(size, device=dev) - size // 2).float() / size
+    r2 = k[:, None, None] ** 2 + k[None, :, None] ** 2 + k[None, None, :] ** 2
+    spec = torch.fft.fftshift(torch.fft.fftn(refs[0])) * torch.exp(-20.0 * r2)
     b_dev, b_cpu = (spectrum.b_factor_est(s, 17, 4) for s in (spec, spec.cpu()))
+    assert b_cpu < -30
     assert abs(b_dev - b_cpu) <= 1e-4 * abs(b_cpu)
 
 
@@ -486,7 +490,7 @@ def test_post_refinement_paths(dev):
 def test_insert_trilinear_slab(dev, sym, slabs):
     """HK9 against its plain twin slab by slab (zero-weight slices, two
     classes, the mates' radius cut); the slabs together against HK3 then
-    HK7 for the signed-permutation groups; 1e-5: atomicAdd order."""
+    HK7 for the signed-permutation groups; 1e-5: sums in another order."""
     from thunder_tpu_torch.geometry.symmetry import Symmetry
     from thunder_tpu_torch.recon.reconstructor import symmetrize_ft
 
@@ -528,3 +532,99 @@ def test_insert_trilinear_slab(dev, sym, slabs):
     f7, t7 = symmetrize_ft(f3, t3, mats, float((r_u - 1) * pf))
     assert rel_err(torch.view_as_real(f9), torch.view_as_real(f7)) < 1e-5
     assert rel_err(t9, t7) < 1e-5
+
+
+def _insert_case(dev, kind, big_3d=None):
+    """(kernel call, plain call) of HK3, HK6 or HK9 on random slices (HK3
+    with a defocus factor a slice, HK9 with C4's mates into a slab);
+    ``big_3d`` a grid small enough that taps pass its faces."""
+    g = generator(23, dev)
+    size, n_img, n_s, r_u, pf = 32, 5, 40, 12, 2
+    big = big_3d or 2 * (r_u + 2) * pf
+    ft = torch.fft.fftshift(torch.fft.fft2(torch.randn(n_img, size, size, generator=g,
+                                                       device=dev)),
+                            dim=(-2, -1)).to(torch.complex64).contiguous()
+    ctf = _ctf_fields(dev, n_img, 5)
+    img = torch.randint(0, n_img, (n_s,), generator=g, device=dev)
+    trans = torch.randn(n_s, 2, generator=g, device=dev)
+    w = torch.rand(n_s, generator=g, device=dev)
+    w[::9] = 0.0
+    cls = torch.randint(0, 3, (n_s,), generator=g, device=dev)
+    zeros = lambda shape: (torch.zeros(shape, dtype=torch.complex64, device=dev),
+                           torch.zeros(shape, device=dev))
+    if kind == "insert_bilinear_2d":
+        args = (ft, ctf, img, cls, _rot2d(g, (n_s,), dev), trans, w, r_u, pf, size, 1.32)
+        return (lambda: insert.insert_bilinear_2d(*args, big, 3),
+                lambda: insert.insert_bilinear_2d_plain(*args, *zeros((3, big, big))))
+    rot = rotate3d(random_quat(g, (n_s,), dev))
+    if kind == "insert_trilinear_slab":
+        from thunder_tpu_torch.geometry.symmetry import Symmetry
+
+        vals, c2w, _, _ = insert.dense_slice_values(ft, ctf, img, trans, w, r_u, size, 1.32)
+        mats = Symmetry("C4", dev).matrices
+        z0, bz = 0, big // 2
+        return (lambda: insert.insert_trilinear_slab(vals, c2w, rot, cls, r_u, pf, mats, 3, big,
+                                                     z0, bz),
+                lambda: insert.insert_trilinear_slab_plain(vals, c2w, rot, cls, r_u, pf, mats,
+                                                           *zeros((3, bz, big, big)), z0))
+    d = 1 + 0.03 * torch.randn(n_s, generator=g, device=dev)
+    args = (ft, ctf, img, rot, trans, w, r_u, pf, size, 1.32)
+    return (lambda: insert.insert_trilinear(*args, big, d=d),
+            lambda: insert.insert_trilinear_plain(*args, *zeros((big,) * 3), d))
+
+
+@pytest.mark.parametrize("kind", ["insert_trilinear", "insert_bilinear_2d",
+                                  "insert_trilinear_slab"])
+def test_insert_gathers_repeat_bitwise(dev, kind):
+    """HK3, HK6 and HK9: each cell sums its slices in a fixed order, so
+    two calls give identical bits; each still matches its twin (1e-5)."""
+    call, plain = _insert_case(dev, kind)
+    (f1, t1), (f2, t2) = call(), call()
+    assert torch.equal(f1, f2) and torch.equal(t1, t2)
+    fp, tp = plain()
+    assert rel_err(torch.view_as_real(f1), torch.view_as_real(fp)) < 1e-5
+    assert rel_err(t1, tp) < 1e-5
+
+
+@pytest.mark.parametrize("kind", ["insert_trilinear", "insert_bilinear_2d",
+                                  "insert_trilinear_slab"])
+def test_insert_gathers_taps_past_the_faces(dev, kind):
+    """A grid of 40 cells at r_u 12, pf 2: taps reach indices -3 and 43,
+    which the scatter clips onto the faces and the gathers' face cells
+    take from their virtual cells."""
+    lo, hi = insert.tap_range(40, 22.0)
+    assert lo < 0 and hi > 39
+    call, plain = _insert_case(dev, kind, big_3d=40)
+    (fk, tk), (fp, tp) = call(), plain()
+    assert rel_err(torch.view_as_real(fk), torch.view_as_real(fp)) < 1e-5
+    assert rel_err(tk, tp) < 1e-5
+
+
+@pytest.mark.parametrize("form", ["rows", "rows in pieces", "grid", "grid, every cell", "pair"])
+def test_shell_sums_repeat_bitwise(dev, form):
+    """HK4 adds its run heads in lane order and its blocks' and pieces'
+    partials in their order: two calls give identical bits, at a
+    main-path shape of each form."""
+    g = generator(29, dev)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=dev)
+    if form.startswith("rows"):
+        rings = pack_rings(128, 36, 0, lane=512, device=dev)
+        n_b = 256 if form == "rows in pieces" else 5000
+        assert (spectrum.shell_sums_plan(n_b, rings.i_col.numel()) > 1) == (n_b == 256)
+        v = rnd(n_b, 3, rings.i_col.numel()) ** 2
+        sh = torch.clamp(rings.i_sig, max=62)
+        call = lambda: spectrum.shell_sums(v, sh, 63, rings.mask)
+        ref = spectrum.shell_sums_plain(v, sh, 63, rings.mask)
+    elif form == "pair":
+        a = torch.complex(rnd(2, 96 ** 3), rnd(2, 96 ** 3))
+        b = a + 0.5 * torch.complex(rnd(2, 96 ** 3), rnd(2, 96 ** 3))
+        call = lambda: spectrum.fsc_sums(a, b, 96, 3, 46)
+        ref = spectrum.fsc_sums_plain(a, b, 96, 3, 46)
+    else:
+        v = rnd(3, 3, 96 ** 3) ** 2
+        half = form == "grid"
+        call = lambda: spectrum.shell_sums_grid(v, 96, 3, 46, half)
+        ref = spectrum.shell_sums_grid_plain(v, 96, 3, 46, half)
+    got = call()
+    assert torch.equal(got, call())
+    assert rel_err(got, ref) < 1e-5

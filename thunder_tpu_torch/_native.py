@@ -32,8 +32,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("project_slices.cu", "likelihood_block.cu",
            "insert_trilinear.cu", "shell_sums.cu", "project_slices_2d.cu",
            "insert_bilinear_2d.cu", "symmetrize_ft.cu",
-           "likelihood_local_ctf.cu", "gather.cu", "launch_floor.cu",
-           "insert_trilinear_slab.cu")
+           "likelihood_local_ctf.cu", "gather.cu", "launch_floor.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,23 +47,23 @@ _SIGNATURES = {
                                _I, _P, _P],
     "thunder_likelihood_block": [_P, _I, _I, _I, _I, _P],
     "thunder_insert_trilinear": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                                 _F, _F, _P, _P, _P, _I, _P],
-    "thunder_shell_sums": [_P, _L, _I, _I, _L, _P, _P, _I, _I, _P, _P],
-    "thunder_shell_sums_grid": [_P, _L, _I, _I, _I, _I, _I, _I, _P, _P],
-    "thunder_fsc_sums_grid": [_P, _P, _I, _I, _I, _I, _P, _P],
+                                 _F, _F, _P, _P, _P, _I, _I, _I, _P],
+    "thunder_shell_sums": [_P, _L, _I, _I, _L, _P, _P, _I, _I, _P, _P, _P],
+    "thunder_shell_sums_grid": [_P, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "thunder_fsc_sums_grid": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "thunder_project_slices_2d": [_P, _I, _P, _P, _L, _I, _I, _P, _P, _I,
                                   _I, _P, _P],
-    "thunder_insert_bilinear_2d": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P,
-                                   _P, _I, _I, _I, _I, _F, _F, _F, _P, _P,
-                                   _I, _I, _I, _I, _I, _I, _P],
+    "thunder_insert_bilinear_2d": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I,
+                                   _F, _F, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _P],
     "thunder_symmetrize_ft": [_P, _I, _I, _I, _P],
     "thunder_likelihood_local_ctf": [_P, _I, _I, _P],
     "thunder_take_flat": [_P, _L, _P, _L, _P, _P],
     "thunder_take_along": [_P, _I, _P, _P, _L, _I, _I, _P, _P],
     "thunder_take_rows": [_P, _I, _I, _P, _L, _P, _P],
     "thunder_empty_launch": [_P],
-    "thunder_insert_trilinear_slab": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _P, _P, _P,
-                                      _I, _I, _I, _I, _P],
+    "thunder_insert_trilinear_slab": [_P, _P, _P, _I, _I, _I, _F, _P, _I, _P, _P, _I,
+                                      _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -1,242 +1,268 @@
 // HK6 insert_bilinear_2d: bilinear Fourier insertion of compacted 2D
-// slices into per-class (F, T) planes.  Each image's values are formed
-// once per pixel, its slices then only rotate, ramp and add; a block
-// accumulates a run of same-class images in a shared-memory window of
-// the class plane.
+// slices into per-class (F, T) planes, as a gather: each plane cell
+// forms its own sum.
 //
 // Replaces (thunder_tpu): optimiser._insert_all_h's one_2d_sweep over
 // ops/insert.py insert_sweep_2d (the scatter-free adjoint of a sheared
 // resampler, built because the TPU's scatter was the 2D-classification
 // bottleneck at mReco = 100).  Its math is the bilinear scatter
 // insert_slices_2d after _insert_class's 2D value formation and the
-// Hermitian fold; THUNDER's own CUDA backend does it as a bilinear
-// atomicAdd.
+// Hermitian fold.
 //
-// For slice s of image l at a dense pixel (vc, vr) of the nk x nk window
-// (nk = 2 r_u - 1) with vc^2 + vr^2 < (r_u - 1)^2 (the in-disc list):
+// The scatter it computes: for slice s of image l at a dense pixel (vc,
+// vr) of the nk x nk window (nk = 2 r_u - 1) with vc^2 + vr^2 < (r_u -
+// 1)^2
 //   mask_d = 2 at the DC, else 1
 //   val    = ft[l, c + vr, c + vc] * ctf_l(vc, vr) * mask_d * conj(tra_s) * w[s]
 //   c2w    = ctf_l(vc, vr)^2 * mask_d * w[s]
-// at rot[s] . (pf vc, pf vr) (no FMA contraction, as in the plain
-// version), cut to x^2 + y^2 < max_radius_pad^2, added as 4 bilinear
-// taps (indices clipped to [0, big-1]) to class cls[s]'s plane.  The
-// dense window holds both k and -k, so the Hermitian fold of the
-// half-space path is already in the sum (the DC, present once, doubled).
+// at p = rot[s] . (pf vc, pf vr) (products and sums rounded one by one,
+// as the plain version forms them), cut to |p|^2 < max_radius_pad^2,
+// added as 4 bilinear taps (floor(p) + big / 2 + {0, 1} an axis, clipped
+// to [0, big - 1]) to class cls[s]'s plane.  The dense window holds both
+// k and -k, so the Hermitian fold of the half-space path is in the sum.
 //
-// What bounds it on Hopper: per sample ~50 fp32 operations and 12 shared
-// atomic adds, each a compare-and-swap loop (Hopper has no native shared
-// fp32 add); the atomics' latency, hidden by 32 warps a block.  The
-// previous design evaluated six accurate transcendentals, a sqrt and a
-// 64-bit division per sample and scanned each work item once per band.
-// Here:
-// * the wrapper sorts slices by (class, image); a work item is a run of
-//   whole images of one class (cut at image boundaries), so all ~48
-//   slices of an image go to the same window;
-// * a thread owns fixed pixels of the in-disc list: per image it forms
-//   ctf * data * mask_d and ctf^2 * mask_d once (the CTF depends on the
-//   image and the pixel only), then loops over the image's slices;
-// * the translation ramp exp(i tpos (vc tx + vr ty)) is separable: per
-//   slice two 1D tables of nk sincos values in shared memory, one
-//   complex product per sample;
-// * the class window sits in shared memory in one band where it fits
-//   (123^2 x 12 B = 181 KB at r_u 31), else in bands of rows;
-// * per-sample index arithmetic is 32-bit (64-bit only for an image's
-//   or a plane's base).
-// The window is flushed with one global atomicAdd per non-empty cell
-// and field.  Summation order differs from run to run.
+// The gather.  Cell k receives a tap of p exactly when floor(p_i) is k_i
+// - 1 or k_i on both axes; then |R^T k - g| < sqrt 2 for g = (pf vc, pf
+// vr), so its candidates lie within sqrt 2 / pf of (R^T k) / pf (at most
+// 2 x 2 at pf 2).  The cell forms p with the scatter's expression and
+// the tap's weight from the same floor and fraction, so each tap is
+// counted by the cell it lands on; a face cell also gathers the virtual
+// cells past it, the taps the scatter clips onto it.  Every 2D slice
+// covers the whole disc, so nothing is culled: a cell walks every slice
+// of its class, in the order the wrapper sorts them (class, then image),
+// sums in registers, and adds to F and T once.  Two calls on the same
+// inputs give identical bits.
+//
+// A first pass forms each image's ctf * data * mask_d and ctf^2 * mask_d
+// once a pixel ((L, nk^2) records of 16 bytes, one load a hit, read back
+// through L1 by the gather).  A block owns a TILE_X x TILE_Y tile of one
+// class plane (a thread a cell; two blocks an SM, so one stages while the
+// other sums) and stages BATCH slices at a time: their rotations,
+// weights, images, and the separable translation ramp exp(i tpos (vc tx +
+// vr ty)) as two tables of nk sincos values a slice, so a hit costs one
+// complex product for the ramp.
+//
+// What bounds it on Hopper: operations.  A cell tests the candidates of
+// every slice of its class and forms the one or two that hit, where the
+// scatter formed each sample once and paid shared-memory compare-and-swap
+// adds: the gather runs at about half that scatter's speed (PERF.md
+// section 6) and repeats bit for bit.  The planes are read and written
+// once.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-// (ops/insert.py reads these three from this file for its launch plan)
-constexpr int BATCH = 32;    // slices whose ramp tables are staged at once
-constexpr int THREADS = 1024;
-constexpr int PX_MAX = 4;    // pixels a thread holds per group
+// (ops/insert.py reads these from this file for its launch plan)
+constexpr int TILE_X = 32;   // cells a tile row
+constexpr int TILE_Y = 16;   // rows a tile
+constexpr int THREADS = TILE_X * TILE_Y;
+constexpr int BATCH = 32;    // slices staged at once
+constexpr float REACH = 1.4142136f + 1e-2f;   // sqrt 2 and a margin for rounding
+constexpr float STRIP = 1.f + 1e-2f;          // the same margin on a cell's half-width
 
-// One (F re, F im, T) sample into a window cell: three shared float
-// atomics (a compare-and-swap loop each on Hopper; one 64-bit CAS for
-// the complex pair measured slower).
-__device__ __forceinline__ void add3(float2* f, float* t, float a, float b, float c) {
-  atomicAdd(&f->x, a);
-  atomicAdd(&f->y, b);
-  atomicAdd(t, c);
+// the first pass: (Re, Im) of ft * ctf * mask_d and ctf^2 * mask_d of
+// every image at every in-disc window pixel (zero elsewhere), one
+// 16-byte record a pixel
+__global__ void form_images_kernel(const float2* __restrict__ ft, int size,
+                                   const float* __restrict__ ctfk, int r_u, float box_a,
+                                   float4* __restrict__ recs, long long total) {
+  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int nk = 2 * r_u - 1, rr = r_u - 1, npx = nk * nk;
+  long long img = idx / npx;
+  int p = (int)(idx - img * npx);
+  int vr = p / nk - rr, vc = p % nk - rr;
+  float2 v = make_float2(0.f, 0.f);
+  float c2 = 0.f;
+  if (vc * vc + vr * vr < rr * rr) {
+    const float* k = ctfk + 8 * img;   // [k1, k2, w1, w2, du, dv, theta, phase]
+    float fx = (float)vc / box_a, fy = (float)vr / box_a;
+    float f = sqrtf(fx * fx + fy * fy);
+    float f2 = f * f;
+    float ang = atan2f((float)vr, (float)vc);
+    float defocus = -(k[4] + k[5] + (k[4] - k[5]) * cosf(2.f * (ang - k[6]))) / 2.f;
+    float chi = k[0] * defocus * f2 + k[1] * (f2 * f2) - k[7];
+    float ctf = -k[2] * sinf(chi) + k[3] * cosf(chi);
+    float cm = ctf * ((vc == 0 && vr == 0) ? 2.f : 1.f);
+    float2 d = ft[(img * size + (size / 2 + vr)) * size + (size / 2 + vc)];
+    v = make_float2(d.x * cm, d.y * cm);
+    c2 = ctf * cm;
+  }
+  recs[idx] = make_float4(v.x, v.y, c2, 0.f);
 }
 
-__global__ void __launch_bounds__(THREADS) insert_bilinear_2d_kernel(
-    const float2* __restrict__ ft, int size, const float* __restrict__ ctfk,
-    const int* __restrict__ img_idx, const int* __restrict__ runs,
-    const int* __restrict__ work, const float* __restrict__ rot,
-    const float* __restrict__ trans, const float* __restrict__ wsl,
-    const int* __restrict__ px, int npx, int pxt, int r_u, int pf,
-    float max_radius_pad, float box_a, float tpos, float* __restrict__ F,
-    float* __restrict__ T, int big, int win_lo, int win, int band_h) {
+__device__ __forceinline__ float axis_weight(int t, int v, float frac) {
+  return t == v ? 1.f - frac : (t + 1 == v ? frac : -1.f);
+}
+
+template <int MAXC>
+__global__ void __launch_bounds__(THREADS, 2) insert_bilinear_2d_kernel(
+    const float4* __restrict__ recs, const int* __restrict__ img_idx,
+    const int* __restrict__ cls_start, const float* __restrict__ rot,
+    const float* __restrict__ trans, const float* __restrict__ wsl, int r_u, int pf,
+    float max_radius_pad, float tpos, float2* __restrict__ F, float* __restrict__ T, int big,
+    int win_lo, int win, int vlo, int vhi) {
   extern __shared__ __align__(16) float smem[];
   const int nk = 2 * r_u - 1, rr = r_u - 1;
-  float2* EX = reinterpret_cast<float2*>(smem);      // BATCH x nk
-  float2* EY = EX + BATCH * nk;                      // BATCH x nk
+  float2* EX = reinterpret_cast<float2*>(smem);     // BATCH x nk
+  float2* EY = EX + BATCH * nk;                     // BATCH x nk
   float* SR = reinterpret_cast<float*>(EY + BATCH * nk);   // BATCH x 4
-  float* SW = SR + 4 * BATCH;                        // BATCH
-  float2* Fw = reinterpret_cast<float2*>(SW + BATCH);      // rows x win
-  const int row0 = blockIdx.y * band_h;              // band rows, window-local
-  const int rows = min(band_h, win - row0);
-  const int cells = rows * win;
-  float* Tw = reinterpret_cast<float*>(Fw + cells);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  for (int j = tid; j < cells; j += nthr) {
-    Fw[j] = make_float2(0.f, 0.f);
-    Tw[j] = 0.f;
+  float* SW = SR + 4 * BATCH;                       // BATCH
+  int* SI = reinterpret_cast<int*>(SW + BATCH);     // BATCH
+
+  const int n_tx = (win + TILE_X - 1) / TILE_X;
+  const int tx0 = win_lo + (blockIdx.x % n_tx) * TILE_X;
+  const int ty0 = win_lo + (blockIdx.x / n_tx) * TILE_Y;
+  const int cls = blockIdx.y;
+  const int cb = big / 2;
+  const int hi = win_lo + win - 1;
+  const float lim = max_radius_pad + REACH;
+  {
+    auto near = [&](int a, int b) { return (float)(a > cb ? a - cb : (b < cb ? cb - b : 0)); };
+    float nx = near(tx0, min(tx0 + TILE_X - 1, hi)), ny = near(ty0, min(ty0 + TILE_Y - 1, hi));
+    if (nx * nx + ny * ny >= lim * lim) return;
   }
-
-  const int cls = work[3 * blockIdx.x];
-  const int run0 = work[3 * blockIdx.x + 1], run1 = work[3 * blockIdx.x + 2];
-  const int cb = big / 2, c = size / 2;
+  const int tid = threadIdx.x;
+  const int ix = tx0 + (tid % TILE_X), iy = ty0 + (tid / TILE_X);
+  const int kx = ix - cb, ky = iy - cb;
+  const bool active = ix <= hi && iy <= hi && (float)(kx * kx + ky * ky) < lim * lim;
+  // a face cell also owns the taps clipped onto it
+  const int vx0 = ix == 0 ? min(vlo, 0) : ix, vx1 = ix == big - 1 ? max(vhi, big - 1) : ix;
+  const int vy0 = iy == 0 ? min(vlo, 0) : iy, vy1 = iy == big - 1 ? max(vhi, big - 1) : iy;
   const float mr2 = max_radius_pad * max_radius_pad;
-  const int lo = win_lo + row0;                      // first plane row of the band
+  const float inv_pf = 1.f / (float)pf;
+  const int s_lo = cls_start[cls], s_hi = cls_start[cls + 1];
+  float acc_re = 0.f, acc_im = 0.f, acc_t = 0.f;
+  bool hit = false;
 
-  for (int g0 = 0; g0 < npx; g0 += pxt * nthr) {
-    for (int run = run0; run < run1; ++run) {
-      const int s0 = runs[2 * run], s1 = runs[2 * run + 1];
-      const int img = img_idx[s0];
-      // this image's values at the thread's pixels
-      const float* k = ctfk + 8LL * img;   // [k1, k2, w1, w2, du, dv, theta, phase]
-      const float2* fti = ft + (long long)img * size * size;
-      int pvc[PX_MAX], pvr[PX_MAX];
-      float2 pv[PX_MAX];
-      float pc2[PX_MAX];
+  for (int sb = s_lo; sb < s_hi; sb += BATCH) {
+    const int nb = min(BATCH, s_hi - sb);
+    __syncthreads();   // the previous batch is consumed
+    for (int i = tid; i < nb * nk; i += THREADS) {
+      int b = i / nk, m = i - b * nk;
+      float v = (float)(m - rr);
+      float sx, cx, sy, cy;
+      sincosf(tpos * (v * trans[2 * (sb + b)]), &sx, &cx);
+      sincosf(tpos * (v * trans[2 * (sb + b) + 1]), &sy, &cy);
+      EX[b * nk + m] = make_float2(cx, sx);
+      EY[b * nk + m] = make_float2(cy, sy);
+    }
+    for (int i = tid; i < nb * 4; i += THREADS) SR[i] = rot[4 * sb + i];
+    for (int i = tid; i < nb; i += THREADS) {
+      SW[i] = wsl[sb + i];
+      SI[i] = img_idx[sb + i];
+    }
+    __syncthreads();
+    if (!active) continue;
+    for (int b = 0; b < nb; ++b) {
+      const float w = SW[b];
+      if (w == 0.f) continue;
+      const float R0 = SR[4 * b], R1 = SR[4 * b + 1], R2 = SR[4 * b + 2], R3 = SR[4 * b + 3];
+      const long long img = SI[b];
+      const float2* ex = EX + b * nk + rr;
+      const float2* ey = EY + b * nk + rr;
+      for (int vy = vy0; vy <= vy1; ++vy)
+        for (int vx = vx0; vx <= vx1; ++vx) {
+          const float fx = (float)(vx - cb), fy = (float)(vy - cb);
+          const float ax = R0 * fx + R2 * fy, ay = R1 * fx + R3 * fy;   // R^T k
+          // the box of candidates within REACH of (R^T k) / pf starts at
+          // (c0, r0) and is at most MAXC wide an axis; the strip test below
+          // rejects what lies past its far side
+          const int c0 = (int)ceilf((ax - REACH) * inv_pf);
+          const int r0 = (int)ceilf((ay - REACH) * inv_pf);
+          // p = R g - k at the box's corner, and its steps along vc and vr
+          const float gx0 = (float)(c0 * pf), gy0 = (float)(r0 * pf), fpf = (float)pf;
+          const float u0 = R0 * gx0 + R1 * gy0 - fx, v0 = R2 * gx0 + R3 * gy0 - fy;
+          const float du_c = R0 * fpf, du_r = R1 * fpf, dv_c = R2 * fpf, dv_r = R3 * fpf;
+          // the candidates that pass the cheap tests first (p within a
+          // cell's half-width of k on both axes, a margin for rounding:
+          // nearly every one is a hit), then the exact work once for each
+          unsigned slots = 0;
 #pragma unroll
-      for (int j = 0; j < PX_MAX; ++j) {
-        int p = g0 + tid + j * nthr;
-        pvc[j] = 0;
-        pvr[j] = 0;
-        pv[j] = make_float2(0.f, 0.f);
-        pc2[j] = 0.f;
-        if (j < pxt && p < npx) {
-          int d = px[p];
-          int vr = d / nk - rr, vc = d - (d / nk) * nk - rr;
-          float fx = (float)vc / box_a, fy = (float)vr / box_a;
-          float f = sqrtf(fx * fx + fy * fy);
-          float f2 = f * f;
-          float ang = atan2f((float)vr, (float)vc);
-          float defocus = -(k[4] + k[5] + (k[4] - k[5]) * cosf(2.f * (ang - k[6]))) / 2.f;
-          float chi = k[0] * defocus * f2 + k[1] * (f2 * f2) - k[7];
-          float ctf = -k[2] * sinf(chi) + k[3] * cosf(chi);
-          float cm = ctf * ((vc == 0 && vr == 0) ? 2.f : 1.f);
-          float2 dv = fti[(c + vr) * size + (c + vc)];
-          pvc[j] = vc;
-          pvr[j] = vr;
-          pv[j] = make_float2(dv.x * cm, dv.y * cm);
-          pc2[j] = ctf * cm;
-        }
-      }
-      for (int sb = s0; sb < s1; sb += BATCH) {
-        const int nb = min(BATCH, s1 - sb);
-        __syncthreads();   // the previous batch's tables are consumed
-        for (int i = tid; i < nb * nk; i += nthr) {
-          int b = i / nk, m = i - b * nk;
-          float v = (float)(m - rr);
-          float sx, cx, sy, cy;
-          sincosf(tpos * (v * trans[2 * (sb + b)]), &sx, &cx);
-          sincosf(tpos * (v * trans[2 * (sb + b) + 1]), &sy, &cy);
-          EX[b * nk + m] = make_float2(cx, sx);
-          EY[b * nk + m] = make_float2(cy, sy);
-        }
-        for (int i = tid; i < nb * 4; i += nthr) SR[i] = rot[4 * sb + i];
-        for (int i = tid; i < nb; i += nthr) SW[i] = wsl[sb + i];
-        __syncthreads();
-        for (int b = 0; b < nb; ++b) {
-          const float w = SW[b];
-          if (w == 0.f) continue;
-          const float R0 = SR[4 * b], R1 = SR[4 * b + 1], R2 = SR[4 * b + 2],
-                      R3 = SR[4 * b + 3];
-          const float2* ex = EX + b * nk + rr;
-          const float2* ey = EY + b * nk + rr;
+          for (int j = 0; j < MAXC; ++j) {
+            const int vr = r0 + j;
 #pragma unroll
-          for (int j = 0; j < PX_MAX; ++j) {
-            if (j >= pxt || g0 + tid + j * nthr >= npx) continue;
-            float gx = (float)(pvc[j] * pf), gy = (float)(pvr[j] * pf);
-            float x = __fadd_rn(__fmul_rn(R0, gx), __fmul_rn(R1, gy));
-            float y = __fadd_rn(__fmul_rn(R2, gx), __fmul_rn(R3, gy));
-            if (__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)) >= mr2) continue;
-            float flx = floorf(x), fly = floorf(y);
-            int ix = (int)flx + cb, iy = (int)fly + cb;
-            int y0 = min(max(iy, 0), big - 1) - lo;
-            int y1 = min(max(iy + 1, 0), big - 1) - lo;
-            bool in0 = y0 >= 0 && y0 < rows, in1 = y1 >= 0 && y1 < rows;
-            if (!in0 && !in1) continue;
-            // conj(tra) = exp(+i tpos (vc tx + vr ty)) = ex[vc] ey[vr]
-            float2 a = ex[pvc[j]], e = ey[pvr[j]];
-            float er = a.x * e.x - a.y * e.y, ei = a.x * e.y + a.y * e.x;
-            float vre = (pv[j].x * er - pv[j].y * ei) * w;
-            float vim = (pv[j].x * ei + pv[j].y * er) * w;
-            float c2w = pc2[j] * w;
-            float wx = x - flx, wy = y - fly;
-            int x0 = min(max(ix, 0), big - 1) - win_lo;
-            int x1 = min(max(ix + 1, 0), big - 1) - win_lo;
-            // |x|, |y| < max_radius_pad: the clipped taps lie in the window
-            if (in0) {
-              int r = y0 * win;
-              float w0 = (1.f - wy) * (1.f - wx), w1 = (1.f - wy) * wx;
-              add3(Fw + r + x0, Tw + r + x0, vre * w0, vim * w0, c2w * w0);
-              add3(Fw + r + x1, Tw + r + x1, vre * w1, vim * w1, c2w * w1);
-            }
-            if (in1) {
-              int r = y1 * win;
-              float w0 = wy * (1.f - wx), w1 = wy * wx;
-              add3(Fw + r + x0, Tw + r + x0, vre * w0, vim * w0, c2w * w0);
-              add3(Fw + r + x1, Tw + r + x1, vre * w1, vim * w1, c2w * w1);
+            for (int i = 0; i < MAXC; ++i) {
+              const int vc = c0 + i;
+              if (vc * vc + vr * vr < rr * rr &&
+                  fabsf(u0 + (float)i * du_c + (float)j * du_r) < STRIP &&
+                  fabsf(v0 + (float)i * dv_c + (float)j * dv_r) < STRIP)
+                slots |= 1u << (j * MAXC + i);
             }
           }
+          while (slots) {
+            const int bit = __ffs(slots) - 1;
+            slots &= slots - 1;
+            const int vc = c0 + bit % MAXC, vr = r0 + bit / MAXC;
+            // the load first, and no branch before its use, so the
+            // position's arithmetic hides its latency
+            const float4 d = __ldg(recs + img * nk * nk + (vr + rr) * nk + (vc + rr));
+            // the sample's position, rounded as the scatter rounds it
+            const float gx = (float)(vc * pf), gy = (float)(vr * pf);
+            const float x = __fadd_rn(__fmul_rn(R0, gx), __fmul_rn(R1, gy));
+            const float y = __fadd_rn(__fmul_rn(R2, gx), __fmul_rn(R3, gy));
+            const float flx = floorf(x), fly = floorf(y);
+            const float wx = axis_weight((int)flx + cb, vx, x - flx);
+            const float wy = axis_weight((int)fly + cb, vy, y - fly);
+            const bool ok = __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)) < mr2 && wx >= 0.f &&
+                            wy >= 0.f;
+            const float wt = ok ? wy * wx : 0.f;
+            // conj(tra) = exp(+i tpos (vc tx + vr ty)) = ex[vc] ey[vr]
+            const float2 a = ex[vc], e = ey[vr];
+            const float er = a.x * e.x - a.y * e.y, ei = a.x * e.y + a.y * e.x;
+            const float vre = (d.x * er - d.y * ei) * w;
+            const float vim = (d.x * ei + d.y * er) * w;
+            acc_re += vre * wt;
+            acc_im += vim * wt;
+            acc_t += (d.z * w) * wt;
+            hit = hit || ok;
+          }
         }
-      }
     }
   }
-  __syncthreads();
-  float* Fk = F + 2LL * cls * big * big;
-  float* Tk = T + (long long)cls * big * big;
-  for (int j = tid; j < cells; j += nthr) {
-    float2 a = Fw[j];
-    float t = Tw[j];
-    if (a.x == 0.f && a.y == 0.f && t == 0.f) continue;
-    int y = j / win, x = j - y * win;
-    int lin = (lo + y) * big + win_lo + x;
-    atomicAdd(Fk + 2 * lin, a.x);
-    atomicAdd(Fk + 2 * lin + 1, a.y);
-    atomicAdd(Tk + lin, t);
+  if (active && hit) {
+    long long cell = ((long long)cls * big + iy) * big + ix;
+    float2 f = F[cell];
+    F[cell] = make_float2(f.x + acc_re, f.y + acc_im);
+    T[cell] += acc_t;
   }
 }
 
 }  // namespace
 
 // ft (L, size, size) complex64; ctfk (L, 8); per slice, sorted by
-// (class, image): img_idx (B,), rot (B, 2, 2), trans (B, 2), w (B,);
-// runs (n_run, 2) int32 = [first, end) slice of one image; work (n_work,
-// 3) int32 = (class, first run, end run); px (npx,) int32 in-disc dense
-// pixels (vr + r_u - 1) nk + (vc + r_u - 1), pxt of them a thread at a
-// time; F (K, big, big) complex64 and T (K, big, big) float32,
-// accumulated into.  The window is [win_lo, win_lo + win)^2, cut into
-// bands of band_h rows (grid.y).
+// (class, image): img_idx (B,) int32, rot (B, 2, 2), trans (B, 2), w
+// (B,); cls_start (K + 1,) int32, the first sorted slice of each class;
+// recs (L, nk^2, 4) float32: scratch for the images' formed values; F
+// (K, big, big) complex64 and T float32,
+// accumulated into.  The tiles cover the window [win_lo, win_lo +
+// win)^2; vlo / vhi: the lowest and highest index a tap can take; smem:
+// the staged batch's bytes (insert_2d_plan).
 extern "C" int thunder_insert_bilinear_2d(
-    const void* ft, int size, const void* ctfk, const void* img_idx,
-    const void* runs, const void* work, int n_work, const void* rot,
-    const void* trans, const void* w, const void* px, int npx, int pxt,
-    int r_u, int pf, float max_radius_pad, float box_a, float tpos, void* F,
-    void* T, int big, int win_lo, int win, int band_h, int threads, int smem,
-    void* stream) {
-  if (pxt < 1 || pxt > PX_MAX || threads != THREADS) return (int)cudaErrorInvalidValue;
+    const void* ft, int size, const void* ctfk, int n_img, const void* img_idx,
+    const void* cls_start, int n_class, const void* rot, const void* trans, const void* w,
+    int r_u, int pf, float max_radius_pad, float box_a, float tpos, void* F, void* T, void* recs,
+    int big, int win_lo, int win, int vlo, int vhi, int threads, int smem, void* stream) {
+  if (threads != THREADS) return (int)cudaErrorInvalidValue;
+  if (n_class <= 0 || n_img <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nk = 2 * r_u - 1;
+  long long total = (long long)n_img * nk * nk;
+  form_images_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      (const float2*)ft, size, (const float*)ctfk, r_u, box_a, (float4*)recs, total);
+  // candidates an axis: 2 sqrt 2 / pf + 1 of them at most
+  auto kernel = pf == 1 ? insert_bilinear_2d_kernel<3> : insert_bilinear_2d_kernel<2>;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        insert_bilinear_2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t e = cudaFuncSetAttribute((const void*)kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  int n_band = (win + band_h - 1) / band_h;
-  if (n_work > 0) {
-    insert_bilinear_2d_kernel<<<dim3(n_work, n_band), threads, smem, (cudaStream_t)stream>>>(
-        (const float2*)ft, size, (const float*)ctfk, (const int*)img_idx, (const int*)runs,
-        (const int*)work, (const float*)rot, (const float*)trans, (const float*)w,
-        (const int*)px, npx, pxt, r_u, pf, max_radius_pad, box_a, tpos, (float*)F,
-        (float*)T, big, win_lo, win, band_h);
-  }
+  const int n_t = ((win + TILE_X - 1) / TILE_X) * ((win + TILE_Y - 1) / TILE_Y);
+  kernel<<<dim3(n_t, n_class), THREADS, smem, st>>>(
+      (const float4*)recs, (const int*)img_idx, (const int*)cls_start,
+      (const float*)rot, (const float*)trans, (const float*)w, r_u, pf, max_radius_pad, tpos,
+      (float2*)F, (float*)T, big, win_lo, win, vlo, vhi);
   return (int)cudaGetLastError();
 }

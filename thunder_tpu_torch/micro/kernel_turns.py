@@ -1,7 +1,8 @@
 """HK1 ``project_slices``, HK3 ``insert_trilinear``, HK4 ``shell_sums``,
-HK5 ``project_slices_2d``, HK7 ``symmetrize_ft`` and HK8
-``likelihood_local_ctf`` of two checkouts timed in turns on one card, at
-the shapes ``chip_smoke.py`` times.
+HK5 ``project_slices_2d``, HK6 ``insert_bilinear_2d``, HK7
+``symmetrize_ft``, HK8 ``likelihood_local_ctf`` and HK9
+``insert_trilinear_slab`` of two checkouts timed in turns on one card,
+at the shapes ``chip_smoke.py`` times.
 
     python thunder_tpu_torch/micro/kernel_turns.py PARENT_TREE [THIS_TREE]
 
@@ -87,13 +88,35 @@ def one_turn() -> dict:
     rot = rotate3d(random_quat(gen, (n_s,), dev))
     trans = 3 * torch.randn(n_s, 2, device=dev)
     w = torch.rand(n_s, device=dev) / 48
+    def hk3(name, *args, reps, d=None):
+        out[name] = timed(lambda: insert.insert_trilinear(*args, d=d), reps)
+
     for size, r_u in ((128, 36), (256, 85)):
         big = reco_grid_size(size, r_u) * 2
         ft = torch.fft.fftshift(torch.fft.fft2(torch.randn(n_l, size, size, device=dev)),
                                 dim=(-2, -1)).to(torch.complex64).contiguous()
-        out[f"HK3 {size} px"] = timed(lambda: insert.insert_trilinear(
-            ft, ctf, img_idx, rot, trans, w, r_u, 2, size, 1.32, big), 5 if size == 128 else 2)
+        hk3(f"HK3 {size} px", ft, ctf, img_idx, rot, trans, w, r_u, 2, size, 1.32, big,
+            reps=5 if size == 128 else 2)
     del ft
+    # the 160 px paths: a class and hemisphere of a K = 4 round (r_u 31), a
+    # CTF round's hemisphere with a defocus factor a slice (r_u 74), and
+    # thunder_reconstruct's 1,024 images, one slice each (r_u 78)
+    for name, n_i, per, r_u, use_d in (("HK3 K=4 132^3", 32, 48, 31, False),
+                                       ("HK3 CTF round 304^3", 128, 48, 74, True),
+                                       ("HK3 reconstruct 320^3", 1024, 1, 78, False)):
+        big = reco_grid_size(160, r_u) * 2
+        ft = torch.fft.fftshift(torch.fft.fft2(torch.randn(n_i, 160, 160, device=dev)),
+                                dim=(-2, -1)).to(torch.complex64).contiguous()
+        defocus = rng.uniform(8000, 20000, n_i)
+        ctf_i = ctf_params(np.full(n_i, 300e3), defocus, defocus * 1.05, rng.uniform(0, 3, n_i),
+                           np.full(n_i, 2e7), np.full(n_i, 0.1), np.zeros(n_i), device=dev)
+        n_s = n_i * per
+        d = 1 + 0.03 * torch.randn(n_s, device=dev) if use_d else None
+        hk3(name, ft, ctf_i, torch.arange(n_s, device=dev) // per,
+            rotate3d(random_quat(gen, (n_s,), dev)), 3 * torch.randn(n_s, 2, device=dev),
+            torch.rand(n_s, device=dev) / per, r_u, 2, 160, 1.32, big, reps=3, d=d)
+        del ft
+    out.update(turn_69(dev, gen, rng, timed))
 
     # HK4: the hemisphere FSC and the ring FRC (three stacked fields of a
     # centered grid, and spectrum.fsc on the spectra themselves), then the
@@ -144,6 +167,61 @@ def one_turn() -> dict:
             table, rot, rings.i_col, rings.i_row, 2, cls), 50 if n_l * n_r < 50000 else 20)
     del table
     out.update(turn_78(dev, gen, rng, timed))
+    return out
+
+
+def turn_69(dev, gen, rng, timed) -> dict:
+    """HK6 (the 2D round's 480,000 slices of 10,000 images into 60 planes
+    at r_u 31, a tenth at r_u 12 and 40) and HK9 (C4, the first slab: 8b's
+    24,576 slices at r_u 44 into 92 x 184^2, 8c's 256 slices at r_u 150
+    into 320 x 640^2)."""
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.geometry.quaternion import random_quat, rotate2d_from_unit, rotate3d
+    from thunder_tpu_torch.geometry.symmetry import Symmetry
+    from thunder_tpu_torch.ops import insert
+    from thunder_tpu_torch.optimiser import reco_grid_size
+    from thunder_tpu_torch.physics.ctf import ctf_params
+
+    out = {}
+
+    def ctf_of(n):
+        defocus = rng.uniform(8000, 20000, n)
+        return ctf_params(np.full(n, 300e3), defocus, defocus * 1.05, rng.uniform(0, 3, n),
+                          np.full(n, 2e7), np.full(n, 0.1), np.zeros(n), device=dev)
+
+    def spectra(n, size):
+        return torch.fft.fftshift(torch.fft.fft2(torch.randn(n, size, size, device=dev)),
+                                  dim=(-2, -1)).to(torch.complex64).contiguous()
+
+    n_l, n_s = 10000, 480000
+    ft, ctf = spectra(n_l, 160), ctf_of(n_l)
+    img = torch.arange(n_s, device=dev) // 48
+    cls_img = torch.randint(0, 30, (n_l,), generator=gen, device=dev) + 30 * (
+        torch.arange(n_l, device=dev) // (n_l // 2))
+    phi = torch.rand(n_s, generator=gen, device=dev) * (2 * np.pi)
+    rot = rotate2d_from_unit(torch.stack([torch.cos(phi), torch.sin(phi)], -1))
+    trans, w = 3 * torch.randn(n_s, 2, device=dev), torch.rand(n_s, device=dev) / 48
+    for r_u, n_r in ((31, n_s), (12, n_s // 10), (40, n_s // 10)):
+        big = reco_grid_size(160, r_u) * 2
+        out[f"HK6 r_u={r_u} slices={n_r}"] = timed(lambda: insert.insert_bilinear_2d(
+            ft, ctf, img[:n_r], cls_img[img[:n_r]], rot[:n_r], trans[:n_r], w[:n_r], r_u, 2,
+            160, 1.32, big, 60), 5 if r_u == 31 else 2)
+    del ft, rot, trans, w
+    mats = Symmetry("C4", dev).matrices
+    for name, n_i, per, size, r_u, big in (("HK9 8b", 512, 48, 160, 44, 184),
+                                          ("HK9 8c", 256, 1, 320, 150, 640)):
+        n_s = n_i * per
+        vals, c2w, _, _ = insert.dense_slice_values(
+            spectra(n_i, size), ctf_of(n_i), torch.arange(n_s, device=dev) // per,
+            3 * torch.randn(n_s, 2, device=dev), torch.rand(n_s, device=dev) / per, r_u, size,
+            1.32)
+        rot = rotate3d(random_quat(gen, (n_s,), dev))
+        cls = torch.zeros(n_s, dtype=torch.int32, device=dev)
+        out[name] = timed(lambda: insert.insert_trilinear_slab(
+            vals, c2w, rot, cls, r_u, 2, mats, 1, big, 0, big // 2), 3)
+        del vals, c2w
     return out
 
 

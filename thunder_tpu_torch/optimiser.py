@@ -952,9 +952,12 @@ class Optimiser:
         xa = torch.sum((dat * prit.conj()).real * ctf * rings.mask, -1) * self.valid_dev
         aa = torch.sum(prit.abs() ** 2 * ctf * ctf * rings.mask, -1) * self.valid_dev
         if cfg.group_scl:
-            zero = torch.zeros((nh, self.n_group), dtype=REAL, device=self.device)
-            scale = (comm.sum_data(lay, zero.scatter_add(1, d.group_id, xa))
-                     / torch.clamp(comm.sum_data(lay, zero.scatter_add(1, d.group_id, aa)),
+            # each group's sums as a one-hot product (a float scatter_add
+            # on the card adds in a run-dependent order)
+            g_onehot = (d.group_id[..., None]
+                        == torch.arange(self.n_group, device=self.device)).to(REAL)
+            scale = (comm.sum_data(lay, torch.einsum("hlg,hl->hg", g_onehot, xa))
+                     / torch.clamp(comm.sum_data(lay, torch.einsum("hlg,hl->hg", g_onehot, aa)),
                                    min=1e-30))
         else:
             scale = (comm.sum_data(lay, xa.sum(1))

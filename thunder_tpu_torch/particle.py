@@ -457,6 +457,7 @@ def draw_poses_compact(gen: torch.Generator, state: ParticleState,
                                   device=g.device),
                        gs[..., 1:] != gs[..., :-1]], dim=-1)
     uid = torch.cumsum(first.to(torch.int64), dim=-1) - 1
+    # counts of ones: whole numbers, exact in any order of adds
     counts = torch.zeros(g.shape, dtype=REAL, device=g.device).scatter_add_(
         -1, uid, torch.ones_like(g, dtype=REAL))
     rep = torch.full(g.shape, n_draw, dtype=torch.int64, device=g.device

@@ -94,6 +94,10 @@ def shell_sums_plain(values: torch.Tensor, shell: torch.Tensor,
     return out[..., :n_shells]
 
 
+MAX_FIELDS, GRID_BLOCKS = (_native.csrc_constant("shell_sums.cu", n)
+                           for n in ("MAX_C", "GRID_BLOCKS"))
+
+
 def _count_launch(form: str, b: int, c: int, n: int) -> None:
     shell_sums.launches += 1
     key = (form, b, c, n)
@@ -119,9 +123,9 @@ def shell_sums(values: torch.Tensor, shell: torch.Tensor, n_shells: int,
 
     CPU tensors take :func:`shell_sums_plain`; CUDA tensors launch the
     hand-written kernel (csrc/shell_sums.cu, the row form).  Kernel sums
-    are added in another order than the plain version's, run-dependent
-    where atomics add them, so they match to float32 rounding, not
-    bitwise."""
+    are added in another order than the plain version's, so they match
+    it to float32 rounding, not bitwise; that order is fixed by the
+    inputs, so two calls give identical bits."""
     if not values.is_cuda:
         return shell_sums_plain(values, shell, n_shells, weight)
     _require_fields(values, "shell_sums")
@@ -132,16 +136,19 @@ def shell_sums(values: torch.Tensor, shell: torch.Tensor, n_shells: int,
         weight = weight.to(REAL).contiguous()
         _native.require(weight.shape == (n,), "shell_sums: weight must be (N,)")
     chunks = shell_sums_plan(b, n)
-    alloc = torch.empty if chunks == 1 else torch.zeros
-    out = alloc((b, c, n_shells), dtype=REAL, device=values.device)
+    out = torch.empty((b, c, n_shells), dtype=REAL, device=values.device)
     if out.numel() == 0 or n == 0:
         return out.zero_()
+    work = (None if chunks == 1 else
+            torch.empty(b * chunks * min(c, MAX_FIELDS) * n_shells, dtype=torch.float64,
+                        device=values.device))
     lib = _native.library()
     _count_launch("rows", b, c, n)
     _native.check(lib.thunder_shell_sums(
         values.data_ptr(), values.stride(0), b, c, n, shell.data_ptr(),
         None if weight is None else weight.data_ptr(), n_shells, chunks,
-        out.data_ptr(), _native.stream_ptr(values)), "shell_sums")
+        out.data_ptr(), None if work is None else work.data_ptr(),
+        _native.stream_ptr(values)), "shell_sums")
     return out
 
 
@@ -159,6 +166,14 @@ def shell_sums_grid_plain(values: torch.Tensor, size: int, ndim: int,
     return shell_sums_plain(values, u, n_shells, half if halfspace else None)
 
 
+def _grid_work(n_b: int, n_c: int, n_shells: int, device) -> torch.Tensor:
+    """The coordinate form's partials (double): at most
+    ceil(GRID_BLOCKS / B) blocks an image (csrc/shell_sums.cu
+    grid_blocks), n_shells bins a field."""
+    return torch.empty((GRID_BLOCKS + n_b) * n_c * n_shells, dtype=torch.float64,
+                       device=device)
+
+
 def shell_sums_grid(values: torch.Tensor, size: int, ndim: int,
                     n_shells: int, halfspace: bool = True) -> torch.Tensor:
     """Shell sums of C real fields on centered full grids, (B, C,
@@ -171,14 +186,16 @@ def shell_sums_grid(values: torch.Tensor, size: int, ndim: int,
     _require_fields(values, "shell_sums_grid")
     b, c, n = values.shape
     _require_grid(b, n, size, ndim, "shell_sums_grid")
-    out = torch.zeros((b, c, n_shells), dtype=REAL, device=values.device)
+    out = torch.empty((b, c, n_shells), dtype=REAL, device=values.device)
     if out.numel() == 0 or n == 0:
-        return out
+        return out.zero_()
+    work = _grid_work(b, min(c, MAX_FIELDS), n_shells, values.device)
     lib = _native.library()
     _count_launch("grid" if halfspace else "full", b, c, n)
     _native.check(lib.thunder_shell_sums_grid(
         values.data_ptr(), values.stride(0), b, c, size, ndim, int(halfspace),
-        n_shells, out.data_ptr(), _native.stream_ptr(values)), "shell_sums_grid")
+        n_shells, out.data_ptr(), work.data_ptr(), _native.stream_ptr(values)),
+        "shell_sums_grid")
     return out
 
 
@@ -205,14 +222,15 @@ def fsc_sums(a: torch.Tensor, b: torch.Tensor, size: int, ndim: int,
     b = b.to(COMPLEX).contiguous()
     n_b, n = a.shape
     _require_grid(n_b, n, size, ndim, "fsc_sums")
-    out = torch.zeros((n_b, 3, n_shells), dtype=REAL, device=a.device)
+    out = torch.empty((n_b, 3, n_shells), dtype=REAL, device=a.device)
     if out.numel() == 0 or n == 0:
-        return out
+        return out.zero_()
+    work = _grid_work(n_b, 3, n_shells, a.device)
     lib = _native.library()
     _count_launch("pair", n_b, 3, n)
     _native.check(lib.thunder_fsc_sums_grid(
         a.data_ptr(), b.data_ptr(), n_b, size, ndim, n_shells, out.data_ptr(),
-        _native.stream_ptr(a)), "fsc_sums")
+        work.data_ptr(), _native.stream_ptr(a)), "fsc_sums")
     return out
 
 
