@@ -7,7 +7,7 @@ loudly.
 Run from the root of a checkout.  It needs one CUDA device and exits
 non-zero, printing no result, without one (or without the package).
 
-Phase 0 builds the fourteen hand-written Hopper kernels (one nvcc per
+Phase 0 builds the fifteen hand-written Hopper kernels (one nvcc per
 source, sm_90a) and times an empty kernel launched the same way, as a
 replayed CUDA graph: the floor under any launch.  Phase 1 holds the 3D
 kernels (HK1-HK4) against their plain PyTorch versions at the 3D path's
@@ -18,7 +18,8 @@ order and of weight zero; HK4 at the hemisphere FSC, as spectrum.fsc
 launches it from the two spectra and on three stacked fields, and at the
 sigma stage's per-image sums with three fields and with one, its
 coordinate form held exact against shell_geometry), and HK1 and HK3 at
-the shapes of a 256 px box at its global radius; phase 1b the 2D path's
+the shapes of a 256 px box at its global radius, and HK10 (the MKB
+insertion option's blob) on HK3's slices, timed beside it; phase 1b the 2D path's
 at 160 px (HK5 at the phase loop's, the global-search block's and the
 sigma pass's shapes, at r = 5 and 15; HK6 with the 480,000 slices of a
 round into 2K = 60 planes at r_u = 31, and a tenth at 12 and 40; HK2, the likelihood
@@ -29,7 +30,8 @@ rotations x 151 translations, configs/demo_3D.json's grid.  Phase 1c
 holds HK7 (in the orbit form its C4 and D2 take) and HK8 at the 160 px
 refinement's and classification's shapes against their plain versions,
 checks that two calls of each give identical bits and times each alone,
-and times HK3's launches of those paths with their bounds.  Each
+and times HK3's launches of those paths with their bounds (and HK10 on
+the CTF round's slices, a defocus factor a slice).  Each
 kernel's timing line gives kernel_ms and plain_ms (CUDA events),
 library_ms (one PyTorch call computing the same function: F.grid_sample
 for HK1 and HK5, torch.bincount for HK4; none exists for HK2, HK3 and
@@ -70,7 +72,12 @@ blurred poses with "Global Search" off until CTF search has run at least
 two rounds (HK8 once a phase, the median defocus factor moved from 1
 toward 1.03); if the state machine has not entered CTF search by round
 CTF_FORCE_ROUND the search type is set there, and the run says which
-happened.  Phase 6 runs configs/demo_3D.json's classification (K = 4,
+happened; phase 5c resumes the same run with the MKB insertion option
+(reco_kernel "mkb", through the API: no CLI names it) for ROUNDS_MKB
+rounds and the final reconstruction (maps finite, res_A finer at the end
+than at the start, the final map's FSC 0.5 against the phantom finer
+than the start model's, HK10 launched and HK3 not, HK7 once a
+reconstruction, a second run from the seed bit for bit).  Phase 6 runs configs/demo_3D.json's classification (K = 4,
 C4) for four rounds on 256 images of two sharp C4 species (HK2 once a
 rotation block a hemisphere, HK7 over the 2K grids in one launch, class
 purity above 1.5/K).  Phase 7 runs the post-refinement paths through
@@ -104,7 +111,12 @@ r_u 150) on 4 ranks against one process with whole grids (HK3, HK7),
 with each rank's time, peak memory and transpose bytes (8b's maps and
 8c's HK9 slab against HK3 then HK7 at relative L2 1e-4, 8c's maps as
 under Repeats below); and HK9 against its plain twin at 8b's and
-8c's shapes.  A local round, a CTF round and a K = 4 round run
+8c's shapes.  Phase 9 runs thunder_tpu_torch/micro/run_parity.py's
+cases a (configs/demo.json at 32 px: global, local and CTF rounds) and b
+(K = 2 at 24 px) through the CLI on files the generator writes on the
+CPU, held to thunder_tpu's committed record (tests/goldens/run_parity/):
+as many rounds, each with its r and search type and its FSC-0.143 shell
+within one.  A local round, a CTF round and a K = 4 round run
 under torch.profiler.  The runs split HK4's launches by what called it (the
 FSC / FRC, the preprocess spectra, the sigma stage) and the projection
 kernels' by global search, phase loop and sigma pass.  Phases 2 and 4 each run one round (3D round 1, 2D round
@@ -115,19 +127,22 @@ device time by named range of the optimiser (``thunder:round/<stage>``,
 limit, then three JSON objects: the profiles, the kernels, and ``{"ok":
 true, "device": {...}}``.
 
-Repeats.  HK3, HK6 and HK9 (cell-owned gathers) and HK4 (sums in a
-fixed order) are each called twice on the same inputs at every shape
+Repeats.  HK3, HK6, HK9 and HK10 (cell-owned gathers) and HK4 (sums in
+a fixed order) are each called twice on the same inputs at every shape
 they are held at, and must give identical bits (as HK7 and HK8 in phase
-1c).  Phase 2's three rounds, phase 4's first four rounds and phase 5b
+1c); 8a's 2-rank CLI and 8b's 4 ranks run twice and must write the same
+bits.  Phase 2's three rounds, phase 4's first four rounds and phase 5b
 up to its first CTF round run again from the same seed into another
 output directory: every round's record (r, res_A), FSC curve, poses,
 classes, defocus factors and maps must be equal bit for bit (2D: and the
 class purity).  Phases 2 and 4 then run one round under
 ``torch.use_deterministic_algorithms(True, warn_only=True)`` and print
 the ops PyTorch names.  8c's one-grid path runs three times and must
-repeat; the slab path's maps are held to the larger of SLAB_TOL and
-twice the one-grid maps' change when every cell of its (F, T) is scaled
-by 1 + u 2^-23 (u in {-1, 0, 1} from a seed), and its peak memory is
+repeat; the slab path's free-running maps are held to the one-grid
+path's within the spread of that path's maps over the balance counts it
+stops at, its insertion to HK3 then HK7, and its reconstruction to the
+one-grid reconstruction of the same (F, T) at the same count of balance
+iterations (SPREAD_FACTOR_8C below); the one-process peak memory is
 printed.
 """
 
@@ -252,19 +267,43 @@ CROSSING_SPREAD = 9
 RANKS_8, ROUNDS_8, SHELL_GATE_8, SLAB_TOL = (1, 2, 4), 2, 3, 1e-4
 SIZE_8C, R_U_8C, N_8C = 320, 150, 512
 # 8c's maps: at 640^3 with 512 poses MAP-free gridding's balance loop
-# amplifies rounding in (F, T) (while HK3 summed with float atomics, three
-# one-grid calls on an NVIDIA H100 80GB HBM3 at 700 W moved by up to
-# 1.0e-1, relative L2).  HK3 and HK9 are now gathers, so the one-grid path
-# repeats bit for bit (checked), but the slab path still sums its grids in
-# another order than HK3 then HK7.  So its maps are held to SLAB_TOL or
-# SPREAD_FACTOR_8C times the one-grid path's sensitivity to rounding,
-# measured in the same call: the maps of its (F, T) with every cell scaled
-# by 1 + u 2^-23, u in {-1, 0, 1} from a seed; HK9's slab to HK3 then HK7
-# at SLAB_TOL
+# amplifies rounding in (F, T).  HK3 and HK9 are gathers, so the one-grid
+# path repeats bit for bit (checked), but the slab path sums its grids in
+# another order than HK3 then HK7.  The balance loop's stop is a threshold
+# (max ||C| - 1| under 1e-2, or from MIN_N_ITER_BALANCE on no decrease
+# for two iterations), so two paths whose sums round apart stop at other
+# counts: one grid ran 10 and 17 iterations (A, B), 14 and 17 with its
+# cells scaled by an ulp, the slabs 11 and 11, and B's maps then differed
+# by 7.8e-2 (an NVIDIA H100 80GB HBM3 at 700 W).  So the slab path's
+# free-running maps are held to the one-grid path's end to end within
+# SPREAD_FACTOR_8C times the farthest that path's own map lies from the
+# maps at the counts it stops at (from MIN_N_ITER_BALANCE to the largest
+# count it took, its own and with its cells scaled by an ulp), measured in
+# the same call, and its count may not lie below those counts; the maps
+# at every count from 1 are printed (one process on an NVIDIA H100 80GB
+# HBM3 at 700 W: A 3.3e-1 at 1 iteration, 8.8e-2 at 14 against its own
+# 10; B 1.6e-1 at 1, 9.4e-2 at 10 against its own 17).  And in two parts.  Insertion: HK9's slab against
+# HK3 then HK7 within SLAB_TOL (their (F, T) differ by up to 3.7e-6 of
+# max |T|, ~30 ulps).  Reconstruction: the slab path's maps against the
+# one-grid reconstruction of HK9's own (F, T) over the whole grid run for
+# the slabs' count, within SLAB_TOL or SPREAD_FACTOR_8C times that
+# reconstruction's change with its 3D transforms composed as the slabs
+# compose theirs (separable_fft), measured in the same call
 SPREAD_FACTOR_8C = 2
 RANK_TIMEOUT_S = 600
 PATH_KERNELS_8A = ("project_slices", "likelihood_block", "insert_trilinear", "shell_sums",
                    "symmetrize_ft")
+# phase 5c: configs/demo.json resumed in local search as in 5b with the
+# MKB insertion option (reco_kernel "mkb", through the API), ROUNDS_MKB
+# rounds and the final reconstruction, run twice from its seed
+ROUNDS_MKB = 3
+# HK10's operations a sample: the value (as HK3's first pass forms it)
+# and, for each of the ~4/3 pi a^3 = 28.7 cells of the blob's ball at a =
+# 1.9, the distance, the I0 and three multiply-adds
+MKB_VALUE_OPS, MKB_TAP_OPS, MKB_BALL = 70, 40, 4.0 / 3.0 * 3.141592653589793 * 1.9 ** 3
+# phase 9: whole runs held round by round to thunder_tpu's committed
+# records (thunder_tpu_torch/micro/run_parity.py, tests/goldens/run_parity/)
+PARITY_CASES = ("a", "b")
 # an H100 SXM's published peaks (HBM3 rate, FP32 vector rate), for bounds
 HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
 # why the insertion kernels match their twins to float32 rounding only
@@ -953,6 +992,10 @@ def phase_kernels(dev):
         "insert_trilinear", f"slices={n_s} r_u={r_u} big={big}^3", max(e1, e2),
         timed(ins, 5), timed(ins_p, 2),
         n_l * npx * 8 + n_l * 32 + n_s * 64 + big ** 3 * 12, n_s * npx * 110)
+    # HK10, the MKB option's insertion, on the same slices
+    results["insert_mkb"] = hk10_record(
+        dev, (ft, ctf, img_idx, rot, trans, w, r_u, 2, SIZE, PIXEL_SIZE), None, big,
+        f"slices={n_s} r_u={r_u} big={big}^3", n_l, rec_3["ms"])
     # a sixth of the slices in no order of image, a third of them of weight
     # zero, accumulated into grids that already hold sums; the window's
     # corner pixels lie beyond the padded-radius cut in every case
@@ -1003,6 +1046,35 @@ def phase_kernels(dev):
     # the sigma stage's per-image sums (both halves' 256 images)
     results["shell_sums"] = hk4_records(dev, gen, SIZE, 3, 1, 2 * n_l, r_u, "3D")
     return results
+
+
+def hk10_record(dev, args, d, big: int, shape: str, n_img: int, hk3_ms: float) -> dict:
+    """HK10 (insert_mkb) against its plain twin (1e-5 of max |plain|),
+    two calls identical, timed beside HK3's time at the same slices
+    (``hk3_ms``), with its bound: the images and the slices read once, F
+    and T written once; the value and the blob's ~28.7 taps a sample."""
+    import torch
+
+    from thunder_tpu_torch.ops import insert
+
+    call = lambda: insert.insert_mkb(*args, big, d=d)
+    fk, tk = call()
+    same_bits("insert_mkb", shape, (fk, tk), call())
+    (fp, tp), plain_ms = timed_once(lambda: insert.insert_mkb_plain(
+        *args, torch.zeros((big,) * 3, dtype=torch.complex64, device=dev),
+        torch.zeros((big,) * 3, device=dev), d))
+    err = max(compare("insert_mkb", f"F {shape}", torch.view_as_real(fk),
+                      torch.view_as_real(fp), 1e-5, GATHER_WHY),
+              compare("insert_mkb", "T, the same", tk, tp, 1e-5, GATHER_WHY))
+    del fk, tk, fp, tp
+    n_s, r_u = args[3].shape[0], args[6]
+    npx = int((insert.dense_window(r_u, edge=True)[2] > 0).sum())
+    rec = record("insert_mkb", shape, err, timed(call, 3), plain_ms,
+                 n_img * npx * 8 + n_img * 32 + n_s * 64 + big ** 3 * 12,
+                 n_s * npx * (MKB_VALUE_OPS + MKB_BALL * MKB_TAP_OPS), hk3_ms=hk3_ms)
+    say(f"  insert_mkb [{shape}]: {rec['ms'] / hk3_ms:.2f} x HK3's {hk3_ms:.4f} ms on the "
+        "same slices")
+    return rec
 
 
 def phase_kernels_2d(dev):
@@ -1821,6 +1893,10 @@ def phase_kernels_refine(dev):
         hk3.append(record("insert_trilinear", shape3, err3, timed(call3, 3), plain_ms,
                           n_i * npx3 * 8 + n_i * 32 + n_s3 * 64 + big3 ** 3 * 12,
                           n_s3 * npx3 * 110))
+        if use_d:
+            # HK10 on the CTF round's slices, a defocus factor a slice
+            results["insert_mkb_ctf"] = hk10_record(dev, args3, d3, big3, shape3, n_i,
+                                                    hk3[-1]["ms"])
         del ft3, args3
     results["insert_trilinear_refine"] = hk3
 
@@ -2048,6 +2124,116 @@ def phase_refine_b(dev, wrappers):
         same_runs("5b", out, again, first + 1,
                   lambda i: [f"Reference_000_{h}_Round_{i:03d}.mrc" for h in "AB"])
     return launches["refine_b"], prof
+
+
+def mkb_run(cfg_path: str, dev, wrappers: dict, rounds: int) -> tuple:
+    """configs/demo.json's resumed run with reco_kernel "mkb" set through
+    the API (no CLI names it): the CLI's Optimiser, ``rounds`` rounds and
+    the final reconstruction, every wrapper's count set to 0 just before
+    and read just after.  Returns (launches, records, final maps,
+    references after each round)."""
+    import torch
+
+    from thunder_tpu_torch.cli.thunder import build_optimiser
+    from thunder_tpu_torch.config import ThunderConfig
+
+    cfg = ThunderConfig.from_json(cfg_path)
+    cfg.reco_kernel = "mkb"
+    opt, _ = build_optimiser(cfg, dev)
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    recs, refs = [], []
+    for i in range(rounds):
+        recs.append(opt.run_round(i))
+        refs.append(opt.refs_both(report=True))
+    final = opt.final_reconstruction()
+    torch.cuda.synchronize()
+    return {n: w.launches for n, w in wrappers.items()}, recs, final, refs
+
+
+def phase_refine_mkb(dev, wrappers):
+    """Phase 5c: configs/demo.json resumed in local search from the
+    generator's blurred poses, as 5b, with the MKB insertion option:
+    ROUNDS_MKB rounds and the final reconstruction through the port's
+    Optimiser.  Gates: maps finite, res_A finer at the end than at the
+    start, the final map's FSC 0.5 against the phantom finer than the
+    start model's, HK10 launched and HK3 not, HK7 once a reconstruction,
+    and a second run from the same seed equal bit for bit.  Returns the
+    launches of the first run."""
+    import numpy as np
+
+    from thunder_tpu_torch.io.mrc import read_mrc
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mkb_") as tmp:
+        cfg_path, truth = demo_160(tmp, dev, "demo.json", 1, ROUNDS_MKB, LOCAL_START_RES_A,
+                                   local_resume=True, defocus_factor=DEFOCUS_FACTOR)
+        start, _ = read_mrc(os.path.join(tmp, "start_model.mrc"))
+        t0 = time.time()
+        launches, recs, final, refs = mkb_run(cfg_path, dev, wrappers, ROUNDS_MKB)
+        wall = time.time() - t0
+        for rec in recs:
+            say(f"  5c round {rec['round']}: r={rec['r']} search {rec['search_type']}->"
+                f"{rec['search_type_after']} phases={rec['n_phases']} res={rec['res_A']:.3f} A "
+                f"(shell {rec['res_shell']})  {rec['elapsed_s']:.3f} s")
+        say(f"  5c wall {wall:.1f} s, launches {launches}")
+        if not (np.isfinite(final).all() and all(np.isfinite(r).all() for r in refs)):
+            fail("5c: non-finite maps")
+        if not recs[-1]["res_A"] < recs[0]["res_A"]:
+            fail(f"5c: res_A {recs[-1]['res_A']:.3f} at the end is no finer than "
+                 f"{recs[0]['res_A']:.3f} at the start")
+        got, was = agreement_res(final[0], truth), agreement_res(start, truth)
+        say(f"  5c: the final map agrees with the phantom (FSC 0.5) to {got:.3f} A, the start "
+            f"model to {was:.3f} A")
+        if not got < was:
+            fail(f"5c: the final map's FSC 0.5 against the phantom ({got:.3f} A) is no finer "
+                 f"than the start model's ({was:.3f} A)")
+        if launches["insert_mkb"] < 2 * (ROUNDS_MKB + 1) or launches["insert_trilinear"]:
+            fail(f"5c: HK10 launched {launches['insert_mkb']} times and HK3 "
+                 f"{launches['insert_trilinear']}: expected HK10 once a hemisphere a "
+                 "reconstruction and HK3 never")
+        if launches["symmetrize_ft"] != ROUNDS_MKB + 1:
+            fail(f"5c: HK7 launched {launches['symmetrize_ft']} times for "
+                 f"{ROUNDS_MKB + 1} reconstructions")
+        _, recs2, final2, refs2 = mkb_run(cfg_path, dev, wrappers, ROUNDS_MKB)
+        keys = ("r", "res_A", "res_shell", "n_phases", "search_type_after")
+        if ([[r[k] for k in keys] for r in recs] != [[r[k] for k in keys] for r in recs2]
+                or not all(np.array_equal(a.view(np.int32), b.view(np.int32))
+                           for a, b in zip(refs + [final], refs2 + [final2]))):
+            fail("5c: a second run from the same seed differs")
+        say(f"  5c: a second run from the same seed gave the same records and maps bit for bit "
+            f"({ROUNDS_MKB} rounds and the final reconstruction)")
+    return launches
+
+
+def phase_parity(dev, wrappers):
+    """Phase 9: whole runs of the port on the card held to thunder_tpu's
+    committed record on the same files (written by the generator on the
+    CPU): as many rounds, each with its r and search type and its
+    FSC-0.143 shell within one.  Returns the launches summed over the
+    cases."""
+    import torch
+
+    from thunder_tpu_torch.micro import run_parity
+
+    launches = {n: 0 for n in wrappers}
+    for name in PARITY_CASES:
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.time()
+        got = run_parity.run_case(name, "cuda")
+        torch.cuda.synchronize()
+        for n, w in wrappers.items():
+            launches[n] += w.launches
+        say(f"  9 case {name} ({len(got['rounds'])} rounds, {time.time() - t0:.1f} s; "
+            f"thunder_tpu's record from {got['ref_cpu']}), port / thunder_tpu:")
+        for line in got["lines"]:
+            say("    " + line)
+        if got["bad"] or not got["held"]:
+            fail(f"9 case {name}: rounds {got['bad']} part from thunder_tpu's (a shell more "
+                 "than one apart, another r or search type, or a round only one run has)")
+    return launches
 
 
 def phase_classify_3d(dev, wrappers):
@@ -2480,7 +2666,7 @@ def phase_post(dev, wrappers):
 
 def kernel_wrappers() -> dict:
     """Every hand kernel's wrapper by name (each counts its launches)."""
-    from thunder_tpu_torch.ops.insert import (insert_bilinear_2d, insert_trilinear,
+    from thunder_tpu_torch.ops.insert import (insert_bilinear_2d, insert_mkb, insert_trilinear,
                                               insert_trilinear_slab)
     from thunder_tpu_torch.ops.likelihood import likelihood_block, likelihood_local_ctf
     from thunder_tpu_torch.ops.projector import project_slices, project_slices_2d
@@ -2490,7 +2676,7 @@ def kernel_wrappers() -> dict:
     return {f.__name__: f for f in (project_slices, likelihood_block, insert_trilinear,
                                     shell_sums, project_slices_2d, insert_bilinear_2d,
                                     symmetrize_ft, likelihood_local_ctf,
-                                    insert_trilinear_slab)}
+                                    insert_trilinear_slab, insert_mkb)}
 
 
 def run_ranks(kind: str, spec: dict, world: int) -> list:
@@ -2620,8 +2806,8 @@ def _slab_round_part(lay, spec) -> dict:
     fsc, mp, r_u = opt.reconstruct_maps(draws)
     torch.cuda.synchronize()
     if lay.j == 0:
-        np.savez(os.path.join(spec["dir"], f"slab_round_h{lay.h}.npz"), fsc=fsc[0].cpu().numpy(),
-                 map=mp[0].cpu().numpy())
+        np.savez(os.path.join(spec["dir"], f"{spec['tag']}_h{lay.h}.npz"),
+                 fsc=fsc[0].cpu().numpy(), map=mp[0].cpu().numpy())
     return dict(ms=(time.time() - t0) * 1e3, big=grid * cfg.pf, r_u=r_u)
 
 
@@ -2689,6 +2875,45 @@ def _rank_lines(label: str, ranks: list) -> None:
                           for k, v in r['comm'].items()}))
 
 
+class separable_fft:
+    """Within the block torch.fft.rfftn / irfftn run as their separable
+    composition (an rfft over the last axis and a complex FFT over the
+    others), as the slab path composes its transforms: the same function
+    rounded another way."""
+
+    def __enter__(self):
+        import torch
+
+        self.saved = torch.fft.rfftn, torch.fft.irfftn
+
+        def rfftn(x, s=None, dim=None, norm=None):
+            return torch.fft.fftn(torch.fft.rfft(x, dim=dim[-1]), dim=dim[:-1])
+
+        def irfftn(x, s=None, dim=None, norm=None):
+            return torch.fft.irfft(torch.fft.ifftn(x, dim=dim[:-1]), n=s[-1], dim=dim[-1])
+
+        torch.fft.rfftn, torch.fft.irfftn = rfftn, irfftn
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.fft.rfftn, torch.fft.irfftn = self.saved
+
+
+def band_split(a, b, shell: float) -> tuple:
+    """L2 of a - b (real FFT-layout maps) over |b|'s, split at Fourier
+    shell ``shell``: (below, at or beyond)."""
+    import numpy as np
+
+    from thunder_tpu_torch.physics.mask import radial_grid
+
+    d = np.fft.fftn(a - b)
+    inside = radial_grid(a.shape[-1], 3) < shell
+    norm = np.linalg.norm(np.fft.fftn(b))
+    return (float(np.linalg.norm(d[inside]) / norm), float(np.linalg.norm(d[~inside]) / norm))
+
+
 def hk9_record(label: str, dev, vals, c2w, rot, r_u: int, big: int, bz: int, mats) -> dict:
     """HK9 against its plain twin on the first slab of ``big``^3 (and
     against itself: two calls identical), timed (kernel with CUDA events;
@@ -2744,8 +2969,9 @@ def phase_ranks(dev, wrappers):
     from thunder_tpu_torch.optimiser import RECO_COMPACT_SLOTS
     from thunder_tpu_torch.physics.ctf import ctf_params
     from thunder_tpu_torch.pipeline.synthetic import phantom
-    from thunder_tpu_torch.recon.reconstructor import (reconstruct, symmetrize_form,
-                                                       symmetrize_ft)
+    from thunder_tpu_torch.constants import MIN_N_ITER_BALANCE
+    from thunder_tpu_torch.recon.reconstructor import (_balance, finalize_reconstruction,
+                                                       symmetrize_form, symmetrize_ft)
 
     launches = {n: 0 for n in wrappers}
 
@@ -2793,6 +3019,15 @@ def phase_ranks(dev, wrappers):
                 if abs(a["res_shell"] - b["res_shell"]) > SHELL_GATE_8:
                     fail(f"8a: {world} ranks' round {a['round']} crosses at shell "
                          f"{a['res_shell']}, one process at {b['res_shell']}")
+        # do ranks repeat?  The 2-rank CLI once more from the same seed
+        # into another directory: every output bit for bit
+        base["Basic"]["Path of Output"] = os.path.join(tmp, "out_2_again") + "/"
+        cfg_again = os.path.join(tmp, "demo_2_again.json")
+        with open(cfg_again, "w") as f:
+            json.dump(base, f)
+        add(run_ranks("cli", dict(dir=tmp, tag="cli2_again", cfg=cfg_again), 2))
+        same_runs("8a 2 ranks", os.path.join(tmp, "out_2"), os.path.join(tmp, "out_2_again"),
+                  ROUNDS_8, lambda i: [f"Reference_000_{h}_Round_{i:03d}.mrc" for h in "AB"])
 
         # 8b: one process and 4 ranks from the same draws
         cfg = ThunderConfig.from_json(cfg_path)
@@ -2824,6 +3059,16 @@ def phase_ranks(dev, wrappers):
             got = np.load(os.path.join(tmp, f"slab_round_h{h}.npz"))
             errs_b += [_rel_l2(got["fsc"], fsc1[h].cpu().numpy()),
                        _rel_l2(got["map"], map1[h].cpu().numpy())]
+        # 8b's 4 ranks once more: both hemispheres' maps bit for bit
+        add(run_ranks("slab_round", dict(dir=tmp, tag="slab_round_again", cfg=cfg_path,
+                                         draws=draws_path), 4))
+        for h in (0, 1):
+            a, b = (np.load(os.path.join(tmp, f"{tag}_h{h}.npz"))
+                    for tag in ("slab_round", "slab_round_again"))
+            if not all(np.array_equal(a[k].view(np.int32), b[k].view(np.int32))
+                       for k in ("fsc", "map")):
+                fail(f"8b: two runs of the slab path on 4 ranks differ (hemisphere {h})")
+        say("  8b: a second run of the 4 ranks gave both hemispheres' maps bit for bit")
         big_b = ranks[0]["big"]
         say(f"  8b: r_u {r_u}, {big_b}^3 grids in slabs of {big_b // 2}; relative L2 of the "
             f"slab path's maps against one process (A fsc, A map, B fsc, B map): "
@@ -2876,12 +3121,21 @@ def phase_ranks(dev, wrappers):
                                            SIZE_8C, PIXEL_SIZE, big)
             return symmetrize_ft(f, t, mats, float((R_U_8C - 1) * 2), form)
 
+        def rec_8c(f, t, n_iter=None, each=None):
+            """The MAP-free reconstruction of (F, T) and its balance loop's
+            count, free-running or run for ``n_iter`` (each count's W to
+            ``each``)."""
+            t = t.real if t.is_complex() else t
+            w, n = _balance(t, 2, R_U_8C, n_iter=n_iter, each=each)
+            return finalize_reconstruction(f, w, SIZE_8C, 2, R_U_8C), int(n.max())
+
         # the one-grid path three times a hemisphere, which must give the
         # same bits; and its sensitivity to rounding: the maps of the same
         # (F, T) with each cell scaled by 1 + u 2^-23, u in {-1, 0, 1} drawn
         # from a seed (one float32 ulp or none a cell, as two orders of
         # summation differ), taken in the same call
-        calls, t_one, sens, first_slab = [[], []], 0.0, [], None
+        calls, t_one, sens, sens_maps, first_slab = [[], []], 0.0, [], [], None
+        iters_one, iters_sens = [0, 0], [0, 0]
         gen_u = generator(10, dev)
         ulp = lambda x: x * (1 + torch.randint(-1, 2, x.shape, generator=gen_u, device=dev,
                                                dtype=torch.int8).to(x.dtype) * 2.0 ** -23)
@@ -2892,7 +3146,7 @@ def phase_ranks(dev, wrappers):
                 torch.cuda.synchronize()
                 t0 = time.time()
                 f, t = one_grid(h)
-                vol = reconstruct(f, t, SIZE_8C, 2, R_U_8C)
+                vol, iters_one[h] = rec_8c(f, t)
                 torch.cuda.synchronize()
                 t_one += (time.time() - t0) if rep == 0 else 0.0
                 if rep == 0:
@@ -2901,8 +3155,9 @@ def phase_ranks(dev, wrappers):
                         first_slab = (f[:bz_c].clone(), t[:bz_c].clone())
                     f = torch.complex(ulp(f.real), ulp(f.imag))
                     t = ulp(t)
-                    sens.append(_rel_l2(reconstruct(f, t, SIZE_8C, 2, R_U_8C).cpu().numpy(),
-                                        vol.cpu().numpy()))
+                    m, iters_sens[h] = rec_8c(f, t)
+                    sens_maps.append(m.cpu().numpy())
+                    sens.append(_rel_l2(sens_maps[-1], vol.cpu().numpy()))
                 calls[h].append(vol.cpu().numpy())
                 del f, t, vol
                 torch.cuda.empty_cache()
@@ -2924,7 +3179,7 @@ def phase_ranks(dev, wrappers):
                   _rel_l2(t9[0].cpu().numpy(), first_slab[1].cpu().numpy())]
         del f9, t9, first_slab
         rec_c = hk9_record("8c", dev, vals, c2w, rot[ids], R_U_8C, big, bz_c, mats)
-        del vals, c2w, ft
+        del vals, c2w
         torch.cuda.empty_cache()
         t0 = time.time()
         ranks = run_ranks("slab_big", dict(dir=tmp, tag="slab_big", n=N_8C, size=SIZE_8C,
@@ -2932,8 +3187,81 @@ def phase_ranks(dev, wrappers):
         wall_c = time.time() - t0
         add(ranks)
         _rank_lines("8c", ranks)
-        errs = [_rel_l2(np.load(os.path.join(tmp, f"slab_big_h{h}.npy")), one[h])
-                for h in (0, 1)]
+        slab_maps = [np.load(os.path.join(tmp, f"slab_big_h{h}.npy")) for h in (0, 1)]
+        errs = [_rel_l2(slab_maps[h], one[h]) for h in (0, 1)]
+        # where the maps differ: inside insertion's band, Fourier shells below
+        # r_u - 1, and in the ring up to the balance's r_u, where only spill
+        # lands (ROADMAP Q3's band edge); each part's L2 over the whole map's
+        split = [band_split(slab_maps[h], one[h], R_U_8C - 1) for h in (0, 1)]
+        split_s = [band_split(sens_maps[h], one[h], R_U_8C - 1) for h in (0, 1)]
+        # the balance loop's stop is a threshold, so the count moves with
+        # rounding.  End to end: the one-grid maps at every count from 1 on
+        # (the stopping rule off), their distance from the free-running
+        # one-grid map; the counts that path can stop at are those from
+        # MIN_N_ITER_BALANCE (below it only a converged loop stops) to the
+        # largest it took, its own and with its cells scaled by an ulp, and
+        # the slab path's free-running maps are held within
+        # SPREAD_FACTOR_8C times the farthest of those maps.  In parts, at
+        # the slabs' count: the slab path against the one-grid path and that
+        # path's sensitivity to an ulp's scaling of its cells (printed), and
+        # against the one-grid reconstruction of HK9's own (F, T), whose
+        # change with its transforms composed as the slabs' bounds it
+        iters_slab = [ranks[2 * h]["comm"]["max_data"]["calls"] for h in (0, 1)]
+        forced, sens_forced, sens_fft, same_in, curves, spread = [], [], [], [], [], []
+        windows = [(min(MIN_N_ITER_BALANCE, iters_one[h], iters_sens[h]),
+                    max(iters_one[h], iters_sens[h])) for h in (0, 1)]
+        gen_u = generator(11, dev)
+        for h in (0, 1):
+            f, t = one_grid(h)
+            ref = torch.as_tensor(one[h], device=dev)
+            curve, kept = {}, {}
+
+            def each(n, w):
+                m = finalize_reconstruction(f, w, SIZE_8C, 2, R_U_8C)
+                curve[n] = float(torch.linalg.vector_norm(m - ref)
+                                 / torch.linalg.vector_norm(ref))
+                if n == iters_slab[h]:
+                    kept[n] = m.cpu().numpy()
+
+            rec_8c(f, t, max(windows[h][1], iters_slab[h]), each)
+            curves.append(curve)
+            spread.append(max(curve[n] for n in range(windows[h][0], windows[h][1] + 1)))
+            at = kept[iters_slab[h]]
+            forced.append(_rel_l2(slab_maps[h], at))
+            f, t = torch.complex(ulp(f.real), ulp(f.imag)), ulp(t)
+            sens_forced.append(_rel_l2(rec_8c(f, t, iters_slab[h])[0].cpu().numpy(), at))
+            del f, t, ref
+            # the slabs' own (F, T): HK9 with C4's mates pose-side over the
+            # whole grid (a cell's sum does not depend on the slab's bounds),
+            # reconstructed on one grid at the slabs' count
+            ids = torch.arange(h, N_8C, 2, device=dev)
+            vals, c2w, _, _ = insert.dense_slice_values(
+                ft[ids], ctf.map(lambda a: a[ids]), torch.arange(ids.numel(), device=dev),
+                torch.zeros(ids.numel(), 2, device=dev), torch.ones(ids.numel(), device=dev),
+                R_U_8C, SIZE_8C, PIXEL_SIZE)
+            f, t = insert.insert_trilinear_slab(
+                vals, c2w, rot[ids], torch.zeros(ids.numel(), dtype=torch.int32, device=dev),
+                R_U_8C, 2, mats, 1, big, 0, big)
+            del vals, c2w
+            at = rec_8c(f[0], t[0], iters_slab[h])[0].cpu().numpy()
+            same_in.append(_rel_l2(slab_maps[h], at))
+            with separable_fft():
+                sens_fft.append(_rel_l2(rec_8c(f[0], t[0], iters_slab[h])[0].cpu().numpy(),
+                                        at))
+            del f, t
+            torch.cuda.empty_cache()
+        del ft
+        say(f"  8c: balance iterations, one grid {iters_one}, one grid with its cells scaled "
+            f"{iters_sens}, slabs {iters_slab}; at the slabs' count, the slab path against the "
+            f"one-grid path (A, B) {['%.3e' % e for e in forced]}, which moves by "
+            f"{['%.3e' % e for e in sens_forced]} under an ulp's scaling of its cells; against "
+            f"the one-grid reconstruction of HK9's own (F, T) {['%.3e' % e for e in same_in]}, "
+            f"which moves by {['%.3e' % e for e in sens_fft]} with its transforms composed "
+            "as the slabs'")
+        say(f"  8c: the slab path's difference from one process, (inside the band, the ring) "
+            f"A {['%.3e' % e for e in split[0]]}, B {['%.3e' % e for e in split[1]]}; "
+            f"an ulp's scaling of the one-grid cells, A {['%.3e' % e for e in split_s[0]]}, "
+            f"B {['%.3e' % e for e in split_s[1]]}")
         iters = [r["comm"]["max_data"]["calls"] for r in ranks]
         moved = [r["comm"].get("all_to_all_z", {}).get("bytes", 0) for r in ranks]
         say(f"  8c: {SIZE_8C} px box, {big}^3 grids, slabs {ranks[0]['slab']}, {N_8C} poses, C4, "
@@ -2948,16 +3276,35 @@ def phase_ranks(dev, wrappers):
             f"{[round(r['total_s'], 2) for r in ranks]} s (wall {wall_c:.1f} s with the "
             f"processes' start), peak {[round(r['peak_gb'], 2) for r in ranks]} GB, "
             f"transpose bytes a rank {moved}")
+        for h in (0, 1):
+            say(f"  8c: hemisphere {h}'s one-grid maps by balance count against its "
+                f"free-running map ({iters_one[h]} iterations): "
+                + " ".join(f"{n}:{e:.3e}" for n, e in sorted(curves[h].items()))
+                + f"; stop counts {windows[h][0]}-{windows[h][1]}, farthest {spread[h]:.3e}; "
+                f"the slab path's free-running map ({iters_slab[h]} iterations) "
+                f"{errs[h]:.3e} from it")
         if max(errs_b) > SLAB_TOL:
             fail(f"8b: the slab path's maps differ from one process's by {max(errs_b):.3e} > "
                  f"{SLAB_TOL:g}")
         if max(err_ft) > SLAB_TOL:
             fail(f"8c: HK9's slab differs from HK3 then HK7 by {max(err_ft):.3e} > {SLAB_TOL:g}")
-        for h, (e, sp) in enumerate(zip(errs, sens)):
+        for h, (e, sp) in enumerate(zip(same_in, sens_fft)):
             if e > max(SLAB_TOL, SPREAD_FACTOR_8C * sp):
-                fail(f"8c: hemisphere {h}'s slab-path map differs from one process's by {e:.3e}, "
-                     f"more than {SLAB_TOL:g} and {SPREAD_FACTOR_8C} times the one-process "
-                     f"path's sensitivity to rounding {sp:.3e}")
+                fail(f"8c: hemisphere {h}'s slab-path map differs from the one-grid "
+                     f"reconstruction of the same (F, T) at {iters_slab[h]} balance iterations "
+                     f"by {e:.3e}, more than {SLAB_TOL:g} and {SPREAD_FACTOR_8C} times that "
+                     f"reconstruction's change with its transforms composed as the slabs' "
+                     f"{sp:.3e}")
+        for h in (0, 1):
+            if iters_slab[h] < windows[h][0]:
+                fail(f"8c: hemisphere {h}'s slab path stopped its balance loop after "
+                     f"{iters_slab[h]} iterations, before any count the one-grid path stops "
+                     f"at ({windows[h][0]}-{windows[h][1]})")
+            if errs[h] > max(SLAB_TOL, SPREAD_FACTOR_8C * spread[h]):
+                fail(f"8c: hemisphere {h}'s slab-path map differs from the one-grid path's by "
+                     f"{errs[h]:.3e}, more than {SLAB_TOL:g} and {SPREAD_FACTOR_8C} times the "
+                     f"farthest one-grid map at the counts that path stops at, "
+                     f"{windows[h][0]}-{windows[h][1]} ({spread[h]:.3e})")
     hk9 = [r["launches"]["insert_trilinear_slab"] for r in ranks]
     if min(hk9) < 1:
         fail(f"8c: HK9 launches by rank {hk9}")
@@ -2977,7 +3324,7 @@ def main() -> None:
     try:
         from thunder_tpu_torch import _native
         from thunder_tpu_torch.ops import gather
-        from thunder_tpu_torch.ops.insert import insert_bilinear_2d, insert_trilinear
+        from thunder_tpu_torch.ops.insert import insert_bilinear_2d, insert_mkb, insert_trilinear
         from thunder_tpu_torch.ops.likelihood import likelihood_block, likelihood_local_ctf
         from thunder_tpu_torch.ops.projector import project_slices, project_slices_2d
         from thunder_tpu_torch.physics.spectrum import shell_sums
@@ -3045,6 +3392,9 @@ def main() -> None:
     launches_a, prof_a = phase_refine_a(dev, wrappers_r)
     say(f"[{time.time() - t_start:.1f} s] phase 5b: the same, resumed in local search")
     launches_b, prof_b = phase_refine_b(dev, wrappers_r)
+    say(f"[{time.time() - t_start:.1f} s] phase 5c: the same resumed run with the MKB "
+        "insertion option (reco_kernel mkb, HK10)")
+    launches_mkb = phase_refine_mkb(dev, dict(wrappers_r, insert_mkb=insert_mkb))
     say(f"[{time.time() - t_start:.1f} s] phase 6: 3D classification (configs/demo_3D.json)")
     launches_k4, prof_k4 = phase_classify_3d(dev, wrappers_r)
     torch.cuda.synchronize()
@@ -3056,11 +3406,16 @@ def main() -> None:
         "on 1, 2 and 4 ranks; the slab path, HK9, at the demo's grid and at a 320 px box's)")
     launches_ranks, rec_hk9 = phase_ranks(dev, kernel_wrappers())
     torch.cuda.synchronize()
+    say(f"[{time.time() - t_start:.1f} s] phase 9: whole runs against thunder_tpu's records "
+        f"(run_parity cases {', '.join(PARITY_CASES)})")
+    launches_parity = phase_parity(dev, kernel_wrappers())
+    torch.cuda.synchronize()
     profiles = [prof_3d, prof_2d, prof_a, prof_b, prof_k4]
-    later = dict(refine_a=launches_a, refine_b=launches_b, classify_3d=launches_k4,
-                 post=launches_post, ranks=launches_ranks)
+    later = dict(refine_a=launches_a, refine_b=launches_b, refine_mkb=launches_mkb,
+                 classify_3d=launches_k4, post=launches_post, ranks=launches_ranks,
+                 parity=launches_parity)
     for name in ("symmetrize_ft", "likelihood_local_ctf"):
-        if sum(path[name] for path in later.values()) <= 0:
+        if sum(path.get(name, 0) for path in later.values()) <= 0:
             fail(f"{name} was never launched by phases 5 and 6")
 
     meta = {
@@ -3082,6 +3437,8 @@ def main() -> None:
                                  "thunder_tpu/ops/likelihood.py:100"),
         "insert_trilinear_slab": ("HK9", "thunder_tpu_torch/csrc/insert_trilinear.cu",
                                   "thunder_tpu/recon/sharded.py:300"),
+        "insert_mkb": ("HK10", "thunder_tpu_torch/csrc/insert_trilinear.cu",
+                       "thunder_tpu/ops/insert.py:76"),
     }
     # HK2's record is the 2D global block (the heaviest launch a round);
     # its other main-path blocks ride along.  HK4's is the hemisphere FSC
@@ -3115,6 +3472,9 @@ def main() -> None:
         "symmetrize_ft": results_r["symmetrize_ft"],
         "likelihood_local_ctf": results_r["likelihood_local_ctf"],
         "insert_trilinear_slab": rec_hk9,
+        "insert_mkb": dict(results["insert_mkb"], ctf_round=results_r["insert_mkb_ctf"],
+                           max_abs_err=max(results["insert_mkb"]["max_abs_err"],
+                                           results_r["insert_mkb_ctf"]["max_abs_err"])),
     }
     # the projection kernels' launches by caller: global search, the
     # phase loop, and the rest (the sigma / norm stage's rank-1 pass)
@@ -3123,6 +3483,9 @@ def main() -> None:
     for name, r in recs.items():
         by_path = {"3d": launches.get(name, 0), "2d": launches_2d.get(name, 0)}
         by_path.update({path: counts.get(name, 0) for path, counts in later.items()})
+        if name == "insert_mkb":
+            # the option's main path is phase 5c's run
+            by_path = {"refine_mkb": launches_mkb["insert_mkb"]}
         if name in split:
             n, by = split[name][0][name], split[name][1]["project_launches"]
             r = dict(r, launches_by_caller=dict(by, sigma=n - by["global"] - by["phase"]))

@@ -214,3 +214,25 @@ def test_reconstruction_golden():
     below = np.nonzero(fsc[1:] < 0.143)[0]
     crossing = int(below[0]) + 1 if below.size else n // 2
     assert crossing >= r_u - 2, fsc
+
+
+def test_balance_loop_counts_and_runs_a_given_count():
+    """The balance loop's helper gives balance_weights' W with each
+    lane's count of iterations, and with n_iter runs that many with the
+    stopping rule off, handing each count's W to ``each``: the free
+    run's count gives its W again, one more iteration another W (the
+    slab path's check in chip_smoke.py reads maps at several counts)."""
+    rng = np.random.default_rng(3)
+    big, pf, r = 24, 2, 5
+    tg = rng.uniform(0.2, 2.0, (2,) + (big,) * 3).astype(np.float32)
+    tg = t(tg + np.roll(np.flip(tg, axis=(1, 2, 3)), 1, axis=(1, 2, 3)))
+    w, counts = tr._balance(tg, pf, r)
+    assert torch.equal(w, tr.balance_weights(tg, pf, r))
+    counts = counts.tolist()
+    assert len(counts) == 2 and all(1 <= c <= 30 for c in counts)
+    seen = {}
+    again, n = tr._balance(tg[:1], pf, r, n_iter=counts[0] + 1,
+                           each=lambda i, x: seen.__setitem__(i, x.clone()))
+    assert n.tolist() == [counts[0] + 1] and sorted(seen) == list(range(1, counts[0] + 2))
+    assert torch.equal(seen[counts[0]][0], w[0]) and torch.equal(seen[counts[0] + 1], again)
+    assert not torch.equal(again[0], w[0])

@@ -569,15 +569,19 @@ def _insert_case(dev, kind, big_3d=None):
                                                            *zeros((3, bz, big, big)), z0))
     d = 1 + 0.03 * torch.randn(n_s, generator=g, device=dev)
     args = (ft, ctf, img, rot, trans, w, r_u, pf, size, 1.32)
+    if kind == "insert_mkb":
+        return (lambda: insert.insert_mkb(*args, big, d=d),
+                lambda: insert.insert_mkb_plain(*args, *zeros((big,) * 3), d))
     return (lambda: insert.insert_trilinear(*args, big, d=d),
             lambda: insert.insert_trilinear_plain(*args, *zeros((big,) * 3), d))
 
 
 @pytest.mark.parametrize("kind", ["insert_trilinear", "insert_bilinear_2d",
-                                  "insert_trilinear_slab"])
+                                  "insert_trilinear_slab", "insert_mkb"])
 def test_insert_gathers_repeat_bitwise(dev, kind):
-    """HK3, HK6 and HK9: each cell sums its slices in a fixed order, so
-    two calls give identical bits; each still matches its twin (1e-5)."""
+    """HK3, HK6, HK9 and HK10: each cell sums its slices in a fixed
+    order, so two calls give identical bits; each still matches its twin
+    (1e-5)."""
     call, plain = _insert_case(dev, kind)
     (f1, t1), (f2, t2) = call(), call()
     assert torch.equal(f1, f2) and torch.equal(t1, t2)
@@ -587,11 +591,11 @@ def test_insert_gathers_repeat_bitwise(dev, kind):
 
 
 @pytest.mark.parametrize("kind", ["insert_trilinear", "insert_bilinear_2d",
-                                  "insert_trilinear_slab"])
+                                  "insert_trilinear_slab", "insert_mkb"])
 def test_insert_gathers_taps_past_the_faces(dev, kind):
-    """A grid of 40 cells at r_u 12, pf 2: taps reach indices -3 and 43,
-    which the scatter clips onto the faces and the gathers' face cells
-    take from their virtual cells."""
+    """A grid of 40 cells at r_u 12, pf 2: taps reach indices -3 and 43
+    (the blob's -4 and 44), which the scatter clips onto the faces and
+    the gathers' face cells take from their virtual cells."""
     lo, hi = insert.tap_range(40, 22.0)
     assert lo < 0 and hi > 39
     call, plain = _insert_case(dev, kind, big_3d=40)

@@ -64,6 +64,8 @@ _SIGNATURES = {
     "thunder_empty_launch": [_P],
     "thunder_insert_trilinear_slab": [_P, _P, _P, _I, _I, _I, _F, _P, _I, _P, _P, _I,
                                       _I, _I, _I, _I, _I, _P],
+    "thunder_insert_mkb": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P,
+                           _P, _I, _I, _I, _F, _F, _F, _F, _P],
 }
 
 _lib = None

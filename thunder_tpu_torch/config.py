@@ -50,6 +50,15 @@ class ThunderConfig:
     iter_max: int = 100
     gold_standard: bool = True
     pf: int = 2
+    mkb_alpha: float = 15.0             # MKB Kernel Smooth Factor
+    mkb_a: float = 1.9                  # MKB Kernel Radius
+    # insertion kernel, set through the API only (neither CLI nor JSON
+    # names it): "trilinear" (the reference's default, Config.h:97) or
+    # "mkb", the modified Kaiser-Bessel blob (Reconstructor.cpp:424-567)
+    # with its own grid correction.  As in thunder_tpu, the blob takes
+    # the default radius and smooth factor (constants.DEFAULT_MKB_A,
+    # DEFAULT_MKB_ALPHA) whatever mkb_a and mkb_alpha read.
+    reco_kernel: str = "trilinear"
     m_s: int = 10000                    # global sampling points (3D)
     m_s_2d: int = 100                   # global sampling points (2D)
     m_l_r: int = 125                    # local rotation support (3D)
@@ -177,6 +186,8 @@ _JSON_KEYS = {
         "Max Number of Iteration": "iter_max",
         "Using Golden Standard FSC": "gold_standard",
         "Padding Factor": "pf",
+        "MKB Kernel Radius": "mkb_a",
+        "MKB Kernel Smooth Factor": "mkb_alpha",
         "Number of Sampling Points for Scanning in Global Search (3D)": "m_s",
         "Number of Sampling Points for Scanning in Global Search (2D)": "m_s_2d",
         "Number of Sampling Points of Rotation in Local Search (3D)": "m_l_r",

@@ -1,11 +1,30 @@
-// HK3 insert_trilinear and HK9 insert_trilinear_slab: trilinear Fourier
-// insertion of slices as a gather, each output cell forming its own sum.
+// HK3 insert_trilinear, HK9 insert_trilinear_slab and HK10 insert_mkb:
+// Fourier insertion of slices as a gather, each output cell forming its
+// own sum.
 //
 // Replaces (thunder_tpu): HK3, optimiser._insert_flat3d_h over
 // ops/insert.py insert_sweep_3d (the scatter-free shear sweep), held to
 // the exact trilinear scatter insert_slices_3d; HK9,
 // recon/sharded.py:300 insert_sweep_3d_sharded, the sweep that
-// accumulates F / T as z-slabs, held to HK3 then HK7.
+// accumulates F / T as z-slabs, held to HK3 then HK7; HK10,
+// optimiser._insert_all_h with kernel="mkb" (the insertion option
+// reco_kernel="mkb"), ops/insert.py:76 insert_slices_3d over _mkb_taps:
+// the modified Kaiser-Bessel blob (Reconstructor.cpp:424-567).
+//
+// HK10 is HK3 with another weight (the template parameter MKB): a
+// sample at q adds val MKB_FT(|k - q|) = I0(alpha sqrt(1 - |k - q|^2 /
+// a^2)) / I0(alpha) to each cell k of its 4^3 neighbourhood floor(q) - 1
+// ... floor(q) + 2 (clipped to the grid) with |k - q| < a, a <= 2 (1.9
+// in every shipped config).  So its reach is a, not sqrt 3: the planes a
+// brick lists, the candidates (vc, vr) around (Q^T k)_xy / pf and the
+// per-axis prefilter (a cell's half-width for trilinear taps, a for the
+// blob) widen to a plus the margin, and the faces' virtual cells to two
+// past the radius.  The blob's ball is (1.9 / sqrt 3)^3 ~ 1.3 times the
+// trilinear reach's volume, and every hit pays an I0 (cyl_bessel_i0f);
+// 1 / I0(alpha) comes from the host.  Bound by operations as HK3 is: on
+// an NVIDIA H100 80GB HBM3 it takes 3.25x HK3's time on the same 6144
+// slices at 152^3 (0.012 of its operations bound; PERF.md), its
+// instances at 64 registers with 112-196 bytes spilled a thread.
 //
 // The scatter it computes: sample (vc, vr) of slice s (a pixel of the
 // nk x nk window, nk = 2 r_u - 1) sits at p = R_s . (pf vc, pf vr, 0),
@@ -85,6 +104,7 @@ constexpr unsigned FULL = 0xffffffffu;
 // exact q (errors ~1e-4 at |k| ~ 1000) and rotations off orthonormal by ~1e-5
 constexpr float REACH = 1.7320508f + 1e-2f;
 constexpr float STRIP = 1.f + 1e-2f;   // the same margin on a cell's own half-width
+constexpr float MARGIN = 1e-2f;        // HK10: reach and prefilter a + MARGIN
 
 struct Slices {
   const float4* vals;   // (B, nk^2) of (Re val, Im val, c2w, 0)
@@ -99,6 +119,9 @@ struct Slices {
   const float* mats;    // (n_sym, 9), the identity first (MATES; else the identity alone)
   int n_slices, n_sym, r_u, pf, size;
   float mrp, box_a, tpos;
+  float reach, strip;     // REACH and STRIP (HK10: a + MARGIN, both)
+  int edge;               // HK10: the disc keeps its edge vc^2 + vr^2 = (r_u - 1)^2
+  float mkb_a, mkb_a2, mkb_alpha, mkb_inv_i0;   // HK10's blob: a, a^2, alpha, 1 / I0(alpha)
 };
 
 struct Grid {
@@ -145,7 +168,9 @@ __device__ __forceinline__ void form_value(const Slices& S, int s, int vc, int v
 }
 
 // HK3's first pass: the dense window's values of every slice, zero
-// outside the disc and for zero-weight slices
+// outside the disc (HK10: the disc with its edge, whose pixels the
+// position's radius test keeps or drops as the scatter's does) and for
+// zero-weight slices
 __global__ void form_values_kernel(Slices S, float4* __restrict__ vals, long long total) {
   long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -154,7 +179,9 @@ __global__ void form_values_kernel(Slices S, float4* __restrict__ vals, long lon
   int p = (int)(idx - (long long)s * npx);
   int vr = p / nk - rr, vc = p % nk - rr;
   float re = 0.f, im = 0.f, cw = 0.f;
-  if (vc * vc + vr * vr < rr * rr && S.wsl[s] != 0.f) form_value(S, s, vc, vr, re, im, cw);
+  const int q2 = vc * vc + vr * vr;
+  if ((q2 < rr * rr || (S.edge && q2 == rr * rr)) && S.wsl[s] != 0.f)
+    form_value(S, s, vc, vr, re, im, cw);
   vals[idx] = make_float4(re, im, cw, 0.f);
 }
 
@@ -164,16 +191,37 @@ __device__ __forceinline__ float axis_weight(int t, int v, float frac) {
   return t == v ? 1.f - frac : (t + 1 == v ? frac : -1.f);
 }
 
+// HK10's weight of the tap at (virtual) cell (vx, vy, vz) of a sample at
+// (x, y, z): MKB_FT(|k - q|) where the cell is one of the sample's 4^3
+// taps and |k - q|^2 < a^2, else -1; the expressions and their rounding
+// are the plain version's (ops/insert.py _mkb_taps)
+__device__ __forceinline__ float mkb_weight(const Slices& S, float x, float y, float z, int vx,
+                                            int vy, int vz, int cb) {
+  const int tx = (int)floorf(x) + cb, ty = (int)floorf(y) + cb, tz = (int)floorf(z) + cb;
+  if (vx < tx - 1 || vx > tx + 2 || vy < ty - 1 || vy > ty + 2 || vz < tz - 1 || vz > tz + 2)
+    return -1.f;
+  const float dx = (float)(vx - cb) - x, dy = (float)(vy - cb) - y, dz = (float)(vz - cb) - z;
+  const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+  if (!(d2 < S.mkb_a2)) return -1.f;
+  const float u = __fdiv_rn(sqrtf(fmaxf(d2, 0.f)), S.mkb_a);
+  const float u2 = __fmul_rn(u, u);
+  if (u2 > 1.f) return 0.f;
+  return cyl_bessel_i0f(__fmul_rn(S.mkb_alpha, sqrtf(fmaxf(0.f, __fsub_rn(1.f, u2))))) *
+         S.mkb_inv_i0;
+}
+
 // Add to (re, im, t) what the plane (slice s, mate m; Q = M R, r6 R's
 // first two columns) gives the virtual cell (vx, vy, vz): its candidates
-// (vc, vr), at most MAXC an axis.
-template <bool MATES, int MAXC>
+// (vc, vr), at most MAXC an axis; MKB: the blob's weight (HK10), else the
+// trilinear taps'.
+template <bool MATES, int MAXC, bool MKB>
 __device__ __forceinline__ bool plane_into_cell(const Slices& S, const float* q, const float* r6,
                                                 const float* M, int s, int vx, int vy, int vz,
                                                 int cb, float& re, float& im, float& t) {
+  const float reach = MKB ? S.reach : REACH, strip = MKB ? S.strip : STRIP;
   const float fx = (float)(vx - cb), fy = (float)(vy - cb), fz = (float)(vz - cb);
   const float az = q[2] * fx + q[5] * fy + q[8] * fz;
-  if (fabsf(az) >= REACH) return false;
+  if (fabsf(az) >= reach) return false;
   const float ax = q[0] * fx + q[3] * fy + q[6] * fz;
   const float ay = q[1] * fx + q[4] * fy + q[7] * fz;
   const int rr = S.r_u - 1, nk = 2 * S.r_u - 1, pf = S.pf;
@@ -181,8 +229,8 @@ __device__ __forceinline__ bool plane_into_cell(const Slices& S, const float* q,
   // the box of candidates within REACH of (Q^T k)_xy / pf starts at (c0,
   // r0) and is at most MAXC wide an axis; the strip tests reject what lies
   // past its far side
-  const int c0 = (int)ceilf((ax - REACH) * inv_pf);
-  const int r0 = (int)ceilf((ay - REACH) * inv_pf);
+  const int c0 = (int)ceilf((ax - reach) * inv_pf);
+  const int r0 = (int)ceilf((ay - reach) * inv_pf);
   const float mrp2 = S.mrp * S.mrp;
   // q = Q g - k at the box's corner, and its steps along vc and vr
   const float gx0 = (float)(c0 * pf), gy0 = (float)(r0 * pf), fpf = (float)pf;
@@ -205,10 +253,10 @@ __device__ __forceinline__ bool plane_into_cell(const Slices& S, const float* q,
     for (int i = 0; i < MAXC; ++i) {
       const int vc = c0 + i;
       bool ok = abs(vr) <= rr && abs(vc) <= rr &&
-                fabsf(e0[0] + (float)i * ec[0] + (float)j * er[0]) < STRIP &&
-                fabsf(e0[1] + (float)i * ec[1] + (float)j * er[1]) < STRIP &&
-                fabsf(e0[2] + (float)i * ec[2] + (float)j * er[2]) < STRIP;
-      if (!MATES) ok = ok && vc * vc + vr * vr < rr * rr;
+                fabsf(e0[0] + (float)i * ec[0] + (float)j * er[0]) < strip &&
+                fabsf(e0[1] + (float)i * ec[1] + (float)j * er[1]) < strip &&
+                fabsf(e0[2] + (float)i * ec[2] + (float)j * er[2]) < strip;
+      if (!MATES) ok = ok && (MKB ? vc * vc + vr * vr <= rr * rr : vc * vc + vr * vr < rr * rr);
       if (ok) slots |= 1u << (j * MAXC + i);
     }
   }
@@ -233,12 +281,20 @@ __device__ __forceinline__ bool plane_into_cell(const Slices& S, const float* q,
       y = __fadd_rn(__fadd_rn(__fmul_rn(M[3], px), __fmul_rn(M[4], py)), __fmul_rn(M[5], pz));
       z = __fadd_rn(__fadd_rn(__fmul_rn(M[6], px), __fmul_rn(M[7], py)), __fmul_rn(M[8], pz));
     }
-    const float flx = floorf(x), fly = floorf(y), flz = floorf(z);
-    const float wx = axis_weight((int)flx + cb, vx, x - flx);
-    const float wy = axis_weight((int)fly + cb, vy, y - fly);
-    const float wz = axis_weight((int)flz + cb, vz, z - flz);
-    const bool ok = in && wx >= 0.f && wy >= 0.f && wz >= 0.f;
-    const float w = ok ? (wz * wy) * wx : 0.f;
+    bool ok;
+    float w;
+    if (MKB) {
+      const float wb = mkb_weight(S, x, y, z, vx, vy, vz, cb);
+      ok = in && wb >= 0.f;
+      w = ok ? wb : 0.f;
+    } else {
+      const float flx = floorf(x), fly = floorf(y), flz = floorf(z);
+      const float wx = axis_weight((int)flx + cb, vx, x - flx);
+      const float wy = axis_weight((int)fly + cb, vy, y - fly);
+      const float wz = axis_weight((int)flz + cb, vz, z - flz);
+      ok = in && wx >= 0.f && wy >= 0.f && wz >= 0.f;
+      w = ok ? (wz * wy) * wx : 0.f;
+    }
     re += v.x * w;
     im += v.y * w;
     t += v.z * w;
@@ -247,7 +303,7 @@ __device__ __forceinline__ bool plane_into_cell(const Slices& S, const float* q,
   return hit;
 }
 
-template <bool MATES, int MAXC>
+template <bool MATES, int MAXC, bool MKB>
 __global__ void __launch_bounds__(THREADS, 2) insert_gather_kernel(Slices S, Grid G) {
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;                               // 9 x CAP: Q = M R, row-major
@@ -265,7 +321,8 @@ __global__ void __launch_bounds__(THREADS, 2) insert_gather_kernel(Slices S, Gri
   const int x0 = bx * BRICK, y0 = by * BRICK, z0 = G.z0 + bz * BRICK;
   const int x1 = min(x0 + BRICK, big) - 1, y1 = min(y0 + BRICK, big) - 1;
   const int z1 = min(z0 + BRICK, G.z0 + G.bz) - 1;
-  const float lim_r = S.mrp + REACH;
+  const float reach = MKB ? S.reach : REACH;
+  const float lim_r = S.mrp + reach;
   {
     // the brick's nearest point to the centre (virtual cells lie farther out)
     auto near = [&](int a, int b) { return (float)(a > cb ? a - cb : (b < cb ? cb - b : 0)); };
@@ -284,7 +341,7 @@ __global__ void __launch_bounds__(THREADS, 2) insert_gather_kernel(Slices S, Gri
     float ex = 0.5f * (float)(vhi_of(ax1) - vlo_of(ax0));
     float ey = 0.5f * (float)(vhi_of(ay1) - vlo_of(ay0));
     float ez = 0.5f * (float)(vhi_of(az1) - vlo_of(az0));
-    return sqrtf(ex * ex + ey * ey + ez * ez) + REACH;
+    return sqrtf(ex * ex + ey * ey + ez * ez) + reach;
   };
   float cbk[3], cwp[3];
   const float lim_b = box(x0, x1, y0, y1, z0, z1, cbk);
@@ -386,13 +443,13 @@ __global__ void __launch_bounds__(THREADS, 2) insert_gather_kernel(Slices S, Gri
         const int j = __ffs(wm) - 1, ej = chunk + j;
         if (!active || (MATES && sM[ej] > 0 && !inside_r)) continue;
         const float n0 = sQ[2 * CAP + ej], n1 = sQ[5 * CAP + ej], n2 = sQ[8 * CAP + ej];
-        bool near_c = fabsf(n0 * fkx + n1 * fky + n2 * fkz) < REACH;
+        bool near_c = fabsf(n0 * fkx + n1 * fky + n2 * fkz) < reach;
         if (faces)
           for (int vz = vz0; vz <= vz1; ++vz)
             for (int vy = vy0; vy <= vy1; ++vy)
               for (int vx = vx0; vx <= vx1; ++vx)
                 near_c = near_c || fabsf(n0 * (float)(vx - cb) + n1 * (float)(vy - cb) +
-                                         n2 * (float)(vz - cb)) < REACH;
+                                         n2 * (float)(vz - cb)) < reach;
         if (near_c) mine |= 1u << j;
       }
       while (mine) {
@@ -406,14 +463,14 @@ __global__ void __launch_bounds__(THREADS, 2) insert_gather_kernel(Slices S, Gri
         const int s = sS[ej];
         const float* M = sMat + 9 * (MATES ? sM[ej] : 0);
         if (!faces) {
-          hit |= plane_into_cell<MATES, MAXC>(S, q, r6, M, s, ix, iy, iz, cb, acc_re,
-                                                    acc_im, acc_t);
+          hit |= plane_into_cell<MATES, MAXC, MKB>(S, q, r6, M, s, ix, iy, iz, cb, acc_re,
+                                                         acc_im, acc_t);
         } else {
           for (int vz = vz0; vz <= vz1; ++vz)
             for (int vy = vy0; vy <= vy1; ++vy)
               for (int vx = vx0; vx <= vx1; ++vx)
-                hit |= plane_into_cell<MATES, MAXC>(S, q, r6, M, s, vx, vy, vz, cb, acc_re,
-                                                          acc_im, acc_t);
+                hit |= plane_into_cell<MATES, MAXC, MKB>(S, q, r6, M, s, vx, vy, vz, cb,
+                                                               acc_re, acc_im, acc_t);
         }
       }
     }
@@ -429,10 +486,19 @@ __global__ void __launch_bounds__(THREADS, 2) insert_gather_kernel(Slices S, Gri
 
 constexpr size_t SMEM = (size_t)(17 * CAP + 9 * MAX_SYM) * sizeof(float);
 
-template <bool MATES>
+template <bool MATES, bool MKB>
 int launch_gather(const Slices& S, const Grid& G, int n_class, cudaStream_t stream) {
-  // candidates an axis: 2 sqrt 3 / pf + 1 of them at most
-  auto kernel = S.pf == 1 ? insert_gather_kernel<MATES, 4> : insert_gather_kernel<MATES, 2>;
+  // candidates an axis: 2 reach / pf + 1 of them at most (2 sqrt 3 / pf + 1
+  // for trilinear taps: 4 at pf 1, 2 at pf 2 and above)
+  const int maxc = max(2, (int)(2.f * (MKB ? S.reach : REACH) / (float)S.pf) + 1);
+  void (*kernel)(Slices, Grid);
+  switch (maxc) {
+    case 2: kernel = insert_gather_kernel<MATES, 2, MKB>; break;
+    case 3: kernel = insert_gather_kernel<MATES, 3, MKB>; break;
+    case 4: kernel = insert_gather_kernel<MATES, 4, MKB>; break;
+    case 5: kernel = insert_gather_kernel<MATES, 5, MKB>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   cudaError_t e = cudaFuncSetAttribute((const void*)kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -457,7 +523,7 @@ extern "C" int thunder_insert_trilinear(
   Slices S{(const float4*)vals, (const float2*)ft, (const float*)ctfk,
            (const int*)img_idx, (const float*)trans, (const float*)dfac, (const float*)w,
            (const float*)rot, nullptr, nullptr, n_slices, 1, r_u, pf, size,
-           max_radius_pad, box_a, tpos};
+           max_radius_pad, box_a, tpos, REACH, STRIP, 0, 0.f, 0.f, 0.f, 0.f};
   Grid G{(float2*)F, (float*)T, big, 0, big, vlo, vhi};
   cudaStream_t st = (cudaStream_t)stream;
   const int nk = 2 * r_u - 1;
@@ -465,7 +531,33 @@ extern "C" int thunder_insert_trilinear(
   const int threads = 256;
   form_values_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
       S, (float4*)vals, total);
-  return launch_gather<false>(S, G, 1, st);
+  return launch_gather<false, false>(S, G, 1, st);
+}
+
+// HK10.  HK3's arguments, then the blob's radius a (0 < a <= 2), a^2 and
+// alpha as the plain version rounds them, and 1 / I0(alpha); vlo / vhi
+// the blob's tap range (two past the radius).
+extern "C" int thunder_insert_mkb(
+    const void* ft, int size, const void* ctfk, const void* img_idx, const void* rot,
+    const void* trans, const void* w, const void* dfac, int n_slices, int r_u, int pf,
+    float max_radius_pad, float box_a, float tpos, void* F, void* T, void* vals, int big,
+    int vlo, int vhi, float mkb_a, float mkb_a2, float mkb_alpha, float mkb_inv_i0,
+    void* stream) {
+  if (n_slices <= 0) return (int)cudaGetLastError();
+  if (!(mkb_a > 0.f && mkb_a <= 2.f)) return (int)cudaErrorInvalidValue;
+  Slices S{(const float4*)vals, (const float2*)ft, (const float*)ctfk,
+           (const int*)img_idx, (const float*)trans, (const float*)dfac, (const float*)w,
+           (const float*)rot, nullptr, nullptr, n_slices, 1, r_u, pf, size,
+           max_radius_pad, box_a, tpos, mkb_a + MARGIN, mkb_a + MARGIN, 1, mkb_a, mkb_a2,
+           mkb_alpha, mkb_inv_i0};
+  Grid G{(float2*)F, (float*)T, big, 0, big, vlo, vhi};
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nk = 2 * r_u - 1;
+  long long total = (long long)n_slices * nk * nk;
+  const int threads = 256;
+  form_values_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
+      S, (float4*)vals, total);
+  return launch_gather<false, true>(S, G, 1, st);
 }
 
 // HK9.  vals (B, nk^2, 4) float32 (Re val, Im val, c2w, 0), rot (B, 9),
@@ -480,7 +572,7 @@ extern "C" int thunder_insert_trilinear_slab(
   if (n_sym < 1 || n_sym > MAX_SYM) return (int)cudaErrorInvalidValue;
   Slices S{(const float4*)vals, nullptr, nullptr, nullptr, nullptr, nullptr,
            nullptr, (const float*)rot, (const int*)cls, (const float*)mats, n_slices, n_sym,
-           r_u, pf, 0, max_radius_pad, 0.f, 0.f};
+           r_u, pf, 0, max_radius_pad, 0.f, 0.f, REACH, STRIP, 0, 0.f, 0.f, 0.f, 0.f};
   Grid G{(float2*)F, (float*)T, big, z0, bz, vlo, vhi};
-  return launch_gather<true>(S, G, n_class, (cudaStream_t)stream);
+  return launch_gather<true, false>(S, G, n_class, (cudaStream_t)stream);
 }

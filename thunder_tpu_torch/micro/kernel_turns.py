@@ -1,8 +1,9 @@
 """HK1 ``project_slices``, HK3 ``insert_trilinear``, HK4 ``shell_sums``,
 HK5 ``project_slices_2d``, HK6 ``insert_bilinear_2d``, HK7
-``symmetrize_ft``, HK8 ``likelihood_local_ctf`` and HK9
-``insert_trilinear_slab`` of two checkouts timed in turns on one card,
-at the shapes ``chip_smoke.py`` times.
+``symmetrize_ft``, HK8 ``likelihood_local_ctf``, HK9
+``insert_trilinear_slab`` and HK10 ``insert_mkb`` (at HK3's shapes, on
+HK3's slices, in a tree that has it) of two checkouts timed in turns on
+one card, at the shapes ``chip_smoke.py`` times.
 
     python thunder_tpu_torch/micro/kernel_turns.py PARENT_TREE [THIS_TREE]
 
@@ -88,8 +89,13 @@ def one_turn() -> dict:
     rot = rotate3d(random_quat(gen, (n_s,), dev))
     trans = 3 * torch.randn(n_s, 2, device=dev)
     w = torch.rand(n_s, device=dev) / 48
+    mkb = getattr(insert, "insert_mkb", None)
+
     def hk3(name, *args, reps, d=None):
         out[name] = timed(lambda: insert.insert_trilinear(*args, d=d), reps)
+        if mkb is not None:
+            # HK10 (the MKB option) on the same slices, where the tree has it
+            out[name.replace("HK3", "HK10")] = timed(lambda: mkb(*args, d=d), reps)
 
     for size, r_u in ((128, 36), (256, 85)):
         big = reco_grid_size(size, r_u) * 2

@@ -9,9 +9,12 @@ The JAX package's 3D main path uses a scatter-free shear sweep shaped
 by the TPU's slow scatter; the port computes the exact trilinear (2D:
 bilinear) scatter ``insert_slices_3d`` (``insert_slices_2d``), not the
 sweep, whose height hat is not trilinear (thunder_tpu/config.py:55-59).
-On the card HK3, HK6 and HK9 compute it as a gather: each grid cell
-walks the slices that can reach it in a fixed order and forms its own
-sum, so two calls give identical bits.  The ``*_gather_plain``
+The insertion option ``reco_kernel="mkb"`` spreads each sample over the
+modified Kaiser-Bessel blob instead (``insert_slices_3d(kernel="mkb")``,
+Reconstructor.cpp:424-567), HK10 ``insert_mkb`` on the card.
+On the card HK3, HK6, HK9 and HK10 compute these as gathers: each grid
+cell walks the slices that can reach it in a fixed order and forms its
+own sum, so two calls give identical bits.  The ``*_gather_plain``
 functions emulate that cell-owned enumeration on the CPU (tests).
 """
 
@@ -23,18 +26,38 @@ import numpy as np
 import torch
 
 from thunder_tpu_torch import _native
+from thunder_tpu_torch.constants import DEFAULT_MKB_A, DEFAULT_MKB_ALPHA
 from thunder_tpu_torch.device import COMPLEX, REAL
 from thunder_tpu_torch.ops.fourier import translate_phases_view
 from thunder_tpu_torch.physics.ctf import (CtfParams, ctf_constants,
                                            ctf_packed, ctf_packed_scaled)
+from thunder_tpu_torch.physics.kernels import mkb_ft
+
+
+def _mkb_taps(x, y, z, a: float, alpha: float):
+    """The taps of the MKB blob, (dz, dy, dx, weight) for the 4^3
+    neighbourhood floor - 1 ... floor + 2 of each sample: MKB_FT(r) where
+    r^2 = |tap - sample|^2 < a^2, else 0 (thunder_tpu ops/insert.py
+    _mkb_taps; a <= 2 keeps the blob inside the neighbourhood)."""
+    flx, fly, flz = torch.floor(x), torch.floor(y), torch.floor(z)
+    for dz in (-1, 0, 1, 2):
+        for dy in (-1, 0, 1, 2):
+            for dx in (-1, 0, 1, 2):
+                r2 = (flx + dx - x) ** 2 + (fly + dy - y) ** 2 + (flz + dz - z) ** 2
+                r = torch.sqrt(torch.clamp(r2, min=0.0))
+                w = torch.where(r2 < a * a, mkb_ft(r, a, alpha), torch.zeros_like(r))
+                yield dz, dy, dx, w
 
 
 def insert_slices_3d(f_grid: torch.Tensor, t_grid: torch.Tensor,
                      vals: torch.Tensor, ctf2w: torch.Tensor,
                      rot: torch.Tensor, i_col: torch.Tensor,
-                     i_row: torch.Tensor, pf: int, max_radius_pad: float):
-    """Trilinear scatter of slices into (F, T) (thunder_tpu
-    ops/insert.py insert_slices_3d, trilinear kernel).
+                     i_row: torch.Tensor, pf: int, max_radius_pad: float,
+                     kernel: str = "trilinear", a: float = DEFAULT_MKB_A,
+                     alpha: float = DEFAULT_MKB_ALPHA):
+    """Scatter of slices into (F, T) (thunder_tpu ops/insert.py
+    insert_slices_3d): ``kernel`` "trilinear" (8 taps) or "mkb" (the
+    blob's 4^3 taps, :func:`_mkb_taps`), tap indices clipped to the grid.
 
     f_grid (big,)*3 complex64 centered, t_grid float32; vals (..., p)
     complex, ctf2w (..., p), rot (..., 3, 3), pixels (p,).  Out-of-radius
@@ -51,21 +74,23 @@ def insert_slices_3d(f_grid: torch.Tensor, t_grid: torch.Tensor,
     ctf2w = torch.where(inside, ctf2w, torch.zeros_like(ctf2w)).reshape(-1)
     x, y, z = x.reshape(-1), y.reshape(-1), z.reshape(-1)
     flx, fly, flz = torch.floor(x), torch.floor(y), torch.floor(z)
-    wx, wy, wz = x - flx, y - fly, z - flz
     ix, iy, iz = (flx.to(torch.int64) + c, fly.to(torch.int64) + c,
                   flz.to(torch.int64) + c)
+    if kernel == "mkb":
+        taps = _mkb_taps(x, y, z, a, alpha)
+    else:
+        wx, wy, wz = x - flx, y - fly, z - flz
+        taps = ((dz, dy, dx, (wz if dz else 1 - wz) * (wy if dy else 1 - wy)
+                 * (wx if dx else 1 - wx))
+                for dz in (0, 1) for dy in (0, 1) for dx in (0, 1))
     g = torch.stack([f_grid.real.reshape(-1), f_grid.imag.reshape(-1),
                      t_grid.reshape(-1)], dim=-1).to(REAL)
     upd = torch.stack([vals.real, vals.imag, ctf2w.to(REAL)], dim=-1)
-    for dz in (0, 1):
-        for dy in (0, 1):
-            for dx in (0, 1):
-                w = ((wz if dz else 1 - wz) * (wy if dy else 1 - wy)
-                     * (wx if dx else 1 - wx))
-                xi = torch.clamp(ix + dx, 0, big - 1)
-                yi = torch.clamp(iy + dy, 0, big - 1)
-                zi = torch.clamp(iz + dz, 0, big - 1)
-                g.index_add_(0, (zi * big + yi) * big + xi, upd * w[:, None])
+    for dz, dy, dx, w in taps:
+        xi = torch.clamp(ix + dx, 0, big - 1)
+        yi = torch.clamp(iy + dy, 0, big - 1)
+        zi = torch.clamp(iz + dz, 0, big - 1)
+        g.index_add_(0, (zi * big + yi) * big + xi, upd * w[:, None])
     shape = (big,) * 3
     return (torch.complex(g[:, 0], g[:, 1]).reshape(shape),
             g[:, 2].reshape(shape))
@@ -129,34 +154,43 @@ def hermitianize_real(t_grid: torch.Tensor, nd: int = 3) -> torch.Tensor:
 
 # -- HK3 ----------------------------------------------------------------
 
-def tap_range(big: int, max_radius_pad: float) -> tuple:
-    """(lowest, highest) index a trilinear or bilinear tap of a sample at
-    |p| < max_radius_pad can take before it is clipped to [0, big - 1];
-    outside [0, big - 1] the gathers' face cells also take those taps."""
-    m = math.ceil(max_radius_pad)
+def tap_range(big: int, max_radius_pad: float, kernel: str = "trilinear") -> tuple:
+    """(lowest, highest) index a trilinear or bilinear tap (with
+    ``kernel="mkb"``, a blob's tap, floor - 1 ... floor + 2) of a sample
+    at |p| < max_radius_pad can take before it is clipped to [0, big -
+    1]; outside [0, big - 1] the gathers' face cells also take those
+    taps."""
+    m = math.ceil(max_radius_pad) + (1 if kernel == "mkb" else 0)
     return big // 2 - m - 1, big // 2 + m + 1
 
-def dense_window(r_u: int, device=None):
+def dense_window(r_u: int, device=None, edge: bool = False):
     """Dense (vc, vr) pixels of the nk x nk window, nk = 2 r_u - 1, and
     the insertion mask: |k| < r_u - 1 (the padded-radius cut) with the
     DC doubled, as the half-space insertion + Hermitian fold counts it
-    (optimiser.py:1441-1452)."""
+    (optimiser.py:1441-1452).  ``edge`` (the MKB option) also keeps the
+    pixels on the circle |k| = r_u - 1: thunder_tpu's MKB path takes
+    packed rings (|k| < r_u), and the scatter's float test |p| <
+    max_radius_pad keeps or drops each of those as its rotated position
+    rounds (optimiser.py:1391, ops/insert.py:110)."""
     nk = 2 * r_u - 1
     kk = torch.arange(nk, dtype=torch.int32, device=device) - (r_u - 1)
     ky, kx = torch.meshgrid(kk, kk, indexing="ij")
     vc, vr = kx.reshape(-1), ky.reshape(-1)
     q2 = (vc * vc + vr * vr).to(REAL)
-    mask_d = (q2 < (r_u - 1) ** 2).to(REAL) * torch.where(q2 == 0, 2.0, 1.0)
+    keep = q2 <= (r_u - 1) ** 2 if edge else q2 < (r_u - 1) ** 2
+    mask_d = keep.to(REAL) * torch.where(q2 == 0, 2.0, 1.0)
     return vc, vr, mask_d
 
 
 def dense_slice_values(ft: torch.Tensor, ctf: CtfParams, img_idx, trans,
-                       w, r_u: int, size: int, pixel_size: float, d=None):
+                       w, r_u: int, size: int, pixel_size: float, d=None,
+                       edge: bool = False):
     """The value formation HK3 fuses: (vals (B, nk^2) complex,
     ctf2w (B, nk^2), vc, vr) for slices of images img_idx with
     translations trans (B, 2), weights w (B,) and, where given, defocus
-    factors d (B,) scaling each slice's CTF (ctf_packed_scaled)."""
-    vc, vr, mask_d = dense_window(r_u, ft.device)
+    factors d (B,) scaling each slice's CTF (ctf_packed_scaled);
+    ``edge``: the window of :func:`dense_window` with its edge (HK10)."""
+    vc, vr, mask_d = dense_window(r_u, ft.device, edge)
     c = size // 2
     idx = img_idx.long()
     dat = ft[idx][:, (c + vr).long(), (c + vc).long()]
@@ -253,6 +287,97 @@ def insert_trilinear(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
 
 
 insert_trilinear.launches = 0
+
+
+# -- HK10 ---------------------------------------------------------------
+
+def insert_mkb_plain(ft, ctf, img_idx, rot, trans, w, r_u: int, pf: int, size: int,
+                     pixel_size: float, f_grid: torch.Tensor, t_grid: torch.Tensor,
+                     d=None, a: float = DEFAULT_MKB_A, alpha: float = DEFAULT_MKB_ALPHA):
+    """Plain version of HK10: HK3's value formation then the MKB blob's
+    scatter (:func:`insert_slices_3d` with ``kernel="mkb"``), 256 slices
+    at a time.  Returns the new (F, T)."""
+    max_rad = float((r_u - 1) * pf)
+    for lo in range(0, rot.shape[0], 256):
+        sl = slice(lo, lo + 256)
+        vals, c2w, vc, vr = dense_slice_values(
+            ft, ctf, img_idx[sl], trans[sl], w[sl], r_u, size, pixel_size,
+            None if d is None else d[sl], edge=True)
+        f_grid, t_grid = insert_slices_3d(f_grid, t_grid, vals, c2w, rot[sl], vc, vr, pf,
+                                          max_rad, "mkb", a, alpha)
+    return f_grid, t_grid
+
+
+def insert_mkb(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
+               rot: torch.Tensor, trans: torch.Tensor, w: torch.Tensor,
+               r_u: int, pf: int, size: int, pixel_size: float,
+               big: int, f_grid: torch.Tensor | None = None,
+               t_grid: torch.Tensor | None = None,
+               d: torch.Tensor | None = None, a: float = DEFAULT_MKB_A,
+               alpha: float = DEFAULT_MKB_ALPHA):
+    """HK10: :func:`insert_trilinear` with the modified Kaiser-Bessel
+    blob in place of the trilinear hat (the insertion option
+    ``reco_kernel="mkb"``, thunder_tpu ops/insert.py insert_slices_3d
+    with kernel="mkb").  A sample at p adds val MKB_FT(|k - p|) to every
+    cell k of its 4^3 neighbourhood with |k - p| < a (tap indices
+    clipped to the grid); the values are HK3's dense window with its edge
+    (:func:`dense_window`: the pixels thunder_tpu's packed half-space
+    rings and Hermitian fold insert, the DC doubled).  Same arguments as
+    :func:`insert_trilinear` and ``a`` <= 2, ``alpha``.  CPU tensors
+    take :func:`insert_mkb_plain`; CUDA tensors launch
+    csrc/insert_trilinear.cu's gather with the blob's weight, each cell
+    summing in slice order (two calls give identical bits)."""
+    dev = ft.device
+    if f_grid is None:
+        f_grid = torch.zeros((big,) * 3, dtype=COMPLEX, device=dev)
+    if t_grid is None:
+        t_grid = torch.zeros((big,) * 3, dtype=REAL, device=dev)
+    if not ft.is_cuda:
+        f_new, t_new = insert_mkb_plain(ft, ctf, img_idx, rot, trans, w, r_u, pf, size,
+                                        pixel_size, f_grid, t_grid, d, a, alpha)
+        f_grid.copy_(f_new)
+        t_grid.copy_(t_new)
+        return f_grid, t_grid
+    _native.require(ft.dtype == COMPLEX and ft.is_contiguous()
+                    and ft.shape[-2:] == (size, size),
+                    "insert_mkb: ft must be contiguous (L, size, size) complex64")
+    _native.require(f_grid.shape == (big,) * 3 and f_grid.dtype == COMPLEX
+                    and f_grid.is_contiguous() and t_grid.is_contiguous()
+                    and t_grid.dtype == REAL,
+                    "insert_mkb: grids must be contiguous big^3")
+    _native.require(2 * r_u - 1 <= size, "insert_mkb: window exceeds the image box")
+    _native.require(0 < a <= 2, "insert_mkb: the blob's radius must lie in (0, 2]")
+    n_s = rot.shape[0]
+    ctfk = ctf_constants(ctf)
+    img_idx = img_idx.to(torch.int32).contiguous()
+    rot = rot.to(REAL).reshape(n_s, 9).contiguous()
+    trans = trans.to(REAL).contiguous()
+    w = w.to(REAL).contiguous()
+    if d is not None:
+        d = d.to(REAL).contiguous()
+        _native.require(d.shape == (n_s,), "insert_mkb: d must be (B,)")
+    if n_s == 0:
+        return f_grid, t_grid
+    mrp = float((r_u - 1) * pf)
+    vlo, vhi = tap_range(big, mrp, "mkb")
+    vals = torch.empty((n_s, (2 * r_u - 1) ** 2, 4), dtype=REAL, device=dev)
+    # the blob's constants as the plain version rounds them: a^2 in
+    # float32, 1 / I0(alpha) from torch's float32 I0
+    a2 = float(np.float32(a * a))
+    inv_i0 = float(1.0 / torch.special.i0(torch.tensor(float(alpha), dtype=REAL)))
+    lib = _native.library()
+    insert_mkb.launches += 1
+    _native.check(lib.thunder_insert_mkb(
+        ft.data_ptr(), size, ctfk.data_ptr(), img_idx.data_ptr(),
+        rot.data_ptr(), trans.data_ptr(), w.data_ptr(),
+        None if d is None else d.data_ptr(), n_s, r_u, pf, mrp,
+        float(pixel_size * size), float(2 * np.pi / size), f_grid.data_ptr(),
+        t_grid.data_ptr(), vals.data_ptr(), big, vlo, vhi, float(a), a2,
+        float(alpha), inv_i0, _native.stream_ptr(ft)), "insert_mkb")
+    return f_grid, t_grid
+
+
+insert_mkb.launches = 0
 
 
 # -- HK6 ----------------------------------------------------------------
@@ -538,24 +663,38 @@ def _axis_weight(t: torch.Tensor, v: torch.Tensor, frac: torch.Tensor) -> torch.
     return torch.where(t == v, 1 - frac, torch.where(t + 1 == v, frac, torch.full_like(frac, -1)))
 
 
+def gather_reach_mkb(a: float) -> float:
+    """HK10's reach (and per-axis prefilter): the blob's radius and the
+    kernels' margin, as float32."""
+    return float(np.float32(np.float32(a) + np.float32(1e-2)))
+
+
 def _gather_plain(vals, c2w, rot, cls, r_u: int, pf: int, mats, f_grid, t_grid,
-                  z0: int, disc: bool, wsl=None):
-    """The gather of HK3 / HK9 (3D: rot (B, 3, 3), mats (n_sym, 3, 3),
-    grids (K, bz, big, big) from plane z0) or HK6 (2D: rot (B, 2, 2),
+                  z0: int, disc: bool, wsl=None, kernel: str = "trilinear",
+                  blob_a: float = DEFAULT_MKB_A, blob_alpha: float = DEFAULT_MKB_ALPHA):
+    """The gather of HK3 / HK9 / HK10 (3D: rot (B, 3, 3), mats (n_sym, 3,
+    3), grids (K, bz, big, big) from plane z0) or HK6 (2D: rot (B, 2, 2),
     mats None, grids (K, big, big)) on CPU tensors: every virtual cell
     within max_radius_pad + REACH takes, for each (slice, mate) in order,
     the candidates (vc, vr) of the kernels' range and prefilter (Q g
     within GATHER_STRIP of the cell on every axis), the exact position
     and cuts of the scatter, and the taps that land on it; face cells then add their virtual cells.  ``disc``: only pixels
     with vc^2 + vr^2 < (r_u - 1)^2 (HK3, HK6; HK9 takes the window);
-    ``wsl``: slices of weight zero are skipped.  Returns the new grids."""
+    ``wsl``: slices of weight zero are skipped.  ``kernel="mkb"`` (HK10,
+    3D): the reach and the prefilter are the blob's radius ``blob_a`` and the
+    margin, the disc keeps its edge, and a candidate's weight is
+    MKB_FT(|k - p|) where the cell is one of its 4^3 taps and |k - p| <
+    blob_a.  Returns the new grids."""
     nd = rot.shape[-1]
     n_cls, big = f_grid.shape[0], f_grid.shape[-1]
     bz = f_grid.shape[1] if nd == 3 else 1
     cb, rr, nk = big // 2, r_u - 1, 2 * r_u - 1
     mrp2 = float((rr * pf) ** 2)
-    vlo, vhi = tap_range(big, float(rr * pf))
-    reach = GATHER_REACH_3D if nd == 3 else GATHER_REACH_2D
+    blob = kernel == "mkb"
+    vlo, vhi = tap_range(big, float(rr * pf), kernel)
+    reach = (gather_reach_mkb(blob_a) if blob
+             else GATHER_REACH_3D if nd == 3 else GATHER_REACH_2D)
+    strip = reach if blob else GATHER_STRIP
     axes = [_virtual_axis(0, big - 1, big, vlo, vhi)] * 2
     if nd == 3:
         axes = [_virtual_axis(z0, z0 + bz - 1, big, vlo, vhi)] + axes
@@ -592,9 +731,10 @@ def _gather_plain(vals, c2w, rot, cls, r_u: int, pf: int, mats, f_grid, t_grid,
                     gx, gy = (vc * pf).to(REAL), (vr * pf).to(REAL)
                     hit = ok & (vr.abs() <= rr) & (vc.abs() <= rr)
                     for i in range(nd):     # Q g within a cell (and the margin) on each axis
-                        hit = hit & ((q[i, 0] * gx + q[i, 1] * gy - k[:, i]).abs() < GATHER_STRIP)
+                        hit = hit & ((q[i, 0] * gx + q[i, 1] * gy - k[:, i]).abs() < strip)
                     if disc:
-                        hit = hit & (vc * vc + vr * vr < rr * rr)
+                        q2 = vc * vc + vr * vr
+                        hit = hit & ((q2 <= rr * rr) if blob else (q2 < rr * rr))
                     p = [rs[i, 0] * gx + rs[i, 1] * gy for i in range(nd)]
                     r2 = p[0] * p[0] + p[1] * p[1]
                     if nd == 3:
@@ -603,12 +743,22 @@ def _gather_plain(vals, c2w, rot, cls, r_u: int, pf: int, mats, f_grid, t_grid,
                             p = [mat[i, 0] * p[0] + mat[i, 1] * p[1] + mat[i, 2] * p[2]
                                  for i in range(3)]
                     hit = hit & (r2 < mrp2)
-                    wt = torch.ones_like(gx)
-                    for i in reversed(range(nd)):              # (wz * wy) * wx
-                        fl = torch.floor(p[i])
-                        wi = _axis_weight(fl.to(torch.int64) + cb, vx[i], p[i] - fl)
-                        hit = hit & (wi >= 0)
-                        wt = wt * wi
+                    if blob:
+                        # one of the sample's 4^3 taps, within the blob
+                        d2 = torch.zeros_like(gx)
+                        for i in range(nd):
+                            t = torch.floor(p[i]).to(torch.int64) + cb
+                            hit = hit & (vx[i] >= t - 1) & (vx[i] <= t + 2)
+                            d2 = d2 + ((vx[i] - cb).to(REAL) - p[i]) ** 2
+                        hit = hit & (d2 < blob_a * blob_a)
+                        wt = mkb_ft(torch.sqrt(torch.clamp(d2, min=0.0)), blob_a, blob_alpha)
+                    else:
+                        wt = torch.ones_like(gx)
+                        for i in reversed(range(nd)):              # (wz * wy) * wx
+                            fl = torch.floor(p[i])
+                            wi = _axis_weight(fl.to(torch.int64) + cb, vx[i], p[i] - fl)
+                            hit = hit & (wi >= 0)
+                            wt = wt * wi
                     if not bool(hit.any()):
                         continue
                     idx = ((torch.clamp(vr, -rr, rr) + rr) * nk
@@ -634,6 +784,18 @@ def insert_trilinear_gather_plain(ft, ctf, img_idx, rot, trans, w, r_u: int, pf:
     vals, c2w, _, _ = dense_slice_values(ft, ctf, img_idx, trans, w, r_u, size, pixel_size, d)
     f, t = _gather_plain(vals, c2w, rot, None, r_u, pf, None, f_grid[None], t_grid[None], 0,
                          True, w)
+    return f[0], t[0]
+
+
+def insert_mkb_gather_plain(ft, ctf, img_idx, rot, trans, w, r_u: int, pf: int,
+                            size: int, pixel_size: float, f_grid, t_grid, d=None,
+                            a: float = DEFAULT_MKB_A, alpha: float = DEFAULT_MKB_ALPHA):
+    """HK10's gather on the CPU (same arguments and result as
+    :func:`insert_mkb_plain`)."""
+    vals, c2w, _, _ = dense_slice_values(ft, ctf, img_idx, trans, w, r_u, size, pixel_size, d,
+                                         edge=True)
+    f, t = _gather_plain(vals, c2w, rot, None, r_u, pf, None, f_grid[None], t_grid[None], 0,
+                         True, w, "mkb", a, alpha)
     return f[0], t[0]
 
 

@@ -17,7 +17,8 @@ every state tensor; both run batched on one device.  The hot spots are
 the hand-written kernels: HK1 project_slices / HK5 project_slices_2d
 (global search, phases, statistics), HK2 likelihood_block (global
 search, phases), HK8 likelihood_local_ctf (the phases of CTF search),
-HK3 insert_trilinear / HK6 insert_bilinear_2d (insertion), HK7
+HK3 insert_trilinear / HK6 insert_bilinear_2d (insertion; HK10
+insert_mkb in 3D with the insertion option reco_kernel="mkb"), HK7
 symmetrize_ft (point-group symmetrisation of the 3D grids) and HK4
 shell_sums (FSC, sigma).
 
@@ -81,7 +82,7 @@ from thunder_tpu_torch.ops.fourier import (
     translate_phases,
     translate_phases_view,
 )
-from thunder_tpu_torch.ops.insert import (dense_slice_values, insert_bilinear_2d,
+from thunder_tpu_torch.ops.insert import (dense_slice_values, insert_bilinear_2d, insert_mkb,
                                           insert_trilinear, insert_trilinear_slab)
 from thunder_tpu_torch.ops.likelihood import (CtfTerms, ctf_terms,
                                               likelihood_block,
@@ -350,6 +351,22 @@ def subtract_batch(ft_ori: torch.Tensor, ctf: CtfParams, table: torch.Tensor,
 
 # -- orchestration ------------------------------------------------------
 
+def check_kernel_layout(cfg: ThunderConfig, lay: Layout) -> None:
+    """Refuse the MKB insertion option on a layout whose 3D grids of the
+    full box would shard over the data axis, at configuration time as
+    thunder_tpu does (optimiser.py:1859-1878): the slab path inserts
+    trilinearly only."""
+    mb = (cfg.size * cfg.pf) ** 3 * 8 / 2 ** 20
+    if (cfg.reco_kernel == "mkb" and not cfg.mode_2d and lay.data > 1
+            and mb >= cfg.vol_shard_min_mb):
+        raise ValueError(
+            "reco_kernel='mkb' is incompatible with volume-sharded reconstruction "
+            "(grids this size shard over the data axis, and the slab path has no "
+            "MKB insertion).  Use reco_kernel='trilinear' (the reference default, "
+            f"Config.h:97), or raise vol_shard_min_mb above {int(mb)} to keep "
+            "whole-volume grids a rank.")
+
+
 class StackedData(NamedTuple):
     """The images of a rank's hemispheres on a leading axis (2 on one
     process), padded to a common L (pads repeat real images and carry no
@@ -405,6 +422,7 @@ class Optimiser:
         self.sym = Symmetry("C1" if cfg.mode_2d else cfg.sym, dev)
         self.sym_form = symmetrize_form(self.sym.matrices)   # HK7's form, read once
         self.layout = lay = layout if layout is not None else single(dev)
+        check_kernel_layout(cfg, lay)
         n = np.asarray(group_id).shape[0]
         if n < 2:
             raise ValueError("need at least one image per hemisphere")
@@ -971,8 +989,9 @@ class Optimiser:
 
     def reconstruct_round(self, draws=None):
         """Draw poses, compact them, and insert both hemispheres' slices
-        into per-class (F, T) grids — in 3D HK3 once a hemisphere and
-        class on that class's slices, then HK7 over the 2K grids where
+        into per-class (F, T) grids — in 3D HK3 (HK10 with reco_kernel
+        "mkb") once a hemisphere and class on that class's slices, then
+        HK7 over the 2K grids where
         the point group has mates; in 2D HK6 (one launch for both
         hemispheres' 2K planes) (reconstructRef, Optimiser.cpp:6711-7233).
         In a CTF-search round each slice's CTF takes its drawn defocus
@@ -1013,13 +1032,14 @@ class Optimiser:
                 r_u, grid_size)
         f2 = torch.zeros((self.nh, cfg.k) + (big,) * 3, dtype=COMPLEX, device=self.device)
         t2 = torch.zeros((self.nh, cfg.k) + (big,) * 3, dtype=REAL, device=self.device)
+        insert = insert_mkb if cfg.reco_kernel == "mkb" else insert_trilinear
         for h in range(self.nh):
             w_h = w[h].reshape(-1)
             cls_s = s.cls[h][:, None].expand(-1, n_slots).reshape(-1)
             ctf_h = self.data.ctf_params.map(lambda a: a[h])
             for k in range(cfg.k):
                 sel = torch.nonzero((w_h > 0) & (cls_s == k))[:, 0]
-                insert_trilinear(
+                insert(
                     self.data.ft_ori[h], ctf_h, sel // n_slots,
                     rotate3d(quats[h].reshape(-1, 4)[sel]),
                     trans[h].reshape(-1, 2)[sel], w_h[sel], r_u, cfg.pf,
@@ -1036,10 +1056,11 @@ class Optimiser:
         """True where a 3D round's padded grids lie as z-slabs over the
         data axis (thunder_tpu optimiser.py:3172-3189): hemi extent 2, an
         even data extent over 1 that splits the padded box, and grids of
-        at least ``vol_shard_min_mb``."""
+        at least ``vol_shard_min_mb``; never with the MKB insertion option."""
         cfg, lay = self.cfg, self.layout
         big = grid_size * cfg.pf
-        return (not cfg.mode_2d and lay.hemi == 2 and lay.data > 1
+        return (not cfg.mode_2d and cfg.reco_kernel != "mkb" and lay.hemi == 2
+                and lay.data > 1
                 and lay.data % 2 == 0 and big % lay.data == 0
                 and big ** 3 * 8 // 2 ** 20 >= cfg.vol_shard_min_mb)
 
@@ -1135,7 +1156,8 @@ class Optimiser:
             return tuple(r[None] for r in reconstruct_two_pass_sharded(
                 self.layout, f2[0], t2[0], fsc_prev, grid_size, cfg.pf, r_u, cfg.size)
                 ) + (r_u,)
-        refs_fsc, refs_map = reconstruct_two_pass(f2, t2, fsc_prev, grid_size, cfg.pf, r_u, nd)
+        refs_fsc, refs_map = reconstruct_two_pass(f2, t2, fsc_prev, grid_size, cfg.pf, r_u, nd,
+                                                  kernel=cfg.reco_kernel)
         del f2, t2
         if grid_size != cfg.size:
             refs_fsc = resize_rl(refs_fsc, cfg.size, nd=nd)
@@ -1335,7 +1357,8 @@ class Optimiser:
                 self.layout, f2[0], t2[0], None, grid_size, cfg.pf, r_u, False, False,
                 cfg.size)[None]
         else:
-            refs = reconstruct(f2, t2, grid_size, cfg.pf, r_u, self.nd)
+            refs = reconstruct(f2, t2, grid_size, cfg.pf, r_u, self.nd,
+                               kernel=cfg.reco_kernel)
         del f2, t2
         if refs.shape[-1] != cfg.size:
             refs = resize_rl(refs, cfg.size, nd=self.nd)

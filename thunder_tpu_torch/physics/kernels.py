@@ -69,6 +69,11 @@ def mkb_rl(r, a: float, alpha: float) -> torch.Tensor:
     return w * torch.where(u <= alpha, _i_three_half(v), _j_three_half(v))
 
 
+def mkb_rl_r2(r2, a: float, alpha: float) -> torch.Tensor:
+    """:func:`mkb_rl` on the squared radius (Functions.cpp:181-216)."""
+    return mkb_rl(torch.sqrt(torch.clamp(_t(r2), min=0.0)), a, alpha)
+
+
 def mkb_blob_vol(a: float, alpha: float) -> float:
     """Volume (integral) of the MKB blob (Functions.cpp:218-233)."""
     i0a = float(torch.special.i0(torch.tensor(alpha, dtype=torch.float64)))

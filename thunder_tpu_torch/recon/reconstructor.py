@@ -67,6 +67,26 @@ def _tik_correction(size: int, pf: int, device, nd: int = 3) -> torch.Tensor:
     return tik_rl(r).to(REAL)
 
 
+def _mkb_correction(size: int, pf: int, device, nd: int = 3,
+                    a: float = DEFAULT_MKB_A,
+                    alpha: float = DEFAULT_MKB_ALPHA) -> torch.Tensor:
+    """Real-space MKB envelope of the blob-kernel option over the
+    unpadded FFT-layout grid, 1 at the origin (Reconstructor.cpp:
+    1785-1793: divide by MKB_RL(r / (pf N), a pf, alpha) and multiply by
+    MKB_RL(0, ...))."""
+    r = radial_grid_dev(size, nd, device) / (pf * size)
+    return (mkb_rl(r, a * pf, alpha) / _mkb_rl_nf(a * pf, alpha)).to(REAL)
+
+
+def grid_correction(size: int, pf: int, device, nd: int = 3,
+                    kernel: str = "trilinear") -> torch.Tensor:
+    """The real-space envelope the final map is divided by: the
+    trilinear kernel's (TIK_RL) or, with ``kernel="mkb"``, the blob's."""
+    if kernel == "mkb":
+        return _mkb_correction(size, pf, device, nd)
+    return _tik_correction(size, pf, device, nd)
+
+
 def _quad_inside(big: int, radius: float, device, nd: int = 3) -> torch.Tensor:
     return centered_quad_dev(big, nd, device) < radius ** 2
 
@@ -94,18 +114,35 @@ def wiener_filter_t(t_grid: torch.Tensor, fsc_curve: torch.Tensor, pf: int,
 def balance_weights(t_grid: torch.Tensor, pf: int, max_radius: int,
                     a: float = DEFAULT_MKB_A,
                     alpha: float = DEFAULT_MKB_ALPHA,
-                    nd: int = 3) -> torch.Tensor:
+                    nd: int = 3, kernel: str = "trilinear") -> torch.Tensor:
     """W such that (T.W) convolved with the gridding window ~ 1
     (Reconstructor.cpp:1288-1551); t_grid (..., big^nd) real.
 
-    Unlike thunder_tpu, only cells that received insertions (T above
-    the 1e-25 floor) are updated and enter the convergence test.  In an
-    empty cell C ~ 0, so W grows by 1e6 per iteration until T.W leaks
-    into its neighbours' C; with exact trilinear insertion of a few
-    hundred slices per hemisphere such holes exist between the planes at
-    high radius and the MAP-free pass turned chaotic (maps decorrelated
-    from the truth within 3 rounds).  Where every cell is reached the
-    iteration is thunder_tpu's exactly."""
+    Unlike thunder_tpu, with trilinear insertion only cells that
+    received insertions (T above the 1e-25 floor) are updated and enter
+    the convergence test.  In an empty cell C ~ 0, so W grows by 1e6 per
+    iteration until T.W leaks into its neighbours' C; with exact
+    trilinear insertion of a few hundred slices per hemisphere such
+    holes exist between the planes at high radius and the MAP-free pass
+    turned chaotic (maps decorrelated from the truth within 3 rounds).
+    Where every cell is reached the iteration is thunder_tpu's exactly.
+    With the blob's insertion (``kernel="mkb"``, reach 1.9 cells) every
+    cell inside the radius is updated, as thunder_tpu does: the only
+    empty cells are the ring between insertion's reach and the radius,
+    and there the two packages' maps agree only when W grows alike."""
+    return _balance(t_grid, pf, max_radius, a, alpha, nd, kernel)[0]
+
+
+def _balance(t_grid: torch.Tensor, pf: int, max_radius: int,
+             a: float = DEFAULT_MKB_A, alpha: float = DEFAULT_MKB_ALPHA,
+             nd: int = 3, kernel: str = "trilinear", n_iter: int | None = None,
+             each=None) -> tuple:
+    """The balance loop of :func:`balance_weights`: (W, each lane's count
+    of iterations as a tensor).  ``n_iter`` runs every lane that many
+    iterations with the stopping rule off; ``each(n, W)`` is called with
+    the full W after iteration n.  The stop is a threshold, so two sums
+    of one (F, T) in another order can stop iterations apart; the slab
+    path's check in chip_smoke.py reads maps at several counts so."""
     big = t_grid.shape[-1]
     c = big // 2
     dev = t_grid.device
@@ -118,8 +155,9 @@ def balance_weights(t_grid: torch.Tensor, pf: int, max_radius: int,
 
     inside = to_half(_quad_inside(big, max_radius * pf, dev, nd))
     t_half = to_half(torch.clamp(t_grid, min=T_MIN))
-    # cells no slice reached keep W = 1 (see the docstring)
-    inside_h = inside & (t_half > T_MIN)
+    # with trilinear taps cells no slice reached keep W = 1 (see
+    # balance_weights)
+    inside_h = inside if kernel == "mkb" else inside & (t_half > T_MIN)
     lanes = t_grid.shape[:-nd]
     w = torch.where(inside, 1.0, 0.0).to(REAL).expand(t_half.shape).clone()
 
@@ -132,7 +170,7 @@ def balance_weights(t_grid: torch.Tensor, pf: int, max_radius: int,
     n_no_dec = torch.zeros(lanes, dtype=torch.int64, device=dev)
     it = torch.zeros(lanes, dtype=torch.int64, device=dev)
     active = torch.ones(lanes, dtype=torch.bool, device=dev)
-    for _ in range(MAX_N_ITER_BALANCE):
+    for _ in range(MAX_N_ITER_BALANCE if n_iter is None else n_iter):
         c_abs = convolute_c(t_half * w).abs()
         w_new = torch.where(inside_h, w / torch.clamp(c_abs, min=C_ABS_MIN), w)
         diff = torch.amax(torch.where(inside_h, (c_abs - 1.0).abs(),
@@ -144,13 +182,23 @@ def balance_weights(t_grid: torch.Tensor, pf: int, max_radius: int,
         diff_prev = torch.where(active, diff, diff_prev)
         n_no_dec = torch.where(active, nnd, n_no_dec)
         it = it + active.long()
+        if each is not None:
+            each(int(it.max()), _mirror_full(w, big, nd))
+        if n_iter is not None:
+            continue
         not_stalled = (it < MIN_N_ITER_BALANCE) | (n_no_dec < N_DIFF_C_NO_DECREASE)
         active = (active & (it < MAX_N_ITER_BALANCE)
                   & (diff_prev >= DIFF_C_THRES) & not_stalled)
         if not bool(active.any()):
             break
+    return _mirror_full(w, big, nd), it
 
-    # expand the real, even W back to the full centered grid by mirror
+
+def _mirror_full(w: torch.Tensor, big: int, nd: int) -> torch.Tensor:
+    """The real, even W of rfft half space expanded back to the full
+    centered grid by mirror."""
+    c = big // 2
+    dev = w.device
     idx = torch.arange(big, device=dev)
     mirror = (big - idx) % big
     take_mirror = idx > c
@@ -164,14 +212,16 @@ def balance_weights(t_grid: torch.Tensor, pf: int, max_radius: int,
     else:
         gy = torch.where(take_mirror[None, :], mirror[:, None], idx[:, None])
         w_full = w[..., gy, gx[None, :].expand(big, big)]
-    return torch.fft.fftshift(w_full, dim=ax)
+    return torch.fft.fftshift(w_full, dim=_ax(nd))
 
 
 def finalize_reconstruction(f_grid: torch.Tensor, w: torch.Tensor, size: int,
-                            pf: int, max_radius: int,
-                            nd: int = 3) -> torch.Tensor:
-    """F.W -> c2r transform -> extract 1/pf -> trilinear kernel
-    correction; (..., big^nd) -> (..., size^nd) real FFT layout."""
+                            pf: int, max_radius: int, nd: int = 3,
+                            grid_corr: bool = True,
+                            kernel: str = "trilinear") -> torch.Tensor:
+    """F.W -> c2r transform -> extract 1/pf -> the kernel's correction
+    (:func:`grid_correction`; none without ``grid_corr``);
+    (..., big^nd) -> (..., size^nd) real FFT layout."""
     big = f_grid.shape[-1]
     c = big // 2
     ax = _ax(nd)
@@ -180,33 +230,50 @@ def finalize_reconstruction(f_grid: torch.Tensor, w: torch.Tensor, size: int,
     half = torch.fft.ifftshift(pad_dst, dim=ax)[..., :c + 1]
     rl = torch.fft.irfftn(half, s=(big,) * nd, dim=ax)
     out = extract_rl(rl, pf, nd=nd)
-    return out / _tik_correction(size, pf, f_grid.device, nd)
+    if grid_corr:
+        out = out / grid_correction(size, pf, f_grid.device, nd, kernel)
+    return out
+
+
+def _weights(t_real: torch.Tensor, pf: int, max_radius: int, nd: int,
+             grid_corr: bool, kernel: str) -> torch.Tensor:
+    """W of the balance loop, or without grid correction W = 1 / T
+    inside the radius and 0 outside (Reconstructor.cpp:1553-...)."""
+    if grid_corr:
+        return balance_weights(t_real, pf, max_radius, nd=nd, kernel=kernel)
+    inside = _quad_inside(t_real.shape[-1], max_radius * pf, t_real.device, nd)
+    return torch.where(inside, 1.0 / torch.clamp(t_real, min=T_MIN),
+                       torch.zeros_like(t_real))
 
 
 def reconstruct(f_grid, t_grid, size: int, pf: int,
-                max_radius: int, nd: int = 3) -> torch.Tensor:
-    """One MAP-free gridding reconstruction per batch entry (grid
-    correction on)."""
+                max_radius: int, nd: int = 3, grid_corr: bool = True,
+                kernel: str = "trilinear") -> torch.Tensor:
+    """One MAP-free gridding reconstruction per batch entry: the balance
+    loop and the kernel's correction, or without ``grid_corr`` W = 1 / T
+    and no correction."""
     t_real = t_grid.real if t_grid.is_complex() else t_grid
     return finalize_reconstruction(
-        f_grid, balance_weights(t_real, pf, max_radius, nd=nd), size, pf,
-        max_radius, nd)
+        f_grid, _weights(t_real, pf, max_radius, nd, grid_corr, kernel), size, pf,
+        max_radius, nd, grid_corr, kernel)
 
 
 def reconstruct_two_pass(f_grid, t_grid, fsc_curve, size: int, pf: int,
-                         max_radius: int, nd: int = 3):
+                         max_radius: int, nd: int = 3,
+                         kernel: str = "trilinear"):
     """The reference's per-round double reconstruction
     (Optimiser.cpp:7310-7755): the MAP-free FSC pass and the Wiener (MAP)
-    pass from the same (F, T).  Both balance loops run cold (warm-
-    starting the MAP pass is a trap, see the JAX package) and as batched
-    independent lanes.  Returns (rec_fsc, rec_map)."""
+    pass from the same (F, T), both divided by ``kernel``'s correction.
+    Both balance loops run cold (warm-starting the MAP pass is a trap,
+    see the JAX package) and as batched independent lanes.  Returns
+    (rec_fsc, rec_map)."""
     t_real = t_grid.real if t_grid.is_complex() else t_grid
     t_w = wiener_filter_t(t_real, fsc_curve, pf, max_radius, join_half=True,
                           nd=nd)
     w12 = balance_weights(torch.stack([t_real, t_w.expand_as(t_real)]), pf,
-                          max_radius, nd=nd)
+                          max_radius, nd=nd, kernel=kernel)
     rec = finalize_reconstruction(f_grid.unsqueeze(0), w12, size, pf,
-                                  max_radius, nd)
+                                  max_radius, nd, kernel=kernel)
     return rec[0], rec[1]
 
 
