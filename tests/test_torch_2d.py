@@ -189,6 +189,50 @@ def test_insert_bilinear_2d_plain_matches_insert_class():
         close(tt[k], jt, 1e-5)
 
 
+def test_insert_sweep_2d_matches_the_rounds_2d_sweep():
+    """The rounds' 2D insertion: HK12's plain version (the port's value
+    formation and the 2D shear sweep into class planes) against
+    thunder_tpu's one_2d_sweep step (its dense-window values, the DC
+    doubled, rotate2d_from_unit, insert_sweep_2d with a class's weights),
+    per class, rel 1e-5: thunder_tpu's 2D sweep is float32."""
+    from thunder_tpu.ops.insert import insert_sweep_2d
+
+    rng = np.random.default_rng(12)
+    n_l, n_d, r_u, pf = 6, 5, 8, 2
+    ft = np.fft.fftshift(np.fft.fft2(rng.standard_normal((n_l, SIZE, SIZE))),
+                         axes=(-2, -1)).astype(np.complex64)
+    defocus = rng.uniform(1000, 3000, n_l)
+    cols = (np.full(n_l, 300e3), defocus, defocus * 1.05, rng.uniform(0, 3, n_l),
+            np.full(n_l, 2e7), np.full(n_l, 0.1), np.zeros(n_l))
+    quats = unit_quats(rng.uniform(0, 7, (n_l, n_d)))
+    trans = rng.normal(0, 1.5, (n_l, n_d, 2)).astype(np.float32)
+    w = rng.uniform(0.1, 1, (n_l, n_d)).astype(np.float32)
+    cls_img = np.array([0, 2, 2, 0, 1, 2])
+    big = to.reco_grid_size(SIZE, r_u) * pf
+    tf, tt = tins.insert_sweep_2d(
+        t(ft), ctf_params(*cols), t(np.repeat(np.arange(n_l), n_d)),
+        t(np.repeat(cls_img, n_d)), tq.rotate2d_from_unit(t(quats[..., :2].reshape(-1, 2))),
+        t(trans.reshape(-1, 2)), t(w.reshape(-1)), r_u, pf, SIZE, 1.32, big, K)
+    nk, rr, c = 2 * r_u - 1, r_u - 1, SIZE // 2
+    kk = jnp.arange(nk, dtype=jnp.int32) - rr
+    ky, kx = jnp.meshgrid(kk, kk, indexing="ij")
+    vc, vr = kx.reshape(-1), ky.reshape(-1)
+    q2 = (kx * kx + ky * ky).astype(jnp.float32)
+    mask_d = ((q2 < rr * rr) * jnp.where(q2 == 0, 2.0, 1.0)).reshape(-1)
+    dat = jnp.asarray(ft)[:, c - rr:c + rr + 1, c - rr:c + rr + 1].reshape(n_l, 1, -1)
+    tra = jo.translate_phases_view(vc, vr, SIZE, jnp.asarray(trans))
+    ctf = jctf_packed(jctf_params(*cols), vc, vr, SIZE, 1.32)[:, None, :]
+    vals = dat * jnp.conj(tra) * (ctf * mask_d)
+    c2w = jnp.broadcast_to(ctf * ctf * mask_d, vals.shape)
+    rot = rotate2d_from_unit(jnp.asarray(quats[..., :2]))
+    w_cls = jnp.asarray(np.stack([(w * (cls_img == k)[:, None]).reshape(-1) for k in range(K)]))
+    jf, jt = insert_sweep_2d(vals.reshape(-1, nk, nk), c2w.reshape(-1, nk, nk),
+                             rot.reshape(-1, 2, 2), w_cls, big, pf, chunk=8)
+    for k in range(K):
+        close(tf[k], jf[k], 1e-5)
+        close(tt[k], jt[k], 1e-5)
+
+
 @pytest.mark.parametrize("n_img,n_cls,per_img", [(40, 3, 1), (97, 5, 48), (10, 60, 48)])
 def test_insert_2d_work_covers_every_slice_once(n_img, n_cls, per_img):
     """HK6's order of work: the slices sorted by (class, image), each
@@ -355,17 +399,18 @@ def test_2d_reconstruction_and_frc_match_jax():
 
 
 def test_2d_balance_keeps_w_one_in_empty_cells():
-    """Few slices leave cells of a class plane empty: the port's balance
-    loop keeps W = 1 there (ROADMAP Q3) and the map stays finite."""
+    """Few slices leave cells of a class plane empty: the balance loop's
+    empty-cell guard (``guard_empty``, the exact scatter's form) keeps
+    W = 1 there (ROADMAP Q3) and the map stays finite."""
     rng = np.random.default_rng(6)
     f2, t2 = _dense_grids(rng, n_cls=2, n_s=6)
     big = t2.shape[-1]
-    w = trec.balance_weights(t2, 2, 8, nd=2)
+    w = trec.balance_weights(t2, 2, 8, nd=2, guard_empty=True)
     inside = trec._quad_inside(big, 8 * 2, "cpu", nd=2)
     empty = inside & (t2 <= 1e-25)
     assert bool(empty.any())
     assert torch.equal(w[empty], torch.ones_like(w[empty]))
-    rec = trec.reconstruct(f2, t2, big // 2, 2, 8, nd=2)
+    rec = trec.reconstruct(f2, t2, big // 2, 2, 8, nd=2, guard_empty=True)
     assert rec.shape == (2, big // 2, big // 2) and bool(torch.isfinite(rec).all())
 
 

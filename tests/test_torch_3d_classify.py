@@ -157,10 +157,12 @@ def k2_draws(topt):
 
 def test_k2_insertion_and_symmetrisation_match_jax(k2_pair):
     """reconstruct_round at K = 2, C4: the port's grid of hemisphere h
-    and class k against thunder_tpu's insert_slices_3d of that class's
-    slices of the same draws followed by its symmetrize_ft, F and T, at
-    1e-5 (the tolerance of the one-class round)."""
-    from thunder_tpu.ops.insert import insert_slices_3d
+    and class k against thunder_tpu's shear sweep (insert_sweep_3d, the
+    rounds' insertion) of that class's slices of the same draws followed
+    by its symmetrize_ft, F and T, within twice the distance of
+    thunder_tpu's bf16 sweep from the float64 map (the tolerance of the
+    one-class round, test_torch_insert_sweep.py)."""
+    from test_torch_insert_sweep import thunder_sweep
     from thunder_tpu_torch.ops.insert import dense_slice_values
 
     jopt, topt = k2_pair
@@ -175,17 +177,17 @@ def test_k2_insertion_and_symmetrisation_match_jax(k2_pair):
         for k in (0, 1):
             mine = valid * (cls[h] == k)
             assert mine.sum() > 0
-            vals, c2w, vc, vr = dense_slice_values(
+            vals, c2w, _, _ = dense_slice_values(
                 topt.data.ft_ori[h], topt.data.ctf_params.map(lambda a: a[h]),
                 t(np.repeat(np.arange(n_l), n_s)),
                 t((tr[h] - np.asarray(topt.offset[h])[:, None]).reshape(-1, 2)),
                 t((w[h] * mine[:, None]).reshape(-1)), r_u, 24, 1.0)
-            fj, tj = insert_slices_3d(
-                jnp.zeros((big,) * 3, jnp.complex64), jnp.zeros((big,) * 3, jnp.float32),
-                vals.numpy(), c2w.numpy(), jo.rotate3d(jnp.asarray(q[h].reshape(-1, 4))),
-                vc.numpy(), vr.numpy(), 2, rad)
-            close(f2[h, k], jsymmetrize(fj, mats, rad), 1e-5)
-            close(t2[h, k], jnp.real(jsymmetrize(tj.astype(jnp.complex64), mats, rad)), 1e-5)
+            fj, tj, tol = thunder_sweep(
+                vals.numpy(), c2w.numpy(), jo.rotate3d(jnp.asarray(q[h].reshape(-1, 4))), big,
+                2, lambda f, t_: (jsymmetrize(f, mats, rad),
+                                  jnp.real(jsymmetrize(t_.astype(jnp.complex64), mats, rad))))
+            close(f2[h, k], fj, tol[0])
+            close(t2[h, k], tj, tol[1])
 
 
 def test_k2_reconstruction_fsc_and_rebirth_match_jax(k2_pair, monkeypatch):

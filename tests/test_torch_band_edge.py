@@ -110,7 +110,8 @@ def witness(tmp: str, size: int, n: int, snr: float, blurs: int) -> list:
             curve = spectrum.fsc(fft3_centered(vol), fft3_centered(truth), size // 2 - 2).numpy()
             t_grid = np.real(np.asarray(grids["t"]))
             if tag == "port":
-                w = trc.balance_weights(torch.as_tensor(t_grid), pf, r_u).numpy()
+                w = trc.balance_weights(torch.as_tensor(t_grid), pf, r_u,
+                                        guard_empty=True).numpy()
             else:
                 w = np.asarray(jrc.balance_weights(jax.numpy.asarray(t_grid), pf, r_u))
             first = 2 * (r_u - 4)

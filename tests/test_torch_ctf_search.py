@@ -164,12 +164,16 @@ def test_likelihood_ctf_plan():
         tlk.likelihood_ctf_plan(30, 256, 30)
 
 
-def test_insertion_with_defocus_factor_matches_jax():
-    """The plain version of HK3 with a defocus factor a slice against
-    thunder_tpu's use_d value formation (_insert_flat3d_h's step:
-    ctf_packed_scaled on the dense window) and its exact trilinear
-    scatter."""
-    from thunder_tpu.ops.insert import insert_slices_3d
+@pytest.mark.parametrize("kernel", ["sweep", "trilinear"])
+def test_insertion_with_defocus_factor_matches_jax(kernel):
+    """The plain versions of HK11 (the rounds' insertion) and HK3 with a
+    defocus factor a slice against thunder_tpu's use_d value formation
+    (_insert_flat3d_h's step: ctf_packed_scaled on the dense window) and,
+    for HK11, its shear sweep, within twice the distance of thunder_tpu's
+    bf16 sweep from the float64 map (test_torch_insert_sweep.py); for HK3
+    its exact trilinear scatter, 1e-4."""
+    from test_torch_insert_sweep import bf16_bound, err, sweep_map_3d
+    from thunder_tpu.ops.insert import insert_slices_3d, insert_sweep_3d
 
     rng = np.random.default_rng(9)
     n_l, size, r_u, big, n_s = 5, 24, 8, 40, 30
@@ -183,8 +187,9 @@ def test_insertion_with_defocus_factor_matches_jax():
     w = rng.random(n_s).astype(np.float32)
     d = (1 + 0.1 * rng.standard_normal(n_s)).astype(np.float32)
     rot = np.asarray(jo.rotate3d(jnp.asarray(q)))
-    fk, tk = tinsert.insert_trilinear(t(ft), tctf.ctf_params(*cols), t(img), t(rot), t(tr), t(w),
-                                      r_u, 2, size, 1.0, big, d=t(d))
+    insert = tinsert.insert_sweep if kernel == "sweep" else tinsert.insert_trilinear
+    fk, tk = insert(t(ft), tctf.ctf_params(*cols), t(img), t(rot), t(tr), t(w), r_u, 2, size,
+                    1.0, big, d=t(d))
     vc, vr, mask_d = (np.asarray(a) for a in tinsert.dense_window(r_u))
     c = size // 2
     cp = jctf.ctf_params(*[np.asarray(col)[img] for col in cols])
@@ -192,12 +197,23 @@ def test_insertion_with_defocus_factor_matches_jax():
                                  jnp.asarray(d)[:, None])[:, 0]
     tra = jo.translate_phases_view(jnp.asarray(vc), jnp.asarray(vr), size, jnp.asarray(tr))
     vals = jnp.asarray(ft[img][:, c + vr, c + vc]) * jnp.conj(tra) * (ctf * mask_d) * w[:, None]
-    fj, tj = insert_slices_3d(jnp.zeros((big,) * 3, jnp.complex64),
-                              jnp.zeros((big,) * 3, jnp.float32), vals,
-                              ctf * ctf * mask_d * w[:, None], jnp.asarray(rot),
-                              jnp.asarray(vc), jnp.asarray(vr), 2, float((r_u - 1) * 2))
-    close(fk, fj, 1e-4)
-    close(tk, tj, 1e-4)
+    c2w = ctf * ctf * mask_d * w[:, None]
+    if kernel == "trilinear":
+        fj, tj = insert_slices_3d(jnp.zeros((big,) * 3, jnp.complex64),
+                                  jnp.zeros((big,) * 3, jnp.float32), vals, c2w,
+                                  jnp.asarray(rot), jnp.asarray(vc), jnp.asarray(vr), 2,
+                                  float((r_u - 1) * 2))
+        close(fk, fj, 1e-4)
+        close(tk, tj, 1e-4)
+        return
+    nk = 2 * r_u - 1
+    v, cw = np.asarray(vals).reshape(n_s, nk, nk), np.asarray(c2w).reshape(n_s, nk, nk)
+    fj, tj = insert_sweep_3d(jnp.asarray(v), jnp.asarray(cw), jnp.asarray(rot),
+                             jnp.ones((1, n_s)), big, 2, chunk=8)
+    rf, rt = sweep_map_3d(v, cw, rot, np.ones((1, n_s)), big, 2)
+    tol = bf16_bound(np.asarray(fj[0]), np.asarray(tj[0]), (rf[0], rt[0]))
+    e = err(fk, tk, np.asarray(fj[0]), np.asarray(tj[0]))
+    assert e[0] < tol[0] and e[1] < tol[1], (e, tol)
     f0, _ = tinsert.insert_trilinear(t(ft), tctf.ctf_params(*cols), t(img), t(rot), t(tr), t(w),
                                      r_u, 2, size, 1.0, big)
     assert float((f0 - fk).abs().max()) > 1e-3 * float(fk.abs().max())

@@ -1,13 +1,14 @@
-"""The cell-owned enumeration of HK3, HK6 and HK9 (the gathers of
-csrc/insert_trilinear.cu and csrc/insert_bilinear_2d.cu) on the CPU.
+"""The cell-owned enumeration of HK3, HK6 and HK11's slab form (the
+gathers of csrc/insert_trilinear.cu and csrc/insert_bilinear_2d.cu) on
+the CPU.
 
 The kernels cannot run here, so ``ops/insert.py``'s ``*_gather_plain``
 emulate them, vectorised over cells: the same candidate range and
 prefilter, float expressions, cuts, tap weights and face cells.  Each
 case holds the gather to the port's scatter twin and, through the same
-inputs, to thunder_tpu's insert_slices_3d / insert_slices_2d, within
-1e-6 of max |F| and max |T|: the same (sample, tap, weight) triples
-summed in another order."""
+inputs, to thunder_tpu's insert_slices_3d / insert_slices_2d (HK11's
+slab form: to its plain version), within 1e-6 of max |F| and max |T|:
+the same (sample, tap, weight) triples summed in another order."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -110,16 +111,21 @@ def test_hk3_gather_matches_scatter(label, r_u, pf, big, kind, use_d, zero_w):
 
 
 # (label, group, r_u, pf, big, slab planes [z0, z0 + bz), classes)
-HK9_CASES = [("C1, slab through the centre", "C1", 6, 2, 32, (10, 13), 1),
-             ("C4, a slab splitting samples' z planes", "C4", 6, 2, 32, (15, 17), 2),
-             ("C4, every plane in two slabs", "C4", 5, 2, 28, (0, 14), 2),
-             ("D2, slab at the face the taps pass", "D2", 6, 2, 18, (0, 7), 1),
-             ("C4, pf 1", "C4", 6, 1, 16, (5, 11), 2)]
+SLAB_CASES = [("C1, slab through the centre", "C1", 6, 2, 32, (10, 13), 1),
+              ("C4, a slab splitting samples' z planes", "C4", 6, 2, 32, (15, 17), 2),
+              ("C4, every plane in two slabs", "C4", 5, 2, 28, (0, 14), 2),
+              ("D2, slab at the face the samples pass", "D2", 6, 2, 18, (0, 7), 1),
+              ("C4, pf 1", "C4", 6, 1, 16, (5, 11), 2)]
 
 
-@pytest.mark.parametrize("label,sym,r_u,pf,big,slab,n_cls", HK9_CASES,
-                         ids=[c[0] for c in HK9_CASES])
-def test_hk9_gather_matches_scatter(label, sym, r_u, pf, big, slab, n_cls):
+@pytest.mark.parametrize("label,sym,r_u,pf,big,slab,n_cls", SLAB_CASES,
+                         ids=[c[0] for c in SLAB_CASES])
+def test_hk11_slab_gather_matches_scatter(label, sym, r_u, pf, big, slab, n_cls):
+    """HK11's slab form: its enumeration against its plain version (the
+    same sweep weights summed in another order, TOL); C1's slab against
+    the one-grid sweep HK11's plain version forms from the images,
+    within 1e-5 of max |F| and max |T| (the dense passes sum in another
+    order again)."""
     rng = np.random.default_rng(len(label) + 100)
     n_img, n_s = 4, 10
     ft, ctf = images(rng, n_img)
@@ -128,26 +134,24 @@ def test_hk9_gather_matches_scatter(label, sym, r_u, pf, big, slab, n_cls):
     trans = torch.as_tensor(rng.uniform(-2, 2, (n_s, 2)).astype(np.float32))
     w = torch.as_tensor(rng.random(n_s).astype(np.float32))
     cls = torch.as_tensor(rng.integers(0, n_cls, n_s)).to(torch.int32)
-    vals, c2w, vc, vr = ti.dense_slice_values(ft, ctf, img, trans, w, r_u, SIZE, PIX)
+    vals, c2w, _, _ = ti.dense_slice_values(ft, ctf, img, trans, w, r_u, SIZE, PIX)
     mats = Symmetry(sym).matrices
     z0, z1 = slab
     bz = z1 - z0
     f0, t0 = zeros3(big, n_cls, bz)
-    fg, tg = ti.insert_trilinear_slab_gather_plain(vals, c2w, rot, cls, r_u, pf, mats,
-                                                   f0.clone(), t0.clone(), z0)
-    fs, ts = ti.insert_trilinear_slab_plain(vals, c2w, rot, cls, r_u, pf, mats,
-                                            f0.clone(), t0.clone(), z0)
+    fg, tg = ti.insert_sweep_slab_gather_plain(vals, c2w, rot, cls, r_u, pf, mats,
+                                               f0.clone(), t0.clone(), z0)
+    fs, ts = ti.insert_sweep_slab_plain(vals, c2w, rot, cls, r_u, pf, mats,
+                                        f0.clone(), t0.clone(), z0)
     close(fg, fs)
     close(tg, ts)
     assert ("face" in label) == taps_pass_faces((mats[:, None] @ rot[None]).reshape(-1, 3, 3), r_u,
                                                     pf, big)
-    if sym == "C1":   # one class, the identity alone: thunder_tpu's whole grid, cut
-        jf, jt = ji.insert_slices_3d(jnp.zeros((big,) * 3, jnp.complex64),
-                                     jnp.zeros((big,) * 3, jnp.float32), vals.numpy(),
-                                     c2w.numpy(), rot.numpy(), vc.numpy(), vr.numpy(), pf,
-                                     float((r_u - 1) * pf))
-        close(fg[0], np.asarray(jf)[z0:z1])
-        close(tg[0], np.asarray(jt)[z0:z1])
+    if sym == "C1":   # one class, the identity alone: HK11's whole grid, cut
+        f1, t1 = ti.insert_sweep_plain(ft, ctf, img, rot, trans, w, r_u, pf, SIZE, PIX,
+                                       *zeros3(big))
+        close(fg[0], f1[z0:z1], 1e-5)
+        close(tg[0], t1[z0:z1], 1e-5)
 
 
 # (label, r_u, pf, big, classes)

@@ -487,10 +487,11 @@ def test_post_refinement_paths(dev):
 
 
 @pytest.mark.parametrize("sym,slabs", [("C4", 2), ("C1", 4), ("D2", 3)])
-def test_insert_trilinear_slab(dev, sym, slabs):
-    """HK9 against its plain twin slab by slab (zero-weight slices, two
-    classes, the mates' radius cut); the slabs together against HK3 then
-    HK7 for the signed-permutation groups; 1e-5: sums in another order."""
+def test_insert_sweep_slab(dev, sym, slabs):
+    """HK11's slab form against its plain version slab by slab
+    (zero-weight slices, two classes, the mates' radius cut); the slabs
+    together against HK11 then HK7 for the signed-permutation groups;
+    1e-5: sums in another order."""
     from thunder_tpu_torch.geometry.symmetry import Symmetry
     from thunder_tpu_torch.recon.reconstructor import symmetrize_ft
 
@@ -511,11 +512,10 @@ def test_insert_trilinear_slab(dev, sym, slabs):
     bz = big // slabs
     fk, tk = [], []
     for j in range(slabs):
-        f, t = insert.insert_trilinear_slab(vals, c2w, rot, cls, r_u, pf, mats, 2, big,
-                                            j * bz, bz)
+        f, t = insert.insert_sweep_slab(vals, c2w, rot, cls, r_u, pf, mats, 2, big, j * bz, bz)
         zeros = (torch.zeros_like(f), torch.zeros_like(t))
-        fp, tp = insert.insert_trilinear_slab_plain(vals, c2w, rot, cls, r_u, pf, mats,
-                                                    *zeros, j * bz)
+        fp, tp = insert.insert_sweep_slab_plain(vals, c2w, rot, cls, r_u, pf, mats, *zeros,
+                                                j * bz)
         assert rel_err(torch.view_as_real(f), torch.view_as_real(fp)) < 1e-5
         assert rel_err(t, tp) < 1e-5
         fk.append(f)
@@ -527,16 +527,17 @@ def test_insert_trilinear_slab(dev, sym, slabs):
     t3 = torch.zeros((2,) + (big,) * 3, device=dev)
     for k in range(2):
         sel = torch.nonzero(cls == k)[:, 0]
-        insert.insert_trilinear(ft, ctf, img[sel], rot[sel], trans[sel], w[sel], r_u, pf, size,
-                                1.32, big, f3[k], t3[k])
+        insert.insert_sweep(ft, ctf, img[sel], rot[sel], trans[sel], w[sel], r_u, pf, size, 1.32,
+                            big, f3[k], t3[k])
     f7, t7 = symmetrize_ft(f3, t3, mats, float((r_u - 1) * pf))
     assert rel_err(torch.view_as_real(f9), torch.view_as_real(f7)) < 1e-5
     assert rel_err(t9, t7) < 1e-5
 
 
 def _insert_case(dev, kind, big_3d=None):
-    """(kernel call, plain call) of HK3, HK6 or HK9 on random slices (HK3
-    with a defocus factor a slice, HK9 with C4's mates into a slab);
+    """(kernel call, plain call) of HK3, HK6, HK10, HK11 (and its slab
+    form, with C4's mates into a slab) or HK12 on random slices (a
+    defocus factor a slice in 3D);
     ``big_3d`` a grid small enough that taps pass its faces."""
     g = generator(23, dev)
     size, n_img, n_s, r_u, pf = 32, 5, 40, 12, 2
@@ -552,36 +553,42 @@ def _insert_case(dev, kind, big_3d=None):
     cls = torch.randint(0, 3, (n_s,), generator=g, device=dev)
     zeros = lambda shape: (torch.zeros(shape, dtype=torch.complex64, device=dev),
                            torch.zeros(shape, device=dev))
-    if kind == "insert_bilinear_2d":
+    if kind in ("insert_bilinear_2d", "insert_sweep_2d"):
         args = (ft, ctf, img, cls, _rot2d(g, (n_s,), dev), trans, w, r_u, pf, size, 1.32)
+        if kind == "insert_sweep_2d":
+            return (lambda: insert.insert_sweep_2d(*args, big, 3),
+                    lambda: insert.insert_sweep_2d_plain_values(*args, *zeros((3, big, big))))
         return (lambda: insert.insert_bilinear_2d(*args, big, 3),
                 lambda: insert.insert_bilinear_2d_plain(*args, *zeros((3, big, big))))
     rot = rotate3d(random_quat(g, (n_s,), dev))
-    if kind == "insert_trilinear_slab":
+    if kind == "insert_sweep_slab":
         from thunder_tpu_torch.geometry.symmetry import Symmetry
 
         vals, c2w, _, _ = insert.dense_slice_values(ft, ctf, img, trans, w, r_u, size, 1.32)
         mats = Symmetry("C4", dev).matrices
         z0, bz = 0, big // 2
-        return (lambda: insert.insert_trilinear_slab(vals, c2w, rot, cls, r_u, pf, mats, 3, big,
-                                                     z0, bz),
-                lambda: insert.insert_trilinear_slab_plain(vals, c2w, rot, cls, r_u, pf, mats,
-                                                           *zeros((3, bz, big, big)), z0))
+        return (lambda: insert.insert_sweep_slab(vals, c2w, rot, cls, r_u, pf, mats, 3, big, z0,
+                                                 bz),
+                lambda: insert.insert_sweep_slab_plain(vals, c2w, rot, cls, r_u, pf, mats,
+                                                       *zeros((3, bz, big, big)), z0))
     d = 1 + 0.03 * torch.randn(n_s, generator=g, device=dev)
     args = (ft, ctf, img, rot, trans, w, r_u, pf, size, 1.32)
     if kind == "insert_mkb":
         return (lambda: insert.insert_mkb(*args, big, d=d),
                 lambda: insert.insert_mkb_plain(*args, *zeros((big,) * 3), d))
+    if kind == "insert_sweep":
+        return (lambda: insert.insert_sweep(*args, big, d=d),
+                lambda: insert.insert_sweep_plain(*args, *zeros((big,) * 3), d))
     return (lambda: insert.insert_trilinear(*args, big, d=d),
             lambda: insert.insert_trilinear_plain(*args, *zeros((big,) * 3), d))
 
 
-@pytest.mark.parametrize("kind", ["insert_trilinear", "insert_bilinear_2d",
-                                  "insert_trilinear_slab", "insert_mkb"])
+@pytest.mark.parametrize("kind", ["insert_trilinear", "insert_bilinear_2d", "insert_mkb",
+                                  "insert_sweep", "insert_sweep_slab", "insert_sweep_2d"])
 def test_insert_gathers_repeat_bitwise(dev, kind):
-    """HK3, HK6, HK9 and HK10: each cell sums its slices in a fixed
-    order, so two calls give identical bits; each still matches its twin
-    (1e-5)."""
+    """HK3, HK6, HK10, HK11 (one grid and the slab form) and HK12:
+    each cell sums its slices in a fixed order, so two calls give
+    identical bits; each still matches its twin (1e-5)."""
     call, plain = _insert_case(dev, kind)
     (f1, t1), (f2, t2) = call(), call()
     assert torch.equal(f1, f2) and torch.equal(t1, t2)
@@ -590,12 +597,13 @@ def test_insert_gathers_repeat_bitwise(dev, kind):
     assert rel_err(t1, tp) < 1e-5
 
 
-@pytest.mark.parametrize("kind", ["insert_trilinear", "insert_bilinear_2d",
-                                  "insert_trilinear_slab", "insert_mkb"])
+@pytest.mark.parametrize("kind", ["insert_trilinear", "insert_bilinear_2d", "insert_mkb",
+                                  "insert_sweep", "insert_sweep_slab", "insert_sweep_2d"])
 def test_insert_gathers_taps_past_the_faces(dev, kind):
     """A grid of 40 cells at r_u 12, pf 2: taps reach indices -3 and 43
     (the blob's -4 and 44), which the scatter clips onto the faces and
-    the gathers' face cells take from their virtual cells."""
+    the gathers' face cells take from their virtual cells; the sweep's
+    reach passes the faces too, and it drops what lies past them."""
     lo, hi = insert.tap_range(40, 22.0)
     assert lo < 0 and hi > 39
     call, plain = _insert_case(dev, kind, big_3d=40)

@@ -1,5 +1,5 @@
-"""The port's z-slab reconstruction (recon/sharded.py) and HK9's plain
-twin on the CPU, four gloo ranks (hemi 2 x data 2) where ranks are
+"""The port's z-slab reconstruction (recon/sharded.py) and HK11's slab
+form's plain version on the CPU, four gloo ranks (hemi 2 x data 2) where ranks are
 needed.
 
 * ``_fft3_dist`` and the half-box roll on slabs against torch.fft.fftn
@@ -8,9 +8,9 @@ needed.
   ``reconstruct_all_sharded`` on a (2, 2) mesh of the conftest's devices
   from the same F / T, and ``reconstruct_two_pass_sharded`` against the
   port's one-grid ``reconstruct_two_pass``;
-* ``insert_trilinear_slab_plain`` summed over slabs against HK3's plain
-  version then HK7's (grid-side C4) and, inside the radius, against HK3's
-  with the mates expanded pose-side;
+* ``insert_sweep_slab_plain`` summed over slabs against HK11's plain
+  version then HK7's (grid-side C4) and, inside the radius, against
+  HK11's with the mates expanded pose-side;
 * a C2 round through the slab path (``vol_shard_min_mb = 0``) against the
   one-process round, held to thunder_tpu's own bound (corr > 0.985,
   tests/test_volume_sharding.py:195-236).
@@ -148,41 +148,39 @@ def _slices(size: int, r_u: int, n: int):
     return ft, ctf, idx, rot, trans, w, vals, c2w
 
 
-def test_slab_insertion_plain_matches_hk3_then_hk7():
+def test_slab_insertion_plain_matches_hk11_then_hk7():
     from thunder_tpu_torch.geometry.symmetry import Symmetry
-    from thunder_tpu_torch.ops.insert import (insert_trilinear_plain,
-                                              insert_trilinear_slab_plain)
+    from thunder_tpu_torch.ops.insert import insert_sweep_plain, insert_sweep_slab_plain
     from thunder_tpu_torch.recon.reconstructor import symmetrize_ft_plain
 
     size, r_u, pf, n, big, d = 16, 6, 2, 6, 24, 4
     ft, ctf, idx, rot, trans, w, vals, c2w = _slices(size, r_u, n)
     mats = Symmetry("C4", "cpu").matrices
     zeros = lambda dt: torch.zeros((big,) * 3, dtype=dt)
-    f3, t3 = insert_trilinear_plain(ft, ctf, idx, rot, trans, w, r_u, pf, size, 1.0,
-                                    zeros(torch.complex64), zeros(torch.float32))
+    f3, t3 = insert_sweep_plain(ft, ctf, idx, rot, trans, w, r_u, pf, size, 1.0,
+                                zeros(torch.complex64), zeros(torch.float32))
     r_pad = float((r_u - 1) * pf)
     f7, t7 = symmetrize_ft_plain(f3, t3, mats, r_pad)
     bz = big // d
     cls = torch.zeros(n, dtype=torch.int64)
-    slabs = [insert_trilinear_slab_plain(
+    slabs = [insert_sweep_slab_plain(
         vals, c2w, rot, cls, r_u, pf, mats, torch.zeros((1, bz, big, big), dtype=torch.complex64),
         torch.zeros((1, bz, big, big)), j * bz) for j in range(d)]
     f9 = torch.cat([s[0][0] for s in slabs])
     t9 = torch.cat([s[1][0] for s in slabs])
     assert _rel(f9.numpy(), f7.numpy()) < 1e-5 and _rel(t9.numpy(), t7.numpy()) < 1e-5
-    # inside the radius HK9 is HK3 with every mate's poses inserted
+    # inside the radius the slab form is HK11 with every mate's poses inserted
     fe, te = zeros(torch.complex64), zeros(torch.float32)
     for m in mats:
-        fe, te = insert_trilinear_plain(ft, ctf, idx, m @ rot, trans, w, r_u, pf, size, 1.0,
-                                        fe, te)
+        fe, te = insert_sweep_plain(ft, ctf, idx, m @ rot, trans, w, r_u, pf, size, 1.0, fe, te)
     k = torch.arange(big) - big // 2
     inside = (k[:, None, None] ** 2 + k[None, :, None] ** 2 + k[None, None, :] ** 2) < r_pad ** 2
     assert _rel(f9[inside].numpy(), fe[inside].numpy()) < 1e-5
     assert _rel(t9[inside].numpy(), te[inside].numpy()) < 1e-5
-    # the identity alone is HK3
-    one = insert_trilinear_slab_plain(vals, c2w, rot, cls, r_u, pf, mats[:1],
-                                      torch.zeros((1, big, big, big), dtype=torch.complex64),
-                                      torch.zeros((1, big, big, big)), 0)
+    # the identity alone is HK11
+    one = insert_sweep_slab_plain(vals, c2w, rot, cls, r_u, pf, mats[:1],
+                                  torch.zeros((1, big, big, big), dtype=torch.complex64),
+                                  torch.zeros((1, big, big, big)), 0)
     assert _rel(one[0][0].numpy(), f3.numpy()) < 1e-5
 
 

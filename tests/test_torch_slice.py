@@ -185,8 +185,11 @@ def test_stage_parity_maximization(pair):
 
 
 def test_stage_parity_reconstruction_and_fsc(pair):
-    """Same draws inserted by both packages' exact trilinear scatter,
-    then the two-pass reconstruction and the hemisphere FSC."""
+    """Same draws inserted by the port's round (HK11's plain version)
+    and by thunder_tpu's shear sweep (insert_sweep_3d), within twice the
+    distance of thunder_tpu's bf16 sweep from the float64 map
+    (test_torch_insert_sweep.py), then the two-pass reconstruction and
+    the hemisphere FSC."""
     jopt, topt = pair
     rng = np.random.default_rng(5)
     n_l, n_s = topt.n_img, 12
@@ -196,25 +199,22 @@ def test_stage_parity_reconstruction_and_fsc(pair):
     tr = rng.normal(0, 0.5, (2, n_l, n_s, 2)).astype(np.float32)
     w = np.full((2, n_l, n_s), 1.0 / n_s, np.float32)
     f2, t2, r_u, gs = topt.reconstruct_round(draws=(t(q), t(tr), None, t(w)))
-    # JAX side: insert_slices_3d over the same dense values
-    from thunder_tpu.ops.insert import insert_slices_3d
+    # JAX side: its sweep over the same dense values
+    from test_torch_insert_sweep import thunder_sweep
     from thunder_tpu_torch.ops.insert import dense_slice_values
     big = gs * 2
     for h in (0, 1):
         valid = np.asarray(topt.valid[h], np.float32)
         ww = (w[h] * valid[:, None]).reshape(-1)
         img = np.repeat(np.arange(n_l), n_s)
-        vals, c2w, vc, vr = dense_slice_values(
+        vals, c2w, _, _ = dense_slice_values(
             topt.data.ft_ori[h], topt.data.ctf_params.map(lambda a: a[h]), t(img),
             t((tr[h] - np.asarray(topt.offset[h])[:, None]).reshape(-1, 2)), t(ww),
             r_u, 24, 1.0)
         rot = jo.rotate3d(jnp.asarray(q[h].reshape(-1, 4)))
-        fj, tj = insert_slices_3d(jnp.zeros((big,) * 3, jnp.complex64),
-                                  jnp.zeros((big,) * 3, jnp.float32), vals.numpy(),
-                                  c2w.numpy(), rot, vc.numpy(), vr.numpy(), 2,
-                                  float((r_u - 1) * 2))
-        close(f2[h, 0], fj, 1e-5)
-        close(t2[h, 0], tj, 1e-5)
+        fj, tj, tol = thunder_sweep(vals.numpy(), c2w.numpy(), rot, big, 2)
+        close(f2[h, 0], fj, tol[0])
+        close(t2[h, 0], tj, tol[1])
     fsc_prev = jnp.ones((1, 10), jnp.float32)
     ja, jb = jo._reconstruct_two_h(jnp.asarray(f2.numpy()), jnp.asarray(t2.numpy()),
                                    fsc_prev, gs, 2, r_u, 24)
@@ -222,10 +222,10 @@ def test_stage_parity_reconstruction_and_fsc(pair):
     ta, tb = reconstruct_two_pass(f2, t2, torch.ones(1, 10), gs, 2, r_u)
     if gs != 24:
         ta, tb = tf.resize_rl(ta, 24, nd=3), tf.resize_rl(tb, 24, nd=3)
-    # cells of T left empty between slices: the port keeps W = 1 there
-    # where thunder_tpu lets it grow (ROADMAP Q3), and near them the
-    # balance loop amplifies float32 rounding of the FFTs: hold the maps
-    # to a relative L2 error and the FSC curve to 5e-3
+    # cells of T left empty between slices: W grows there in both packages
+    # after the sweep, and near them the balance loop amplifies float32
+    # rounding of the FFTs: hold the maps to a relative L2 error and the
+    # FSC curve to 5e-3
     for a, b in ((ta, ja), (tb, jb)):
         a, b = a.numpy(), np.asarray(b)
         assert np.linalg.norm(a - b) / np.linalg.norm(b) < 2e-2

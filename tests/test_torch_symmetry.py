@@ -167,9 +167,11 @@ def c4_pair():
 
 
 def test_c4_round_insertion_and_symmetrisation(c4_pair):
-    """The same draws through the port's reconstruct_round (HK3's and
-    HK7's plain versions) and through thunder_tpu's exact trilinear
-    scatter followed by its symmetrize_ft on F and on T; then the
+    """The same draws through the port's reconstruct_round (HK11's and
+    HK7's plain versions) and through thunder_tpu's shear sweep
+    (insert_sweep_3d, the rounds' insertion) followed by its
+    symmetrize_ft on F and on T, within twice the distance of thunder_tpu's
+    bf16 sweep from the float64 map (test_torch_insert_sweep.py); then the
     two-pass reconstruction of both from the port's grids."""
     jopt, topt = c4_pair
     assert topt.model.r_global == jopt.model.r_global and topt.sym.order == 4
@@ -181,24 +183,24 @@ def test_c4_round_insertion_and_symmetrisation(c4_pair):
     tr = rng.normal(0, 0.5, (2, n_l, n_s, 2)).astype(np.float32)
     w = np.full((2, n_l, n_s), 1.0 / n_s, np.float32)
     f2, t2, r_u, gs = topt.reconstruct_round(draws=(t(q), t(tr), None, t(w)))
-    from thunder_tpu.ops.insert import insert_slices_3d
+    from test_torch_insert_sweep import thunder_sweep
     from thunder_tpu_torch.ops.insert import dense_slice_values
     big = gs * 2
     mats = JSymmetry("C4").matrices
+    rad = float((r_u - 1) * 2)
+    sym = lambda f, t_: (jsymmetrize(f, mats, rad),
+                         jnp.real(jsymmetrize(t_.astype(jnp.complex64), mats, rad)))
     for h in (0, 1):
         valid = np.asarray(topt.valid[h], np.float32)
-        vals, c2w, vc, vr = dense_slice_values(
+        vals, c2w, _, _ = dense_slice_values(
             topt.data.ft_ori[h], topt.data.ctf_params.map(lambda a: a[h]),
             t(np.repeat(np.arange(n_l), n_s)),
             t((tr[h] - np.asarray(topt.offset[h])[:, None]).reshape(-1, 2)),
             t((w[h] * valid[:, None]).reshape(-1)), r_u, 24, 1.0)
-        fj, tj = insert_slices_3d(
-            jnp.zeros((big,) * 3, jnp.complex64), jnp.zeros((big,) * 3, jnp.float32),
-            vals.numpy(), c2w.numpy(), jo.rotate3d(jnp.asarray(q[h].reshape(-1, 4))),
-            vc.numpy(), vr.numpy(), 2, float((r_u - 1) * 2))
-        rad = float((r_u - 1) * 2)
-        close(f2[h, 0], jsymmetrize(fj, mats, rad), 1e-5)
-        close(t2[h, 0], jnp.real(jsymmetrize(tj.astype(jnp.complex64), mats, rad)), 1e-5)
+        fj, tj, tol = thunder_sweep(vals.numpy(), c2w.numpy(),
+                                    jo.rotate3d(jnp.asarray(q[h].reshape(-1, 4))), big, 2, sym)
+        close(f2[h, 0], fj, tol[0])
+        close(t2[h, 0], tj, tol[1])
     ja, _ = jo._reconstruct_two_h(jnp.asarray(f2.numpy()), jnp.asarray(t2.numpy()),
                                   jnp.ones((1, 10), jnp.float32), gs, 2, r_u, 24)
     ta, _ = trec.reconstruct_two_pass(f2, t2, torch.ones(1, 10), gs, 2, r_u)

@@ -62,10 +62,14 @@ _SIGNATURES = {
     "thunder_take_along": [_P, _I, _P, _P, _L, _I, _I, _P, _P],
     "thunder_take_rows": [_P, _I, _I, _P, _L, _P, _P],
     "thunder_empty_launch": [_P],
-    "thunder_insert_trilinear_slab": [_P, _P, _P, _I, _I, _I, _F, _P, _I, _P, _P, _I,
-                                      _I, _I, _I, _I, _I, _P],
     "thunder_insert_mkb": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P,
                            _P, _I, _I, _I, _F, _F, _F, _F, _P],
+    "thunder_insert_sweep": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P,
+                             _P, _P, _I, _P],
+    "thunder_insert_sweep_slab": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _P, _P, _I, _I, _I,
+                                  _I, _P],
+    "thunder_insert_sweep_2d": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _F, _F, _F,
+                                _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

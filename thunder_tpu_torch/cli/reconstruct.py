@@ -88,7 +88,7 @@ def main(argv=None) -> int:
     sym = Symmetry(a.sym, dev)
     if sym.order > 1:
         f_grid, t_grid = symmetrize_ft(f_grid, t_grid, sym.matrices, float((r_u - 1) * pf))
-    vol = reconstruct(f_grid, t_grid, size, pf, r_u)
+    vol = reconstruct(f_grid, t_grid, size, pf, r_u, guard_empty=True)
     write_mrc(a.o, vol.cpu().numpy(), a.pixelsize)
     return 0
 

@@ -1,13 +1,27 @@
-// HK6 insert_bilinear_2d: bilinear Fourier insertion of compacted 2D
-// slices into per-class (F, T) planes, as a gather: each plane cell
-// forms its own sum.
+// HK6 insert_bilinear_2d and HK12 insert_sweep_2d: Fourier insertion of
+// compacted 2D slices into per-class (F, T) planes, as a gather: each
+// plane cell forms its own sum.
 //
-// Replaces (thunder_tpu): optimiser._insert_all_h's one_2d_sweep over
-// ops/insert.py insert_sweep_2d (the scatter-free adjoint of a sheared
-// resampler, built because the TPU's scatter was the 2D-classification
-// bottleneck at mReco = 100).  Its math is the bilinear scatter
-// insert_slices_2d after _insert_class's 2D value formation and the
-// Hermitian fold.
+// Replaces (thunder_tpu): HK12, the rounds' 2D insertion,
+// optimiser.py:1273 one_2d_sweep over ops/insert.py:721 insert_sweep_2d
+// (the scatter-free adjoint of a sheared resampler, built because the
+// TPU's scatter was the 2D-classification bottleneck at mReco = 100);
+// HK6, the bilinear scatter insert_slices_2d after _insert_class's 2D
+// value formation and the Hermitian fold, which the insertion option
+// reco_kernel="mkb" takes in 2D.
+//
+// HK12 is HK6 with the sweep's weight (template parameter SWEEP): with
+// (h, k) = (vr, vc), or (vc, vr) where the slice's h/k swap is set,
+// sample (h, k) adds to cell (x, y) with hat(y - ey1 h - ey2 k) hat(x -
+// p_h h - q_y y), hat(t) = max(0, 1 - |t|), the coefficients formed on
+// the host (ops/insert.py sweep_coeffs_2d).  A cell walks the h whose x
+// hat reaches it (|p_h| >= pf: at most 2), for each the k whose y hat
+// reaches it (|ey2| >= pf / sqrt 2), each weight formed as the plain
+// version forms it, in float32 as thunder_tpu's 2D sweep.  It reaches
+// sqrt 5 from a sample (|y - P_y| < 1, |x - P_x| < 1 + |q_y| <= 2) and
+// drops what lies past the plane: no face gathers virtual cells.
+//
+// HK6:
 //
 // The scatter it computes: for slice s of image l at a dense pixel (vc,
 // vr) of the nk x nk window (nk = 2 r_u - 1) with vc^2 + vr^2 < (r_u -
@@ -61,6 +75,11 @@ constexpr int THREADS = TILE_X * TILE_Y;
 constexpr int BATCH = 32;    // slices staged at once
 constexpr float REACH = 1.4142136f + 1e-2f;   // sqrt 2 and a margin for rounding
 constexpr float STRIP = 1.f + 1e-2f;          // the same margin on a cell's half-width
+// HK12: a cell within sqrt 5 of a sample; the margin widens the
+// candidate ranges (ops/insert.py SWEEP_REACH_2D, SWEEP_MARGIN)
+constexpr float SWEEP_REACH = 2.2360680f + 1e-2f;
+constexpr float SWEEP_MARGIN = 1e-2f;
+constexpr int SWEEP_SWAP_HK = 4;
 
 // the first pass: (Re, Im) of ft * ctf * mask_d and ctf^2 * mask_d of
 // every image at every in-disc window pixel (zero elsewhere), one
@@ -97,13 +116,25 @@ __device__ __forceinline__ float axis_weight(int t, int v, float frac) {
   return t == v ? 1.f - frac : (t + 1 == v ? frac : -1.f);
 }
 
-template <int MAXC>
+__device__ __forceinline__ float hat1(float t) { return fmaxf(0.f, __fsub_rn(1.f, fabsf(t))); }
+
+// HK12's candidate range of a pass index (ops/insert.py _sweep_range)
+__device__ __forceinline__ void sweep_range(float centre, float coef, int rr, int& lo, int& hi) {
+  const float half = __fdiv_rn(1.f, fabsf(coef));
+  lo = max(-rr, (int)ceilf(__fsub_rn(__fsub_rn(centre, half), SWEEP_MARGIN)));
+  hi = min(rr, (int)floorf(__fadd_rn(__fadd_rn(centre, half), SWEEP_MARGIN)));
+}
+
+// SWEEP (HK12): rot holds each slice's sweep coefficients (ey1, ey2,
+// p_h, q_y) and flags its h/k swap; else (HK6) its rotation.
+template <int MAXC, bool SWEEP>
 __global__ void __launch_bounds__(THREADS, 2) insert_bilinear_2d_kernel(
     const float4* __restrict__ recs, const int* __restrict__ img_idx,
     const int* __restrict__ cls_start, const float* __restrict__ rot,
-    const float* __restrict__ trans, const float* __restrict__ wsl, int r_u, int pf,
-    float max_radius_pad, float tpos, float2* __restrict__ F, float* __restrict__ T, int big,
-    int win_lo, int win, int vlo, int vhi) {
+    const int* __restrict__ flags, const float* __restrict__ trans,
+    const float* __restrict__ wsl, int r_u, int pf, float max_radius_pad, float tpos,
+    float2* __restrict__ F, float* __restrict__ T, int big, int win_lo, int win, int vlo,
+    int vhi) {
   extern __shared__ __align__(16) float smem[];
   const int nk = 2 * r_u - 1, rr = r_u - 1;
   float2* EX = reinterpret_cast<float2*>(smem);     // BATCH x nk
@@ -111,6 +142,7 @@ __global__ void __launch_bounds__(THREADS, 2) insert_bilinear_2d_kernel(
   float* SR = reinterpret_cast<float*>(EY + BATCH * nk);   // BATCH x 4
   float* SW = SR + 4 * BATCH;                       // BATCH
   int* SI = reinterpret_cast<int*>(SW + BATCH);     // BATCH
+  int* SF = SI + BATCH;                             // BATCH (HK12: its flags)
 
   const int n_tx = (win + TILE_X - 1) / TILE_X;
   const int tx0 = win_lo + (blockIdx.x % n_tx) * TILE_X;
@@ -118,7 +150,7 @@ __global__ void __launch_bounds__(THREADS, 2) insert_bilinear_2d_kernel(
   const int cls = blockIdx.y;
   const int cb = big / 2;
   const int hi = win_lo + win - 1;
-  const float lim = max_radius_pad + REACH;
+  const float lim = max_radius_pad + (SWEEP ? SWEEP_REACH : REACH);
   {
     auto near = [&](int a, int b) { return (float)(a > cb ? a - cb : (b < cb ? cb - b : 0)); };
     float nx = near(tx0, min(tx0 + TILE_X - 1, hi)), ny = near(ty0, min(ty0 + TILE_Y - 1, hi));
@@ -153,6 +185,7 @@ __global__ void __launch_bounds__(THREADS, 2) insert_bilinear_2d_kernel(
     for (int i = tid; i < nb; i += THREADS) {
       SW[i] = wsl[sb + i];
       SI[i] = img_idx[sb + i];
+      if (SWEEP) SF[i] = flags[sb + i];
     }
     __syncthreads();
     if (!active) continue;
@@ -163,6 +196,40 @@ __global__ void __launch_bounds__(THREADS, 2) insert_bilinear_2d_kernel(
       const long long img = SI[b];
       const float2* ex = EX + b * nk + rr;
       const float2* ey = EY + b * nk + rr;
+      if (SWEEP) {
+        // the sweep's samples of the cell: h from the x pass, then k from
+        // the y pass, each weight formed as the plain version forms it
+        // (ops/insert.py _sweep_taps); nothing lies past a face
+        const float ey1 = R0, ey2 = R1, p_h = R2, q_y = R3;
+        const bool shk = (SF[b] & SWEEP_SWAP_HK) != 0;
+        const float fx = (float)(ix - cb), fy = (float)(iy - cb);
+        int h0, h1;
+        sweep_range(__fdiv_rn(__fsub_rn(fx, __fmul_rn(q_y, fy)), p_h), p_h, rr, h0, h1);
+        for (int h = h0; h <= h1; ++h) {
+          const float hf = (float)h;
+          const float wx = hat1(__fsub_rn(fx, __fadd_rn(__fmul_rn(p_h, hf), __fmul_rn(q_y, fy))));
+          if (!(wx > 0.f)) continue;
+          int k0, k1;
+          sweep_range(__fdiv_rn(__fsub_rn(fy, __fmul_rn(ey1, hf)), ey2), ey2, rr, k0, k1);
+          for (int k = k0; k <= k1; ++k) {
+            const float wy =
+                hat1(__fsub_rn(fy, __fadd_rn(__fmul_rn(ey1, hf), __fmul_rn(ey2, (float)k))));
+            const int vr = shk ? k : h, vc = shk ? h : k;
+            if (!(wy > 0.f) || vc * vc + vr * vr >= rr * rr) continue;
+            const float4 d = __ldg(recs + img * nk * nk + (vr + rr) * nk + (vc + rr));
+            const float wt = __fmul_rn(wy, wx);
+            const float2 a = ex[vc], e = ey[vr];
+            const float er = a.x * e.x - a.y * e.y, ei = a.x * e.y + a.y * e.x;
+            const float vre = (d.x * er - d.y * ei) * w;
+            const float vim = (d.x * ei + d.y * er) * w;
+            acc_re += vre * wt;
+            acc_im += vim * wt;
+            acc_t += (d.z * w) * wt;
+            hit = true;
+          }
+        }
+        continue;
+      }
       for (int vy = vy0; vy <= vy1; ++vy)
         for (int vx = vx0; vx <= vx1; ++vx) {
           const float fx = (float)(vx - cb), fy = (float)(vy - cb);
@@ -253,7 +320,8 @@ extern "C" int thunder_insert_bilinear_2d(
   form_images_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
       (const float2*)ft, size, (const float*)ctfk, r_u, box_a, (float4*)recs, total);
   // candidates an axis: 2 sqrt 2 / pf + 1 of them at most
-  auto kernel = pf == 1 ? insert_bilinear_2d_kernel<3> : insert_bilinear_2d_kernel<2>;
+  auto kernel =
+      pf == 1 ? insert_bilinear_2d_kernel<3, false> : insert_bilinear_2d_kernel<2, false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute((const void*)kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -262,7 +330,38 @@ extern "C" int thunder_insert_bilinear_2d(
   const int n_t = ((win + TILE_X - 1) / TILE_X) * ((win + TILE_Y - 1) / TILE_Y);
   kernel<<<dim3(n_t, n_class), THREADS, smem, st>>>(
       (const float4*)recs, (const int*)img_idx, (const int*)cls_start,
-      (const float*)rot, (const float*)trans, (const float*)w, r_u, pf, max_radius_pad, tpos,
-      (float2*)F, (float*)T, big, win_lo, win, vlo, vhi);
+      (const float*)rot, nullptr, (const float*)trans, (const float*)w, r_u, pf,
+      max_radius_pad, tpos, (float2*)F, (float*)T, big, win_lo, win, vlo, vhi);
+  return (int)cudaGetLastError();
+}
+
+// HK12.  HK6's arguments with coef (B, 4), the sorted slices' sweep
+// coefficients (ey1, ey2, p_h, q_y), and flags (B,) int32 their h/k
+// swaps (ops/insert.py sweep_coeffs_2d) in place of the rotations; the
+// tiles cover [win_lo, win_lo + win)^2 (insert_2d_plan(sweep=True)), and
+// no tap range: the sweep drops what lies past the plane.
+extern "C" int thunder_insert_sweep_2d(
+    const void* ft, int size, const void* ctfk, int n_img, const void* img_idx,
+    const void* cls_start, int n_class, const void* coef, const void* flags, const void* trans,
+    const void* w, int r_u, int pf, float max_radius_pad, float box_a, float tpos, void* F,
+    void* T, void* recs, int big, int win_lo, int win, int threads, int smem, void* stream) {
+  if (threads != THREADS) return (int)cudaErrorInvalidValue;
+  if (n_class <= 0 || n_img <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nk = 2 * r_u - 1;
+  long long total = (long long)n_img * nk * nk;
+  form_images_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      (const float2*)ft, size, (const float*)ctfk, r_u, box_a, (float4*)recs, total);
+  auto kernel = insert_bilinear_2d_kernel<2, true>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute((const void*)kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int n_t = ((win + TILE_X - 1) / TILE_X) * ((win + TILE_Y - 1) / TILE_Y);
+  kernel<<<dim3(n_t, n_class), THREADS, smem, st>>>(
+      (const float4*)recs, (const int*)img_idx, (const int*)cls_start, (const float*)coef,
+      (const int*)flags, (const float*)trans, (const float*)w, r_u, pf, max_radius_pad, tpos,
+      (float2*)F, (float*)T, big, win_lo, win, 0, big - 1);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,17 @@
 """Device and dtype policy for the port.
 
 * Real tensors are float32, spectra complex64 (the reference and the
-  JAX package both run single precision).
+  JAX package both run single precision), with one exception.
+* The balance loop of the gridding reconstruction (its W, T and FFT
+  pair) runs in float64 / complex128 (``BALANCE_REAL``,
+  ``BALANCE_COMPLEX``) and hands W back as float32; the JAX package's
+  loop is float32.  Its stop reads max ||C| - 1| over every cell inside
+  the radius, and where the round's insertion leaves cells empty |C|
+  there is the FFT's rounding in float32, so the count at which a
+  float32 loop stops, and the map, followed rounding.  A float32 loop
+  run for the count the float64 loop stops at gives the float64 loop's
+  run: the precision of the update does not matter, the stop's reading
+  of empty cells does.
 * TF32 is OFF for matmuls and cuDNN: the likelihood contractions of
   the plain versions must keep full float32 accuracy so that the port
   agrees with the JAX package (which runs them at f32-class precision)
@@ -17,6 +27,8 @@ import torch
 
 REAL = torch.float32
 COMPLEX = torch.complex64
+BALANCE_REAL = torch.float64
+BALANCE_COMPLEX = torch.complex128
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

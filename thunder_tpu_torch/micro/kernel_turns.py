@@ -1,9 +1,11 @@
 """HK1 ``project_slices``, HK3 ``insert_trilinear``, HK4 ``shell_sums``,
 HK5 ``project_slices_2d``, HK6 ``insert_bilinear_2d``, HK7
-``symmetrize_ft``, HK8 ``likelihood_local_ctf``, HK9
-``insert_trilinear_slab`` and HK10 ``insert_mkb`` (at HK3's shapes, on
-HK3's slices, in a tree that has it) of two checkouts timed in turns on
-one card, at the shapes ``chip_smoke.py`` times.
+``symmetrize_ft``, HK8 ``likelihood_local_ctf``, HK10 ``insert_mkb``
+and HK11 ``insert_sweep`` (at HK3's shapes, on HK3's slices), HK11's
+slab form ``insert_sweep_slab`` (at phase 8b's and 8c's shapes) and HK12
+``insert_sweep_2d`` (on HK6's), each in a tree that
+has it, of two checkouts timed in turns on one card, at the shapes
+``chip_smoke.py`` times.
 
     python thunder_tpu_torch/micro/kernel_turns.py PARENT_TREE [THIS_TREE]
 
@@ -90,12 +92,15 @@ def one_turn() -> dict:
     trans = 3 * torch.randn(n_s, 2, device=dev)
     w = torch.rand(n_s, device=dev) / 48
     mkb = getattr(insert, "insert_mkb", None)
+    sweep = getattr(insert, "insert_sweep", None)
 
     def hk3(name, *args, reps, d=None):
         out[name] = timed(lambda: insert.insert_trilinear(*args, d=d), reps)
-        if mkb is not None:
-            # HK10 (the MKB option) on the same slices, where the tree has it
-            out[name.replace("HK3", "HK10")] = timed(lambda: mkb(*args, d=d), reps)
+        # HK10 (the MKB option) and HK11 (the rounds' sweep) on the same
+        # slices, where the tree has them
+        for other, fn in (("HK10", mkb), ("HK11", sweep)):
+            if fn is not None:
+                out[name.replace("HK3", other)] = timed(lambda: fn(*args, d=d), reps)
 
     for size, r_u in ((128, 36), (256, 85)):
         big = reco_grid_size(size, r_u) * 2
@@ -177,10 +182,10 @@ def one_turn() -> dict:
 
 
 def turn_69(dev, gen, rng, timed) -> dict:
-    """HK6 (the 2D round's 480,000 slices of 10,000 images into 60 planes
-    at r_u 31, a tenth at r_u 12 and 40) and HK9 (C4, the first slab: 8b's
-    24,576 slices at r_u 44 into 92 x 184^2, 8c's 256 slices at r_u 150
-    into 320 x 640^2)."""
+    """HK6 and HK12 (the 2D round's 480,000 slices of 10,000 images into
+    60 planes at r_u 31, a tenth at r_u 12 and 40) and HK11's slab form
+    (C4, the first slab: 8b's 24,576 slices at r_u 44 into 92 x
+    184^2, 8c's 256 slices at r_u 150 into 320 x 640^2)."""
     import numpy as np
     import torch
 
@@ -211,13 +216,19 @@ def turn_69(dev, gen, rng, timed) -> dict:
     trans, w = 3 * torch.randn(n_s, 2, device=dev), torch.rand(n_s, device=dev) / 48
     for r_u, n_r in ((31, n_s), (12, n_s // 10), (40, n_s // 10)):
         big = reco_grid_size(160, r_u) * 2
-        out[f"HK6 r_u={r_u} slices={n_r}"] = timed(lambda: insert.insert_bilinear_2d(
-            ft, ctf, img[:n_r], cls_img[img[:n_r]], rot[:n_r], trans[:n_r], w[:n_r], r_u, 2,
-            160, 1.32, big, 60), 5 if r_u == 31 else 2)
+        for name, fn in (("HK6", insert.insert_bilinear_2d),
+                         ("HK12", getattr(insert, "insert_sweep_2d", None))):
+            if fn is not None:
+                out[f"{name} r_u={r_u} slices={n_r}"] = timed(lambda: fn(
+                    ft, ctf, img[:n_r], cls_img[img[:n_r]], rot[:n_r], trans[:n_r], w[:n_r],
+                    r_u, 2, 160, 1.32, big, 60), 5 if r_u == 31 else 2)
     del ft, rot, trans, w
     mats = Symmetry("C4", dev).matrices
-    for name, n_i, per, size, r_u, big in (("HK9 8b", 512, 48, 160, 44, 184),
-                                          ("HK9 8c", 256, 1, 320, 150, 640)):
+    slab = getattr(insert, "insert_sweep_slab", None)
+    for name, n_i, per, size, r_u, big in (("HK11-slab 8b", 512, 48, 160, 44, 184),
+                                          ("HK11-slab 8c", 256, 1, 320, 150, 640)):
+        if slab is None:
+            break
         n_s = n_i * per
         vals, c2w, _, _ = insert.dense_slice_values(
             spectra(n_i, size), ctf_of(n_i), torch.arange(n_s, device=dev) // per,
@@ -225,8 +236,8 @@ def turn_69(dev, gen, rng, timed) -> dict:
             1.32)
         rot = rotate3d(random_quat(gen, (n_s,), dev))
         cls = torch.zeros(n_s, dtype=torch.int32, device=dev)
-        out[name] = timed(lambda: insert.insert_trilinear_slab(
-            vals, c2w, rot, cls, r_u, 2, mats, 1, big, 0, big // 2), 3)
+        out[name] = timed(lambda: slab(vals, c2w, rot, cls, r_u, 2, mats, 1, big, 0, big // 2),
+                          3)
         del vals, c2w
     return out
 

@@ -32,7 +32,7 @@ from thunder_tpu_torch.constants import (
     T_MIN,
     WIENER_FACTOR_MIN_R,
 )
-from thunder_tpu_torch.device import COMPLEX, REAL
+from thunder_tpu_torch.device import BALANCE_COMPLEX, BALANCE_REAL, COMPLEX, REAL
 from thunder_tpu_torch.ops.fourier import (
     centered_quad_dev,
     centered_shell_dev,
@@ -114,28 +114,30 @@ def wiener_filter_t(t_grid: torch.Tensor, fsc_curve: torch.Tensor, pf: int,
 def balance_weights(t_grid: torch.Tensor, pf: int, max_radius: int,
                     a: float = DEFAULT_MKB_A,
                     alpha: float = DEFAULT_MKB_ALPHA,
-                    nd: int = 3, kernel: str = "trilinear") -> torch.Tensor:
+                    nd: int = 3, guard_empty: bool = False) -> torch.Tensor:
     """W such that (T.W) convolved with the gridding window ~ 1
     (Reconstructor.cpp:1288-1551); t_grid (..., big^nd) real.
 
-    Unlike thunder_tpu, with trilinear insertion only cells that
-    received insertions (T above the 1e-25 floor) are updated and enter
-    the convergence test.  In an empty cell C ~ 0, so W grows by 1e6 per
-    iteration until T.W leaks into its neighbours' C; with exact
-    trilinear insertion of a few hundred slices per hemisphere such
-    holes exist between the planes at high radius and the MAP-free pass
-    turned chaotic (maps decorrelated from the truth within 3 rounds).
-    Where every cell is reached the iteration is thunder_tpu's exactly.
-    With the blob's insertion (``kernel="mkb"``, reach 1.9 cells) every
-    cell inside the radius is updated, as thunder_tpu does: the only
-    empty cells are the ring between insertion's reach and the radius,
-    and there the two packages' maps agree only when W grows alike."""
-    return _balance(t_grid, pf, max_radius, a, alpha, nd, kernel)[0]
+    Every cell inside the radius is updated, as thunder_tpu does after
+    its rounds' insertions (the shear sweep, HK11 and HK12, and the MKB
+    blob).  Those leave empty cells too (a third of those inside the
+    radius at 24 px; at a 184^3 grid none inside (r_u - 1) pf and 14,188
+    in the ring up to r_u pf), where C ~ 0 and W grows by 1e6 an
+    iteration until T.W leaks into its neighbours' C.  ``guard_empty``
+    (``cli/reconstruct.py``, the exact trilinear scatter), unlike
+    thunder_tpu: only cells that received insertions (T above the 1e-25
+    floor) are updated and enter the convergence test; the exact scatter
+    of a few hundred slices leaves holes between the planes at high
+    radius, and there the unguarded loop turned the MAP-free pass chaotic
+    (maps decorrelated from the truth within 3 rounds).  Where every cell
+    is reached both forms are thunder_tpu's iteration.  The loop runs in
+    float64 (see device.py), thunder_tpu's in float32."""
+    return _balance(t_grid, pf, max_radius, a, alpha, nd, guard_empty)[0]
 
 
 def _balance(t_grid: torch.Tensor, pf: int, max_radius: int,
              a: float = DEFAULT_MKB_A, alpha: float = DEFAULT_MKB_ALPHA,
-             nd: int = 3, kernel: str = "trilinear", n_iter: int | None = None,
+             nd: int = 3, guard_empty: bool = False, n_iter: int | None = None,
              each=None) -> tuple:
     """The balance loop of :func:`balance_weights`: (W, each lane's count
     of iterations as a tensor).  ``n_iter`` runs every lane that many
@@ -147,7 +149,8 @@ def _balance(t_grid: torch.Tensor, pf: int, max_radius: int,
     c = big // 2
     dev = t_grid.device
     ax = _ax(nd)
-    window = _mkb_window(big, a, alpha, dev, nd)
+    # the loop runs in float64 (see device.py) and W leaves it as float32
+    window = _mkb_window(big, a, alpha, dev, nd).to(BALANCE_REAL)
     shape = (big,) * nd
 
     def to_half(x):
@@ -155,18 +158,18 @@ def _balance(t_grid: torch.Tensor, pf: int, max_radius: int,
 
     inside = to_half(_quad_inside(big, max_radius * pf, dev, nd))
     t_half = to_half(torch.clamp(t_grid, min=T_MIN))
-    # with trilinear taps cells no slice reached keep W = 1 (see
-    # balance_weights)
-    inside_h = inside if kernel == "mkb" else inside & (t_half > T_MIN)
+    # with guard_empty cells no slice reached keep W = 1 (see balance_weights)
+    inside_h = inside & (t_half > T_MIN) if guard_empty else inside
+    t_half = t_half.to(BALANCE_REAL)
     lanes = t_grid.shape[:-nd]
-    w = torch.where(inside, 1.0, 0.0).to(REAL).expand(t_half.shape).clone()
+    w = torch.where(inside, 1.0, 0.0).to(BALANCE_REAL).expand(t_half.shape).clone()
 
     def convolute_c(c_half):
-        c_rl = torch.fft.irfftn(c_half.to(torch.complex64), s=shape, dim=ax)
+        c_rl = torch.fft.irfftn(c_half.to(BALANCE_COMPLEX), s=shape, dim=ax)
         return torch.fft.rfftn(c_rl * window, dim=ax)
 
     fmax = float(np.finfo(np.float32).max)
-    diff_prev = torch.full(lanes, fmax, dtype=REAL, device=dev)
+    diff_prev = torch.full(lanes, fmax, dtype=BALANCE_REAL, device=dev)
     n_no_dec = torch.zeros(lanes, dtype=torch.int64, device=dev)
     it = torch.zeros(lanes, dtype=torch.int64, device=dev)
     active = torch.ones(lanes, dtype=torch.bool, device=dev)
@@ -183,7 +186,7 @@ def _balance(t_grid: torch.Tensor, pf: int, max_radius: int,
         n_no_dec = torch.where(active, nnd, n_no_dec)
         it = it + active.long()
         if each is not None:
-            each(int(it.max()), _mirror_full(w, big, nd))
+            each(int(it.max()), _mirror_full(w.to(REAL), big, nd))
         if n_iter is not None:
             continue
         not_stalled = (it < MIN_N_ITER_BALANCE) | (n_no_dec < N_DIFF_C_NO_DECREASE)
@@ -191,7 +194,7 @@ def _balance(t_grid: torch.Tensor, pf: int, max_radius: int,
                   & (diff_prev >= DIFF_C_THRES) & not_stalled)
         if not bool(active.any()):
             break
-    return _mirror_full(w, big, nd), it
+    return _mirror_full(w.to(REAL), big, nd), it
 
 
 def _mirror_full(w: torch.Tensor, big: int, nd: int) -> torch.Tensor:
@@ -236,11 +239,11 @@ def finalize_reconstruction(f_grid: torch.Tensor, w: torch.Tensor, size: int,
 
 
 def _weights(t_real: torch.Tensor, pf: int, max_radius: int, nd: int,
-             grid_corr: bool, kernel: str) -> torch.Tensor:
+             grid_corr: bool, guard_empty: bool) -> torch.Tensor:
     """W of the balance loop, or without grid correction W = 1 / T
     inside the radius and 0 outside (Reconstructor.cpp:1553-...)."""
     if grid_corr:
-        return balance_weights(t_real, pf, max_radius, nd=nd, kernel=kernel)
+        return balance_weights(t_real, pf, max_radius, nd=nd, guard_empty=guard_empty)
     inside = _quad_inside(t_real.shape[-1], max_radius * pf, t_real.device, nd)
     return torch.where(inside, 1.0 / torch.clamp(t_real, min=T_MIN),
                        torch.zeros_like(t_real))
@@ -248,13 +251,13 @@ def _weights(t_real: torch.Tensor, pf: int, max_radius: int, nd: int,
 
 def reconstruct(f_grid, t_grid, size: int, pf: int,
                 max_radius: int, nd: int = 3, grid_corr: bool = True,
-                kernel: str = "trilinear") -> torch.Tensor:
+                kernel: str = "trilinear", guard_empty: bool = False) -> torch.Tensor:
     """One MAP-free gridding reconstruction per batch entry: the balance
-    loop and the kernel's correction, or without ``grid_corr`` W = 1 / T
-    and no correction."""
+    loop (``guard_empty``: see :func:`balance_weights`) and the kernel's
+    correction, or without ``grid_corr`` W = 1 / T and no correction."""
     t_real = t_grid.real if t_grid.is_complex() else t_grid
     return finalize_reconstruction(
-        f_grid, _weights(t_real, pf, max_radius, nd, grid_corr, kernel), size, pf,
+        f_grid, _weights(t_real, pf, max_radius, nd, grid_corr, guard_empty), size, pf,
         max_radius, nd, grid_corr, kernel)
 
 
@@ -271,7 +274,7 @@ def reconstruct_two_pass(f_grid, t_grid, fsc_curve, size: int, pf: int,
     t_w = wiener_filter_t(t_real, fsc_curve, pf, max_radius, join_half=True,
                           nd=nd)
     w12 = balance_weights(torch.stack([t_real, t_w.expand_as(t_real)]), pf,
-                          max_radius, nd=nd, kernel=kernel)
+                          max_radius, nd=nd)
     rec = finalize_reconstruction(f_grid.unsqueeze(0), w12, size, pf,
                                   max_radius, nd, kernel=kernel)
     return rec[0], rec[1]

@@ -14,14 +14,16 @@ as XLA's FFT stood outside any Pallas kernel in thunder_tpu.
 The arithmetic is recon/reconstructor.py's (the port's one-grid path)
 step for step, lanes included: the balance loop runs in rfft half space
 (x cut to big/2 + 1, ``_rfft3_dist`` / ``_irfft3_dist``), each (pass,
-class) stops on its own, and cells no slice reached keep W = 1.
+class) stops on its own, and every cell inside the radius is updated,
+as after the rounds' sweep on one grid.
 (thunder_tpu iterates in full complex space, whose real part drifts from
 the half-space iteration by float rounding from one iteration to the
 next; with few slices the stopping rule then parts the two paths.)  The
 masks of the FFT layout are formed from wrapped coordinates on each
 rank, so only F and T cross the half-box roll (``_centered_to_fft``: a
 whole-slab swap, which is why the data extent must be even).  The
-insertion into slabs is HK9 (ops/insert.py ``insert_trilinear_slab``).
+insertion into slabs is HK11's slab form (ops/insert.py
+``insert_sweep_slab``), the rounds' shear sweep.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from thunder_tpu_torch.constants import (
     T_MIN,
     WIENER_FACTOR_MIN_R,
 )
-from thunder_tpu_torch.device import COMPLEX, REAL
+from thunder_tpu_torch.device import BALANCE_COMPLEX, BALANCE_REAL, COMPLEX, REAL
 from thunder_tpu_torch.ops.fourier import resize_rl
 from thunder_tpu_torch.parallel import comm
 from thunder_tpu_torch.parallel.mesh import Layout
@@ -155,20 +157,24 @@ def _balance_sharded(t_half: torch.Tensor, inside: torch.Tensor, layout: Layout,
                      big: int) -> torch.Tensor:
     """W of balance_weights on half-space slabs t_half (lanes..., bz, big,
     big // 2 + 1), T floored at T_MIN: each lane stops on its own, its
-    change the MAX over the data group; cells no slice reached keep
-    W = 1."""
-    window = _mkb_window_local(big, layout, DEFAULT_MKB_A, DEFAULT_MKB_ALPHA, t_half.device)
-    inside_h = inside & (t_half > T_MIN)
+    change the MAX over the data group.  The slabs hold the rounds' shear
+    sweep (HK11's slab form), so every cell inside the radius is updated,
+    as balance_weights does after the sweep."""
+    # in float64, as balance_weights (see device.py); W leaves as float32
+    window = _mkb_window_local(big, layout, DEFAULT_MKB_A, DEFAULT_MKB_ALPHA,
+                               t_half.device).to(BALANCE_REAL)
+    t_half = t_half.to(BALANCE_REAL)
+    inside_h = inside
     lanes = t_half.shape[:-3]
-    w = torch.where(inside, 1.0, 0.0).to(REAL).expand(t_half.shape).clone()
+    w = torch.where(inside, 1.0, 0.0).to(BALANCE_REAL).expand(t_half.shape).clone()
     dev = t_half.device
 
     def convolute(c):
-        c_rl = _irfft3_dist(c.to(COMPLEX), layout, big)
+        c_rl = _irfft3_dist(c.to(BALANCE_COMPLEX), layout, big)
         return _rfft3_dist(c_rl * window, layout)
 
     fmax = float(np.finfo(np.float32).max)
-    diff_prev = torch.full(lanes, fmax, dtype=REAL, device=dev)
+    diff_prev = torch.full(lanes, fmax, dtype=BALANCE_REAL, device=dev)
     n_no_dec = torch.zeros(lanes, dtype=torch.int64, device=dev)
     it = torch.zeros(lanes, dtype=torch.int64, device=dev)
     active = torch.ones(lanes, dtype=torch.bool, device=dev)
@@ -190,7 +196,7 @@ def _balance_sharded(t_half: torch.Tensor, inside: torch.Tensor, layout: Layout,
                   & (diff_prev >= DIFF_C_THRES) & not_stalled)
         if not bool(active.any()):
             break
-    return w
+    return w.to(REAL)
 
 
 def _extract_rows(big: int, size: int) -> np.ndarray:
