@@ -132,10 +132,11 @@ device time by named range of the optimiser (``thunder:round/<stage>``,
 limit, then three JSON objects: the profiles, the kernels, and ``{"ok":
 true, "device": {...}}``.
 
-Repeats.  HK3, HK6, HK10-HK12 (cell-owned gathers) and HK4 (sums in
-a fixed order) are each called twice on the same inputs at every shape
-they are held at, and must give identical bits (as HK7 and HK8 in phase
-1c); 8a's 2-rank CLI and 8b's 4 ranks run twice and must write the same
+Repeats.  HK3, HK6, HK10 (cell-owned gathers), HK11 and HK12 (128-bit
+fixed-point sums, also held to the bits of their emulation on the card)
+and HK4 (sums in a fixed order) are each called twice on the same inputs
+at every shape they are held at, and must give identical bits (as HK7
+and HK8 in phase 1c); 8a's 2-rank CLI and 8b's 4 ranks run twice and must write the same
 bits.  Phase 2's three rounds, phase 4's first four rounds and phase 5b
 up to its first CTF round run again from the same seed into another
 output directory: every round's record (r, res_A), FSC curve, poses,
@@ -290,9 +291,10 @@ CROSSING_SPREAD = 9
 RANKS_8, ROUNDS_8, SHELL_GATE_8, SLAB_TOL = (1, 2, 4), 2, 3, 1e-4
 SIZE_8C, R_U_8C, N_8C = 320, 150, 512
 # 8c's maps: at 640^3 with 512 poses MAP-free gridding's balance loop
-# amplifies rounding in (F, T).  HK11 and its slab form are gathers, so
-# the one-grid path repeats bit for bit (checked), but the slab path sums
-# its grids in another order than HK11 then HK7.  The balance loop's
+# amplifies rounding in (F, T).  HK11 and its slab form sum exactly, so
+# the one-grid path repeats bit for bit (checked), but the slab path
+# rounds its grids otherwise than HK11 then HK7 (HK7 sums the mates in
+# float32).  The balance loop's
 # stop is a threshold (max ||C| - 1| under 1e-2, or from
 # MIN_N_ITER_BALANCE on no decrease for two iterations), so two paths
 # whose sums round apart can stop at other counts: the script prints the
@@ -326,6 +328,12 @@ PARITY_CASES = ("a", "b")
 HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
 # why the insertion kernels match their twins to float32 rounding only
 GATHER_WHY = "each cell sums its slices in another order than the twin's scatter"
+SWEEP_WHY = ("the exact fixed-point sums against the twin's float64 sums of the same float32 "
+             "taps, each rounded once")
+# the twin's float32 scatter parts from both by its own rounding (~3e-5 of
+# max |F| where a cell sums ~1e5 taps, at 8b): printed, not gated
+# the slices HK11's and HK12's emulation takes at once on the card
+FIXED_CHUNK = 2048
 # a record whose call takes less is also timed apart from its wrapper
 # (under ~0.05 ms CUDA events around a loop of calls give the host's call
 # rate, and up to three times that on a slow host)
@@ -409,6 +417,76 @@ def same_bits(name, shape, first, again) -> None:
     if not all(torch.equal(_bits(a), _bits(b)) for a, b in pairs):
         fail(f"{name} {shape}: two calls on the same inputs differ")
     say(f"  {name} {shape}: two calls give identical bits")
+
+
+def same_as_fixed(name, shape, got, fixed) -> None:
+    """Fail unless a sweep kernel's (F, T) equal, bit for bit, its
+    fixed-point emulation ``fixed()``: the 128-bit sums formed with PyTorch
+    on the card from the values the kernel's first pass formed
+    (ops/insert.py ``*_fixed_plain``)."""
+    import torch
+
+    emu = fixed()
+    for part, a, b in (("F", got[0], emu[0]), ("T", got[1], emu[1])):
+        if not torch.equal(_bits(a), _bits(b)):
+            n = int((_bits(a) != _bits(b)).sum())
+            err = float((a - b).abs().max())
+            fail(f"{name} {shape}: {part} differs from its fixed-point emulation in {n} words "
+                 f"(max {err:.3e})")
+    say(f"  {name} {shape}: the same bits as its fixed-point emulation on the card")
+
+
+def float32_sums(label: str, got, plain) -> None:
+    """Print how far the twin's float32 scatter lies from the kernel's
+    exact sums (relative to max |plain|; not gated: the float32 sums' own
+    rounding)."""
+    import torch
+
+    f = float((got[0] - plain[0]).abs().max() / plain[0].abs().max())
+    t = float((got[1] - plain[1]).abs().max() / plain[1].abs().max())
+    say(f"  {label}: the twin's float32 scatter lies {f:.3e} (F) / {t:.3e} (T) from the "
+        "kernel, relative to its max (its own rounding; not gated)")
+
+
+def tiny_t_error(t_kernel, t_plain, t64, radius: float) -> dict:
+    """The tiny-T cells (inside the balance loop's radius r_u pf, 0 < T <
+    1e-3 max T: the ring and the cells between planes, where the rounds'
+    balance loop amplifies T): the largest error of the kernel's and of
+    the plain version's T there, over each cell's own T of the float64 sum
+    of the same taps, and the smallest such T over max T."""
+    import torch
+
+    big = t64.shape[-1]
+    k = torch.arange(big, device=t64.device, dtype=torch.float64) - big // 2
+    r2 = k[:, None, None] ** 2 + k[None, :, None] ** 2 + k[None, None, :] ** 2
+    tiny = (t64 > 0) & (t64 < 1e-3 * t64.max()) & (r2 < radius * radius)
+    n = int(tiny.sum())
+    if n == 0:
+        return dict(cells=0, kernel=None, plain=None, smallest=None)
+    rel = lambda t: float(((t.double() - t64).abs()[tiny] / t64[tiny]).max())
+    return dict(cells=n, kernel=rel(t_kernel), plain=rel(t_plain),
+                smallest=float(t64[tiny].min() / t64.max()))
+
+
+def sweep_t64(recs, rot, r_u: int, pf: int, big: int):
+    """T of HK11's taps summed in float64 (the float32 products v * w of
+    the values the kernel formed, ``recs``): the reference of the tiny-T
+    cells."""
+    import torch
+
+    from thunder_tpu_torch.ops import insert
+
+    nk = 2 * r_u - 1
+    px = insert.in_disc_pixels(r_u, recs.device).long()
+    g = torch.zeros(big ** 3, dtype=torch.float64, device=recs.device)
+    for lo in range(0, rot.shape[0], FIXED_CHUNK):
+        sl = slice(lo, lo + FIXED_CHUNK)
+        upd = recs[sl][:, px, 2]
+        row = torch.zeros(upd.shape[0], dtype=torch.int64, device=recs.device)
+        for ok, idx, w in insert._sweep_cells(insert.sweep_coeffs(rot[sl], pf), nk, px, big,
+                                              row, 3):
+            g.index_add_(0, idx, (upd[ok] * w[ok]).double())
+    return g.reshape((big,) * 3)
 
 
 def same_runs(label: str, out_a: str, out_b: str, rounds: int, maps) -> None:
@@ -1101,30 +1179,42 @@ def hk10_record(dev, args, d, big: int, shape: str, n_img: int, hk3_ms: float) -
 
 
 def hk11_record(dev, args, d, big: int, shape: str, n_img: int, hk3_ms: float) -> dict:
-    """HK11 (insert_sweep) against its plain version (1e-5 of max
-    |plain|), two calls identical, timed beside HK3's time at the same
-    slices (``hk3_ms``), with its bound: the images and the slices read
-    once, F and T written once; the value and the sweep's pairs a
-    sample."""
+    """HK11 (insert_sweep) against its plain version with float64 sums
+    (1e-5 of max |plain|), two calls identical and the same bits as its fixed-point
+    emulation on the card, the tiny-T cells' error, timed beside HK3's
+    time at the same slices (``hk3_ms``), with its bound: the images and
+    the slices read once, F and T written once; the value and the
+    sweep's pairs a sample."""
     import torch
 
     from thunder_tpu_torch.ops import insert
 
-    call = lambda: insert.insert_sweep(*args, big, d=d)
+    n_s, r_u, pf = args[3].shape[0], args[6], args[7]
+    zeros = lambda: (torch.zeros((big,) * 3, dtype=torch.complex64, device=dev),
+                     torch.zeros((big,) * 3, device=dev))
+    recs = torch.empty((n_s, (2 * r_u - 1) ** 2, 4), device=dev)
+    call = lambda: insert.insert_sweep(*args, big, d=d, recs=recs)
     fk, tk = call()
     same_bits("insert_sweep", shape, (fk, tk), call())
-    (fp, tp), plain_ms = timed_once(lambda: insert.insert_sweep_plain(
-        *args, torch.zeros((big,) * 3, dtype=torch.complex64, device=dev),
-        torch.zeros((big,) * 3, device=dev), d))
+    same_as_fixed("insert_sweep", shape, (fk, tk), lambda: insert.insert_sweep_fixed_plain(
+        *args, *zeros(), d, recs=recs, chunk=FIXED_CHUNK))
+    (fp, tp), plain_ms = timed_once(lambda: insert.insert_sweep_plain(*args, *zeros(), d))
+    f64, t64 = insert.insert_sweep_plain(*args, *zeros(), d, f64_sums=True)
     err = max(compare("insert_sweep", f"F {shape}", torch.view_as_real(fk),
-                      torch.view_as_real(fp), 1e-5, GATHER_WHY),
-              compare("insert_sweep", "T, the same", tk, tp, 1e-5, GATHER_WHY))
-    del fk, tk, fp, tp
-    n_s, r_u = args[3].shape[0], args[6]
+                      torch.view_as_real(f64), 1e-5, SWEEP_WHY),
+              compare("insert_sweep", "T, the same", tk, t64, 1e-5, SWEEP_WHY))
+    float32_sums(f"insert_sweep {shape}", (fk, tk), (fp, tp))
+    tiny = tiny_t_error(tk, tp, sweep_t64(recs, args[3], r_u, pf, big), float(r_u * pf))
+    say(f"  insert_sweep [{shape}]: {tiny['cells']} tiny-T cells (0 < T < 1e-3 max T inside r_u "
+        f"pf; the smallest {tiny['smallest']} of max T), T's largest error there over the "
+        f"cell's own float64 T: kernel {tiny['kernel']}, plain (float32 scatter) "
+        f"{tiny['plain']}")
+    del fk, tk, fp, tp, f64, t64
     npx = int(insert.in_disc_pixels(r_u).numel())
     rec = record("insert_sweep", shape, err, timed(call, 3), plain_ms,
                  n_img * npx * 8 + n_img * 32 + n_s * 96 + big ** 3 * 12,
-                 n_s * npx * (MKB_VALUE_OPS + SWEEP_PAIRS_3D * SWEEP_TAP_OPS), hk3_ms=hk3_ms)
+                 n_s * npx * (MKB_VALUE_OPS + SWEEP_PAIRS_3D * SWEEP_TAP_OPS), hk3_ms=hk3_ms,
+                 tiny_t=tiny)
     say(f"  insert_sweep [{shape}]: {rec['ms'] / hk3_ms:.2f} x HK3's {hk3_ms:.4f} ms on the "
         "same slices")
     return rec
@@ -1267,17 +1357,24 @@ def phase_kernels_2d(dev):
     for r_u, n_r in ((R_U_2D, n_s), (12, n_s // 10), (40, n_s // 10)):
         big = reco_grid_size(SIZE_2D, r_u) * 2
         args = slices[:2] + tuple(x[:n_r] for x in slices[2:]) + (r_u, 2, SIZE_2D, PIXEL_SIZE)
-        ins = lambda: insert.insert_sweep_2d(*args, big, 2 * K_2D)
-        ins_p = lambda: insert.insert_sweep_2d_plain_values(
-            *args, torch.zeros((2 * K_2D, big, big), dtype=torch.complex64, device=dev),
-            torch.zeros((2 * K_2D, big, big), device=dev))
+        recs2 = torch.empty((slices[0].shape[0], (2 * r_u - 1) ** 2, 4), device=dev)
+        ins = lambda: insert.insert_sweep_2d(*args, big, 2 * K_2D, recs=recs2)
+        zeros = lambda: (torch.zeros((2 * K_2D, big, big), dtype=torch.complex64, device=dev),
+                         torch.zeros((2 * K_2D, big, big), device=dev))
+        ins_p = lambda: insert.insert_sweep_2d_plain_values(*args, *zeros())
         fk, tk = ins()
         shape = f"slices={n_r} planes={2 * K_2D} r_u={r_u} big={big}"
         same_bits("insert_sweep_2d", shape, (fk, tk), ins())
+        same_as_fixed("insert_sweep_2d", shape, (fk, tk),
+                      lambda: insert.insert_sweep_2d_fixed_plain(*args, *zeros(), recs=recs2,
+                                                                 chunk=FIXED_CHUNK))
         (fp, tp), plain_ms = timed_once(ins_p)
+        f64, t64 = insert.insert_sweep_2d_plain_values(*args, *zeros(), f64_sums=True)
         e1 = compare("insert_sweep_2d", f"F {shape}", torch.view_as_real(fk),
-                     torch.view_as_real(fp), 1e-5, GATHER_WHY)
-        e2 = compare("insert_sweep_2d", f"T {shape}", tk, tp, 1e-5, GATHER_WHY)
+                     torch.view_as_real(f64), 1e-5, SWEEP_WHY)
+        e2 = compare("insert_sweep_2d", f"T {shape}", tk, t64, 1e-5, SWEEP_WHY)
+        float32_sums(f"insert_sweep_2d {shape}", (fk, tk), (fp, tp))
+        del f64, t64
         del fk, tk, fp, tp
         npx = int(insert.in_disc_pixels(r_u).numel())
         n_img = int(img_idx[:n_r].unique().numel())
@@ -3002,10 +3099,11 @@ def band_split(a, b, shell: float) -> tuple:
 
 def hk11_slab_record(label: str, dev, vals, c2w, rot, r_u: int, big: int, bz: int,
                      mats) -> dict:
-    """HK11's slab form against its plain version on the first slab of
-    ``big``^3 (1e-5 of max |plain|; two calls identical), timed, with its
-    bound: the slab's F and T written once, the slices and the planes'
-    records read once, every mate's pairs a sample."""
+    """HK11's slab form against its plain version with float64 sums on the
+    first slab of ``big``^3 (1e-5 of max |plain|; two calls identical, the same bits as
+    its fixed-point emulation on the card), timed, with its bound: the slab's F
+    and T written once, the slices and the planes' records read once,
+    every mate's pairs a sample."""
     import torch
 
     from thunder_tpu_torch.ops import insert
@@ -3016,13 +3114,19 @@ def hk11_slab_record(label: str, dev, vals, c2w, rot, r_u: int, big: int, bz: in
     f, t = k()
     shape = f"{label}: slices={n_s} nk^2={vals.shape[1]} mates={mats.shape[0]} slab={bz}x{big}^2"
     same_bits("insert_sweep_slab", shape, (f, t), k())
+    zeros = lambda: (torch.zeros((1, bz, big, big), dtype=torch.complex64, device=dev),
+                     torch.zeros((1, bz, big, big), device=dev))
+    same_as_fixed("insert_sweep_slab", shape, (f, t), lambda: insert.insert_sweep_slab_fixed_plain(
+        vals, c2w, rot, cls, r_u, 2, mats, *zeros(), 0, chunk=FIXED_CHUNK))
     (fp, tp), plain_ms = timed_once(lambda: insert.insert_sweep_slab_plain(
-        vals, c2w, rot, cls, r_u, 2, mats,
-        torch.zeros((1, bz, big, big), dtype=torch.complex64, device=dev),
-        torch.zeros((1, bz, big, big), device=dev), 0))
+        vals, c2w, rot, cls, r_u, 2, mats, *zeros(), 0))
+    f64, t64 = insert.insert_sweep_slab_plain(vals, c2w, rot, cls, r_u, 2, mats, *zeros(), 0,
+                                              f64_sums=True)
     err = max(compare("insert_sweep_slab", shape, torch.view_as_real(f),
-                      torch.view_as_real(fp), 1e-5, GATHER_WHY),
-              compare("insert_sweep_slab", "T", t, tp, 1e-5, GATHER_WHY))
+                      torch.view_as_real(f64), 1e-5, SWEEP_WHY),
+              compare("insert_sweep_slab", "T", t, t64, 1e-5, SWEEP_WHY))
+    float32_sums(f"insert_sweep_slab {shape}", (f, t), (fp, tp))
+    del f64, t64
     del f, t, fp, tp
     npx = int(((vals != 0) | (c2w != 0)).sum())
     n_bytes = (n_s * vals.shape[1] * 12 + n_s * 40 + n_s * mats.shape[0] * 32

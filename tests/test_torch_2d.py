@@ -278,6 +278,27 @@ def test_insert_2d_plan_fits_shared_memory(r_u, big):
     assert bool(((vc[px.long()] ** 2 + vr[px.long()] ** 2) < (r_u - 1) ** 2).all())
 
 
+@pytest.mark.parametrize("r_u,big", [(31, 132), (12, 56), (40, 168), (75, 320), (7, 32)])
+def test_sweep_2d_plan_fits_shared_memory(r_u, big):
+    """HK12's plan at the same bands: a block's int64 tile and its warps'
+    ramp tables within Hopper's 227 KB, square tiles that cover the
+    window of cells the sweep can reach (within sqrt 5 of a sample at
+    |p| < max_radius_pad, inside the plane), and the count of samples the
+    fixed-point scale's bound takes (planes times in-disc pixels)."""
+    plan = tins.sweep_2d_plan(r_u, 2, big)
+    assert plan["smem"] <= 227 * 1024
+    n_t = -(-plan["win"] // tins.SWEEP_2D_TILE)
+    assert plan["tiles"] == n_t * n_t
+    assert (n_t - 1) * tins.SWEEP_2D_TILE < plan["win"] <= n_t * tins.SWEEP_2D_TILE
+    lo, hi = plan["win_lo"], plan["win_lo"] + plan["win"] - 1
+    reach = (r_u - 1) * 2 + tins.SWEEP_REACH_2D
+    assert lo == max(0, big // 2 - int(np.ceil(reach))) and hi <= big - 1
+    assert big // 2 + reach <= hi + 1 or hi == big - 1
+    k = np.arange(-(r_u - 1), r_u)
+    in_disc = int((k[:, None] ** 2 + k[None, :] ** 2 < (r_u - 1) ** 2).sum())
+    assert tins.sweep_fixed_count(3, r_u) == 3 * in_disc
+
+
 def test_hermitianize_2d_matches_jax():
     from thunder_tpu.ops.insert import hermitianize, hermitianize_real
 

@@ -1,14 +1,16 @@
-"""The cell-owned enumeration of HK3, HK6 and HK11's slab form (the
-gathers of csrc/insert_trilinear.cu and csrc/insert_bilinear_2d.cu) on
-the CPU.
+"""The cell-owned enumeration of HK3 and HK6 (the gathers of
+csrc/insert_trilinear.cu and csrc/insert_bilinear_2d.cu), and the
+fixed-point sums of HK11's slab form, on the CPU.
 
 The kernels cannot run here, so ``ops/insert.py``'s ``*_gather_plain``
-emulate them, vectorised over cells: the same candidate range and
-prefilter, float expressions, cuts, tap weights and face cells.  Each
-case holds the gather to the port's scatter twin and, through the same
-inputs, to thunder_tpu's insert_slices_3d / insert_slices_2d (HK11's
-slab form: to its plain version), within 1e-6 of max |F| and max |T|:
-the same (sample, tap, weight) triples summed in another order."""
+emulate the gathers, vectorised over cells: the same candidate range and
+prefilter, float expressions, cuts, tap weights and face cells;
+``insert_sweep_slab_fixed_plain`` emulates the slab form's 128-bit sums.
+Each case holds the emulation to the port's scatter twin and, through
+the same inputs, to thunder_tpu's insert_slices_3d / insert_slices_2d
+(HK11's slab form: to its plain version), within 1e-6 of max |F| and max
+|T|: the same (sample, tap, weight) triples summed in another order (or
+in fixed point)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -121,8 +123,8 @@ SLAB_CASES = [("C1, slab through the centre", "C1", 6, 2, 32, (10, 13), 1),
 @pytest.mark.parametrize("label,sym,r_u,pf,big,slab,n_cls", SLAB_CASES,
                          ids=[c[0] for c in SLAB_CASES])
 def test_hk11_slab_gather_matches_scatter(label, sym, r_u, pf, big, slab, n_cls):
-    """HK11's slab form: its enumeration against its plain version (the
-    same sweep weights summed in another order, TOL); C1's slab against
+    """HK11's slab form: its fixed-point sums against its plain version
+    (the same sweep weights summed in float32, TOL); C1's slab against
     the one-grid sweep HK11's plain version forms from the images,
     within 1e-5 of max |F| and max |T| (the dense passes sum in another
     order again)."""
@@ -139,8 +141,8 @@ def test_hk11_slab_gather_matches_scatter(label, sym, r_u, pf, big, slab, n_cls)
     z0, z1 = slab
     bz = z1 - z0
     f0, t0 = zeros3(big, n_cls, bz)
-    fg, tg = ti.insert_sweep_slab_gather_plain(vals, c2w, rot, cls, r_u, pf, mats,
-                                               f0.clone(), t0.clone(), z0)
+    fg, tg = ti.insert_sweep_slab_fixed_plain(vals, c2w, rot, cls, r_u, pf, mats,
+                                              f0.clone(), t0.clone(), z0)
     fs, ts = ti.insert_sweep_slab_plain(vals, c2w, rot, cls, r_u, pf, mats,
                                         f0.clone(), t0.clone(), z0)
     close(fg, fs)

@@ -6,11 +6,15 @@ The sweep is a fixed linear map from a slice's dense samples to grid
 cells.  ``sweep_map_3d`` / ``sweep_map_2d`` below evaluate it in float64
 numpy, independently of both packages: per plane, thunder_tpu's
 coefficients and, per sample, the 2 x 2 x 4 (2D: 2 x 2) cells its hats
-reach.  The port's plain versions and the CPU emulation of the kernels'
-enumeration (``*_gather_plain``) are held to that map within 1e-5 of max
-|T| (float32 sums); thunder_tpu's 3D sweep streams its hat fields as
-bf16, so it is held to the port within twice the distance measured here
-between it and the float64 map; its 2D sweep is float32, within 1e-5.
+reach.  The port's plain versions and the emulation of the kernels'
+fixed-point sums (``*_fixed_plain``, csrc/sweep_fixed.cuh) are held to
+that map within 1e-5 of max |T| (float32 coefficients and weights);
+the emulation also to the float64 sum of its own float32 taps within
+1e-6 of max |T|, at every cell and in the ring's tiny-T cells, and its
+scale to the worst case a cell can reach.  thunder_tpu's 3D sweep
+streams its hat fields as bf16, so it is held to the port within twice
+the distance measured here between it and the float64 map; its 2D sweep
+is float32, within 1e-5.
 """
 
 import jax
@@ -25,6 +29,7 @@ from thunder_tpu_torch.ops import insert as ti
 from thunder_tpu_torch.physics.ctf import ctf_params
 
 TOL = 1e-5      # the port against the float64 map, of max |T| (F: of max |F|)
+TOL_SUM = 1e-6  # the fixed-point sums against the float64 sum of the same taps
 
 
 def _hat(t):
@@ -203,10 +208,139 @@ def test_plain_2d_matches_the_float64_map_and_thunder_tpu(pf, r_u, big):
     assert max(err(got[0], got[1], np.asarray(jf), np.asarray(jt))) < TOL
 
 
+def _records(vals, c2w, wk):
+    """Value records (B, nk^2, 4) float32 of formed values times a
+    class's weights wk (B,)."""
+    wk = torch.as_tensor(wk, dtype=torch.float32)[:, None]
+    v = torch.as_tensor(vals).reshape(len(vals), -1) * wk
+    c = torch.as_tensor(c2w).reshape(len(vals), -1) * wk
+    return torch.stack([v.real, v.imag, c, torch.zeros_like(c)], -1)
+
+
+def fixed_3d(vals, c2w, rot, w_cls, big, pf):
+    """HK11's fixed-point sums of formed values, class by class: (f, t)
+    (K, big^3)."""
+    r_u = (vals.shape[-1] + 1) // 2
+    out = [ti._sweep_3d_fixed(_records(vals, c2w, wk), torch.as_tensor(rot), None, r_u, pf, None,
+                              torch.zeros((1,) + (big,) * 3, dtype=torch.complex64),
+                              torch.zeros((1,) + (big,) * 3), 0, 256) for wk in w_cls]
+    return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
+
+
+def fixed_2d(vals, c2w, rot, w_cls, big, pf):
+    """HK12's fixed-point sums of formed values into class planes, the
+    scale bounded by the values' maxima: (f, t) (K, big, big)."""
+    r_u = (vals.shape[-1] + 1) // 2
+    px = ti.in_disc_pixels(r_u).long()
+    n_b, n_cls = len(vals), len(w_cls)
+    recs = torch.cat([_records(vals, c2w, wk) for wk in w_cls])
+    upd = recs[:, px, :3]
+    scales = ti.sweep_fixed_scales([float(recs[..., c].abs().max()) for c in range(3)],
+                                   float(len(recs) * len(px)))
+    cls = torch.arange(n_cls).repeat_interleave(n_b)
+    rot = torch.as_tensor(rot).repeat(n_cls, 1, 1)
+    return ti._sweep_2d_fixed(lambda sl: upd[sl], len(recs), rot, cls, r_u, pf,
+                              torch.zeros((n_cls, big, big), dtype=torch.complex64),
+                              torch.zeros((n_cls, big, big)), scales, 256)
+
+
+def float64_taps(vals, c2w, rot, w_cls, big, pf, nd):
+    """The float64 sum of the sweep's float32 taps (v * w, each product
+    formed as the kernels and the plain versions form it): what the
+    fixed-point sums approximate, free of their rounding."""
+    nk = vals.shape[-1]
+    r_u = (nk + 1) // 2
+    px = ti.in_disc_pixels(r_u).long()
+    rot = torch.as_tensor(rot)
+    co = ti.sweep_coeffs(rot, pf) if nd == 3 else ti.sweep_coeffs_2d(rot, pf)
+    n_cells = big ** nd
+    g = torch.zeros((len(w_cls) * n_cells, 3), dtype=torch.float64)
+    for k, wk in enumerate(w_cls):
+        upd = _records(vals, c2w, wk)[:, px, :3]
+        row = torch.full((len(vals),), k * n_cells)
+        for ok, idx, w in ti._sweep_cells(co, nk, px, big, row, nd):
+            g.index_add_(0, idx, (upd[ok] * w[ok][:, None]).double())
+    shape = (len(w_cls),) + (big,) * nd
+    return (torch.complex(g[:, 0], g[:, 1]).reshape(shape).numpy(),
+            g[:, 2].reshape(shape).numpy())
+
+
+@pytest.mark.parametrize("nd, pf, r_u, big", [(3, 2, 8, 40), (3, 1, 10, 26), (2, 2, 8, 40),
+                                              (2, 1, 10, 24)])
+def test_fixed_sums_match_the_float64_map_and_their_taps(nd, pf, r_u, big):
+    """The kernels' fixed-point sums (HK11 3D, HK12 2D) on the inputs of
+    the plain versions' tests above: within TOL of the float64 map (the
+    float32 coefficients and weights part from it as the plain versions
+    do), and within TOL_SUM of max |T| (and |F|) of the float64 sum of
+    the same float32 taps: the sums' own rounding."""
+    vals, c2w, rot, w_cls = dense_inputs(np.random.default_rng(pf if nd == 3 else 10 + pf),
+                                         24 if nd == 3 else 30, r_u, nd=nd,
+                                         n_cls=2 if nd == 3 else 3)
+    fixed = fixed_3d if nd == 3 else fixed_2d
+    got = fixed(vals, c2w, rot, w_cls, big, pf)
+    ref = (sweep_map_3d if nd == 3 else sweep_map_2d)(vals, c2w, rot, w_cls, big, pf)
+    assert max(err(*got, *ref)) < TOL
+    assert max(err(*got, *float64_taps(vals, c2w, rot, w_cls, big, pf, nd))) < TOL_SUM
+
+
+@pytest.mark.parametrize("count, vmax", [(480_000 * 2_917, 3.0e3), (23_600_000, 1.0e-30),
+                                         (1, 3.4e38), (7, 1.4e-45)])
+def test_fixed_scale_bounds_the_worst_cell(count, vmax):
+    """The scale's bound at an adversarial input: every one of ``count``
+    samples at the largest value with all its weight in one cell (the
+    sweep's weights of a sample sum to at most one).  That cell's 128-bit
+    sum stays below 2^126 (2^127 is the sign), a scale twice as large
+    would reach 2^125: the scale is the largest the bound allows; the
+    emulation's words carry to that sum exactly and give back count *
+    vmax in float32.  The first case is the 2D rounds' 480,000 slices of
+    2,917 in-disc samples (r_u 31), the second 152^3's 23.6 million
+    samples; then the float32 extremes."""
+    v32 = float(np.float32(vmax))
+    s = ti.sweep_fixed_scales([v32], float(count))[0]
+    q = round(v32 * s)    # one tap of weight one
+    assert 0 < count * q < 2 ** 126
+    assert count * round(v32 * 2 * s) >= 2 ** 125
+    words = ti._fixed_words(torch.tensor([v32 * s], dtype=torch.float64))[0]
+    assert sum(int(w) << (32 * i) for i, w in enumerate(words)) == q
+    acc = (words * count).reshape(1, 1, 4).expand(1, 3, 4).contiguous()
+    total = sum(int(acc[0, 0, i]) << (32 * i) for i in range(4))
+    assert total == count * q
+    f, t = ti._fixed_into(torch.zeros(1, dtype=torch.complex64), torch.zeros(1), acc, [s] * 3)
+    want = np.float32(count * v32)
+    assert float(t[0]) == pytest.approx(float(want), rel=1e-6) and float(f[0].real) == float(t[0])
+
+
+def test_fixed_sums_in_the_rings_tiny_t_cells():
+    """The ring's tiny-T cells, where the rounds' balance loop amplifies
+    what T holds (ROADMAP Q3): cells inside the radius whose T is below
+    1e-3 of max |T| (the window's edge, few samples): there the
+    fixed-point sums stay within 1e-6 of each cell's own T of the float64
+    sum of the same taps; the plain version's float32 sums are shown
+    beside them."""
+    pf, r_u, big = 2, 12, 56
+    rng = np.random.default_rng(70)
+    vals, c2w, rot, _ = dense_inputs(rng, 40, r_u)
+    w_cls = np.ones((1, 40))
+    got_f, got_t = fixed_3d(vals, c2w, rot, w_cls, big, pf)
+    ref_f, ref_t = float64_taps(vals, c2w, rot, w_cls, big, pf, 3)
+    c = big // 2
+    k = np.indices((big,) * 3) - c
+    r = np.sqrt((k ** 2).sum(0))
+    tiny = (ref_t[0] > 0) & (ref_t[0] < 1e-3 * ref_t.max()) & (r < (r_u - 1) * pf)
+    assert tiny.sum() > 20, tiny.sum()
+    rel = np.abs(got_t[0].numpy() - ref_t[0])[tiny] / ref_t[0][tiny]
+    assert rel.max() < 1e-6, rel.max()
+    plain_t = ti.insert_sweep_3d_plain(torch.as_tensor(vals), torch.as_tensor(c2w),
+                                       torch.as_tensor(rot), torch.as_tensor(w_cls), big, pf)[1]
+    rel_p = np.abs(plain_t[0].numpy() - ref_t[0])[tiny] / ref_t[0][tiny]
+    print(f"tiny-T cells {int(tiny.sum())}: fixed-point {rel.max():.3g}, float32 {rel_p.max():.3g}"
+          f" of the cell's T")
+
+
 @pytest.mark.parametrize("pf, r_u, big, use_d", [(2, 7, 36, False), (2, 7, 36, True),
                                                   (1, 9, 24, False)])
 def test_hk11_gather_matches_the_map(pf, r_u, big, use_d):
-    """HK11's enumeration (insert_sweep_gather_plain) and its plain
+    """HK11's fixed-point sums (insert_sweep_fixed_plain) and its plain
     version against the float64 map of the same formed values: slices in
     no order of image, a third of weight zero, a defocus factor a slice."""
     rng = np.random.default_rng(20 + pf + use_d)
@@ -220,7 +354,7 @@ def test_hk11_gather_matches_the_map(pf, r_u, big, use_d):
                        x["rot"].numpy(), np.ones((1, len(vals))), big, pf)
     ref = (ref[0][0], ref[1][0])
     zeros = lambda: (torch.zeros((big,) * 3, dtype=torch.complex64), torch.zeros((big,) * 3))
-    assert max(err(*ti.insert_sweep_gather_plain(*args, *zeros(), d), *ref)) < TOL
+    assert max(err(*ti.insert_sweep_fixed_plain(*args, *zeros(), d), *ref)) < TOL
     assert max(err(*ti.insert_sweep(*args, big, d=d), *ref)) < TOL
 
 
@@ -228,7 +362,7 @@ def test_hk11_gather_matches_the_map(pf, r_u, big, use_d):
 def test_hk11_slab_gather_matches_the_map(sym):
     """HK11's slab form: every (slice, mate) plane M R pose-side, a mate's
     cells only inside the radius, two slabs of a grid with two classes;
-    the enumeration and the plain version against the float64 map, and
+    the fixed-point sums and the plain version against the float64 map, and
     for C4 and D2 (signed permutations) the slabs equal HK11 then HK7
     within float32 rounding."""
     pf, r_u, big = 2, 7, 36
@@ -248,8 +382,8 @@ def test_hk11_slab_gather_matches_the_map(sym):
         ref_s = (ref[0][:, z0:z0 + bz], ref[1][:, z0:z0 + bz])
         zeros = (torch.zeros((2, bz, big, big), dtype=torch.complex64),
                  torch.zeros((2, bz, big, big)))
-        got_g = ti.insert_sweep_slab_gather_plain(tv, tc, torch.as_tensor(rot), cls, r_u, pf,
-                                                  mats, *zeros, z0)
+        got_g = ti.insert_sweep_slab_fixed_plain(tv, tc, torch.as_tensor(rot), cls, r_u, pf,
+                                                 mats, *zeros, z0)
         got_p = ti.insert_sweep_slab(tv, tc, torch.as_tensor(rot), cls, r_u, pf, mats, 2, big,
                                      z0, bz)
         assert max(err(*got_g, *ref_s)) < TOL and max(err(*got_p, *ref_s)) < TOL
@@ -278,10 +412,12 @@ def farthest(t, mask, rot, pf) -> float:
 def test_the_reach_holds_samples_at_its_edge(pf):
     """Planes tilted so that the sweep reaches farthest (the normal near
     (1, 1, 1) / sqrt 3: |alpha|, |beta|, |q_m| near 1) and samples only at
-    the window's edge: the gathers' culls (the radial reach, the plane's
-    band, the candidate ranges) keep every weight the map gives, cells
-    more than 2.5 from every sample among them (2D: 1.6; the trilinear
-    and bilinear taps reach sqrt 3 and sqrt 2)."""
+    the window's edge: the fixed-point sums keep every weight the map
+    gives, cells more than 2.5 from every sample among them (2D: 1.6; the
+    trilinear and bilinear taps reach sqrt 3 and sqrt 2).  On the card
+    the kernels' culls (the radial reach, the plane's band, the bricks'
+    candidate boxes) are held to these sums bit for bit
+    (test_torch_kernels.py)."""
     r_u = 8
     big = 2 * ((r_u - 1) * pf + 8)
     nk = 2 * r_u - 1
@@ -303,10 +439,7 @@ def test_the_reach_holds_samples_at_its_edge(pf):
     c2w = (rng.uniform(0.5, 1.0, (12, nk, nk)) * edge).astype(np.float32)
     ref_f, ref_t = sweep_map_3d(vals, c2w, rot, np.ones((1, 12)), big, pf)
     assert farthest(ref_t[0], edge, rot, pf) > 2.5
-    got = ti._gather_plain(torch.as_tensor(vals).reshape(12, -1),
-                           torch.as_tensor(c2w).reshape(12, -1), torch.as_tensor(rot), None, r_u,
-                           pf, None, torch.zeros((1, big, big, big), dtype=torch.complex64),
-                           torch.zeros((1, big, big, big)), 0, kernel="sweep")
+    got = fixed_3d(vals, c2w, rot, np.ones((1, 12)), big, pf)
     assert max(err(got[0][0], got[1][0], ref_f[0], ref_t[0])) < TOL
     # 2D: the slices' rotations at 45 degrees (|q_y| = 1)
     ang = np.pi / 4 + 0.01 * rng.standard_normal(12) + np.pi / 2 * rng.integers(0, 4, 12)
@@ -314,17 +447,14 @@ def test_the_reach_holds_samples_at_its_edge(pf):
                      np.stack([np.sin(ang), np.cos(ang)], -1)], 1).astype(np.float32)
     ref2 = sweep_map_2d(vals, c2w, rot2, np.ones((1, 12)), big, pf)
     assert farthest(ref2[1][0], edge, rot2, pf) > 1.6
-    got2 = ti._gather_plain(torch.as_tensor(vals).reshape(12, -1),
-                            torch.as_tensor(c2w).reshape(12, -1), torch.as_tensor(rot2), None,
-                            r_u, pf, None, torch.zeros((1, big, big), dtype=torch.complex64),
-                            torch.zeros((1, big, big)), 0, kernel="sweep")
+    got2 = fixed_2d(vals, c2w, rot2, np.ones((1, 12)), big, pf)
     assert max(err(got2[0][0], got2[1][0], ref2[0][0], ref2[1][0])) < TOL
 
 
 def test_hk12_gather_matches_the_map():
-    """HK12's enumeration (insert_sweep_2d_gather_plain, slices in the
-    order of insert_2d_work) and its plain version against the float64
-    map of the same formed values, three class planes."""
+    """HK12's fixed-point sums (insert_sweep_2d_fixed_plain) and its
+    plain version against the float64 map of the same formed values,
+    three class planes."""
     pf, r_u, big = 2, 8, 40
     rng = np.random.default_rng(50)
     x = image_inputs(rng, 8, 4, 24, nd=2)
@@ -337,7 +467,7 @@ def test_hk12_gather_matches_the_map():
     ref = sweep_map_2d(vals.reshape(-1, nk, nk).numpy(), c2w.reshape(-1, nk, nk).numpy(),
                        x["rot"].numpy(), w_cls, big, pf)
     zeros = (torch.zeros((3, big, big), dtype=torch.complex64), torch.zeros((3, big, big)))
-    assert max(err(*ti.insert_sweep_2d_gather_plain(*args, *zeros), *ref)) < TOL
+    assert max(err(*ti.insert_sweep_2d_fixed_plain(*args, *zeros), *ref)) < TOL
     assert max(err(*ti.insert_sweep_2d(*args, big, 3), *ref)) < TOL
 
 

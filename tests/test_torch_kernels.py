@@ -535,9 +535,10 @@ def test_insert_sweep_slab(dev, sym, slabs):
 
 
 def _insert_case(dev, kind, big_3d=None):
-    """(kernel call, plain call) of HK3, HK6, HK10, HK11 (and its slab
-    form, with C4's mates into a slab) or HK12 on random slices (a
-    defocus factor a slice in 3D);
+    """(kernel call, plain call, fixed-point emulation or None) of HK3,
+    HK6, HK10, HK11 (and its slab form, with C4's mates into a slab) or
+    HK12 on random slices (a defocus factor a slice in 3D); the sweeps'
+    emulation reads the values the kernel's last call formed.
     ``big_3d`` a grid small enough that taps pass its faces."""
     g = generator(23, dev)
     size, n_img, n_s, r_u, pf = 32, 5, 40, 12, 2
@@ -553,13 +554,17 @@ def _insert_case(dev, kind, big_3d=None):
     cls = torch.randint(0, 3, (n_s,), generator=g, device=dev)
     zeros = lambda shape: (torch.zeros(shape, dtype=torch.complex64, device=dev),
                            torch.zeros(shape, device=dev))
+    recs = torch.empty(((n_img if kind == "insert_sweep_2d" else n_s), (2 * r_u - 1) ** 2, 4),
+                       device=dev)
     if kind in ("insert_bilinear_2d", "insert_sweep_2d"):
         args = (ft, ctf, img, cls, _rot2d(g, (n_s,), dev), trans, w, r_u, pf, size, 1.32)
         if kind == "insert_sweep_2d":
-            return (lambda: insert.insert_sweep_2d(*args, big, 3),
-                    lambda: insert.insert_sweep_2d_plain_values(*args, *zeros((3, big, big))))
+            return (lambda: insert.insert_sweep_2d(*args, big, 3, recs=recs),
+                    lambda: insert.insert_sweep_2d_plain_values(*args, *zeros((3, big, big))),
+                    lambda: insert.insert_sweep_2d_fixed_plain(*args, *zeros((3, big, big)),
+                                                               recs=recs))
         return (lambda: insert.insert_bilinear_2d(*args, big, 3),
-                lambda: insert.insert_bilinear_2d_plain(*args, *zeros((3, big, big))))
+                lambda: insert.insert_bilinear_2d_plain(*args, *zeros((3, big, big))), None)
     rot = rotate3d(random_quat(g, (n_s,), dev))
     if kind == "insert_sweep_slab":
         from thunder_tpu_torch.geometry.symmetry import Symmetry
@@ -570,28 +575,35 @@ def _insert_case(dev, kind, big_3d=None):
         return (lambda: insert.insert_sweep_slab(vals, c2w, rot, cls, r_u, pf, mats, 3, big, z0,
                                                  bz),
                 lambda: insert.insert_sweep_slab_plain(vals, c2w, rot, cls, r_u, pf, mats,
-                                                       *zeros((3, bz, big, big)), z0))
+                                                       *zeros((3, bz, big, big)), z0),
+                lambda: insert.insert_sweep_slab_fixed_plain(vals, c2w, rot, cls, r_u, pf, mats,
+                                                             *zeros((3, bz, big, big)), z0))
     d = 1 + 0.03 * torch.randn(n_s, generator=g, device=dev)
     args = (ft, ctf, img, rot, trans, w, r_u, pf, size, 1.32)
     if kind == "insert_mkb":
         return (lambda: insert.insert_mkb(*args, big, d=d),
-                lambda: insert.insert_mkb_plain(*args, *zeros((big,) * 3), d))
+                lambda: insert.insert_mkb_plain(*args, *zeros((big,) * 3), d), None)
     if kind == "insert_sweep":
-        return (lambda: insert.insert_sweep(*args, big, d=d),
-                lambda: insert.insert_sweep_plain(*args, *zeros((big,) * 3), d))
+        return (lambda: insert.insert_sweep(*args, big, d=d, recs=recs),
+                lambda: insert.insert_sweep_plain(*args, *zeros((big,) * 3), d),
+                lambda: insert.insert_sweep_fixed_plain(*args, *zeros((big,) * 3), d, recs=recs))
     return (lambda: insert.insert_trilinear(*args, big, d=d),
-            lambda: insert.insert_trilinear_plain(*args, *zeros((big,) * 3), d))
+            lambda: insert.insert_trilinear_plain(*args, *zeros((big,) * 3), d), None)
 
 
 @pytest.mark.parametrize("kind", ["insert_trilinear", "insert_bilinear_2d", "insert_mkb",
                                   "insert_sweep", "insert_sweep_slab", "insert_sweep_2d"])
 def test_insert_gathers_repeat_bitwise(dev, kind):
-    """HK3, HK6, HK10, HK11 (one grid and the slab form) and HK12:
-    each cell sums its slices in a fixed order, so two calls give
-    identical bits; each still matches its twin (1e-5)."""
-    call, plain = _insert_case(dev, kind)
+    """HK3, HK6 and HK10 (each cell sums its slices in a fixed order),
+    HK11 (one grid and the slab form) and HK12 (fixed-point sums): two
+    calls give identical bits; each still matches its twin (1e-5); the
+    sweeps give the bits of their emulation on the card."""
+    call, plain, fixed = _insert_case(dev, kind)
     (f1, t1), (f2, t2) = call(), call()
     assert torch.equal(f1, f2) and torch.equal(t1, t2)
+    if fixed is not None:
+        fe, te = fixed()
+        assert torch.equal(f1, fe) and torch.equal(t1, te)
     fp, tp = plain()
     assert rel_err(torch.view_as_real(f1), torch.view_as_real(fp)) < 1e-5
     assert rel_err(t1, tp) < 1e-5
@@ -606,10 +618,66 @@ def test_insert_gathers_taps_past_the_faces(dev, kind):
     reach passes the faces too, and it drops what lies past them."""
     lo, hi = insert.tap_range(40, 22.0)
     assert lo < 0 and hi > 39
-    call, plain = _insert_case(dev, kind, big_3d=40)
+    call, plain, fixed = _insert_case(dev, kind, big_3d=40)
     (fk, tk), (fp, tp) = call(), plain()
     assert rel_err(torch.view_as_real(fk), torch.view_as_real(fp)) < 1e-5
     assert rel_err(tk, tp) < 1e-5
+    if fixed is not None:
+        fe, te = fixed()
+        assert torch.equal(fk, fe) and torch.equal(tk, te)
+
+
+@pytest.mark.parametrize("pf", [1, 2])
+def test_insert_sweep_holds_samples_at_its_edge(dev, pf):
+    """Planes tilted so that the sweep reaches farthest (the normal near
+    (1, 1, 1) / sqrt 3) and slices at 45 degrees in 2D, samples only at
+    the window's edge: HK11 and HK12 give the bits of their emulation, so
+    their culls (radial reach, plane band, the bricks' and tiles'
+    candidate boxes) drop no tap."""
+    g = generator(29, dev)
+    size, n_img, n_s, r_u = 32, 4, 12, 8
+    big = 2 * ((r_u - 1) * pf + 8)
+    nk = 2 * r_u - 1
+    ft = torch.fft.fftshift(torch.fft.fft2(torch.randn(n_img, size, size, generator=g,
+                                                       device=dev)),
+                            dim=(-2, -1)).to(torch.complex64).contiguous()
+    ctf = _ctf_fields(dev, n_img, 7)
+    img = torch.arange(n_s, device=dev) % n_img
+    trans = torch.randn(n_s, 2, generator=g, device=dev)
+    w = torch.rand(n_s, generator=g, device=dev) + 0.1
+    n = torch.tensor([1.0, 1.0, 1.0], device=dev) / 3 ** 0.5
+    nn = n + 0.02 * torch.randn(n_s, 3, generator=g, device=dev)
+    nn = nn * torch.where(torch.rand(n_s, 3, generator=g, device=dev) < 0.5, -1.0, 1.0)
+    nn = nn / nn.norm(dim=1, keepdim=True)
+    a = torch.linalg.cross(nn, torch.randn(n_s, 3, generator=g, device=dev))
+    a = a / a.norm(dim=1, keepdim=True)
+    rot = torch.stack([a, torch.linalg.cross(nn, a), nn], -1)
+    zeros = lambda shape: (torch.zeros(shape, dtype=torch.complex64, device=dev),
+                           torch.zeros(shape, device=dev))
+    recs = torch.empty((n_s, nk * nk, 4), device=dev)
+    args = (ft, ctf, img, rot, trans, w, r_u, pf, size, 1.32)
+    fk, tk = insert.insert_sweep(*args, big, recs=recs)
+    k = torch.arange(nk, device=dev) - (r_u - 1)
+    q2 = k[:, None] ** 2 + k[None, :] ** 2
+    edge = (q2 < (r_u - 1) ** 2) & (q2 >= (r_u - 2) ** 2)
+    recs.mul_(edge.reshape(1, -1, 1).float())   # the window's edge alone
+    fe, te = insert.insert_sweep_fixed_plain(*args, *zeros((big,) * 3), recs=recs)
+    ft_edge = insert.insert_sweep_slab(
+        torch.complex(recs[..., 0], recs[..., 1]), recs[..., 2], rot,
+        torch.zeros(n_s, dtype=torch.int64, device=dev), r_u, pf,
+        torch.eye(3, device=dev)[None], 1, big, 0, big)
+    assert torch.equal(ft_edge[0][0], fe) and torch.equal(ft_edge[1][0], te)
+    assert tk.abs().max() > 0 and torch.isfinite(fk).all()
+    ang = (np.pi / 4 + 0.01 * torch.randn(n_s, generator=g, device=dev)
+           + np.pi / 2 * torch.randint(0, 4, (n_s,), generator=g, device=dev))
+    rot2 = torch.stack([torch.stack([ang.cos(), -ang.sin()], -1),
+                        torch.stack([ang.sin(), ang.cos()], -1)], 1)
+    cls = torch.zeros(n_s, dtype=torch.int64, device=dev)
+    recs2 = torch.empty((n_img, nk * nk, 4), device=dev)
+    args2 = (ft, ctf, img, cls, rot2, trans, w, r_u, pf, size, 1.32)
+    f2, t2 = insert.insert_sweep_2d(*args2, big, 1, recs=recs2)
+    f2e, t2e = insert.insert_sweep_2d_fixed_plain(*args2, *zeros((1, big, big)), recs=recs2)
+    assert torch.equal(f2, f2e) and torch.equal(t2, t2e)
 
 
 @pytest.mark.parametrize("form", ["rows", "rows in pieces", "grid", "grid, every cell", "pair"])

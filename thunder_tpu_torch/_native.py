@@ -33,6 +33,7 @@ SOURCES = ("project_slices.cu", "likelihood_block.cu",
            "insert_trilinear.cu", "shell_sums.cu", "project_slices_2d.cu",
            "insert_bilinear_2d.cu", "symmetrize_ft.cu",
            "likelihood_local_ctf.cu", "gather.cu", "launch_floor.cu")
+HEADERS = ("sweep_fixed.cuh",)   # included by the sources: part of the hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,6 +43,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_D = ctypes.c_double
 _SIGNATURES = {
     "thunder_project_slices": [_P, _I, _I, _P, _P, _L, _I, _I, _P, _P, _I,
                                _I, _P, _P],
@@ -65,11 +67,11 @@ _SIGNATURES = {
     "thunder_insert_mkb": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P,
                            _P, _I, _I, _I, _F, _F, _F, _F, _P],
     "thunder_insert_sweep": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P,
-                             _P, _P, _I, _P],
+                             _P, _P, _I, _P, _D, _P],
     "thunder_insert_sweep_slab": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _P, _P, _I, _I, _I,
-                                  _I, _P],
+                                  _I, _P, _D, _P],
     "thunder_insert_sweep_2d": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _F, _F, _F,
-                                _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                                _P, _P, _P, _I, _I, _I, _I, _I, _P, _D, _P],
 }
 
 _lib = None
@@ -88,7 +90,7 @@ def _nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(SRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]

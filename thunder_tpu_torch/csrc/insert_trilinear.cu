@@ -1,6 +1,7 @@
-// HK3 insert_trilinear, HK10 insert_mkb and HK11 insert_sweep (one
-// grid, and its slab form): Fourier insertion of slices as a gather, each
-// output cell forming its own sum.
+// HK3 insert_trilinear and HK10 insert_mkb: Fourier insertion of slices
+// as a gather, each output cell forming its own sum; HK11 insert_sweep
+// (one grid, and its slab form): the rounds' shear sweep as a
+// brick-owned scatter with order-free fixed-point sums.
 //
 // Replaces (thunder_tpu): HK11, the rounds' insertion,
 // optimiser.py:1400 _insert_flat3d_h / :1305 one_3d over ops/insert.py
@@ -12,33 +13,38 @@
 // reco_kernel="mkb"), insert_slices_3d over _mkb_taps: the modified
 // Kaiser-Bessel blob (Reconstructor.cpp:424-567).
 //
-// HK11 is HK3 with the sweep's weight (the template parameter WT =
-// SWEEP).  In the canonical axes (a, m, l) of a plane (a the axis most
-// aligned with its normal, case 0 x, 1 y, 2 z; m = z, or y for case z;
-// l = x, or y for case x), sample (h, k) of the dense window (h, k =
+// HK11's map.  In the canonical axes (a, m, l) of a plane (a the axis
+// most aligned with its normal, case 0 x, 1 y, 2 z; m = z, or y for case
+// z; l = x, or y for case x), sample (h, k) of the dense window (h, k =
 // vr, vc, or vc, vr where the plane's h/k swap is set) adds to cell (a,
 // m, l) with the weight
 //     hat(m' - em1 h - em2 k) hat(l' - p_h h - q_m m') hat((a - zeta) / 2) / 2,
 // zeta = alpha l + beta m the plane's height at (m, l), (m', l') = (m,
-// l), or (l, m) where its m/l swap is set, hat(t) = max(0, 1 - |t|).
-// The host forms each plane's record (em1, em2, p_h, q_m, alpha, beta,
-// flags) once (ops/insert.py sweep_coeffs, thunder_tpu's _sweep_coeffs
-// expressions); a cell forms the height hat from its own coordinates,
-// then walks the h whose l' hat reaches it (|p_h| >= pf / sqrt 2: at
-// most 2 at pf 2) and, for each, the k whose m' hat reaches it (|em2| >=
-// 0.67 pf), each weight formed as the plain version forms it.  Nothing
-// is clipped: cells past the grid are dropped, so no face gathers
-// virtual cells.  The sweep reaches farther than the trilinear taps
-// (|m - P_m| < 1, |l - P_l| < 1 + |q_m| <= 2, |a - P_a| < 2 + 2 |alpha| +
-// |beta| <= 5: within sqrt 30 of a sample P), but only 2 |n_a| <= 2 along
-// the normal (n . k = n_a (a - zeta)): bricks are culled at
-// max_radius_pad + SWEEP_REACH, planes listed within the half-diagonal +
-// SWEEP_BAND.  thunder_tpu streams its hat fields as bf16; HK11 forms
-// them in float32.  Its slab form lists the planes (slice, mate) of the
-// point group's mates M pose-side, each with the record of M R formed on
-// the host, adds only to the cells of its z-slab and, for a mate other
-// than the identity, only inside the radius (HK7's cut, so that for
+// l), or (l, m) where its m/l swap is set, hat(t) = max(0, 1 - |t|):
+// 2 x 2 x 4 cells a sample.  The host forms each plane's record (em1,
+// em2, p_h, q_m, alpha, beta, flags) once (ops/insert.py sweep_coeffs,
+// thunder_tpu's _sweep_coeffs expressions); the kernel forms each tap's
+// weight from it as the plain version does (ops/insert.py _sweep_taps).
+// Nothing is clipped: cells past the grid are dropped.  A tap lies within
+// 1 of the sample along m', 2 along l' and 5 along a (|m - P_m| < 1, |l -
+// P_l| < 1 + |q_m| <= 2, |a - P_a| < 2 + 2 |alpha| + |beta|: within sqrt
+// 30 of a sample P), but only 2 |n_a| <= 2 from the plane along its
+// normal (n . k = n_a (a - zeta)): bricks are culled at max_radius_pad +
+// SWEEP_REACH, planes listed within the half-diagonal + SWEEP_BAND.
+// thunder_tpu streams its hat fields as bf16; HK11 forms them in
+// float32.  Its slab form lists the planes (slice, mate) of the point
+// group's mates M pose-side, each with the record of M R formed on the
+// host, adds only to the cells of its z-slab and, for a mate other than
+// the identity, only inside the radius (HK7's cut, so that for
 // signed-permutation groups the slabs equal HK11 then HK7).
+//
+// HK11's design (sweep_brick_kernel below, sweep_fixed.cuh): a block
+// owns a 16 x 16 x 8 brick as 128-bit sums in shared memory and forms
+// each sample whose taps can reach the brick once, adding its taps there
+// with 32-bit integer atomics and their carries; the sums are fixed-point,
+// so every rerun repeats bit for bit, and a sample's position is formed by the few bricks it
+// reaches, not by each of its 16 cells and the candidates around them
+// as the cell-owned gather it replaced did.
 
 // HK10 is HK3 with another weight (WT = MKB): a
 // sample at q adds val MKB_FT(|k - q|) = I0(alpha sqrt(1 - |k - q|^2 /
@@ -86,8 +92,8 @@
 //
 // A block owns an 8^3 brick of one class (a thread a cell; a warp a 4 x 4
 // x 2 part of it).  Bricks farther than max_radius_pad + REACH from the
-// centre return at once.  The block lists, in slice order and mate order,
-// the planes (slice, mate) of its class whose normal passes within the
+// centre return at once.  The block lists, in slice order,
+// the planes of its class whose normal passes within the
 // brick's half-diagonal + REACH of its centre (ballot and prefix sums, no
 // atomic counter), CAP at a time in shared memory, with Q and the
 // slice's rotation.  A warp then takes the list 32 planes at a time,
@@ -101,22 +107,23 @@
 // on the same inputs give identical bits.  There is no scratch grid.
 //
 // HK3 forms the dense window's values in a first pass, (B, nk^2) records
-// (Re, Im, c2w, 0) read back with one 16-byte load a hit; the slab
-// form's wrapper packs the given values the same way.  Forming them at
+// (Re, Im, c2w, 0) read back with one 16-byte load a hit (HK11 too; its
+// slab form's wrapper packs the given values the same way).  Forming them at
 // every hit instead (a sample is hit by ~8 cells, each recomputing a CTF
 // and a sincos) ran slower at every measured shape (PERF.md section 6).
 //
-// What bounds it on Hopper: operations, not bytes.  Every sample's
-// position is formed by each of the ~8 cells it reaches and by the
-// candidates around them, and every cell tests each plane listed for its
-// brick: at 8b's shape, by estimate, ~9,000 plane tests, ~3,400 passing
-// planes and ~1,600 hits a cell.  The scatter it replaced formed a position once
-// and paid L2's atomic rate instead; the gather is several times slower
-// at every measured shape (PERF.md section 6) and repeats bit for bit.
-// Two blocks of 512 threads an SM (64 registers, a few spilled).
+// What bounds the gathers on Hopper: operations, not bytes.  Every
+// sample's position is formed by each of the ~8 cells it reaches and by
+// the candidates around them, and every cell tests each plane listed for
+// its brick.  The scatter they replaced formed a position once and paid
+// L2's atomic rate instead; the gather is several times slower at every
+// measured shape (PERF.md section 6) and repeats bit for bit.  Two blocks
+// of 512 threads an SM (64 registers, a few spilled).
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "sweep_fixed.cuh"
 
 namespace {
 
@@ -131,16 +138,14 @@ constexpr float REACH = 1.7320508f + 1e-2f;
 constexpr float STRIP = 1.f + 1e-2f;   // the same margin on a cell's own half-width
 constexpr float MARGIN = 1e-2f;        // HK10: reach and prefilter a + MARGIN
 // HK11: a cell within sqrt 30 of a sample, within 2 of its plane along
-// the normal; the margin widens the candidate ranges (ops/insert.py
-// SWEEP_REACH_3D, SWEEP_BAND, SWEEP_MARGIN mirror these)
+// the normal, and a margin for rounding (ops/insert.py SWEEP_REACH_3D and
+// SWEEP_BAND mirror these)
 constexpr float SWEEP_REACH = 5.4772256f + 1e-2f;
 constexpr float SWEEP_BAND = 2.f + 1e-2f;
-constexpr float SWEEP_MARGIN = 1e-2f;
 constexpr int SWEEP_SWAP_HK = 4, SWEEP_SWAP_ML = 8;   // a record's flags beside the case
 
-// the weight a gather forms: trilinear taps (HK3), the MKB blob
-// (HK10), thunder_tpu's shear sweep (HK11)
-enum Weight : int { TRI = 0, MKB = 1, SWEEP = 2 };
+// the weight a gather forms: trilinear taps (HK3), the MKB blob (HK10)
+enum Weight : int { TRI = 0, MKB = 1 };
 
 struct Slices {
   const float4* vals;   // (B, nk^2) of (Re val, Im val, c2w, 0)
@@ -151,14 +156,13 @@ struct Slices {
   const float* dfac;    // null: 1
   const float* wsl;     // slice weights; zero-weight slices are not listed (null: none)
   const float* rot;     // (B, 9) row-major
-  const int* cls;       // (B,) class of each slice (null: 0)
-  const float* mats;    // (n_sym, 9), the identity first (MATES; else the identity alone)
+  const int* cls;       // HK11's slab form: (B,) class of each slice (null: 0)
+  const float* mats;    // HK11's slab form: (n_sym, 9), the identity first
   int n_slices, n_sym, r_u, pf, size;
   float mrp, box_a, tpos;
-  float reach, strip;     // REACH and STRIP (HK10: a + MARGIN, both; HK11: SWEEP_BAND)
+  float reach, strip;     // REACH and STRIP (HK10: a + MARGIN, both; unread by HK11)
   int edge;               // HK10: the disc keeps its edge vc^2 + vr^2 = (r_u - 1)^2
   float mkb_a, mkb_a2, mkb_alpha, mkb_inv_i0;   // HK10's blob: a, a^2, alpha, 1 / I0(alpha)
-  float reach_r;          // HK11: the radial reach SWEEP_REACH (unread by the others)
   const float* coef;      // HK11: (n_slices n_sym, 8) sweep records of the planes
 };
 
@@ -248,14 +252,14 @@ __device__ __forceinline__ float mkb_weight(const Slices& S, float x, float y, f
          S.mkb_inv_i0;
 }
 
-// Add to (re, im, t) what the plane (slice s, mate m; Q = M R, r6 R's
-// first two columns) gives the virtual cell (vx, vy, vz): its candidates
-// (vc, vr), at most MAXC an axis; MKB: the blob's weight (HK10), else the
+// Add to (re, im, t) what the plane of slice s (Q = R, r6 R's first two
+// columns) gives the virtual cell (vx, vy, vz): its candidates (vc, vr),
+// at most MAXC an axis; MKB: the blob's weight (HK10), else the
 // trilinear taps'.
-template <bool MATES, int MAXC, int WT>
+template <int MAXC, int WT>
 __device__ __forceinline__ bool plane_into_cell(const Slices& S, const float* q, const float* r6,
-                                                const float* M, int s, int vx, int vy, int vz,
-                                                int cb, float& re, float& im, float& t) {
+                                                int s, int vx, int vy, int vz, int cb, float& re,
+                                                float& im, float& t) {
   constexpr bool BLOB = WT == MKB;
   const float reach = BLOB ? S.reach : REACH, strip = BLOB ? S.strip : STRIP;
   const float fx = (float)(vx - cb), fy = (float)(vy - cb), fz = (float)(vz - cb);
@@ -295,7 +299,7 @@ __device__ __forceinline__ bool plane_into_cell(const Slices& S, const float* q,
                 fabsf(e0[0] + (float)i * ec[0] + (float)j * er[0]) < strip &&
                 fabsf(e0[1] + (float)i * ec[1] + (float)j * er[1]) < strip &&
                 fabsf(e0[2] + (float)i * ec[2] + (float)j * er[2]) < strip;
-      if (!MATES) ok = ok && (BLOB ? vc * vc + vr * vr <= rr * rr : vc * vc + vr * vr < rr * rr);
+      ok = ok && (BLOB ? vc * vc + vr * vr <= rr * rr : vc * vc + vr * vr < rr * rr);
       if (ok) slots |= 1u << (j * MAXC + i);
     }
   }
@@ -314,12 +318,7 @@ __device__ __forceinline__ bool plane_into_cell(const Slices& S, const float* q,
     const float pz = __fadd_rn(__fmul_rn(r6[4], gx), __fmul_rn(r6[5], gy));
     const bool in = __fadd_rn(__fadd_rn(__fmul_rn(px, px), __fmul_rn(py, py)),
                               __fmul_rn(pz, pz)) < mrp2;
-    float x = px, y = py, z = pz;
-    if (MATES) {
-      x = __fadd_rn(__fadd_rn(__fmul_rn(M[0], px), __fmul_rn(M[1], py)), __fmul_rn(M[2], pz));
-      y = __fadd_rn(__fadd_rn(__fmul_rn(M[3], px), __fmul_rn(M[4], py)), __fmul_rn(M[5], pz));
-      z = __fadd_rn(__fadd_rn(__fmul_rn(M[6], px), __fmul_rn(M[7], py)), __fmul_rn(M[8], pz));
-    }
+    const float x = px, y = py, z = pz;
     bool ok;
     float w;
     if (BLOB) {
@@ -342,70 +341,12 @@ __device__ __forceinline__ bool plane_into_cell(const Slices& S, const float* q,
   return hit;
 }
 
-__device__ __forceinline__ float hat1(float t) { return fmaxf(0.f, __fsub_rn(1.f, fabsf(t))); }
-
-// HK11's candidate range of a pass index: t with |x - coef t| < 1 lies
-// within 1 / |coef| of centre = x / coef (ops/insert.py _sweep_range)
-__device__ __forceinline__ void sweep_range(float centre, float coef, int rr, int& lo, int& hi) {
-  const float half = __fdiv_rn(1.f, fabsf(coef));
-  lo = max(-rr, (int)ceilf(__fsub_rn(__fsub_rn(centre, half), SWEEP_MARGIN)));
-  hi = min(rr, (int)floorf(__fadd_rn(__fadd_rn(centre, half), SWEEP_MARGIN)));
-}
-
-// Add to (re, im, t) what the plane of sweep record c (em1, em2, p_h,
-// q_m, alpha, beta; flags: case, swaps) of slice s gives the cell (vx,
-// vy, vz): the height hat of the cell, then the samples h of the l' pass
-// and, for each, the samples k of the m' pass, each weight formed as the
-// plain version forms it (ops/insert.py _sweep_taps).
-__device__ __forceinline__ bool sweep_into_cell(const Slices& S, const float* c, int flags,
-                                                int s, int vx, int vy, int vz, int cb,
-                                                float& re, float& im, float& t) {
-  const float fx = (float)(vx - cb), fy = (float)(vy - cb), fz = (float)(vz - cb);
-  const int cs = flags & 3;
-  const float a = cs == 0 ? fx : (cs == 1 ? fy : fz);
-  const float m = cs == 2 ? fy : fz;
-  const float l = cs == 0 ? fy : fx;
-  const float zeta = __fadd_rn(__fmul_rn(c[4], l), __fmul_rn(c[5], m));
-  const float wz = __fdiv_rn(hat1(__fdiv_rn(__fsub_rn(a, zeta), 2.f)), 2.f);
-  if (!(wz > 0.f)) return false;
-  const bool sml = (flags & SWEEP_SWAP_ML) != 0, shk = (flags & SWEEP_SWAP_HK) != 0;
-  const float mp = sml ? l : m, lp = sml ? m : l;
-  const float em1 = c[0], em2 = c[1], p_h = c[2], q_m = c[3];
-  const int rr = S.r_u - 1, nk = 2 * S.r_u - 1;
-  const float4* vals = S.vals + (long long)s * nk * nk;
-  int h0, h1;
-  sweep_range(__fdiv_rn(__fsub_rn(lp, __fmul_rn(q_m, mp)), p_h), p_h, rr, h0, h1);
-  bool hit = false;
-  for (int h = h0; h <= h1; ++h) {
-    const float hf = (float)h;
-    const float w2 = hat1(__fsub_rn(lp, __fadd_rn(__fmul_rn(p_h, hf), __fmul_rn(q_m, mp))));
-    if (!(w2 > 0.f)) continue;
-    int k0, k1;
-    sweep_range(__fdiv_rn(__fsub_rn(mp, __fmul_rn(em1, hf)), em2), em2, rr, k0, k1);
-    for (int k = k0; k <= k1; ++k) {
-      const float w3 = hat1(__fsub_rn(mp, __fadd_rn(__fmul_rn(em1, hf), __fmul_rn(em2, (float)k))));
-      const int vr = shk ? k : h, vc = shk ? h : k;
-      if (!(w3 > 0.f) || vc * vc + vr * vr >= rr * rr) continue;
-      const float4 v = __ldg(vals + (vr + rr) * nk + (vc + rr));
-      const float w = __fmul_rn(__fmul_rn(w3, w2), wz);
-      re += v.x * w;
-      im += v.y * w;
-      t += v.z * w;
-      hit = true;
-    }
-  }
-  return hit;
-}
-
-template <bool MATES, int MAXC, int WT>
+template <int MAXC, int WT>
 __global__ void __launch_bounds__(THREADS, 2) insert_gather_kernel(Slices S, Grid G) {
   extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;                               // 9 x CAP: Q = M R, row-major
+  float* sQ = smem;                               // 9 x CAP: Q = R, row-major
   float* sR = sQ + 9 * CAP;                       // 6 x CAP: R's first two columns
   int* sS = reinterpret_cast<int*>(sR + 6 * CAP);  // CAP: slice
-  int* sM = sS + CAP;                             // CAP: mate
-  int* sF = sM + CAP;                             // CAP: HK11's flags (sR: its coefficients)
-  float* sMat = reinterpret_cast<float*>(sF + CAP);  // 9 x n_sym
   __shared__ int warp_n[THREADS / 32];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -417,7 +358,7 @@ __global__ void __launch_bounds__(THREADS, 2) insert_gather_kernel(Slices S, Gri
   const int x1 = min(x0 + BRICK, big) - 1, y1 = min(y0 + BRICK, big) - 1;
   const int z1 = min(z0 + BRICK, G.z0 + G.bz) - 1;
   const float reach = WT == TRI ? REACH : S.reach;
-  const float lim_r = S.mrp + (WT == SWEEP ? S.reach_r : reach);
+  const float lim_r = S.mrp + reach;
   {
     // the brick's nearest point to the centre (virtual cells lie farther out)
     auto near = [&](int a, int b) { return (float)(a > cb ? a - cb : (b < cb ? cb - b : 0)); };
@@ -449,18 +390,12 @@ __global__ void __launch_bounds__(THREADS, 2) insert_gather_kernel(Slices S, Gri
   const int kx = ix - cb, ky = iy - cb, kz = iz - cb;
   const float kr2 = (float)(kx * kx + ky * ky + kz * kz);
   const bool active = ix <= x1 && iy <= y1 && iz <= z1 && kr2 < lim_r * lim_r;
-  const float mrp2 = S.mrp * S.mrp;
-  const bool inside_r = kr2 < mrp2;   // slab form: a mate adds only inside the radius
   const int vx0 = vlo_of(ix), vx1 = vhi_of(ix), vy0 = vlo_of(iy), vy1 = vhi_of(iy);
   const int vz0 = vlo_of(iz), vz1 = vhi_of(iz);
   const bool faces = vx0 != vx1 || vy0 != vy1 || vz0 != vz1;
   const float fkx = (float)kx, fky = (float)ky, fkz = (float)kz;
 
-  if (MATES)
-    for (int i = tid; i < 9 * S.n_sym; i += THREADS) sMat[i] = S.mats[i];
-  __syncthreads();
-
-  const long long n_planes = (long long)S.n_slices * S.n_sym;
+  const long long n_planes = S.n_slices;
   float acc_re = 0.f, acc_im = 0.f, acc_t = 0.f;
   bool hit = false;
   long long base = 0;
@@ -470,22 +405,11 @@ __global__ void __launch_bounds__(THREADS, 2) insert_gather_kernel(Slices S, Gri
     while (base < n_planes && count + THREADS <= CAP) {
       long long i = base + tid;
       bool pass = false;
-      int s = 0, m = 0;
-      if (i < n_planes) {
-        s = (int)(i / S.n_sym);
-        m = (int)(i - (long long)s * S.n_sym);
-        if ((S.cls == nullptr || S.cls[s] == cls_k) && (S.wsl == nullptr || S.wsl[s] != 0.f)) {
-          const float* R = S.rot + 9LL * s;
-          float n0 = R[2], n1 = R[5], n2 = R[8];
-          if (MATES) {
-            const float* M = sMat + 9 * m;
-            float a = M[0] * n0 + M[1] * n1 + M[2] * n2;
-            float b = M[3] * n0 + M[4] * n1 + M[5] * n2;
-            float c = M[6] * n0 + M[7] * n1 + M[8] * n2;
-            n0 = a, n1 = b, n2 = c;
-          }
-          pass = fabsf(n0 * cbk[0] + n1 * cbk[1] + n2 * cbk[2]) < lim_b;
-        }
+      const int s = (int)i;
+      if (i < n_planes && (S.cls == nullptr || S.cls[s] == cls_k) &&
+          (S.wsl == nullptr || S.wsl[s] != 0.f)) {
+        const float* R = S.rot + 9LL * s;
+        pass = fabsf(R[2] * cbk[0] + R[5] * cbk[1] + R[8] * cbk[2]) < lim_b;
       }
       unsigned ball = __ballot_sync(FULL, pass);
       if (lane == 0) warp_n[warp] = __popc(ball);
@@ -503,29 +427,15 @@ __global__ void __launch_bounds__(THREADS, 2) insert_gather_kernel(Slices S, Gri
         float r[9];
 #pragma unroll
         for (int j = 0; j < 9; ++j) r[j] = R[j];
-        const float* M = sMat + 9 * m;
 #pragma unroll
-        for (int a = 0; a < 3; ++a)
-#pragma unroll
-          for (int b = 0; b < 3; ++b)
-            sQ[(3 * a + b) * CAP + at] =
-                MATES ? M[3 * a] * r[b] + M[3 * a + 1] * r[3 + b] + M[3 * a + 2] * r[6 + b]
-                      : r[3 * a + b];
-        if (WT == SWEEP) {
-          const float* c = S.coef + 8LL * i;
-#pragma unroll
-          for (int j = 0; j < 6; ++j) sR[j * CAP + at] = c[j];
-          sF[at] = (int)c[6];
-        } else {
-          sR[0 * CAP + at] = r[0];
-          sR[1 * CAP + at] = r[1];
-          sR[2 * CAP + at] = r[3];
-          sR[3 * CAP + at] = r[4];
-          sR[4 * CAP + at] = r[6];
-          sR[5 * CAP + at] = r[7];
-        }
+        for (int j = 0; j < 9; ++j) sQ[j * CAP + at] = r[j];
+        sR[0 * CAP + at] = r[0];
+        sR[1 * CAP + at] = r[1];
+        sR[2 * CAP + at] = r[3];
+        sR[3 * CAP + at] = r[4];
+        sR[4 * CAP + at] = r[6];
+        sR[5 * CAP + at] = r[7];
         sS[at] = s;
-        sM[at] = m;
       }
       count += total;
       base += THREADS;
@@ -543,7 +453,7 @@ __global__ void __launch_bounds__(THREADS, 2) insert_gather_kernel(Slices S, Gri
       unsigned mine = 0;
       for (unsigned wm = __ballot_sync(FULL, near_w); wm; wm &= wm - 1) {
         const int j = __ffs(wm) - 1, ej = chunk + j;
-        if (!active || (MATES && sM[ej] > 0 && !inside_r)) continue;
+        if (!active) continue;
         const float n0 = sQ[2 * CAP + ej], n1 = sQ[5 * CAP + ej], n2 = sQ[8 * CAP + ej];
         bool near_c = fabsf(n0 * fkx + n1 * fky + n2 * fkz) < reach;
         if (faces)
@@ -563,18 +473,14 @@ __global__ void __launch_bounds__(THREADS, 2) insert_gather_kernel(Slices S, Gri
 #pragma unroll
         for (int j = 0; j < 6; ++j) r6[j] = sR[j * CAP + ej];
         const int s = sS[ej];
-        const float* M = sMat + 9 * (MATES ? sM[ej] : 0);
-        if (WT == SWEEP) {   // nothing is clipped onto a face: no virtual cells
-          hit |= sweep_into_cell(S, r6, sF[ej], s, ix, iy, iz, cb, acc_re, acc_im, acc_t);
-        } else if (!faces) {
-          hit |= plane_into_cell<MATES, MAXC, WT>(S, q, r6, M, s, ix, iy, iz, cb, acc_re,
-                                                        acc_im, acc_t);
+        if (!faces) {
+          hit |= plane_into_cell<MAXC, WT>(S, q, r6, s, ix, iy, iz, cb, acc_re, acc_im, acc_t);
         } else {
           for (int vz = vz0; vz <= vz1; ++vz)
             for (int vy = vy0; vy <= vy1; ++vy)
               for (int vx = vx0; vx <= vx1; ++vx)
-                hit |= plane_into_cell<MATES, MAXC, WT>(S, q, r6, M, s, vx, vy, vz, cb,
-                                                              acc_re, acc_im, acc_t);
+                hit |= plane_into_cell<MAXC, WT>(S, q, r6, s, vx, vy, vz, cb, acc_re, acc_im,
+                                                 acc_t);
         }
       }
     }
@@ -588,31 +494,323 @@ __global__ void __launch_bounds__(THREADS, 2) insert_gather_kernel(Slices S, Gri
   }
 }
 
-constexpr size_t SMEM = (size_t)(18 * CAP + 9 * MAX_SYM) * sizeof(float);
+constexpr size_t SMEM = (size_t)(16 * CAP) * sizeof(float);
 
-template <bool MATES, int WT>
-int launch_gather(const Slices& S, const Grid& G, int n_class, cudaStream_t stream) {
+template <int WT>
+int launch_gather(const Slices& S, const Grid& G, cudaStream_t stream) {
   // candidates an axis: 2 reach / pf + 1 of them at most (2 sqrt 3 / pf + 1
-  // for trilinear taps: 4 at pf 1, 2 at pf 2 and above); HK11 forms its
-  // own ranges
+  // for trilinear taps: 4 at pf 1, 2 at pf 2 and above)
   const int maxc = max(2, (int)(2.f * (WT == MKB ? S.reach : REACH) / (float)S.pf) + 1);
   void (*kernel)(Slices, Grid);
-  if (WT == SWEEP) {
-    kernel = insert_gather_kernel<MATES, 2, WT>;
-  } else {
-    switch (maxc) {
-      case 2: kernel = insert_gather_kernel<MATES, 2, WT>; break;
-      case 3: kernel = insert_gather_kernel<MATES, 3, WT>; break;
-      case 4: kernel = insert_gather_kernel<MATES, 4, WT>; break;
-      case 5: kernel = insert_gather_kernel<MATES, 5, WT>; break;
-      default: return (int)cudaErrorInvalidValue;
-    }
+  switch (maxc) {
+    case 2: kernel = insert_gather_kernel<2, WT>; break;
+    case 3: kernel = insert_gather_kernel<3, WT>; break;
+    case 4: kernel = insert_gather_kernel<4, WT>; break;
+    case 5: kernel = insert_gather_kernel<5, WT>; break;
+    default: return (int)cudaErrorInvalidValue;
   }
   cudaError_t e = cudaFuncSetAttribute((const void*)kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   if (e != cudaSuccess) return (int)e;
   const long long nbx = (G.big + BRICK - 1) / BRICK, nbz = (G.bz + BRICK - 1) / BRICK;
-  kernel<<<dim3((unsigned)(nbx * nbx * nbz), n_class), THREADS, SMEM, stream>>>(S, G);
+  kernel<<<dim3((unsigned)(nbx * nbx * nbz), 1), THREADS, SMEM, stream>>>(S, G);
+  return (int)cudaGetLastError();
+}
+
+// ---- HK11: the sweep as a brick-owned scatter, fixed-point sums ----
+
+// HK11's first pass: HK3's values, and the maxima of their three
+// components (sweep_fixed.cuh)
+__global__ void sweep_values_kernel(Slices S, float4* __restrict__ vals, long long total,
+                                    unsigned* __restrict__ vmax) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int nk = 2 * S.r_u - 1, rr = S.r_u - 1, npx = nk * nk;
+  float re = 0.f, im = 0.f, cw = 0.f;
+  if (idx < total) {
+    const int s = (int)(idx / npx);
+    const int p = (int)(idx - (long long)s * npx);
+    const int vr = p / nk - rr, vc = p % nk - rr;
+    if (vc * vc + vr * vr < rr * rr && S.wsl[s] != 0.f) form_value(S, s, vc, vr, re, im, cw);
+    vals[idx] = make_float4(re, im, cw, 0.f);
+  }
+  sweepfx::block_max(fabsf(re), vmax);
+  sweepfx::block_max(fabsf(im), vmax + 1);
+  sweepfx::block_max(fabsf(cw), vmax + 2);
+}
+
+// the maxima of given values (the slab form)
+__global__ void values_max_kernel(const float4* __restrict__ vals, long long total,
+                                  unsigned* __restrict__ vmax) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (idx < total) v = vals[idx];
+  sweepfx::block_max(fabsf(v.x), vmax);
+  sweepfx::block_max(fabsf(v.y), vmax + 1);
+  sweepfx::block_max(fabsf(v.z), vmax + 2);
+}
+
+constexpr int SWEEP_BX = 16, SWEEP_BY = 16, SWEEP_BZ = 8;   // a brick's cells an axis (brick_addr)
+constexpr int SWEEP_CELLS = SWEEP_BX * SWEEP_BY * SWEEP_BZ;
+constexpr int SWEEP_THREADS = 512;
+constexpr int SWEEP_WARPS = SWEEP_THREADS / 32;
+constexpr int SWEEP_CAP = SWEEP_THREADS;                          // planes listed at once
+// three 128-bit sums a cell, then six coefficients and a packed word a
+// listed plane: two blocks an SM
+constexpr size_t SWEEP_SMEM =
+    (size_t)3 * sweepfx::WORDS * SWEEP_CELLS * 4 + (size_t)SWEEP_CAP * 7 * 4;
+constexpr float SWEEP_A_REACH = 5.f + sweepfx::RANGE_MARGIN;   // |a - P_a| < 2 + 2 |alpha| + |beta|
+
+// A brick cell's word in shared memory: 32-word rows of two y lines,
+// each row's columns rotated by its y and z, so that the lanes of a warp,
+// whose samples lie about pf cells apart in any direction, hit different
+// banks (unrotated, steps along y or z fall in one or two banks)
+__device__ __forceinline__ int brick_addr(int lx, int ly, int lz) {
+  return ((ly >> 1) + 8 * lz) * 32 + ((lx + 16 * (ly & 1) + 3 * (ly >> 1) + 5 * lz) & 31);
+}
+
+// A block owns a 16 x 16 x 8 brick of class blockIdx.y's grid (or of the
+// slab) as 128-bit sums in shared memory.  It lists the planes (slice,
+// mate) whose normal passes within the brick's half-diagonal +
+// SWEEP_BAND of its centre (ballot and prefix sums, as the gathers);
+// each warp then takes a listed plane and its lanes the samples (h, k)
+// of the box whose taps can land in the brick: in the plane's canonical
+// axes, h from the l' pass (p_h h + q_m m' within 1 of the brick's l'
+// range for some m' of its m' range), k from the m' pass (em1 h + em2 k
+// within 1 of its m' range), each widened by RANGE_MARGIN.  A sample
+// whose m' taps miss the brick, or whose plane lies farther than
+// SWEEP_A_REACH from the brick's a range at the sample, is dropped; the
+// samples that pass are taken two at a time, a half-warp each, a lane
+// forming one of the sample's 2 x 2 x 4 taps as the plain version forms
+// it (ops/insert.py _sweep_taps) and adding it where it lies inside the
+// brick (a mate's only inside the radius).  A lane walking all 16 taps of
+// its own sample left most lanes idle behind the few whose sample passed
+// (slower on an H100: PERF.md section 6).  Then the brick is written once.
+template <bool MATES>
+__global__ void __launch_bounds__(SWEEP_THREADS, 2) sweep_brick_kernel(
+    Slices S, Grid G, const unsigned* __restrict__ vmax, double count) {
+  // the sums of Re F, Im F, T, each as four planes of CELLS words, lowest first
+  constexpr int W = sweepfx::WORDS;
+  extern __shared__ __align__(16) unsigned acc[];
+  float* sC = reinterpret_cast<float*>(acc + 3 * W * SWEEP_CELLS);   // 6 x CAP coefficients
+  int* sP = reinterpret_cast<int*>(sC + 6 * SWEEP_CAP);   // CAP: slice << 5 | cut << 4 | flags
+  __shared__ float sMat[9 * MAX_SYM];
+  __shared__ int warp_n[SWEEP_WARPS];
+  constexpr int BX = SWEEP_BX, BY = SWEEP_BY, BZ = SWEEP_BZ;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int big = G.big, cb = big / 2;
+  const int nbx = (big + BX - 1) / BX, nby = (big + BY - 1) / BY;
+  const int bx = blockIdx.x % nbx, by = (blockIdx.x / nbx) % nby, bzi = blockIdx.x / (nbx * nby);
+  const int cls_k = blockIdx.y;
+  const int x0 = bx * BX, y0 = by * BY, z0 = G.z0 + bzi * BZ;
+  const int x1 = min(x0 + BX, big) - 1, y1 = min(y0 + BY, big) - 1;
+  const int z1 = min(z0 + BZ, G.z0 + G.bz) - 1;
+  {
+    // no sample within SWEEP_REACH of the brick: nothing to add
+    auto near = [&](int a, int b) { return (float)(a > cb ? a - cb : (b < cb ? cb - b : 0)); };
+    const float nx = near(x0, x1), ny = near(y0, y1), nz = near(z0, z1);
+    const float lim_r = S.mrp + SWEEP_REACH;
+    if (nx * nx + ny * ny + nz * nz >= lim_r * lim_r) return;
+  }
+  for (int i = tid; i < 3 * W * SWEEP_CELLS; i += SWEEP_THREADS) acc[i] = 0u;
+  if (MATES)
+    for (int i = tid; i < 9 * S.n_sym; i += SWEEP_THREADS) sMat[i] = S.mats[i];
+  // the brick in centered coordinates, its centre and half-diagonal
+  const int lo[3] = {x0 - cb, y0 - cb, z0 - cb}, hi[3] = {x1 - cb, y1 - cb, z1 - cb};
+  const float cx = 0.5f * (float)(lo[0] + hi[0]), cy = 0.5f * (float)(lo[1] + hi[1]),
+              cz = 0.5f * (float)(lo[2] + hi[2]);
+  const float ex = 0.5f * (float)(hi[0] - lo[0]), ey = 0.5f * (float)(hi[1] - lo[1]),
+              ez = 0.5f * (float)(hi[2] - lo[2]);
+  const float lim_b = sqrtf(ex * ex + ey * ey + ez * ez) + SWEEP_BAND;
+  int sx[3];   // each component's scale 2^sx
+#pragma unroll
+  for (int c = 0; c < 3; ++c) sx[c] = sweepfx::scale_exp(count * (double)__uint_as_float(vmax[c]));
+  const int rr = S.r_u - 1, nk = 2 * S.r_u - 1;
+  const int mrp_i = rr * S.pf, mrp2 = mrp_i * mrp_i;
+  __syncthreads();
+
+  const long long n_planes = (long long)S.n_slices * S.n_sym;
+  long long base = 0;
+  while (base < n_planes) {
+    // list the next planes whose normal passes near the brick
+    int count_l = 0;
+    while (base < n_planes && count_l + SWEEP_THREADS <= SWEEP_CAP) {
+      const long long i = base + tid;
+      bool pass = false;
+      int s = 0, m = 0;
+      if (i < n_planes) {
+        s = (int)(i / S.n_sym);
+        m = (int)(i - (long long)s * S.n_sym);
+        if ((S.cls == nullptr || S.cls[s] == cls_k) && (S.wsl == nullptr || S.wsl[s] != 0.f)) {
+          const float* R = S.rot + 9LL * s;
+          float n0 = R[2], n1 = R[5], n2 = R[8];
+          if (MATES) {
+            const float* M = sMat + 9 * m;
+            const float a = M[0] * n0 + M[1] * n1 + M[2] * n2;
+            const float b = M[3] * n0 + M[4] * n1 + M[5] * n2;
+            const float c = M[6] * n0 + M[7] * n1 + M[8] * n2;
+            n0 = a, n1 = b, n2 = c;
+          }
+          pass = fabsf(n0 * cx + n1 * cy + n2 * cz) < lim_b;
+        }
+      }
+      const unsigned ball = __ballot_sync(FULL, pass);
+      if (lane == 0) warp_n[warp] = __popc(ball);
+      __syncthreads();
+      int before = 0, total = 0;
+#pragma unroll
+      for (int w = 0; w < SWEEP_WARPS; ++w) {
+        const int c = warp_n[w];
+        before += w < warp ? c : 0;
+        total += c;
+      }
+      if (pass) {
+        const int at = count_l + before + __popc(ball & ((1u << lane) - 1u));
+        const float* c = S.coef + 8LL * i;
+#pragma unroll
+        for (int j = 0; j < 6; ++j) sC[j * SWEEP_CAP + at] = c[j];
+        sP[at] = (s << 5) | ((MATES && m > 0) ? 16 : 0) | ((int)c[6] & 15);
+      }
+      count_l += total;
+      base += SWEEP_THREADS;
+      __syncthreads();   // warp_n is rewritten by the next step
+    }
+    for (int e = warp; e < count_l; e += SWEEP_WARPS) {
+      const float em1 = sC[e], em2 = sC[SWEEP_CAP + e], p_h = sC[2 * SWEEP_CAP + e];
+      const float q_m = sC[3 * SWEEP_CAP + e], alpha = sC[4 * SWEEP_CAP + e];
+      const float beta = sC[5 * SWEEP_CAP + e];
+      const int pk = sP[e];
+      const int cs = pk & 3, s = pk >> 5;
+      const bool shk = (pk & SWEEP_SWAP_HK) != 0, sml = (pk & SWEEP_SWAP_ML) != 0;
+      const bool cut = (pk & 16) != 0;
+      // the brick's ranges on the plane's canonical axes: a, m, l, then
+      // (m', l') = (m, l), or (l, m) where the m/l swap is set
+      const int ai = cs, mi = cs == 2 ? 1 : 2, li = cs == 0 ? 1 : 0;
+      const float al = (float)lo[ai], ah = (float)hi[ai];
+      const int mpl = sml ? lo[li] : lo[mi], mph = sml ? hi[li] : hi[mi];
+      const int lpl = sml ? lo[mi] : lo[li], lph = sml ? hi[mi] : hi[li];
+      const float qa = q_m * (float)mpl, qb = q_m * (float)mph;
+      int h0, h1, k0, k1;
+      sweepfx::pass_range((float)lpl - 1.f - fmaxf(qa, qb) - sweepfx::RANGE_MARGIN,
+                          (float)lph + 1.f - fminf(qa, qb) + sweepfx::RANGE_MARGIN, p_h, rr, h0,
+                          h1);
+      if (h0 > h1) continue;
+      const float ea = em1 * (float)h0, eb = em1 * (float)h1;
+      sweepfx::pass_range((float)mpl - 1.f - fmaxf(ea, eb) - sweepfx::RANGE_MARGIN,
+                          (float)mph + 1.f - fminf(ea, eb) + sweepfx::RANGE_MARGIN, em2, rr, k0,
+                          k1);
+      if (k0 > k1) continue;
+      const int nkk = k1 - k0 + 1, n_cand = (h1 - h0 + 1) * nkk;
+      const float4* vals = S.vals + (long long)s * nk * nk;
+      // (j + 1/2) / nkk lies 1/2 nkk from an integer, far past the float
+      // quotient's error at these sizes: its floor is j's row
+      const float inv_nkk = 1.f / (float)nkk;
+      for (int base = 0; base < n_cand; base += 32) {
+        // the lanes test 32 candidates; those that pass go on, two at a
+        // time, to the half-warps, a lane a tap (2 x 2 x 4 a sample)
+        const int j = base + lane;
+        const int dh = (int)(((float)j + 0.5f) * inv_nkk);
+        const int h = h0 + dh, k = k0 + (j - dh * nkk);
+        const int vr = shk ? k : h, vc = shk ? h : k;
+        bool pass = j < n_cand && vc * vc + vr * vr < rr * rr;
+        if (pass) {
+          const float hf = (float)h;
+          const float ctr_m = __fadd_rn(__fmul_rn(em1, hf), __fmul_rn(em2, (float)k));
+          const float fm = floorf(ctr_m);
+          // a tap in the brick's m' and l' ranges, formed as the taps are
+          bool ml = false;
+#pragma unroll
+          for (int dm = 0; dm < 2; ++dm) {
+            const float mp = fm + (float)dm;
+            const float fl = floorf(__fadd_rn(__fmul_rn(p_h, hf), __fmul_rn(q_m, mp)));
+            ml = ml || (mp >= (float)mpl && mp <= (float)mph && fl + 1.f >= (float)lpl &&
+                        fl <= (float)lph);
+          }
+          // the plane's height at the sample: every tap lies within
+          // SWEEP_A_REACH of it along a
+          const float pl = p_h * hf + q_m * ctr_m;
+          const float zeta0 = sml ? alpha * ctr_m + beta * pl : alpha * pl + beta * ctr_m;
+          pass = ml && al <= zeta0 + SWEEP_A_REACH && ah >= zeta0 - SWEEP_A_REACH;
+        }
+        unsigned todo = __ballot_sync(FULL, pass);
+        while (todo) {
+          const int src0 = __ffs(todo) - 1;
+          todo &= todo - 1;
+          const int src1 = todo ? __ffs(todo) - 1 : -1;
+          if (todo) todo &= todo - 1;
+          const int src = lane < 16 ? src0 : src1;
+          const int hs = __shfl_sync(FULL, h, src < 0 ? 0 : src);
+          const int ks = __shfl_sync(FULL, k, src < 0 ? 0 : src);
+          if (src < 0) continue;
+          const int t = lane & 15, dm = t >> 3, dl = (t >> 2) & 1, da = (t & 3) - 1;
+          const float hf = (float)hs;
+          const float ctr_m = __fadd_rn(__fmul_rn(em1, hf), __fmul_rn(em2, (float)ks));
+          const float mp = floorf(ctr_m) + (float)dm;
+          const float w3 = sweepfx::hat1(__fsub_rn(mp, ctr_m));
+          const float ctr_l = __fadd_rn(__fmul_rn(p_h, hf), __fmul_rn(q_m, mp));
+          const float lp = floorf(ctr_l) + (float)dl;
+          const float w32 = __fmul_rn(w3, sweepfx::hat1(__fsub_rn(lp, ctr_l)));
+          const float mm = sml ? lp : mp, ll = sml ? mp : lp;
+          const float zeta = __fadd_rn(__fmul_rn(alpha, ll), __fmul_rn(beta, mm));
+          const float a = floorf(zeta) + (float)da;
+          const float w = __fmul_rn(
+              w32, __fmul_rn(sweepfx::hat1(__fmul_rn(__fsub_rn(a, zeta), 0.5f)), 0.5f));
+          if (!(w > 0.f) || mp < (float)mpl || mp > (float)mph || lp < (float)lpl ||
+              lp > (float)lph || a < al || a > ah)
+            continue;
+          const int ia = (int)a, im_ = (int)mm, il = (int)ll;
+          const int kx = cs == 0 ? ia : il;
+          const int ky = cs == 1 ? ia : (cs == 0 ? il : im_);
+          const int kz = cs == 2 ? ia : im_;
+          if (cut && kx * kx + ky * ky + kz * kz >= mrp2) continue;
+          const int vrs = shk ? ks : hs, vcs = shk ? hs : ks;
+          const float4 v = __ldg(vals + (vrs + rr) * nk + (vcs + rr));
+          const int cell = brick_addr(kx - lo[0], ky - lo[1], kz - lo[2]);
+          const float vc3[3] = {v.x, v.y, v.z};
+          sweepfx::Tap q[3];
+          bool nz[3];
+#pragma unroll
+          for (int c = 0; c < 3; ++c) nz[c] = sweepfx::quantise(vc3[c], w, sx[c], q[c]);
+          sweepfx::fixed_add3(acc + cell, SWEEP_CELLS, q, nz);
+        }
+      }
+    }
+    __syncthreads();   // the list is refilled
+  }
+  // the brick, once: disjoint from every other block's
+  const double inv[3] = {ldexp(1.0, -sx[0]), ldexp(1.0, -sx[1]), ldexp(1.0, -sx[2])};
+  for (int i = tid; i < SWEEP_CELLS; i += SWEEP_THREADS) {
+    const int lx = i % BX, ly = (i / BX) % BY, lz = i / (BX * BY);
+    const int ix = x0 + lx, iy = y0 + ly, iz = z0 + lz;
+    if (ix > x1 || iy > y1 || iz > z1) continue;
+    const unsigned* ar = acc + brick_addr(lx, ly, lz);
+    const unsigned *ai = ar + W * SWEEP_CELLS, *at = ai + W * SWEEP_CELLS;
+    const bool r = sweepfx::nonzero(ar, SWEEP_CELLS), im = sweepfx::nonzero(ai, SWEEP_CELLS);
+    const bool t = sweepfx::nonzero(at, SWEEP_CELLS);
+    if (!(r || im || t)) continue;
+    const long long cell = (((long long)cls_k * G.bz + (iz - G.z0)) * big + iy) * big + ix;
+    if (r || im) {
+      float2 f = G.F[cell];
+      if (r) f.x = __fadd_rn(f.x, sweepfx::unquantise(ar, SWEEP_CELLS, inv[0]));
+      if (im) f.y = __fadd_rn(f.y, sweepfx::unquantise(ai, SWEEP_CELLS, inv[1]));
+      G.F[cell] = f;
+    }
+    if (t) G.T[cell] = __fadd_rn(G.T[cell], sweepfx::unquantise(at, SWEEP_CELLS, inv[2]));
+  }
+}
+
+template <bool MATES>
+int launch_sweep(const Slices& S, const Grid& G, int n_class, const unsigned* vmax,
+                 double count, cudaStream_t stream) {
+  auto kernel = sweep_brick_kernel<MATES>;
+  cudaError_t e = cudaFuncSetAttribute((const void*)kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)SWEEP_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const long long nbx = (G.big + SWEEP_BX - 1) / SWEEP_BX, nby = (G.big + SWEEP_BY - 1) / SWEEP_BY;
+  const long long nbz = (G.bz + SWEEP_BZ - 1) / SWEEP_BZ;
+  kernel<<<dim3((unsigned)(nbx * nby * nbz), n_class), SWEEP_THREADS, SWEEP_SMEM, stream>>>(
+      S, G, vmax, count);
   return (int)cudaGetLastError();
 }
 
@@ -640,7 +838,7 @@ extern "C" int thunder_insert_trilinear(
   const int threads = 256;
   form_values_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
       S, (float4*)vals, total);
-  return launch_gather<false, TRI>(S, G, 1, st);
+  return launch_gather<TRI>(S, G, st);
 }
 
 // HK10.  HK3's arguments, then the blob's radius a (0 < a <= 2), a^2 and
@@ -666,31 +864,36 @@ extern "C" int thunder_insert_mkb(
   const int threads = 256;
   form_values_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
       S, (float4*)vals, total);
-  return launch_gather<false, MKB>(S, G, 1, st);
+  return launch_gather<MKB>(S, G, st);
 }
 
 // HK11.  HK3's arguments (no tap range: the sweep clips nothing onto a
-// face) and coef (B, 8), the slices' sweep records (ops/insert.py
-// sweep_coeffs).
+// face), coef (B, 8), the slices' sweep records (ops/insert.py
+// sweep_coeffs), vmax (4,) uint32 scratch for the values' maxima, and
+// count, the samples the launch may add (B times the in-disc pixels):
+// the fixed-point scale's bound.  vals holds the formed values after
+// the call.
 extern "C" int thunder_insert_sweep(
     const void* ft, int size, const void* ctfk, const void* img_idx, const void* rot,
     const void* coef, const void* trans, const void* w, const void* dfac, int n_slices, int r_u,
     int pf, float max_radius_pad, float box_a, float tpos, void* F, void* T, void* vals, int big,
-    void* stream) {
+    void* vmax, double count, void* stream) {
   if (n_slices <= 0) return (int)cudaGetLastError();
   Slices S{(const float4*)vals, (const float2*)ft, (const float*)ctfk,
            (const int*)img_idx, (const float*)trans, (const float*)dfac, (const float*)w,
            (const float*)rot, nullptr, nullptr, n_slices, 1, r_u, pf, size,
            max_radius_pad, box_a, tpos, SWEEP_BAND, SWEEP_BAND, 0, 0.f, 0.f, 0.f, 0.f,
-           SWEEP_REACH, (const float*)coef};
+           (const float*)coef};
   Grid G{(float2*)F, (float*)T, big, 0, big, 0, big - 1};
   cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(vmax, 0, 4 * sizeof(unsigned), st);
+  if (e != cudaSuccess) return (int)e;
   const int nk = 2 * r_u - 1;
   long long total = (long long)n_slices * nk * nk;
   const int threads = 256;
-  form_values_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
-      S, (float4*)vals, total);
-  return launch_gather<false, SWEEP>(S, G, 1, st);
+  sweep_values_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
+      S, (float4*)vals, total, (unsigned*)vmax);
+  return launch_sweep<false>(S, G, 1, (const unsigned*)vmax, count, st);
 }
 
 // HK11's slab form.  vals (B, nk^2, 4) float32 (Re val, Im val, c2w, 0),
@@ -698,17 +901,25 @@ extern "C" int thunder_insert_sweep(
 // (K, bz, big, big) complex64 and T float32 of the slab [z0, z0 + bz),
 // accumulated into; coef (B n_sym, 8), the sweep records of the planes
 // (slice, mate) in slice order then mate order (ops/insert.py
-// sweep_planes).
+// sweep_planes); vmax and count as HK11's (count: B n_sym times the
+// in-disc pixels).
 extern "C" int thunder_insert_sweep_slab(
     const void* vals, const void* rot, const void* coef, const void* cls, int n_slices, int r_u,
     int pf, float max_radius_pad, const void* mats, int n_sym, void* F, void* T, int n_class,
-    int big, int z0, int bz, void* stream) {
+    int big, int z0, int bz, void* vmax, double count, void* stream) {
   if (n_slices <= 0 || n_class <= 0) return (int)cudaGetLastError();
   if (n_sym < 1 || n_sym > MAX_SYM) return (int)cudaErrorInvalidValue;
   Slices S{(const float4*)vals, nullptr, nullptr, nullptr, nullptr, nullptr,
            nullptr, (const float*)rot, (const int*)cls, (const float*)mats, n_slices, n_sym,
            r_u, pf, 0, max_radius_pad, 0.f, 0.f, SWEEP_BAND, SWEEP_BAND, 0, 0.f, 0.f, 0.f, 0.f,
-           SWEEP_REACH, (const float*)coef};
+           (const float*)coef};
   Grid G{(float2*)F, (float*)T, big, z0, bz, 0, big - 1};
-  return launch_gather<true, SWEEP>(S, G, n_class, (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(vmax, 0, 4 * sizeof(unsigned), st);
+  if (e != cudaSuccess) return (int)e;
+  const int nk = 2 * r_u - 1;
+  long long total = (long long)n_slices * nk * nk;
+  values_max_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>((const float4*)vals, total,
+                                                                      (unsigned*)vmax);
+  return launch_sweep<true>(S, G, n_class, (const unsigned*)vmax, count, st);
 }

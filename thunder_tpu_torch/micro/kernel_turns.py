@@ -7,9 +7,10 @@ slab form ``insert_sweep_slab`` (at phase 8b's and 8c's shapes) and HK12
 has it, of two checkouts timed in turns on one card, at the shapes
 ``chip_smoke.py`` times.
 
-    python thunder_tpu_torch/micro/kernel_turns.py PARENT_TREE [THIS_TREE]
+    python thunder_tpu_torch/micro/kernel_turns.py [--insertion] PARENT_TREE [THIS_TREE]
 
-Runs one process per turn, in the order parent, this, this, parent, each
+``--insertion`` times the insertion kernels alone (HK3, HK10, HK11 and
+its slab form, HK6, HK12).  Runs one process per turn, in the order parent, this, this, parent, each
 with its own tree first on the module path (so each builds and loads its
 own kernels), and prints each turn's times and a last JSON line.  A turn
 calls only the kernels' public functions, with the table as that tree's
@@ -30,7 +31,7 @@ import subprocess
 import sys
 
 
-def one_turn() -> dict:
+def one_turn(insertion_only: bool = False) -> dict:
     import numpy as np
     import torch
 
@@ -67,7 +68,7 @@ def one_turn() -> dict:
 
     out = {}
     n_l = 128
-    for size, r in ((128, 22), (256, 43)):
+    for size, r in (() if insertion_only else ((128, 22), (256, 43))):
         rings = pack_rings(size, r, 1, device=dev)
         crop = proj_crop_size(size, 2, r)
         table = torch.randn(2, crop, crop, crop, dtype=torch.complex64, device=dev)
@@ -128,6 +129,8 @@ def one_turn() -> dict:
             torch.rand(n_s, device=dev) / per, r_u, 2, 160, 1.32, big, reps=3, d=d)
         del ft
     out.update(turn_69(dev, gen, rng, timed))
+    if insertion_only:
+        return out
 
     # HK4: the hemisphere FSC and the ring FRC (three stacked fields of a
     # centered grid, and spectrum.fsc on the spectra themselves), then the
@@ -302,9 +305,11 @@ def turn_78(dev, gen, rng, timed) -> dict:
 
 
 def main(argv) -> int:
-    if argv[1:] == ["--one"]:
-        print(json.dumps(one_turn()))
+    if argv[1:2] == ["--one"]:
+        print(json.dumps(one_turn(argv[2:] == ["--insertion"])))
         return 0
+    flags = [a for a in argv[1:] if a == "--insertion"]
+    argv = [argv[0]] + [a for a in argv[1:] if a != "--insertion"]
     if len(argv) not in (2, 3):
         print(__doc__, file=sys.stderr)
         return 2
@@ -318,7 +323,7 @@ def main(argv) -> int:
     turns = []
     for who in ("parent", "this", "this", "parent"):
         env = dict(os.environ, PYTHONPATH=trees[who])
-        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--one"],
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", *flags],
                              cwd=trees[who], env=env, capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stdout + res.stderr, file=sys.stderr)

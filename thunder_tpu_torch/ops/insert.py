@@ -14,10 +14,13 @@ wide (thunder_tpu/config.py:55-59), HK11 and HK12 on the card.
 ``reco_kernel="mkb"`` the modified Kaiser-Bessel blob
 (``insert_slices_3d(kernel="mkb")``, Reconstructor.cpp:424-567; HK10) in
 3D and the bilinear scatter ``insert_slices_2d`` (HK6) in 2D.  On the
-card every one of them is a gather: each grid cell walks the slices that
-can reach it in a fixed order and forms its own sum, so two calls give
-identical bits.  The ``*_gather_plain`` functions emulate that
-cell-owned enumeration on the CPU (tests).
+card HK3, HK6 and HK10 are gathers: each grid cell walks the slices that
+can reach it in a fixed order and forms its own sum; HK11 and HK12 are
+scatters into bricks (tiles) of cells that a block owns in shared memory,
+summed as 128-bit fixed-point integers.  Either way two calls give
+identical bits.  The ``*_gather_plain`` functions emulate the gathers'
+cell-owned enumeration on the CPU (tests), the ``*_fixed_plain`` ones
+the sweeps' fixed-point sums on any device, bit for bit.
 """
 
 from __future__ import annotations
@@ -389,6 +392,9 @@ insert_mkb.launches = 0
 INSERT_2D_TILE_X, INSERT_2D_TILE_Y, INSERT_2D_BATCH = (
     _native.csrc_constant("insert_bilinear_2d.cu", n) for n in ("TILE_X", "TILE_Y", "BATCH"))
 INSERT_2D_THREADS = INSERT_2D_TILE_X * INSERT_2D_TILE_Y
+# HK12's: a block's tile edge and threads
+SWEEP_2D_TILE, SWEEP_2D_THREADS = (
+    _native.csrc_constant("insert_bilinear_2d.cu", n) for n in ("SWEEP_TILE", "SWEEP_THREADS"))
 
 
 def insert_bilinear_2d_plain(ft, ctf, img_idx, cls, rot, trans, w, r_u: int,
@@ -434,21 +440,19 @@ def insert_2d_work(img_idx: torch.Tensor, cls: torch.Tensor, n_class: int):
     return order, bounds.to(torch.int32)
 
 
-def insert_2d_plan(r_u: int, pf: int, big: int, sweep: bool = False) -> dict:
-    """HK6's launch plan (``sweep``: HK12's): the window of plane cells
-    (first index, width) and the tiles that cover it, the range of
-    indices a tap can take (HK6's faces gather what lies past them; the
-    sweep drops what lies past the plane), and the shared-memory bytes
-    of a staged batch (two ramp tables of nk entries, a rotation or the
-    sweep's four coefficients, a weight and an image a slice; the sweep
-    also its flags)."""
+def insert_2d_plan(r_u: int, pf: int, big: int) -> dict:
+    """HK6's launch plan: the window of plane cells (first index, width)
+    and the tiles that cover it, the range of indices a tap can take (the
+    faces gather what lies past them), and the shared-memory bytes of a
+    staged batch (two ramp tables of nk entries, a rotation, a weight and
+    an image a slice)."""
     mrp = float((r_u - 1) * pf)
-    win_lo, win = sweep_window_2d(big, mrp) if sweep else insert_window(big, mrp)
-    vlo, vhi = (0, big - 1) if sweep else tap_range(big, mrp)
+    win_lo, win = insert_window(big, mrp)
+    vlo, vhi = tap_range(big, mrp)
     nk = 2 * r_u - 1
     return dict(win_lo=win_lo, win=win, vlo=vlo, vhi=vhi,
                 tiles=-(-win // INSERT_2D_TILE_X) * -(-win // INSERT_2D_TILE_Y),
-                smem=INSERT_2D_BATCH * (16 * nk + (28 if sweep else 24)))
+                smem=INSERT_2D_BATCH * (16 * nk + 24))
 
 
 def insert_bilinear_2d(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
@@ -536,8 +540,8 @@ INSERT_SLAB_MAX_SYM = _native.csrc_constant("insert_trilinear.cu", "MAX_SYM")
 # for l'.  Cells past the grid's faces are dropped, not clipped.  The
 # port evaluates the map in float32 (thunder_tpu's 3D sweep streams its
 # hat fields as bf16); each (cell, sample) weight is formed by the same
-# float expressions in the plain versions, the kernels and the gathers'
-# emulation below.
+# float expressions in the plain versions, the kernels and their
+# fixed-point emulation below.
 
 SWEEP_Z_WIDTH = 2.0                 # the height hat's width (thunder_tpu _Z_KERNEL_WIDTH)
 SWEEP_SWAP_HK, SWEEP_SWAP_ML = 4, 8   # a record's flags beside the case (0 x, 1 y, 2 z)
@@ -659,20 +663,16 @@ def _sweep_taps(co: torch.Tensor, nk: int, px: torch.Tensor, nd: int):
                 yield (x, y, z), w
 
 
-def _sweep_add(g: torch.Tensor, vals: torch.Tensor, c2w: torch.Tensor, co: torch.Tensor,
-               nk: int, big: int, row: torch.Tensor, nd: int, z0: int = 0,
-               bz: int | None = None, cut: torch.Tensor | None = None,
-               cut_r2: float = 0.0) -> None:
-    """Adds the sweep of planes co (P, 8) into g (rows, 3) of (Re F, Im
-    F, T): plane p's values vals (P, nk^2) complex and c2w (P, nk^2) at
-    its in-disc samples go to row row[p] + the cell's offset in a (bz,
-    big, big) slab from plane z0 (2D: a (big, big) plane).  Cells past
-    the grid (or the slab) are dropped; where cut[p], so are those with
-    |k|^2 >= cut_r2 (a mate's cells, HK7's cut)."""
-    rr, cb = nk // 2, big // 2
+def _sweep_cells(co: torch.Tensor, nk: int, px: torch.Tensor, big: int, row: torch.Tensor,
+                 nd: int, z0: int = 0, bz: int | None = None, cut: torch.Tensor | None = None,
+                 cut_r2: float = 0.0):
+    """The taps of :func:`_sweep_taps` that land: yields (ok, idx, w),
+    ok (P, n) the taps of weight above zero inside the grid (the slab from
+    plane z0, bz planes; 2D: a (big, big) plane) and, where cut[p], at
+    |k|^2 < cut_r2 (a mate's cells, HK7's cut), idx their rows (row[p] +
+    the cell's offset) and w (P, n) the weights."""
+    cb = big // 2
     bz = big if bz is None else bz
-    px = in_disc_pixels(rr + 1, vals.device).long()
-    upd = torch.stack([vals[:, px].real, vals[:, px].imag, c2w[:, px].to(REAL)], -1)
     for cell, w in _sweep_taps(co, nk, px, nd):
         ix = [(v + cb).long() for v in cell]
         ok = w > 0
@@ -685,17 +685,251 @@ def _sweep_add(g: torch.Tensor, vals: torch.Tensor, c2w: torch.Tensor, co: torch
         if cut is not None:
             r2 = sum(v * v for v in cell)
             ok = ok & ~(cut[:, None] & (r2 >= cut_r2))
-        idx = (row[:, None] + off)[ok]
-        g.index_add_(0, idx, upd[ok] * w[ok][:, None])
+        yield ok, (row[:, None] + off)[ok], w
 
 
-def _grid_rows(f_grid: torch.Tensor, t_grid: torch.Tensor) -> torch.Tensor:
+def _sweep_add(g: torch.Tensor, vals: torch.Tensor, c2w: torch.Tensor, co: torch.Tensor,
+               nk: int, big: int, row: torch.Tensor, nd: int, z0: int = 0,
+               bz: int | None = None, cut: torch.Tensor | None = None,
+               cut_r2: float = 0.0) -> None:
+    """Adds the sweep of planes co (P, 8) into g (rows, 3) of (Re F, Im
+    F, T): plane p's values vals (P, nk^2) complex and c2w (P, nk^2) at
+    its in-disc samples go to row row[p] + the cell's offset in a (bz,
+    big, big) slab from plane z0 (2D: a (big, big) plane).  Cells past
+    the grid (or the slab) are dropped; where cut[p], so are those with
+    |k|^2 >= cut_r2 (a mate's cells, HK7's cut)."""
+    px = in_disc_pixels(nk // 2 + 1, vals.device).long()
+    upd = torch.stack([vals[:, px].real, vals[:, px].imag, c2w[:, px].to(REAL)], -1)
+    for ok, idx, w in _sweep_cells(co, nk, px, big, row, nd, z0, bz, cut, cut_r2):
+        g.index_add_(0, idx, (upd[ok] * w[ok][:, None]).to(g.dtype))
+
+
+def _grid_rows(f_grid: torch.Tensor, t_grid: torch.Tensor, dtype=REAL) -> torch.Tensor:
     return torch.stack([f_grid.real.reshape(-1), f_grid.imag.reshape(-1),
-                        t_grid.reshape(-1)], -1).to(REAL)
+                        t_grid.reshape(-1)], -1).to(dtype)
 
 
 def _from_rows(g: torch.Tensor, shape) -> tuple:
+    g = g.to(REAL)
     return torch.complex(g[:, 0], g[:, 1]).reshape(shape), g[:, 2].reshape(shape)
+
+
+# -- the kernels' fixed-point sums (csrc/sweep_fixed.cuh) -----------------
+#
+# HK11 and HK12 sum each cell's taps as 128-bit integers: a tap adds
+# rint(float64(v * w) * 2^s), v * w the float32 product, 2^s a power of
+# two a component (Re F, Im F, T) with 2^s * bound < 2^126 (bound: the
+# samples the launch may add times the largest |value|, times the largest
+# |w| and 2 in 2D, where the values are formed per slice in the kernel);
+# a cell adds float32(((w3 2^96 + w2 2^64) + (w1 2^32 + w0)) * 2^-s) of
+# its sum's 32-bit words (w3 signed) to its grid where the sum is not
+# zero.  Integer sums do not depend on the order of the adds, so the
+# emulation below, given the values the kernels formed, gives their bits.
+# It sums each of a tap's four words apart in int64 (a cell takes far
+# fewer than 2^31 taps, so no partial sum wraps) and carries at the end.
+
+FIXED_BITS = 126
+_WORD = 1 << 32
+
+
+def sweep_fixed_scales(maxima, count: float, w_max: float | None = None) -> list:
+    """The kernels' 2^s of each component: the largest with 2^s * bound
+    < 2^FIXED_BITS, bound = count * max (3D) or count * max * w_max * 2
+    (2D), formed in float64 in that order."""
+    out = []
+    for m in maxima:
+        b = count * float(m) if w_max is None else count * float(m) * float(w_max) * 2.0
+        out.append(math.ldexp(1.0, FIXED_BITS - math.frexp(b)[1]))
+    return out
+
+
+def sweep_fixed_count(n_planes: int, r_u: int) -> float:
+    """The samples a launch of ``n_planes`` planes may add, each plane's
+    in-disc pixels (:func:`in_disc_pixels`): the count of the scale's
+    bound, as the kernels take it."""
+    return float(n_planes * in_disc_pixels(r_u).numel())
+
+
+def _fixed_words(x: torch.Tensor) -> torch.Tensor:
+    """The four 32-bit words (lowest first, as int64 in [0, 2^32)) of the
+    two's complement of rint(x), x float64 with |x| < 2^126: (..., 4)."""
+    x = torch.round(x)
+    a = x.abs()
+    words = []
+    for shift in (96, 64, 32):
+        h = torch.floor(a * 2.0 ** -shift)
+        a = a - h * 2.0 ** shift
+        words.append(h)
+    words = [a] + words[::-1]
+    words = [w.long() for w in words]
+    neg = x < 0
+    carry = torch.ones_like(words[0])
+    for i in range(4):
+        t = (_WORD - 1 - words[i]) + carry
+        words[i] = torch.where(neg, t & (_WORD - 1), words[i])
+        carry = t >> 32
+    return torch.stack(words, -1)
+
+
+def _sweep_add_fixed(acc: torch.Tensor, upd: torch.Tensor, co: torch.Tensor, nk: int, big: int,
+                     row: torch.Tensor, nd: int, scales, **cells) -> None:
+    """:func:`_sweep_add` into the word sums acc (rows, 3, 4) int64: upd
+    (P, n, 3) float32 the planes' values at the in-disc pixels; each tap
+    adds the words of rint(float64(v * w) * scale) (ties to even, as the
+    kernels' ``rint``)."""
+    px = in_disc_pixels(nk // 2 + 1, upd.device).long()
+    sc = torch.tensor(scales, dtype=torch.float64, device=upd.device)
+    for ok, idx, w in _sweep_cells(co, nk, px, big, row, nd, **cells):
+        acc.index_add_(0, idx, _fixed_words((upd[ok] * w[ok][:, None]).double() * sc))
+
+
+def _fixed_into(f_grid: torch.Tensor, t_grid: torch.Tensor, acc: torch.Tensor, scales) -> tuple:
+    """(F, T) with the word sums acc (rows, 3, 4) carried into 128-bit
+    sums and added where they are not zero, as the kernels add them."""
+    w = [acc[..., i] for i in range(4)]
+    for i in range(3):
+        w[i + 1] = w[i + 1] + (w[i] >> 32)
+        w[i] = w[i] & (_WORD - 1)
+    w[3] = w[3] & (_WORD - 1)
+    w[3] = torch.where(w[3] >= _WORD // 2, w[3] - _WORD, w[3])
+    hi = w[3].double() * 2.0 ** 96 + w[2].double() * 2.0 ** 64
+    lo = w[1].double() * 2.0 ** 32 + w[0].double()
+    inv = torch.tensor([1.0 / x for x in scales], dtype=torch.float64, device=acc.device)
+    g = _grid_rows(f_grid, t_grid)
+    nonzero = (w[0] | w[1] | w[2] | w[3]) != 0
+    g = torch.where(nonzero, g + ((hi + lo) * inv).to(REAL), g)
+    return _from_rows(g, f_grid.shape)
+
+
+def _abs_max(x: torch.Tensor) -> float:
+    return float(x.abs().max()) if x.numel() else 0.0
+
+
+def sweep_value_records(ft, ctf, img_idx, trans, w, r_u: int, size: int, pixel_size: float,
+                        d=None) -> torch.Tensor:
+    """HK11's values as records (B, nk^2, 4) float32 (Re, Im, c2w, 0),
+    formed by :func:`dense_slice_values` (the kernel's first pass forms
+    the same values in its own rounding)."""
+    vals, c2w, _, _ = dense_slice_values(ft, ctf, img_idx, trans, w, r_u, size, pixel_size, d)
+    return torch.stack([vals.real, vals.imag, c2w.to(REAL), torch.zeros_like(c2w, dtype=REAL)],
+                       -1)
+
+
+def _sweep_3d_fixed(recs, rot, cls, r_u: int, pf: int, mats, f_grid, t_grid, z0: int,
+                    chunk: int):
+    """HK11's sums (one grid: mats None, cls None; the slab form: the
+    point group's mates, each slice's class) emulated from the value
+    records recs (B, nk^2, 4)."""
+    n_s, nk = recs.shape[0], 2 * r_u - 1
+    n_sym = 1 if mats is None else mats.shape[0]
+    bz, big = f_grid.shape[-3], f_grid.shape[-1]
+    count = sweep_fixed_count(n_s * n_sym, r_u)
+    scales = sweep_fixed_scales([_abs_max(recs[..., c]) for c in range(3)], count)
+    px = in_disc_pixels(r_u, recs.device).long()
+    acc = torch.zeros((f_grid.numel(), 3, 4), dtype=torch.int64, device=recs.device)
+    mate = torch.arange(n_sym, device=recs.device)
+    for lo in range(0, n_s, chunk):
+        sl = slice(lo, lo + chunk)
+        n = recs[sl].shape[0]
+        upd = recs[sl][:, px, :3].repeat_interleave(n_sym, 0)
+        rows = torch.zeros(n * n_sym, dtype=torch.int64, device=recs.device)
+        if cls is not None:
+            rows = (cls[sl].long() * (bz * big * big))[:, None].expand(n, n_sym).reshape(-1)
+        cut = None if mats is None else (mate > 0).repeat(n)
+        _sweep_add_fixed(acc, upd, sweep_planes(rot[sl], mats, pf), nk, big, rows, 3, scales,
+                         z0=z0, bz=bz, cut=cut, cut_r2=float((r_u - 1) * pf) ** 2)
+    return _fixed_into(f_grid, t_grid, acc, scales)
+
+
+def insert_sweep_fixed_plain(ft, ctf, img_idx, rot, trans, w, r_u: int, pf: int, size: int,
+                             pixel_size: float, f_grid, t_grid, d=None, recs=None,
+                             chunk: int = 256):
+    """HK11's arithmetic in PyTorch on any device: the sweep of
+    :func:`insert_sweep` summed in fixed point as the kernel sums it.
+    ``recs`` (B, nk^2, 4): the values the kernel formed (its ``recs``
+    after a call), then the result equals the kernel's bit for bit; None:
+    :func:`sweep_value_records`.  Returns the new (F, T)."""
+    if recs is None:
+        recs = sweep_value_records(ft, ctf, img_idx, trans, w, r_u, size, pixel_size, d)
+    f, t = _sweep_3d_fixed(recs, rot, None, r_u, pf, None, f_grid[None], t_grid[None], 0,
+                           chunk)
+    return f[0], t[0]
+
+
+def insert_sweep_slab_fixed_plain(vals, ctf2w, rot, cls, r_u: int, pf: int, sym_mats,
+                                  f_slab, t_slab, z0: int, chunk: int = 256):
+    """HK11's slab form's arithmetic in PyTorch on any device (same
+    arguments as :func:`insert_sweep_slab_plain`): the kernel's bits."""
+    recs = torch.stack([vals.real, vals.imag, ctf2w.to(REAL)], -1)
+    return _sweep_3d_fixed(recs, rot, cls, r_u, pf, sym_mats.to(device=vals.device, dtype=REAL),
+                           f_slab, t_slab, z0, chunk)
+
+
+def sweep_2d_image_records(ft, ctf, r_u: int, size: int, pixel_size: float) -> torch.Tensor:
+    """HK12's first pass in PyTorch: each image's records (L, nk^2, 4)
+    float32 (Re, Im of ft * ctf * mask_d, ctf^2 * mask_d, 0), zero
+    outside the disc."""
+    vc, vr, mask_d = dense_window(r_u, ft.device)
+    c = size // 2
+    dat = ft[:, (c + vr).long(), (c + vc).long()]
+    ct = ctf_packed(ctf, vc, vr, size, pixel_size)
+    cm = ct * mask_d
+    v = dat * cm
+    return torch.stack([v.real, v.imag, ct * cm, torch.zeros_like(cm)], -1).to(REAL)
+
+
+def sweep_2d_values(recs, img_idx, trans, w, r_u: int, size: int) -> torch.Tensor:
+    """Each slice's values at the in-disc pixels (B, n, 3) float32 as
+    HK12 forms them: the image's record times the translation ramp
+    exp(i tpos vc tx) exp(i tpos vr ty) (float32 sin and cos), times the
+    slice's weight, every product rounded."""
+    nk, rr = 2 * r_u - 1, r_u - 1
+    dev = recs.device
+    px = in_disc_pixels(r_u, dev).long()
+    vr, vc = px // nk, px % nk
+    tpos = torch.tensor(float(np.float32(2 * np.pi / size)), dtype=REAL, device=dev)
+    v = torch.arange(-rr, rr + 1, device=dev).to(REAL)
+    trans, w = trans.to(REAL), w.to(REAL)[:, None]
+    phx, phy = tpos * (v[None] * trans[:, :1]), tpos * (v[None] * trans[:, 1:])
+    ac, as_ = torch.cos(phx)[:, vc], torch.sin(phx)[:, vc]
+    ec, es = torch.cos(phy)[:, vr], torch.sin(phy)[:, vr]
+    er = ac * ec - as_ * es
+    ei = ac * es + as_ * ec
+    d = recs[img_idx.long()][:, px]
+    return torch.stack([(d[..., 0] * er - d[..., 1] * ei) * w,
+                        (d[..., 0] * ei + d[..., 1] * er) * w, d[..., 2] * w], -1)
+
+
+def _sweep_2d_fixed(values, n_s: int, rot, cls, r_u: int, pf: int, f_grid, t_grid, scales,
+                    chunk: int):
+    """HK12's sums from values(sl) (n, n_px, 3), the values of slices sl
+    at the in-disc pixels, into the class planes cls[s]."""
+    nk, big = 2 * r_u - 1, f_grid.shape[-1]
+    acc = torch.zeros((f_grid.numel(), 3, 4), dtype=torch.int64, device=f_grid.device)
+    for lo in range(0, n_s, chunk):
+        sl = slice(lo, lo + chunk)
+        _sweep_add_fixed(acc, values(sl), sweep_coeffs_2d(rot[sl], pf), nk, big,
+                         cls[sl].long() * (big * big), 2, scales)
+    return _fixed_into(f_grid, t_grid, acc, scales)
+
+
+def insert_sweep_2d_fixed_plain(ft, ctf, img_idx, cls, rot, trans, w, r_u: int, pf: int,
+                                size: int, pixel_size: float, f_grid, t_grid, recs=None,
+                                chunk: int = 256):
+    """HK12's arithmetic in PyTorch on any device: the 2D sweep of
+    :func:`insert_sweep_2d` summed in fixed point as the kernel sums it.
+    ``recs`` (L, nk^2, 4): the images' records the kernel formed (its
+    ``recs`` after a call), then the result equals the kernel's bit for
+    bit; None: :func:`sweep_2d_image_records`.  Returns the new (F, T)."""
+    if recs is None:
+        recs = sweep_2d_image_records(ft, ctf, r_u, size, pixel_size)
+    m_xy = _abs_max(recs[..., 0].abs() + recs[..., 1].abs())
+    n_s = rot.shape[0]
+    scales = sweep_fixed_scales([m_xy, m_xy, _abs_max(recs[..., 2])],
+                                sweep_fixed_count(n_s, r_u), _abs_max(w.to(REAL)))
+    return _sweep_2d_fixed(lambda sl: sweep_2d_values(recs, img_idx[sl], trans[sl], w[sl], r_u,
+                                                      size),
+                           n_s, rot, cls, r_u, pf, f_grid, t_grid, scales, chunk)
 
 
 def insert_sweep_3d_plain(vals: torch.Tensor, ctf2w: torch.Tensor, rot: torch.Tensor,
@@ -732,11 +966,15 @@ def insert_sweep_2d_plain(vals: torch.Tensor, ctf2w: torch.Tensor, rot: torch.Te
 
 
 def insert_sweep_plain(ft, ctf, img_idx, rot, trans, w, r_u: int, pf: int, size: int,
-                       pixel_size: float, f_grid: torch.Tensor, t_grid: torch.Tensor, d=None):
+                       pixel_size: float, f_grid: torch.Tensor, t_grid: torch.Tensor, d=None,
+                       f64_sums: bool = False):
     """Plain version of HK11: HK3's value formation then the sweep, 256
-    slices at a time.  Returns the new (F, T)."""
+    slices at a time.  ``f64_sums``: the float32 taps summed in float64,
+    then rounded (the reference the kernel's exact sums are held to on the
+    card, where float32 sums of ~1e5 taps a cell part from them by ~3e-5).
+    Returns the new (F, T)."""
     big = f_grid.shape[-1]
-    g = _grid_rows(f_grid, t_grid)
+    g = _grid_rows(f_grid, t_grid, torch.float64 if f64_sums else REAL)
     for lo in range(0, rot.shape[0], 256):
         sl = slice(lo, lo + 256)
         vals, c2w, _, _ = dense_slice_values(
@@ -761,16 +999,19 @@ def _check_grids(name: str, ft, size: int, r_u: int, f_grid, t_grid, shape) -> N
 def insert_sweep(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor, rot: torch.Tensor,
                  trans: torch.Tensor, w: torch.Tensor, r_u: int, pf: int, size: int,
                  pixel_size: float, big: int, f_grid: torch.Tensor | None = None,
-                 t_grid: torch.Tensor | None = None, d: torch.Tensor | None = None):
+                 t_grid: torch.Tensor | None = None, d: torch.Tensor | None = None,
+                 recs: torch.Tensor | None = None):
     """HK11: insert B compacted slices into (F, T) (big^3, centered) with
     thunder_tpu's shear-sweep map (the rounds' insertion, thunder_tpu
     optimiser.py _insert_flat3d_h), forming each dense-window value as
     HK3 does (:func:`dense_slice_values`).  Same arguments as
     :func:`insert_trilinear`.  CPU tensors take
     :func:`insert_sweep_plain`; CUDA tensors launch
-    csrc/insert_trilinear.cu's gather with the sweep's weight (each
-    cell sums in slice order: two calls give identical bits), reading
-    the planes' :func:`sweep_coeffs` formed here."""
+    csrc/insert_trilinear.cu's brick-owned sweep, reading the planes'
+    :func:`sweep_coeffs` formed here: fixed-point sums, so two calls give
+    identical bits (:func:`insert_sweep_fixed_plain` gives them too).
+    ``recs`` (B, nk^2, 4) float32, CUDA: the first pass's scratch
+    (allocated when None); it holds the formed values after the call."""
     dev = ft.device
     if f_grid is None:
         f_grid = torch.zeros((big,) * 3, dtype=COMPLEX, device=dev)
@@ -795,15 +1036,21 @@ def insert_sweep(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor, rot: t
     rot = rot.to(REAL).reshape(n_s, 9).contiguous()
     trans = trans.to(REAL).contiguous()
     w = w.to(REAL).contiguous()
-    vals = torch.empty((n_s, (2 * r_u - 1) ** 2, 4), dtype=REAL, device=dev)
+    nk2 = (2 * r_u - 1) ** 2
+    if recs is None:
+        recs = torch.empty((n_s, nk2, 4), dtype=REAL, device=dev)
+    _native.require(recs.shape == (n_s, nk2, 4) and recs.dtype == REAL and recs.is_contiguous(),
+                    "insert_sweep: recs must be contiguous (B, nk^2, 4) float32")
+    vmax = torch.empty(4, dtype=torch.int32, device=dev)
     lib = _native.library()
     insert_sweep.launches += 1
     _native.check(lib.thunder_insert_sweep(
         ft.data_ptr(), size, ctfk.data_ptr(), img_idx.data_ptr(), rot.data_ptr(),
         co.data_ptr(), trans.data_ptr(), w.data_ptr(), None if d is None else d.data_ptr(),
         n_s, r_u, pf, float((r_u - 1) * pf), float(pixel_size * size),
-        float(2 * np.pi / size), f_grid.data_ptr(), t_grid.data_ptr(), vals.data_ptr(), big,
-        _native.stream_ptr(ft)), "insert_sweep")
+        float(2 * np.pi / size), f_grid.data_ptr(), t_grid.data_ptr(), recs.data_ptr(), big,
+        vmax.data_ptr(), sweep_fixed_count(n_s, r_u), _native.stream_ptr(ft)),
+        "insert_sweep")
     return f_grid, t_grid
 
 
@@ -812,12 +1059,14 @@ insert_sweep.launches = 0
 
 def insert_sweep_slab_plain(vals: torch.Tensor, ctf2w: torch.Tensor, rot: torch.Tensor,
                             cls: torch.Tensor, r_u: int, pf: int, sym_mats: torch.Tensor,
-                            f_slab: torch.Tensor, t_slab: torch.Tensor, z0: int):
+                            f_slab: torch.Tensor, t_slab: torch.Tensor, z0: int,
+                            f64_sums: bool = False):
     """Plain version of HK11's slab form (see :func:`insert_sweep_slab`),
-    256 slices at a time.  Returns the new (F, T) slabs."""
+    256 slices at a time (``f64_sums``: as :func:`insert_sweep_plain`).
+    Returns the new (F, T) slabs."""
     bz, big = f_slab.shape[1], f_slab.shape[-1]
     n_sym = sym_mats.shape[0]
-    g = _grid_rows(f_slab, t_slab)
+    g = _grid_rows(f_slab, t_slab, torch.float64 if f64_sums else REAL)
     mate = torch.arange(n_sym, device=vals.device)
     for lo in range(0, rot.shape[0], 256):
         sl = slice(lo, lo + 256)
@@ -843,13 +1092,14 @@ def insert_sweep_slab(vals: torch.Tensor, ctf2w: torch.Tensor, rot: torch.Tensor
     nk = 2 r_u - 1), rot (B, 3, 3), cls (B,) each slice's class;
     sym_mats (n_sym, 3, 3), the identity first; the slabs (K, bz, big,
     big) hold planes [z0, z0 + bz) and are accumulated into (zeros when
-    None).  Each (slice s, mate M) is the plane M R_s; a mate other than the identity adds only to cells
-    inside the radius (HK7's cut), so that for a group of signed
-    permutations the slabs equal HK11 then HK7 up to float order.  CPU
-    tensors take :func:`insert_sweep_slab_plain`; CUDA tensors launch
-    csrc/insert_trilinear.cu's gather with the sweep's weight over the
-    planes' :func:`sweep_planes` formed here (cells sum in (slice, mate)
-    order: two calls give identical bits)."""
+    None).  Each (slice s, mate M) is the plane M R_s; a mate other than
+    the identity adds only to cells inside the radius (HK7's cut), so that
+    for a group of signed permutations the slabs equal HK11 then HK7 up to
+    float order.  CPU tensors take :func:`insert_sweep_slab_plain`; CUDA
+    tensors launch csrc/insert_trilinear.cu's brick-owned sweep over the
+    planes' :func:`sweep_planes` formed here: fixed-point sums, so two
+    calls give identical bits (:func:`insert_sweep_slab_fixed_plain`
+    gives them too)."""
     dev = vals.device
     if f_slab is None:
         f_slab = torch.zeros((n_class, bz, big, big), dtype=COMPLEX, device=dev)
@@ -882,13 +1132,16 @@ def insert_sweep_slab(vals: torch.Tensor, ctf2w: torch.Tensor, rot: torch.Tensor
     co = sweep_planes(rot, mats, pf).contiguous()
     rot = rot.to(REAL).reshape(n_s, 9).contiguous()
     cls = cls.to(torch.int32).contiguous()
+    n_sym = mats.shape[0]
     mats = mats.reshape(-1, 9).contiguous()
+    vmax = torch.empty(4, dtype=torch.int32, device=dev)
     lib = _native.library()
     insert_sweep_slab.launches += 1
     _native.check(lib.thunder_insert_sweep_slab(
         recs.data_ptr(), rot.data_ptr(), co.data_ptr(), cls.data_ptr(), n_s, r_u, pf,
-        float((r_u - 1) * pf), mats.data_ptr(), mats.shape[0], f_slab.data_ptr(),
-        t_slab.data_ptr(), n_class, big, z0, bz, _native.stream_ptr(vals)),
+        float((r_u - 1) * pf), mats.data_ptr(), n_sym, f_slab.data_ptr(),
+        t_slab.data_ptr(), n_class, big, z0, bz, vmax.data_ptr(),
+        sweep_fixed_count(n_s * n_sym, r_u), _native.stream_ptr(vals)),
         "insert_sweep_slab")
     return f_slab, t_slab
 
@@ -898,11 +1151,12 @@ insert_sweep_slab.launches = 0
 
 def insert_sweep_2d_plain_values(ft, ctf, img_idx, cls, rot, trans, w, r_u: int, pf: int,
                                  size: int, pixel_size: float, f_grid: torch.Tensor,
-                                 t_grid: torch.Tensor):
+                                 t_grid: torch.Tensor, f64_sums: bool = False):
     """Plain version of HK12: HK6's value formation then the 2D sweep
-    into plane cls[s], 256 slices at a time.  Returns the new (F, T)."""
+    into plane cls[s], 256 slices at a time (``f64_sums``: as
+    :func:`insert_sweep_plain`).  Returns the new (F, T)."""
     big = f_grid.shape[-1]
-    g = _grid_rows(f_grid, t_grid)
+    g = _grid_rows(f_grid, t_grid, torch.float64 if f64_sums else REAL)
     for lo in range(0, rot.shape[0], 256):
         sl = slice(lo, lo + 256)
         vals, c2w, _, _ = dense_slice_values(ft, ctf, img_idx[sl], trans[sl], w[sl], r_u,
@@ -921,19 +1175,33 @@ def sweep_window_2d(big: int, max_radius_pad: float) -> tuple:
     return lo, min(big, big // 2 + m + 1) - lo
 
 
+def sweep_2d_plan(r_u: int, pf: int, big: int) -> dict:
+    """HK12's launch plan: the window of plane cells the sweep can reach
+    (first index, width, :func:`sweep_window_2d`), the tiles that cover
+    it, and the shared-memory bytes of a block (three 128-bit sums a tile
+    cell, two ramp tables of nk entries a warp)."""
+    win_lo, win = sweep_window_2d(big, float((r_u - 1) * pf))
+    n_t = -(-win // SWEEP_2D_TILE)
+    return dict(win_lo=win_lo, win=win, tiles=n_t * n_t,
+                smem=3 * 16 * SWEEP_2D_TILE ** 2 + SWEEP_2D_THREADS // 32 * 16 * (2 * r_u - 1))
+
+
 def insert_sweep_2d(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
                     cls: torch.Tensor, rot: torch.Tensor, trans: torch.Tensor, w: torch.Tensor,
                     r_u: int, pf: int, size: int, pixel_size: float, big: int, n_class: int,
-                    f_grid: torch.Tensor | None = None, t_grid: torch.Tensor | None = None):
+                    f_grid: torch.Tensor | None = None, t_grid: torch.Tensor | None = None,
+                    recs: torch.Tensor | None = None):
     """HK12: insert B compacted 2D slices into per-class (F, T) planes
     with thunder_tpu's 2D shear-sweep map (optimiser.py one_2d_sweep,
     ops/insert.py insert_sweep_2d).  Same arguments as
     :func:`insert_bilinear_2d`.  CPU tensors take
     :func:`insert_sweep_2d_plain_values`; CUDA tensors launch
-    csrc/insert_bilinear_2d.cu's gather with the sweep's weight (each
-    plane cell sums its class's slices in the order of
-    :func:`insert_2d_work`: two calls give identical bits), reading the
-    slices' :func:`sweep_coeffs_2d` formed here."""
+    csrc/insert_bilinear_2d.cu's tile-owned sweep over the slices sorted
+    by :func:`insert_2d_work`, reading their :func:`sweep_coeffs_2d`
+    formed here: fixed-point sums, so two calls give identical bits
+    (:func:`insert_sweep_2d_fixed_plain` gives them too).  ``recs`` (L,
+    nk^2, 4) float32, CUDA: the first pass's scratch (allocated when
+    None); it holds the images' records after the call."""
     dev = ft.device
     if f_grid is None:
         f_grid = torch.zeros((n_class, big, big), dtype=COMPLEX, device=dev)
@@ -949,26 +1217,31 @@ def insert_sweep_2d(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
     _native.require(0 <= int(cls.min()) and int(cls.max()) < n_class,
                     "insert_sweep_2d: a class index is past the planes")
     order, cls_start = insert_2d_work(img_idx, cls, n_class)
-    plan = insert_2d_plan(r_u, pf, big, sweep=True)
+    plan = sweep_2d_plan(r_u, pf, big)
     _native.require(plan["smem"] <= _native.SMEM_MAX,
-                    "insert_sweep_2d: a batch's ramp tables exceed shared memory")
+                    "insert_sweep_2d: a block's tile and ramp tables exceed shared memory")
     ctfk = ctf_constants(ctf)
     n_img, nk2 = ft.shape[0], (2 * r_u - 1) ** 2
-    recs = torch.empty((n_img, nk2, 4), dtype=REAL, device=dev)
+    if recs is None:
+        recs = torch.empty((n_img, nk2, 4), dtype=REAL, device=dev)
+    _native.require(recs.shape == (n_img, nk2, 4) and recs.dtype == REAL
+                    and recs.is_contiguous(),
+                    "insert_sweep_2d: recs must be contiguous (L, nk^2, 4) float32")
     rec = sweep_coeffs_2d(rot[order], pf)
     co, flags = rec[:, :4].contiguous(), rec[:, 6].to(torch.int32).contiguous()
     img_idx = img_idx[order].to(torch.int32).contiguous()
     trans = trans[order].to(REAL).contiguous()
     w = w[order].to(REAL).contiguous()
+    vmax = torch.empty(4, dtype=torch.int32, device=dev)
     lib = _native.library()
     insert_sweep_2d.launches += 1
     _native.check(lib.thunder_insert_sweep_2d(
         ft.data_ptr(), size, ctfk.data_ptr(), n_img, img_idx.data_ptr(),
         cls_start.data_ptr(), n_class, co.data_ptr(), flags.data_ptr(), trans.data_ptr(),
-        w.data_ptr(), r_u, pf, float((r_u - 1) * pf), float(pixel_size * size),
+        w.data_ptr(), n_s, r_u, float((r_u - 1) * pf), float(pixel_size * size),
         float(2 * np.pi / size), f_grid.data_ptr(), t_grid.data_ptr(), recs.data_ptr(), big,
-        plan["win_lo"], plan["win"], INSERT_2D_THREADS, plan["smem"],
-        _native.stream_ptr(ft)), "insert_sweep_2d")
+        plan["win_lo"], plan["win"], SWEEP_2D_THREADS, plan["smem"], vmax.data_ptr(),
+        sweep_fixed_count(n_s, r_u), _native.stream_ptr(ft)), "insert_sweep_2d")
     return f_grid, t_grid
 
 
@@ -1010,110 +1283,10 @@ def _axis_weight(t: torch.Tensor, v: torch.Tensor, frac: torch.Tensor) -> torch.
 # |q_m| <= 2, |a - P_a| < 2 + 2 |alpha| + |beta| <= 5 in canonical axes)
 # and within 2 of the plane along its normal (n . k = n_a (a - zeta),
 # |n_a| <= 1); 2D, within sqrt 5 (|y - P_y| < 1, |x - P_x| < 1 + |q_y| <=
-# 2); and the margin of the candidate ranges
+# 2)
 SWEEP_REACH_3D = float(np.float32(np.float32(math.sqrt(30)) + np.float32(1e-2)))
 SWEEP_BAND = float(np.float32(2 + np.float32(1e-2)))
 SWEEP_REACH_2D = float(np.float32(np.float32(math.sqrt(5)) + np.float32(1e-2)))
-SWEEP_MARGIN = float(np.float32(1e-2))
-
-
-def _sweep_range(centre: torch.Tensor, coef: torch.Tensor, rr: int):
-    """The kernels' candidate range of a pass index: t with |x - coef t|
-    < 1 lies within 1 / |coef| of centre = x / coef; the first and last
-    integer of that range widened by SWEEP_MARGIN, clipped to [-rr, rr]."""
-    half = 1.0 / coef.abs()
-    lo = torch.clamp(torch.ceil(centre - half - SWEEP_MARGIN), min=-rr).long()
-    hi = torch.clamp(torch.floor(centre + half + SWEEP_MARGIN), max=rr).long()
-    return lo, hi
-
-
-def _sweep_gather_plain(vals, c2w, rot, cls, r_u: int, pf: int, mats, f_grid, t_grid,
-                        z0: int, wsl=None):
-    """The gather of HK11 (3D: rot (B, 3, 3), mats (n_sym, 3, 3) or None,
-    grids (K, bz, big, big) from plane z0) or HK12 (2D: rot (B, 2, 2),
-    grids (K, big, big)) on CPU tensors: every cell within
-    max_radius_pad + SWEEP_REACH_* takes, for each (slice, mate) in
-    order (3D: those whose plane passes within SWEEP_BAND of it; a
-    mate's only inside the radius), the samples of the kernels'
-    candidate ranges (:func:`_sweep_range`: h from the l' pass, then k
-    from the m' pass) with the sweep's weight, formed as the plain
-    version forms it.  Slices of weight zero (``wsl``) are skipped.
-    Returns the new grids."""
-    nd = rot.shape[-1]
-    n_cls, big = f_grid.shape[0], f_grid.shape[-1]
-    bz = f_grid.shape[1] if nd == 3 else 1
-    cb, rr, nk = big // 2, r_u - 1, 2 * r_u - 1
-    mrp = float(rr * pf)
-    reach = SWEEP_REACH_3D if nd == 3 else SWEEP_REACH_2D
-    axes = [torch.arange(big)] * 2
-    if nd == 3:
-        axes = [torch.arange(z0, z0 + bz)] + axes
-    v = torch.stack([g.reshape(-1) for g in torch.meshgrid(*axes, indexing="ij")], -1)
-    kr2 = ((v - cb) ** 2).sum(-1).to(REAL)
-    keep = kr2 < (mrp + reach) ** 2
-    v, kr2 = v[keep], kr2[keep]
-    k = (v - cb).to(REAL).flip(-1)                    # (x, y[, z]) of each cell
-    vals = vals.reshape(vals.shape[0], -1)
-    c2w = c2w.reshape(c2w.shape[0], -1).to(REAL)
-    n_sym = 1 if mats is None else mats.shape[0]
-    if nd == 3:
-        co_all = sweep_planes(rot, mats, pf)
-        q_all = sweep_planes_rot(rot, mats)
-    else:
-        co_all = sweep_coeffs_2d(rot, pf)
-    acc = torch.zeros((n_cls, k.shape[0], 3), dtype=REAL)
-    for s in range(rot.shape[0]):
-        if wsl is not None and float(wsl[s]) == 0.0:
-            continue
-        c = 0 if cls is None else int(cls[s])
-        for m in range(n_sym):
-            co = co_all[s * n_sym + m]
-            ok = torch.ones(k.shape[0], dtype=torch.bool) if m == 0 else kr2 < mrp * mrp
-            flags = int(co[6])
-            if nd == 3:
-                nrm = q_all[s * n_sym + m][:, 2]
-                ok = ok & ((nrm[0] * k[:, 0] + nrm[1] * k[:, 1] + nrm[2] * k[:, 2]).abs()
-                           < SWEEP_BAND)
-                case = flags & 3
-                a = k[:, case]
-                mm = k[:, 1] if case == 2 else k[:, 2]
-                ll = k[:, 1] if case == 0 else k[:, 0]
-                zeta = co[4] * ll + co[5] * mm
-                wz = _hat((a - zeta) / SWEEP_Z_WIDTH) / SWEEP_Z_WIDTH
-                ok = ok & (wz > 0)
-                mp, lp = (ll, mm) if flags & SWEEP_SWAP_ML else (mm, ll)
-            else:
-                wz = None
-                mp, lp = k[:, 1], k[:, 0]
-            c1, c2, p_h, q = co[0], co[1], co[2], co[3]
-            h0, h1 = _sweep_range((lp - q * mp) / p_h, p_h, rr)
-            for dh in range(int((h1 - h0)[ok].max()) + 1 if ok.any() else 0):
-                h = h0 + dh
-                hf = h.to(REAL)
-                w2 = _hat(lp - (p_h * hf + q * mp))
-                ok_h = ok & (h <= h1) & (w2 > 0)
-                k0, k1 = _sweep_range((mp - c1 * hf) / c2, c2, rr)
-                for dk in range(int((k1 - k0)[ok_h].max()) + 1 if ok_h.any() else 0):
-                    kk = k0 + dk
-                    w3 = _hat(mp - (c1 * hf + c2 * kk.to(REAL)))
-                    vr, vc = (kk, h) if flags & SWEEP_SWAP_HK else (h, kk)
-                    hit = ok_h & (kk <= k1) & (w3 > 0) & (vc * vc + vr * vr < rr * rr)
-                    if not bool(hit.any()):
-                        continue
-                    w = w3 * w2 if wz is None else (w3 * w2) * wz
-                    idx = ((vr + rr) * nk + vc + rr)[hit]
-                    val, wt = vals[s, idx], w[hit]
-                    acc[c, hit] += torch.stack([val.real * wt, val.imag * wt,
-                                                c2w[s, idx] * wt], -1)
-    flat = v[:, -1] + big * v[:, -2]
-    if nd == 3:
-        flat = flat + big * big * (v[:, 0] - z0)
-    g = torch.stack([f_grid.real.reshape(n_cls, -1), f_grid.imag.reshape(n_cls, -1),
-                     t_grid.reshape(n_cls, -1)], -1).to(REAL)
-    for c in range(n_cls):
-        g[c].index_add_(0, flat, acc[c])
-    shape = f_grid.shape
-    return torch.complex(g[..., 0], g[..., 1]).reshape(shape), g[..., 2].reshape(shape)
 
 
 def gather_reach_mkb(a: float) -> float:
@@ -1122,7 +1295,7 @@ def gather_reach_mkb(a: float) -> float:
     return float(np.float32(np.float32(a) + np.float32(1e-2)))
 
 
-def _gather_plain(vals, c2w, rot, cls, r_u: int, pf: int, mats, f_grid, t_grid,
+def _gather_plain(vals, c2w, rot, cls, r_u: int, pf: int, f_grid, t_grid,
                   z0: int, wsl=None, kernel: str = "trilinear",
                   blob_a: float = DEFAULT_MKB_A, blob_alpha: float = DEFAULT_MKB_ALPHA):
     """The gather of HK3 / HK10 (3D: rot (B, 3, 3), grids (K, bz, big,
@@ -1136,15 +1309,8 @@ def _gather_plain(vals, c2w, rot, cls, r_u: int, pf: int, mats, f_grid, t_grid,
     weight zero are skipped.  ``kernel="mkb"`` (HK10, 3D): the reach and
     the prefilter are the blob's radius ``blob_a`` and the margin, the
     disc keeps its edge, and a candidate's weight is MKB_FT(|k - p|)
-    where the cell is one of its 4^3 taps and |k - p| < blob_a.
-    ``kernel="sweep"`` (HK11 and its slab form with the point group's
-    mates ``mats``, HK12): :func:`_sweep_gather_plain`.  Returns the new
-    grids."""
-    if kernel == "sweep":
-        return _sweep_gather_plain(vals, c2w, rot, cls, r_u, pf, mats, f_grid, t_grid, z0,
-                                   wsl)
-    if mats is not None:
-        raise ValueError("_gather_plain: the point group's mates only with the sweep")
+    where the cell is one of its 4^3 taps and |k - p| < blob_a.  Returns
+    the new grids."""
     nd = rot.shape[-1]
     n_cls, big = f_grid.shape[0], f_grid.shape[-1]
     bz = f_grid.shape[1] if nd == 3 else 1
@@ -1234,7 +1400,7 @@ def insert_trilinear_gather_plain(ft, ctf, img_idx, rot, trans, w, r_u: int, pf:
     """HK3's gather on the CPU (same arguments and result as
     :func:`insert_trilinear_plain`)."""
     vals, c2w, _, _ = dense_slice_values(ft, ctf, img_idx, trans, w, r_u, size, pixel_size, d)
-    f, t = _gather_plain(vals, c2w, rot, None, r_u, pf, None, f_grid[None], t_grid[None], 0,
+    f, t = _gather_plain(vals, c2w, rot, None, r_u, pf, f_grid[None], t_grid[None], 0,
                          w)
     return f[0], t[0]
 
@@ -1246,7 +1412,7 @@ def insert_mkb_gather_plain(ft, ctf, img_idx, rot, trans, w, r_u: int, pf: int,
     :func:`insert_mkb_plain`)."""
     vals, c2w, _, _ = dense_slice_values(ft, ctf, img_idx, trans, w, r_u, size, pixel_size, d,
                                          edge=True)
-    f, t = _gather_plain(vals, c2w, rot, None, r_u, pf, None, f_grid[None], t_grid[None], 0,
+    f, t = _gather_plain(vals, c2w, rot, None, r_u, pf, f_grid[None], t_grid[None], 0,
                          w, "mkb", a, alpha)
     return f[0], t[0]
 
@@ -1259,35 +1425,5 @@ def insert_bilinear_2d_gather_plain(ft, ctf, img_idx, cls, rot, trans, w, r_u: i
     order, _ = insert_2d_work(img_idx, cls, f_grid.shape[0])
     vals, c2w, _, _ = dense_slice_values(ft, ctf, img_idx[order], trans[order], w[order], r_u,
                                          size, pixel_size)
-    return _gather_plain(vals, c2w, rot[order], cls[order], r_u, pf, None, f_grid, t_grid, 0,
+    return _gather_plain(vals, c2w, rot[order], cls[order], r_u, pf, f_grid, t_grid, 0,
                          w[order])
-
-
-def insert_sweep_gather_plain(ft, ctf, img_idx, rot, trans, w, r_u: int, pf: int, size: int,
-                              pixel_size: float, f_grid, t_grid, d=None):
-    """HK11's gather on the CPU (same arguments and result as
-    :func:`insert_sweep_plain`)."""
-    vals, c2w, _, _ = dense_slice_values(ft, ctf, img_idx, trans, w, r_u, size, pixel_size, d)
-    f, t = _gather_plain(vals, c2w, rot, None, r_u, pf, None, f_grid[None], t_grid[None], 0,
-                         w, "sweep")
-    return f[0], t[0]
-
-
-def insert_sweep_slab_gather_plain(vals, ctf2w, rot, cls, r_u: int, pf: int, sym_mats,
-                                   f_slab, t_slab, z0: int):
-    """HK11's slab form's gather on the CPU (same arguments and result
-    as :func:`insert_sweep_slab_plain`)."""
-    return _gather_plain(vals, ctf2w, rot, cls, r_u, pf, sym_mats, f_slab, t_slab, z0,
-                         kernel="sweep")
-
-
-def insert_sweep_2d_gather_plain(ft, ctf, img_idx, cls, rot, trans, w, r_u: int, pf: int,
-                                 size: int, pixel_size: float, f_grid, t_grid):
-    """HK12's gather on the CPU (same arguments and result as
-    :func:`insert_sweep_2d_plain_values`), the slices taken in the order
-    of :func:`insert_2d_work`."""
-    order, _ = insert_2d_work(img_idx, cls, f_grid.shape[0])
-    vals, c2w, _, _ = dense_slice_values(ft, ctf, img_idx[order], trans[order], w[order], r_u,
-                                         size, pixel_size)
-    return _gather_plain(vals, c2w, rot[order], cls[order], r_u, pf, None, f_grid, t_grid, 0,
-                         w[order], "sweep")
