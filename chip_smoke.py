@@ -19,8 +19,9 @@ launches it from the two spectra and on three stacked fields, and at the
 sigma stage's per-image sums with three fields and with one, its
 coordinate form held exact against shell_geometry), and HK1 and HK3 at
 the shapes of a 256 px box at its global radius, and HK10 (the MKB
-insertion option's blob) and HK11 (the rounds' insertion, thunder_tpu's
-shear sweep) on HK3's slices, timed beside it; phase 1b the 2D path's
+insertion option's blob; its registers and spilled bytes a thread
+printed) and HK11 (the rounds' insertion, thunder_tpu's shear sweep) on
+HK3's slices, timed beside it; phase 1b the 2D path's
 at 160 px (HK5 at the phase loop's, the global-search block's and the
 sigma pass's shapes, at r = 5 and 15; HK6 with the 480,000 slices of a
 round into 2K = 60 planes at r_u = 31, and a tenth at 12 and 40, and
@@ -41,7 +42,8 @@ HK6), bound_ms (the larger of its bytes over 3.35 TB/s and its fp32
 operations over 67 TFLOP/s, counted from this run's inputs), what bounds
 it and the share bound_ms / kernel_ms; a record under 0.15 ms (the
 events measure the host's call rate under ~0.05 ms) also
-kernel_alone_ms, its launches replayed as a CUDA graph.  Phase 2 writes a 128
+kernel_alone_ms, its launches replayed as a CUDA graph, and HK1's and
+HK5's grid_sample yardstick the same way (library_alone_ms).  Phase 2 writes a 128
 px, 256-image synthetic dataset with the port's generator and runs
 three rounds of the demo-grid K=1 3D refinement through
 ``thunder_tpu_torch.cli.thunder.main`` from the phantom low-passed to 40
@@ -132,7 +134,8 @@ device time by named range of the optimiser (``thunder:round/<stage>``,
 limit, then three JSON objects: the profiles, the kernels, and ``{"ok":
 true, "device": {...}}``.
 
-Repeats.  HK3, HK6, HK10 (cell-owned gathers), HK11 and HK12 (128-bit
+Repeats.  HK3 and HK6 (cell-owned gathers), HK10 (a brick scatter, each
+cell summed in one order by the warp that owns it), HK11 and HK12 (128-bit
 fixed-point sums, also held to the bits of their emulation on the card)
 and HK4 (sums in a fixed order) are each called twice on the same inputs
 at every shape they are held at, and must give identical bits (as HK7
@@ -314,7 +317,8 @@ PATH_KERNELS_8A = ("project_slices", "likelihood_block", "insert_sweep", "shell_
 ROUNDS_MKB = 3
 # HK10's operations a sample: the value (as HK3's first pass forms it)
 # and, for each of the ~4/3 pi a^3 = 28.7 cells of the blob's ball at a =
-# 1.9, the distance, the I0 and three multiply-adds
+# 1.9, the distance, the weight (its series' 24 multiply-adds) and three
+# multiply-adds
 MKB_VALUE_OPS, MKB_TAP_OPS, MKB_BALL = 70, 40, 4.0 / 3.0 * 3.141592653589793 * 1.9 ** 3
 # HK11's and HK12's operations: a sample's value (as HK3's first pass
 # forms it, MKB_VALUE_OPS) and, for each (cell, sample) pair the sweep's
@@ -328,6 +332,9 @@ PARITY_CASES = ("a", "b")
 HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
 # why the insertion kernels match their twins to float32 rounding only
 GATHER_WHY = "each cell sums its slices in another order than the twin's scatter"
+MKB_WHY = ("the kernel's float32 sums, each cell's taps in another order, against the twin's "
+           "float32 taps summed in float64; the kernel fuses the series' and the sums' "
+           "multiply-adds")
 SWEEP_WHY = ("the exact fixed-point sums against the twin's float64 sums of the same float32 "
              "taps, each rounded once")
 # the twin's float32 scatter parts from both by its own rounding (~3e-5 of
@@ -437,9 +444,8 @@ def same_as_fixed(name, shape, got, fixed) -> None:
 
 
 def float32_sums(label: str, got, plain) -> None:
-    """Print how far the twin's float32 scatter lies from the kernel's
-    exact sums (relative to max |plain|; not gated: the float32 sums' own
-    rounding)."""
+    """Print how far the twin's float32 scatter lies from the kernel
+    (relative to max |plain|; not gated: the float32 sums' own rounding)."""
     import torch
 
     f = float((got[0] - plain[0]).abs().max() / plain[0].abs().max())
@@ -709,24 +715,30 @@ def bound(n_bytes: float, n_flops: float) -> tuple:
 
 
 def record(name, shape, err, ms, plain_ms, n_bytes, n_flops, library_ms=None, alone=None,
-           **extra):
+           library=None, **extra):
     """A kernel's record at one shape, with its bound and share, and its
     timing line.  ``alone``: the timed call; when it took under
     ALONE_UNDER_MS, where CUDA events around a loop of calls measure the
     host's call rate, its launches are also replayed as a CUDA graph
-    (``alone_ms``, the kernel's own device time)."""
+    (``alone_ms``, the kernel's own device time), and so are those of
+    ``library``, the library call timed as ``library_ms``, where given
+    (``library_alone_ms``: the two compared alone with alone)."""
     b_ms, by = bound(n_bytes, n_flops)
     lib = "null" if library_ms is None else f"{library_ms:.4f}"
-    alone_ms = None
+    alone_ms = library_alone_ms = None
     if alone is not None and ms < ALONE_UNDER_MS:
         from thunder_tpu_torch.micro.launch_floor import graph_ms
 
         alone_ms = graph_ms(alone)
+        if library is not None:
+            library_alone_ms = graph_ms(library)
     say(f"  {name} [{shape}]: kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms {lib}  "
         f"bound_ms {b_ms:.4f} ({by})  share {b_ms / ms:.4f}"
-        + ("" if alone_ms is None else f"  kernel_alone_ms {alone_ms:.4f}"))
+        + ("" if alone_ms is None else f"  kernel_alone_ms {alone_ms:.4f}")
+        + ("" if library_alone_ms is None else f"  library_alone_ms {library_alone_ms:.4f}"))
     return dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=b_ms, bound_by=by, share=b_ms / ms, alone_ms=alone_ms, **extra)
+                bound_ms=b_ms, bound_by=by, share=b_ms / ms, alone_ms=alone_ms,
+                library_alone_ms=library_alone_ms, **extra)
 
 
 def lk_operands(dev, gen, n_l: int, n_k: int, n_r: int, n_t: int, r: int, size: int,
@@ -1002,7 +1014,7 @@ def phase_kernels(dev):
                    timed(lambda: projector.project_slices_plain(table[:1], *tail_g), 5),
                    table[:1].numel() * 8 + rot_g.numel() * 4 + 8 * n_p + ref.numel() * 8,
                    ref.numel() * 60, library_ms=timed(lib, 50),
-                   alone=lambda: projector.project_slices(quads[:1], *tail_g))
+                   alone=lambda: projector.project_slices(quads[:1], *tail_g), library=lib)
     del ref, quads
 
     # taps that clip: the full padded box as the table and the whole
@@ -1150,29 +1162,37 @@ def phase_kernels(dev):
 
 
 def hk10_record(dev, args, d, big: int, shape: str, n_img: int, hk3_ms: float) -> dict:
-    """HK10 (insert_mkb) against its plain twin (1e-5 of max |plain|),
-    two calls identical, timed beside HK3's time at the same slices
+    """HK10 (insert_mkb) against its plain twin with float64 sums (1e-5 of
+    max |plain|; the float32 twin's own rounding printed beside), two
+    calls identical, timed beside HK3's time at the same slices
     (``hk3_ms``), with its bound: the images and the slices read once, F
-    and T written once; the value and the blob's ~28.7 taps a sample."""
+    and T written once; the value and the blob's ~28.7 taps a sample.
+    Prints the kernel's registers and local (spilled) bytes a thread."""
     import torch
 
     from thunder_tpu_torch.ops import insert
 
     call = lambda: insert.insert_mkb(*args, big, d=d)
+    zeros = lambda: (torch.zeros((big,) * 3, dtype=torch.complex64, device=dev),
+                     torch.zeros((big,) * 3, device=dev))
     fk, tk = call()
     same_bits("insert_mkb", shape, (fk, tk), call())
-    (fp, tp), plain_ms = timed_once(lambda: insert.insert_mkb_plain(
-        *args, torch.zeros((big,) * 3, dtype=torch.complex64, device=dev),
-        torch.zeros((big,) * 3, device=dev), d))
+    (fp, tp), plain_ms = timed_once(lambda: insert.insert_mkb_plain(*args, *zeros(), d))
+    f64, t64 = insert.insert_mkb_plain(*args, *zeros(), d, f64_sums=True)
     err = max(compare("insert_mkb", f"F {shape}", torch.view_as_real(fk),
-                      torch.view_as_real(fp), 1e-5, GATHER_WHY),
-              compare("insert_mkb", "T, the same", tk, tp, 1e-5, GATHER_WHY))
+                      torch.view_as_real(f64), 1e-5, MKB_WHY),
+              compare("insert_mkb", "T, the same", tk, t64, 1e-5, MKB_WHY))
+    float32_sums(f"insert_mkb {shape}", (fk, tk), (fp, tp))
+    del f64, t64
+    regs, local = insert.insert_mkb_attrs()
+    say(f"  insert_mkb: {regs} registers and {local} local bytes a thread")
     del fk, tk, fp, tp
     n_s, r_u = args[3].shape[0], args[6]
     npx = int((insert.dense_window(r_u, edge=True)[2] > 0).sum())
     rec = record("insert_mkb", shape, err, timed(call, 3), plain_ms,
                  n_img * npx * 8 + n_img * 32 + n_s * 64 + big ** 3 * 12,
-                 n_s * npx * (MKB_VALUE_OPS + MKB_BALL * MKB_TAP_OPS), hk3_ms=hk3_ms)
+                 n_s * npx * (MKB_VALUE_OPS + MKB_BALL * MKB_TAP_OPS), hk3_ms=hk3_ms,
+                 regs=regs, local_bytes=local)
     say(f"  insert_mkb [{shape}]: {rec['ms'] / hk3_ms:.2f} x HK3's {hk3_ms:.4f} ms on the "
         "same slices")
     return rec
@@ -1273,7 +1293,7 @@ def phase_kernels_2d(dev):
             timed(lambda: projector.project_slices_2d_plain(*args_l), 5),
             table.numel() * 8 + N_2D * 9 * 16 + 8 * n_p + 4 * N_2D + out.numel() * 8,
             out.numel() * 30, library_ms=timed(lib, 20),
-            alone=lambda: projector.project_slices_2d(*args_l)))
+            alone=lambda: projector.project_slices_2d(*args_l), library=lib))
         lib, _ = grid_sample_call(*args_g)
         recs_g.append(record(
             "project_slices_2d", shape_g, e2,
@@ -1281,7 +1301,7 @@ def phase_kernels_2d(dev):
             timed(lambda: projector.project_slices_2d_plain(*args_g), 5),
             K_2D * crop * crop * 8 + N_ROT_2D * 16 + 8 * n_p + 4 * K_2D + out_g.numel() * 8,
             out_g.numel() * 30, library_ms=timed(lib, 50),
-            alone=lambda: projector.project_slices_2d(*args_g)))
+            alone=lambda: projector.project_slices_2d(*args_g), library=lib))
         del out, out_g, lib
     # the sigma / norm stage's pass: every image's best rotation, the
     # packed half disc to r_u (lane 512)
@@ -3719,7 +3739,7 @@ def main() -> None:
                           "thunder_tpu/recon/reconstructor.py:309"),
         "likelihood_local_ctf": ("HK8", "thunder_tpu_torch/csrc/likelihood_local_ctf.cu",
                                  "thunder_tpu/ops/likelihood.py:100"),
-        "insert_mkb": ("HK10", "thunder_tpu_torch/csrc/insert_trilinear.cu",
+        "insert_mkb": ("HK10", "thunder_tpu_torch/csrc/insert_mkb.cu",
                        "thunder_tpu/ops/insert.py:76"),
         "insert_sweep": ("HK11", "thunder_tpu_torch/csrc/insert_trilinear.cu",
                          "thunder_tpu/optimiser.py:1400"),

@@ -627,6 +627,67 @@ def test_insert_gathers_taps_past_the_faces(dev, kind):
         assert torch.equal(fk, fe) and torch.equal(tk, te)
 
 
+@pytest.mark.parametrize("pf,big", [(1, 30), (1, 22), (2, 64)])
+def test_insert_mkb_by_parity_and_at_the_faces(dev, pf, big):
+    """HK10 at pf 1 (its samples taken in four parity classes, so that no
+    two lanes' taps meet) and pf 2, on grids whose faces the blob's taps
+    pass (22, 30 at pf 1) or do not (64): within 1e-5 of its plain twin,
+    two calls identical, its registers and spills read back."""
+    g = generator(31, dev)
+    size, n_img, n_s, r_u = 32, 4, 24, 12
+    ft = torch.fft.fftshift(torch.fft.fft2(torch.randn(n_img, size, size, generator=g,
+                                                       device=dev)),
+                            dim=(-2, -1)).to(torch.complex64).contiguous()
+    ctf = _ctf_fields(dev, n_img, 5)
+    img = torch.randint(0, n_img, (n_s,), generator=g, device=dev)
+    trans = torch.randn(n_s, 2, generator=g, device=dev)
+    w = torch.rand(n_s, generator=g, device=dev)
+    w[::5] = 0.0
+    rot = rotate3d(random_quat(g, (n_s,), dev))
+    args = (ft, ctf, img, rot, trans, w, r_u, pf, size, 1.32)
+    f1, t1 = insert.insert_mkb(*args, big)
+    f2, t2 = insert.insert_mkb(*args, big)
+    assert torch.equal(f1, f2) and torch.equal(t1, t2)
+    zeros = (torch.zeros((big,) * 3, dtype=torch.complex64, device=dev),
+             torch.zeros((big,) * 3, device=dev))
+    fp, tp = insert.insert_mkb_plain(*args, *zeros)
+    assert rel_err(torch.view_as_real(f1), torch.view_as_real(fp)) < 1e-5
+    assert rel_err(t1, tp) < 1e-5
+    regs, local = insert.insert_mkb_attrs()
+    assert 0 < regs <= 255 and local >= 0
+
+
+def test_insert_mkb_past_r_u_128(dev):
+    """HK10 at r_u 130 (a window of 259 pixels, pf 1, a 268^3 grid): its
+    queue holds any pixel of the window; within 1e-5 of its plain twin,
+    two calls identical.  The CTF is flat (no defocus, no Cs): past ~0.3
+    per angstrom the float32 phase of a defocused CTF runs to hundreds of
+    radians, and the value pass HK3 and HK10 share and the twin's
+    ctf_packed round it apart by ~2e-5 of max |F| on six slices (HK3
+    alike, r_u 36 too), which would hide the scatter's own error."""
+    g = generator(37, dev)
+    size, n_img, n_s, r_u, big = 260, 2, 6, 130, 268
+    ft = torch.fft.fftshift(torch.fft.fft2(torch.randn(n_img, size, size, generator=g,
+                                                       device=dev)),
+                            dim=(-2, -1)).to(torch.complex64).contiguous()
+    zero = np.zeros(n_img)
+    ctf = ctf_params(np.full(n_img, 300e3), zero, zero, zero, zero, np.full(n_img, 0.1), zero,
+                     device=dev)
+    img = torch.randint(0, n_img, (n_s,), generator=g, device=dev)
+    trans = torch.randn(n_s, 2, generator=g, device=dev)
+    w = torch.rand(n_s, generator=g, device=dev)
+    rot = rotate3d(random_quat(g, (n_s,), dev))
+    args = (ft, ctf, img, rot, trans, w, r_u, 1, size, 1.32)
+    f1, t1 = insert.insert_mkb(*args, big)
+    f2, t2 = insert.insert_mkb(*args, big)
+    assert torch.equal(f1, f2) and torch.equal(t1, t2)
+    zeros = (torch.zeros((big,) * 3, dtype=torch.complex64, device=dev),
+             torch.zeros((big,) * 3, device=dev))
+    fp, tp = insert.insert_mkb_plain(*args, *zeros)
+    assert rel_err(torch.view_as_real(f1), torch.view_as_real(fp)) < 1e-5
+    assert rel_err(t1, tp) < 1e-5
+
+
 @pytest.mark.parametrize("pf", [1, 2])
 def test_insert_sweep_holds_samples_at_its_edge(dev, pf):
     """Planes tilted so that the sweep reaches farthest (the normal near

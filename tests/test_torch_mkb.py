@@ -1,10 +1,10 @@
 """The MKB insertion option (``reco_kernel="mkb"``, the modified
 Kaiser-Bessel blob of Reconstructor.cpp:424-567) in the port on the CPU,
-against thunder_tpu: the config fields, the blob's scatter twin and the
-emulation of HK10's gather, its grid correction, the reconstruction
-without grid correction, one 3D and one 2D round's insertion and maps
-from one state, the refusal of a sharding layout, and a few rounds of
-each mode."""
+against thunder_tpu: the config fields, the blob's scatter twin, the
+series of its weight and the emulation of HK10's brick scatter, its grid
+correction, the reconstruction without grid correction, one 3D and one
+2D round's insertion and maps from one state, the refusal of a sharding
+layout, and a few rounds of each mode."""
 
 import os
 
@@ -98,8 +98,8 @@ def test_mkb_scatter_matches_jax():
 
 
 # (label, r_u, pf, big, rotations, defocus factors, zero-weight slices):
-# HK10's gather as HK3's cases take it (tests/test_torch_insert_gather.py),
-# its faces two cells past the radius
+# HK10 on HK3's gather cases (tests/test_torch_insert_gather.py), its faces
+# two cells past the radius
 MKB_CASES = [("pf 2", 6, 2, 32, "random", False, False),
              ("pf 1", 6, 1, 16, "random", False, False),
              ("quarter turns, DC on a cell", 6, 2, 32, "quarter", False, False),
@@ -111,9 +111,11 @@ MKB_CASES = [("pf 2", 6, 2, 32, "random", False, False),
 @pytest.mark.parametrize("label,r_u,pf,big,kind,use_d,zero_w", MKB_CASES,
                          ids=[c[0] for c in MKB_CASES])
 def test_hk10_gather_matches_scatter(label, r_u, pf, big, kind, use_d, zero_w):
-    """HK10's enumeration (ops/insert.py insert_mkb_gather_plain) against
-    the blob's scatter twin and thunder_tpu's insert_slices_3d(kernel=
-    "mkb") on the same values, within 1e-6 of max |F| and max |T|."""
+    """HK10's enumeration (ops/insert.py insert_mkb_brick_plain: parts of
+    bricks, their planes' samples by row, pf 1 by parity class, taps in
+    one order, faces lane after lane) against the blob's scatter twin and
+    thunder_tpu's insert_slices_3d(kernel="mkb") on the same values,
+    within 1e-6 of max |F| and max |T|."""
     rng = np.random.default_rng(len(label) + 7)
     n_img, n_s = 3, 9
     ft, ctf = images(rng, n_img)
@@ -127,7 +129,7 @@ def test_hk10_gather_matches_scatter(label, r_u, pf, big, kind, use_d, zero_w):
     args = (ft, ctf, img, rot, trans, w, r_u, pf, SIZE, PIX)
     f0 = torch.as_tensor((rng.standard_normal((big,) * 3) * 0.1).astype(np.complex64))
     t0 = torch.as_tensor(rng.random((big,) * 3).astype(np.float32) * 0.1)
-    fg, tg = ti.insert_mkb_gather_plain(*args, f0.clone(), t0.clone(), d)
+    fg, tg = ti.insert_mkb_brick_plain(*args, f0.clone(), t0.clone(), d)
     fs, ts = ti.insert_mkb(*args, big, f0.clone(), t0.clone(), d)
     close6(fg, fs)
     close6(tg, ts)
@@ -152,10 +154,35 @@ def blob_taps_pass_faces(rot, r_u, pf, big) -> bool:
 
 
 def test_hk10_reach_and_tap_range():
-    """The blob's reach and its taps' index range, as HK10 takes them."""
-    assert ti.gather_reach_mkb(1.9) == pytest.approx(1.91, abs=1e-6)
+    """The blob's reach and its taps' index range, as HK10 takes them
+    (the margin MKB_MARGIN read from csrc/insert_mkb.cu)."""
+    assert ti.mkb_reach(1.9) == pytest.approx(1.95, abs=1e-6)
     assert ti.tap_range(32, 10.0, "mkb") == (4, 28)
     assert ti.tap_range(32, 10.0) == (5, 27)
+
+
+@pytest.mark.parametrize("alpha", [15.0, 10.0, 19.0])
+def test_mkb_series_matches_jax_mkb_ft(alpha):
+    """HK10's weight, the series of I0 in s = 1 - r^2 / a^2 by Horner's
+    rule in float32 (ops/insert.py mkb_weight), at r^2 = t a^2 over t in
+    [0, 1]: within 6e-7 of the float64 value, and within 2e-6 of
+    thunder_tpu's mkb_ft (physics/kernels.py:52), whose float32 quotient of
+    I0s lies up to 1.6e-6 from the float64 value at alpha 19 (0.99e-6 at
+    15)."""
+    a = 1.9
+    a2, inv_a2, coef = ti.mkb_constants(a, alpha)
+    r2 = torch.linspace(0.0, 1.0, 20001) * float(a2)
+    mine = ti.mkb_weight(r2, inv_a2, coef).double().numpy()
+    t64 = r2.double().numpy() / float(a2)
+    exact = np.i0(alpha * np.sqrt(np.clip(1 - t64, 0, None))) / np.i0(alpha)
+    assert np.abs(mine - exact).max() < 6e-7
+    theirs = np.asarray(jk.mkb_ft(jnp.sqrt(jnp.asarray(r2.numpy())), a, alpha))
+    assert np.abs(mine - theirs).max() < 2e-6
+
+
+def test_mkb_series_refuses_an_alpha_it_does_not_hold():
+    with pytest.raises(ValueError, match="alpha"):
+        ti.mkb_constants(1.9, 40.0)
 
 
 @pytest.mark.parametrize("nd", [3, 2])

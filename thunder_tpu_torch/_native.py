@@ -30,10 +30,10 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("project_slices.cu", "likelihood_block.cu",
-           "insert_trilinear.cu", "shell_sums.cu", "project_slices_2d.cu",
+           "insert_trilinear.cu", "insert_mkb.cu", "shell_sums.cu", "project_slices_2d.cu",
            "insert_bilinear_2d.cu", "symmetrize_ft.cu",
            "likelihood_local_ctf.cu", "gather.cu", "launch_floor.cu")
-HEADERS = ("sweep_fixed.cuh",)   # included by the sources: part of the hash
+HEADERS = ("slice_values.cuh", "sweep_fixed.cuh")   # included by the sources: part of the hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -65,7 +65,8 @@ _SIGNATURES = {
     "thunder_take_rows": [_P, _I, _I, _P, _L, _P, _P],
     "thunder_empty_launch": [_P],
     "thunder_insert_mkb": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P,
-                           _P, _I, _I, _I, _F, _F, _F, _F, _P],
+                           _P, _I, _I, _I, _P, _I, _F, _F, _F, _P, _P],
+    "thunder_insert_mkb_attrs": [_P],
     "thunder_insert_sweep": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P,
                              _P, _P, _I, _P, _D, _P],
     "thunder_insert_sweep_slab": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _P, _P, _I, _I, _I,
@@ -139,15 +140,17 @@ def build() -> str:
     return path
 
 
-def csrc_constant(source: str, name: str) -> int:
-    """The value of ``constexpr int <name> = <value>;`` in ``csrc/<source>``:
-    the launch plans size shared memory from the kernels' compile-time
-    constants as the source they are built from states them."""
+def csrc_constant(source: str, name: str) -> int | float:
+    """The value of ``constexpr int <name> = <value>;`` (an int) or
+    ``constexpr float <name> = <value>f;`` (a float) in ``csrc/<source>``:
+    the launch plans size shared memory and the plain versions cut as the
+    kernels do, from the compile-time constants as the source they are
+    built from states them."""
     with open(os.path.join(SRC_DIR, source)) as f:
-        m = re.search(rf"constexpr int {name} = (\d+);", f.read())
+        m = re.search(rf"constexpr (int|float) {name} = ([0-9.e+-]+?)f?;", f.read())
     if m is None:
-        raise RuntimeError(f"csrc/{source} defines no constexpr int {name}")
-    return int(m.group(1))
+        raise RuntimeError(f"csrc/{source} defines no constexpr int or float {name}")
+    return int(m.group(2)) if m.group(1) == "int" else float(m.group(2))
 
 
 def library() -> ctypes.CDLL:

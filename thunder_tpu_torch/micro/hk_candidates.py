@@ -1,25 +1,33 @@
 """Candidate designs of HK1 ``project_slices``, HK3 ``insert_trilinear``,
-HK4 ``shell_sums``, HK5 ``project_slices_2d``, HK7 ``symmetrize_ft`` and
-HK8 ``likelihood_local_ctf`` timed in turns on the card, at the main
-paths' shapes.
+HK4 ``shell_sums``, HK5 ``project_slices_2d``, HK7 ``symmetrize_ft``, HK8
+``likelihood_local_ctf`` and HK10 ``insert_mkb`` timed in turns on the
+card, at the main paths' shapes.
 
-    python -m thunder_tpu_torch.micro.hk_candidates [--kernels hk4,hk5|hk7,hk8] [--big] [--reps N]
+    python -m thunder_tpu_torch.micro.hk_candidates [--kernels hk4,hk5|hk7,hk8|hk10] [--big] [--reps N]
+    python -m thunder_tpu_torch.micro.hk_candidates --lanes [--bricks N]
 
 Builds ``micro/cand/hk1_cand.cu`` and ``hk3_cand.cu``, ``hk4_cand.cu``
-and ``hk5_cand.cu``, or ``hk7_cand.cu`` and ``hk8_cand.cu`` (the designs
-that were measured before the kernels in ``csrc/`` were chosen; they
-are not part of the kernel library),
+and ``hk5_cand.cu``, ``hk7_cand.cu`` and ``hk8_cand.cu``, or
+``hk10_cand.cu`` (the designs that were measured before the kernels in
+``csrc/`` were chosen, and instances of those kernels; they are not part
+of the kernel library),
 checks every variant against the plain version, and times the variants
 one after another, forwards then backwards, with CUDA events.  ``--big``
 adds HK1's and HK3's shapes of a 256 px box at its global radius, where
-the tables no longer fit the L2 cache.  Prints one line per variant and
-shape and a last JSON line; needs a CUDA device and nvcc.
+the tables no longer fit the L2 cache.  HK10's instances print their
+registers and local (spilled) bytes a thread.  Prints one line per
+variant and shape and a last JSON line; needs a CUDA device and nvcc.
+``--lanes`` needs neither: it counts, from the shapes alone, how busy
+HK10's lanes are and how many samples its warps take at its two shapes
+(random rotations, ``--bricks`` bricks inside the radius and the
+central one).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import json
 import os
 import subprocess
@@ -57,6 +65,15 @@ HK4_VARIANTS = {0: "block histogram, an atomic a cell (first design)",
                 5: "coordinate form, 1 load step", 6: "coordinate form, 2 load steps",
                 7: "row form, 16-byte loads, a lane's own runs summed first",
                 8: "as 7, 2 load steps in flight", 9: "as 3, 2 load steps in flight"}
+HK10_VARIANTS = {0: "the gather (HK10's earlier design), closed-form weight",
+                 1: "the gather, weight 1 inside the ball",
+                 2: "the gather, __launch_bounds__(512, 1)",
+                 3: "the gather, the weight's series",
+                 4: "brick scatter, series, 8^3 bricks, three blocks an SM (the path)",
+                 5: "brick scatter, closed-form weight",
+                 6: "brick scatter, series, 8 x 8 x 4 bricks",
+                 7: "brick scatter, weight 1 inside the ball",
+                 8: "brick scatter, series, __launch_bounds__(256, 2)"}
 HK5_VARIANTS = {0: "flat, 64-bit index, 4 taps, 8-byte store (first design)",
                 1: "walk the rotations, plain plane, 1 pixel a thread",
                 2: "walk, plain plane, 2 pixels, 16-byte store",
@@ -434,6 +451,178 @@ def main_45(dev, gen, reps, results):
     hk5_shape(lib, dev, gen, "phase, one class", 15, 10000, 9, False, reps, results, n_k=1)
 
 
+def build_10() -> ctypes.CDLL:
+    """nvcc the HK10 instances (micro/cand/hk10_cand.cu, which includes
+    csrc/insert_mkb.cu)."""
+    os.makedirs(_native.BUILD_DIR, exist_ok=True)
+    out = os.path.join(_native.BUILD_DIR, "libhk10_candidates.so")
+    src = os.path.join(CAND_DIR, "hk10_cand.cu")
+    res = subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-shared", "-o", out, src],
+                         capture_output=True, text=True)
+    say(f"build hk10_cand.cu: rc {res.returncode}")
+    for line in (res.stdout + res.stderr).splitlines():
+        if res.returncode != 0 or "registers" in line or "spill" in line or "error" in line:
+            say("  " + line.strip()[:200])
+    if res.returncode != 0:
+        raise RuntimeError("the HK10 candidates did not build")
+    lib = ctypes.CDLL(out)
+    lib.cand_insert_mkb.argtypes = [_I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                                    _P, _P, _P, _I, _I, _I, _P, _I, _F, _F, _F, _P, _F, _F, _P]
+    lib.cand_mkb_attrs.argtypes = [_I, _I, _F, _P]
+    return lib
+
+
+def hk10_shape(lib, dev, gen, rng, name, size, r_u, n_l, slots, reps, results, use_d=False):
+    """HK10's instances on one hemisphere's compacted slices (n_l images x
+    slots) at r_u: each against the plain version with float64 sums (1e-5
+    of max |plain|, weight 1 not held), two calls' bits, registers and
+    spills, then all in turns beside the kernel on the path (``csrc``)."""
+    big = reco_grid_size(size, r_u) * 2
+    ft = torch.fft.fftshift(torch.fft.fft2(torch.randn(n_l, size, size, device=dev)),
+                            dim=(-2, -1)).to(torch.complex64).contiguous()
+    defocus = rng.uniform(8000, 20000, n_l)
+    ctf = ctf_params(np.full(n_l, 300e3), defocus, defocus * 1.05, rng.uniform(0, 3, n_l),
+                     np.full(n_l, 2e7), np.full(n_l, 0.1), np.zeros(n_l), device=dev)
+    n_s = n_l * slots
+    img_idx = (torch.arange(n_s, device=dev) // slots).to(torch.int32)
+    rot = rotate3d(random_quat(gen, (n_s,), dev)).reshape(n_s, 9).contiguous()
+    trans = (3 * torch.randn(n_s, 2, device=dev)).contiguous()
+    w = (torch.rand(n_s, device=dev) / slots).contiguous()
+    d = (1 + 0.03 * torch.randn(n_s, device=dev)).contiguous() if use_d else None
+    ctfk = insert.ctf_constants(ctf)
+    a, alpha = 1.9, 15.0
+    a2, inv_a2, coef = insert.mkb_constants(a, alpha)
+    inv_i0 = float(1.0 / np.i0(alpha))
+    mrp = float((r_u - 1) * 2)
+    vlo, vhi = insert.tap_range(big, mrp, "mkb")
+    vals = torch.empty((n_s, (2 * r_u - 1) ** 2, 4), device=dev)
+    st = _native.stream_ptr(ft)
+    zero = lambda: (torch.zeros((big,) * 3, dtype=torch.complex64, device=dev),
+                    torch.zeros((big,) * 3, device=dev))
+
+    bricks = {bz: torch.as_tensor(insert._mkb_bricks(big, bz, mrp, a), device=dev)
+              for bz in (8, 4)}
+
+    def run(v):
+        f, t = zero()
+        order = bricks[4 if v == 6 else 8]
+        _native.check(lib.cand_insert_mkb(
+            v, ft.data_ptr(), size, ctfk.data_ptr(), img_idx.data_ptr(), rot.data_ptr(),
+            trans.data_ptr(), w.data_ptr(), None if d is None else d.data_ptr(), n_s, r_u, 2,
+            mrp, float(1.32 * size), float(2 * np.pi / size), f.data_ptr(), t.data_ptr(),
+            vals.data_ptr(), big, vlo, vhi, order.data_ptr(), order.numel(), a, float(a2),
+            float(inv_a2), coef.ctypes.data, alpha, inv_i0, st), f"hk10 variant {v}")
+        return f, t
+
+    args = (ft, ctf, img_idx, rot.reshape(n_s, 3, 3), trans, w, r_u, 2, size, 1.32)
+    fp, tp = insert.insert_mkb_plain(*args, *zero(), d, f64_sums=True)
+    shape = f"{name}: slices={n_s} r_u={r_u} big={big}^3"
+    errs, same, attrs = {}, {}, {}
+    out = (ctypes.c_int * 2)()
+    for v in HK10_VARIANTS:
+        f1, t1 = run(v)
+        f2, t2 = run(v)
+        same[f"v{v}"] = bool(torch.equal(f1, f2) and torch.equal(t1, t2))
+        if v not in (1, 7):  # weight 1: not the function
+            errs[f"v{v}"] = max(rel_err(torch.view_as_real(f1), torch.view_as_real(fp)),
+                                rel_err(t1, tp))
+        _native.check(lib.cand_mkb_attrs(v, 2, a, ctypes.addressof(out)), "cand_mkb_attrs")
+        attrs[f"v{v}"] = dict(regs=int(out[0]), local_bytes=int(out[1]))
+    del fp, tp, f1, t1, f2, t2
+    regs, local = insert.insert_mkb_attrs()
+    attrs["csrc"] = dict(regs=regs, local_bytes=local)
+    fns = {"csrc": lambda: insert.insert_mkb(*args, big, d=d)}
+    fns.update({f"v{v}": (lambda v=v: run(v)) for v in HK10_VARIANTS})
+    ms = turns(fns, reps)
+    labels = {f"v{v}": f"{lab}; {attrs[f'v{v}']['regs']} registers, "
+                       f"{attrs[f'v{v}']['local_bytes']} local bytes"
+              for v, lab in HK10_VARIANTS.items()}
+    labels["csrc"] = f"the path's (csrc/insert_mkb.cu); {regs} registers, {local} local bytes"
+    report("HK10", shape, ms, errs, labels, 1e-5, results, same_bits=same, attrs=attrs,
+           share_of_v0={k: [x / y for x, y in zip(m, ms["v0"])] for k, m in ms.items()})
+    if not all(same.values()):
+        raise SystemExit(f"HK10 {shape}: two calls differ: {same}")
+
+
+def hk10_lanes(n_bricks: int, seed: int = 0) -> list:
+    """How busy HK10's lanes are and how its work spreads, counted from the
+    shapes with ops/insert.py's emulation of its enumeration
+    (_mkb_listed, _mkb_candidates): ``n_bricks`` bricks inside the radius,
+    chosen at random, and the brick at the grid's centre, against 6144
+    random planes, at both of chip_smoke.py's shapes, for bricks 8 (the
+    path's) and 4 cells deep.  A warp queues the samples of its eighth of
+    the brick's planes and takes them 32 a round (a lane a sample), then
+    the taps that land, 32 a batch (a lane a tap)."""
+    from thunder_tpu_torch.geometry.quaternion import random_quat as rq
+
+    f32 = np.float32
+    g = torch.Generator().manual_seed(seed)
+    pick = np.random.default_rng(seed)
+    a2 = f32(1.9 * 1.9)
+    warps = insert.MKB_THREADS // 32
+    out = []
+    for (name, size, r_u), bz in itertools.product((("152^3", 128, 36), ("304^3", 160, 74)),
+                                                  (insert.MKB_BZ, 4)):
+        big = reco_grid_size(size, r_u) * 2
+        cb, rr = big // 2, r_u - 1
+        reach = f32(insert.mkb_reach(1.9))
+        rot = rotate3d(rq(g, (6144,), torch.device("cpu"))).numpy().astype(np.float32)
+        edge = np.array([insert.MKB_BXY, insert.MKB_BXY, bz])
+        stats = dict(samples=0, rounds=0, taps=0, batches=0)
+        centre_warp = 0
+        for k in range(n_bricks + 1):
+            if k == 0:
+                lo = (cb - edge // 2) // edge * edge        # the brick holding the centre
+            else:
+                while True:
+                    lo = pick.integers(0, big // edge) * edge
+                    c = f32(0.5) * (2 * lo + edge - 1) - cb
+                    if np.sqrt((c * c).sum()) < rr * 2 - 4:
+                        break
+            hi = lo + edge - 1
+            c = (f32(0.5) * (lo + hi) - cb).astype(f32)
+            e = f32(np.sqrt(((f32(0.5) * (hi - lo)) ** 2).sum()))
+            elo, ehi = (lo - cb - reach).astype(f32), (hi - cb + reach).astype(f32)
+            chunks = insert._mkb_listed(np.abs(rot[:, :, 2] @ c) < e + reach)
+            for w in range(warps):
+                mine = [s for ch in chunks for s in ch[len(ch) * w // warps:len(ch) * (w + 1) // warps]]
+                queue = [(s, vc, vr) for s in mine for vc, vr in insert._mkb_candidates(
+                    rot[s][:, 0], rot[s][:, 1], elo, ehi, rr, 2)]
+                if k == 0:
+                    centre_warp = max(centre_warp, len(queue))
+                    continue
+                stats["samples"] += len(queue)
+                if not queue:
+                    continue
+                q = np.array(queue)
+                pos = np.einsum("nij,nj->ni", rot[q[:, 0]][:, :, :2],
+                                2 * q[:, 1:].astype(np.float32))
+                t = np.floor(pos)[:, :, None] - 1 + np.arange(4)
+                inp = (t + cb >= lo[None, :, None]) & (t + cb <= hi[None, :, None])
+                sq = (t - pos[:, :, None]) ** 2
+                d2 = sq[:, 0, None, None, :] + sq[:, 1, None, :, None] + sq[:, 2, :, None, None]
+                land = (inp[:, 2, :, None, None] & inp[:, 1, None, :, None]
+                        & inp[:, 0, None, None, :] & (d2 < a2)
+                        & ((pos ** 2).sum(1) < (2 * rr) ** 2)[:, None, None, None])
+                per = land.reshape(len(q), -1).sum(1)
+                for r0 in range(0, len(q), 32):
+                    n_t = int(per[r0:r0 + 32].sum())
+                    stats["rounds"] += 1
+                    stats["taps"] += n_t
+                    stats["batches"] += -(-n_t // 32)
+        n_s = stats["samples"]
+        out.append(dict(shape=name, brick_depth=bz, bricks=n_bricks, **stats,
+                        lanes_busy_samples=n_s / max(stats["rounds"], 1),
+                        lanes_busy_taps=stats["taps"] / max(stats["batches"], 1),
+                        centre_brick_samples_a_warp=centre_warp,
+                        mean_samples_a_warp=n_s / (n_bricks * warps)))
+        say(f"HK10 at {name}, 8 x 8 x {bz} bricks: {n_s / max(stats['rounds'], 1):.1f} of 32 "
+            f"lanes busy a sample round, {stats['taps'] / max(stats['batches'], 1):.1f} a tap "
+            f"batch, {stats['taps'] / max(n_s, 1):.1f} taps land a sample formed; samples a "
+            f"warp {n_s / (n_bricks * warps):.0f} on average, {centre_warp} at the centre")
+    return out
+
+
 def build_78() -> ctypes.CDLL:
     """nvcc the first designs of HK7 and HK8 into one library."""
     os.makedirs(_native.BUILD_DIR, exist_ok=True)
@@ -694,10 +883,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--big", action="store_true", help="add the 256 px shapes")
     ap.add_argument("--kernels", default="hk1,hk3",
-                    help="hk1,hk3 (the default) and / or hk4,hk5, hk7,hk8")
+                    help="hk1,hk3 (the default) and / or hk4,hk5, hk7,hk8, hk10")
+    ap.add_argument("--lanes", action="store_true",
+                    help="count HK10's busy lanes from the shapes (no device)")
+    ap.add_argument("--bricks", type=int, default=40)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None, help="also write the JSON line to this file")
     args = ap.parse_args(argv)
+    if args.lanes:
+        say(json.dumps({"hk10_lanes": hk10_lanes(args.bricks)}))
+        return 0
     if not torch.cuda.is_available():
         print("hk_candidates: no CUDA device", file=sys.stderr)
         return 1
@@ -712,11 +907,17 @@ def main(argv=None) -> int:
     gen = generator(0, dev)
     rng = np.random.default_rng(0)
     results = []
-    if "hk4" in args.kernels or "hk5" in args.kernels:
+    kernels = set(args.kernels.split(","))
+    if kernels & {"hk4", "hk5"}:
         main_45(dev, gen, args.reps, results)
-    if "hk7" in args.kernels or "hk8" in args.kernels:
+    if kernels & {"hk7", "hk8"}:
         main_78(dev, gen, args.reps, results)
-    if "hk1" in args.kernels or "hk3" in args.kernels:
+    if "hk10" in kernels:
+        lib = build_10()
+        hk10_shape(lib, dev, gen, rng, "128 px", 128, 36, 128, 48, args.reps, results)
+        hk10_shape(lib, dev, gen, rng, "CTF round 160 px", 160, 74, 128, 48, args.reps, results,
+                   use_d=True)
+    if kernels & {"hk1", "hk3"}:
         main_13(dev, gen, rng, args, results)
     line = json.dumps({"card": card, "results": results})
     say(line)

@@ -14,17 +14,22 @@ wide (thunder_tpu/config.py:55-59), HK11 and HK12 on the card.
 ``reco_kernel="mkb"`` the modified Kaiser-Bessel blob
 (``insert_slices_3d(kernel="mkb")``, Reconstructor.cpp:424-567; HK10) in
 3D and the bilinear scatter ``insert_slices_2d`` (HK6) in 2D.  On the
-card HK3, HK6 and HK10 are gathers: each grid cell walks the slices that
-can reach it in a fixed order and forms its own sum; HK11 and HK12 are
+card HK3 and HK6 are gathers: each grid cell walks the slices that can
+reach it in a fixed order and forms its own sum; HK10, HK11 and HK12 are
 scatters into bricks (tiles) of cells that a block owns in shared memory,
-summed as 128-bit fixed-point integers.  Either way two calls give
-identical bits.  The ``*_gather_plain`` functions emulate the gathers'
-cell-owned enumeration on the CPU (tests), the ``*_fixed_plain`` ones
-the sweeps' fixed-point sums on any device, bit for bit.
+HK10's summed in a fixed order by the warp that owns each cell, HK11's
+and HK12's as 128-bit fixed-point integers.  Either way two calls give
+identical bits.  The ``*_gather_plain`` functions and
+:func:`insert_mkb_brick_plain` emulate the kernels' enumerations on the
+CPU (tests), the ``*_fixed_plain`` ones the sweeps' fixed-point sums on
+any device, bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import itertools
 import math
 
 import numpy as np
@@ -36,21 +41,90 @@ from thunder_tpu_torch.device import COMPLEX, REAL
 from thunder_tpu_torch.ops.fourier import translate_phases_view
 from thunder_tpu_torch.physics.ctf import (CtfParams, ctf_constants,
                                            ctf_packed, ctf_packed_scaled)
-from thunder_tpu_torch.physics.kernels import mkb_ft
+
+# HK10's compile-time constants, read from its source: the degree of the
+# blob's series; a brick's edge in x and y and its depth; its warps and
+# the planes a block lists at once; the margin on every reach
+MKB_DEG, MKB_BXY, MKB_BZ, MKB_THREADS, MKB_CAP, MKB_MARGIN = (
+    _native.csrc_constant("insert_mkb.cu", n)
+    for n in ("MKB_DEG", "MKB_BXY", "MKB_BZ", "MKB_THREADS", "MKB_CAP", "MKB_MARGIN"))
+
+
+def mkb_constants(a: float, alpha: float) -> tuple:
+    """The blob's constants as the kernel and the plain versions take
+    them: a^2 and 1 / a^2 in float32, and the float32 coefficients c_0 ...
+    c_MKB_DEG of MKB_FT(r) = I0(alpha sqrt(s)) / I0(alpha) = sum_k c_k
+    s^k, s = 1 - r^2 / a^2, c_k = (alpha^2 / 4)^k / (k!)^2 / I0(alpha)
+    (the power series of I0).  Raises where the series' remainder past
+    MKB_DEG could reach 1e-7 (alpha above ~20)."""
+    q = alpha * alpha / 4.0
+    c = np.array([q ** k / math.factorial(k) ** 2 for k in range(MKB_DEG + 1)]) / np.i0(alpha)
+    nxt = q ** (MKB_DEG + 1) / math.factorial(MKB_DEG + 1) ** 2 / np.i0(alpha)
+    ratio = q / (MKB_DEG + 2) ** 2
+    if not (ratio < 1 and nxt / (1 - ratio) < 1e-7):
+        raise ValueError(f"the MKB blob's series to degree {MKB_DEG} does not hold "
+                         f"alpha = {alpha}")
+    a2 = np.float32(a * a)
+    return a2, np.float32(1.0 / float(a2)), c.astype(np.float32)
+
+
+def mkb_reach(a: float) -> float:
+    """How far HK10 looks past a cell for a sample: the blob's radius and
+    the margin, float32."""
+    return float(np.float32(np.float32(a) + np.float32(MKB_MARGIN)))
+
+
+@functools.lru_cache(maxsize=16)
+def _mkb_bricks(big: int, bz: int, mrp: float, a: float) -> np.ndarray:
+    f32 = np.float32
+    cb = big // 2
+    nb, nbz = -(-big // MKB_BXY), -(-big // bz)
+    idx = np.arange(nb * nb * nbz)
+    first = [idx % nb * MKB_BXY, idx // nb % nb * MKB_BXY, idx // (nb * nb) * bz]
+    edge = (MKB_BXY, MKB_BXY, bz)
+    near = [np.where(f > cb, f - cb,
+                     np.where(np.minimum(f + e, big) - 1 < cb, cb - (np.minimum(f + e, big) - 1),
+                              0)).astype(f32) for f, e in zip(first, edge)]
+    r2 = (near[0] * near[0] + near[1] * near[1]) + near[2] * near[2]
+    lim = f32(f32(mrp) + f32(mkb_reach(a)))
+    keep = idx[r2 < lim * lim]
+    return keep[np.argsort(r2[keep], kind="stable")].astype(np.int32)
+
+
+def mkb_bricks(big: int, mrp: float, a: float, device) -> torch.Tensor:
+    """The bricks of 8^3 cells HK10 fills, a block each: those a sample
+    within max_radius_pad ``mrp`` can reach, by index (x fastest),
+    nearest the centre first.  The planes of a launch pass nearest the
+    centre, so those bricks take the longest; launched first, they run
+    beside the others."""
+    return torch.as_tensor(_mkb_bricks(big, MKB_BZ, float(mrp), float(a)), device=device)
+
+
+def mkb_weight(r2: torch.Tensor, inv_a2, coef) -> torch.Tensor:
+    """MKB_FT at squared distances r2 (float32), as HK10 forms it: the
+    series of :func:`mkb_constants` in s = 1 - r2 / a^2 by Horner's rule
+    (the kernel fuses each step's multiply and add)."""
+    s = 1 - r2 * torch.as_tensor(inv_a2, device=r2.device)
+    coef = torch.as_tensor(coef, device=r2.device)
+    p = torch.full_like(s, float(coef[-1]))
+    for k in range(coef.numel() - 2, -1, -1):
+        p = p * s + coef[k]
+    return p
 
 
 def _mkb_taps(x, y, z, a: float, alpha: float):
     """The taps of the MKB blob, (dz, dy, dx, weight) for the 4^3
     neighbourhood floor - 1 ... floor + 2 of each sample: MKB_FT(r) where
     r^2 = |tap - sample|^2 < a^2, else 0 (thunder_tpu ops/insert.py
-    _mkb_taps; a <= 2 keeps the blob inside the neighbourhood)."""
+    _mkb_taps; a <= 2 keeps the blob inside the neighbourhood), the
+    weight from r^2 as :func:`mkb_weight` forms it."""
+    a2, inv_a2, coef = mkb_constants(a, alpha)
     flx, fly, flz = torch.floor(x), torch.floor(y), torch.floor(z)
     for dz in (-1, 0, 1, 2):
         for dy in (-1, 0, 1, 2):
             for dx in (-1, 0, 1, 2):
                 r2 = (flx + dx - x) ** 2 + (fly + dy - y) ** 2 + (flz + dz - z) ** 2
-                r = torch.sqrt(torch.clamp(r2, min=0.0))
-                w = torch.where(r2 < a * a, mkb_ft(r, a, alpha), torch.zeros_like(r))
+                w = torch.where(r2 < a2, mkb_weight(r2, inv_a2, coef), torch.zeros_like(r2))
                 yield dz, dy, dx, w
 
 
@@ -59,14 +133,16 @@ def insert_slices_3d(f_grid: torch.Tensor, t_grid: torch.Tensor,
                      rot: torch.Tensor, i_col: torch.Tensor,
                      i_row: torch.Tensor, pf: int, max_radius_pad: float,
                      kernel: str = "trilinear", a: float = DEFAULT_MKB_A,
-                     alpha: float = DEFAULT_MKB_ALPHA):
+                     alpha: float = DEFAULT_MKB_ALPHA, sum_dtype=REAL):
     """Scatter of slices into (F, T) (thunder_tpu ops/insert.py
     insert_slices_3d): ``kernel`` "trilinear" (8 taps) or "mkb" (the
     blob's 4^3 taps, :func:`_mkb_taps`), tap indices clipped to the grid.
 
     f_grid (big,)*3 complex64 centered, t_grid float32; vals (..., p)
     complex, ctf2w (..., p), rot (..., 3, 3), pixels (p,).  Out-of-radius
-    samples get zero weight.  Returns new (f_grid, t_grid)."""
+    samples get zero weight.  ``sum_dtype``: the type the float32 taps are
+    summed in (float64: the grids come back as complex128 and float64).
+    Returns new (f_grid, t_grid)."""
     big = f_grid.shape[-1]
     c = big // 2
     fx = (i_col * pf).to(REAL)
@@ -89,13 +165,13 @@ def insert_slices_3d(f_grid: torch.Tensor, t_grid: torch.Tensor,
                  * (wx if dx else 1 - wx))
                 for dz in (0, 1) for dy in (0, 1) for dx in (0, 1))
     g = torch.stack([f_grid.real.reshape(-1), f_grid.imag.reshape(-1),
-                     t_grid.reshape(-1)], dim=-1).to(REAL)
+                     t_grid.reshape(-1)], dim=-1).to(sum_dtype)
     upd = torch.stack([vals.real, vals.imag, ctf2w.to(REAL)], dim=-1)
     for dz, dy, dx, w in taps:
         xi = torch.clamp(ix + dx, 0, big - 1)
         yi = torch.clamp(iy + dy, 0, big - 1)
         zi = torch.clamp(iz + dz, 0, big - 1)
-        g.index_add_(0, (zi * big + yi) * big + xi, upd * w[:, None])
+        g.index_add_(0, (zi * big + yi) * big + xi, (upd * w[:, None]).to(sum_dtype))
     shape = (big,) * 3
     return (torch.complex(g[:, 0], g[:, 1]).reshape(shape),
             g[:, 2].reshape(shape))
@@ -298,19 +374,24 @@ insert_trilinear.launches = 0
 
 def insert_mkb_plain(ft, ctf, img_idx, rot, trans, w, r_u: int, pf: int, size: int,
                      pixel_size: float, f_grid: torch.Tensor, t_grid: torch.Tensor,
-                     d=None, a: float = DEFAULT_MKB_A, alpha: float = DEFAULT_MKB_ALPHA):
+                     d=None, a: float = DEFAULT_MKB_A, alpha: float = DEFAULT_MKB_ALPHA,
+                     f64_sums: bool = False):
     """Plain version of HK10: HK3's value formation then the MKB blob's
     scatter (:func:`insert_slices_3d` with ``kernel="mkb"``), 256 slices
-    at a time.  Returns the new (F, T)."""
+    at a time.  ``f64_sums``: the float32 taps summed in float64, then
+    rounded (the reference the kernel is held to on the card, where
+    float32 sums of ~1e5 taps a cell part from each other by up to 1e-5
+    of max |F|).  Returns the new (F, T)."""
     max_rad = float((r_u - 1) * pf)
+    dtype = torch.float64 if f64_sums else REAL
     for lo in range(0, rot.shape[0], 256):
         sl = slice(lo, lo + 256)
         vals, c2w, vc, vr = dense_slice_values(
             ft, ctf, img_idx[sl], trans[sl], w[sl], r_u, size, pixel_size,
             None if d is None else d[sl], edge=True)
         f_grid, t_grid = insert_slices_3d(f_grid, t_grid, vals, c2w, rot[sl], vc, vr, pf,
-                                          max_rad, "mkb", a, alpha)
-    return f_grid, t_grid
+                                          max_rad, "mkb", a, alpha, dtype)
+    return f_grid.to(COMPLEX), t_grid.to(REAL)
 
 
 def insert_mkb(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
@@ -327,11 +408,14 @@ def insert_mkb(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
     cell k of its 4^3 neighbourhood with |k - p| < a (tap indices
     clipped to the grid); the values are HK3's dense window with its edge
     (:func:`dense_window`: the pixels thunder_tpu's packed half-space
-    rings and Hermitian fold insert, the DC doubled).  Same arguments as
-    :func:`insert_trilinear` and ``a`` <= 2, ``alpha``.  CPU tensors
-    take :func:`insert_mkb_plain`; CUDA tensors launch
-    csrc/insert_trilinear.cu's gather with the blob's weight, each cell
-    summing in slice order (two calls give identical bits)."""
+    rings and Hermitian fold insert, the DC doubled) and the weight
+    :func:`mkb_weight`.  Same arguments as :func:`insert_trilinear` and
+    ``a`` <= 2, ``alpha``.  CPU tensors take :func:`insert_mkb_plain`;
+    CUDA tensors launch csrc/insert_mkb.cu: a block owns a brick of
+    cells, each of its warps takes an eighth of the brick's planes into
+    sums of its own for every cell of the brick in shared memory, and
+    each cell sums its taps in one order (plane, sample, tap, then
+    warp), so two calls give identical bits."""
     dev = ft.device
     if f_grid is None:
         f_grid = torch.zeros((big,) * 3, dtype=COMPLEX, device=dev)
@@ -366,10 +450,8 @@ def insert_mkb(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
     mrp = float((r_u - 1) * pf)
     vlo, vhi = tap_range(big, mrp, "mkb")
     vals = torch.empty((n_s, (2 * r_u - 1) ** 2, 4), dtype=REAL, device=dev)
-    # the blob's constants as the plain version rounds them: a^2 in
-    # float32, 1 / I0(alpha) from torch's float32 I0
-    a2 = float(np.float32(a * a))
-    inv_i0 = float(1.0 / torch.special.i0(torch.tensor(float(alpha), dtype=REAL)))
+    a2, inv_a2, coef = mkb_constants(a, alpha)    # coef: read on the host at the launch
+    bricks = mkb_bricks(big, mrp, a, dev)
     lib = _native.library()
     insert_mkb.launches += 1
     _native.check(lib.thunder_insert_mkb(
@@ -377,9 +459,19 @@ def insert_mkb(ft: torch.Tensor, ctf: CtfParams, img_idx: torch.Tensor,
         rot.data_ptr(), trans.data_ptr(), w.data_ptr(),
         None if d is None else d.data_ptr(), n_s, r_u, pf, mrp,
         float(pixel_size * size), float(2 * np.pi / size), f_grid.data_ptr(),
-        t_grid.data_ptr(), vals.data_ptr(), big, vlo, vhi, float(a), a2,
-        float(alpha), inv_i0, _native.stream_ptr(ft)), "insert_mkb")
+        t_grid.data_ptr(), vals.data_ptr(), big, vlo, vhi, bricks.data_ptr(), bricks.numel(),
+        float(a), float(a2), float(inv_a2), coef.ctypes.data, _native.stream_ptr(ft)),
+        "insert_mkb")
     return f_grid, t_grid
+
+
+def insert_mkb_attrs() -> tuple:
+    """(registers, local bytes) a thread of HK10's kernel takes on the
+    card (cudaFuncGetAttributes: numRegs, localSizeBytes)."""
+    out = (ctypes.c_int * 2)()
+    _native.check(_native.library().thunder_insert_mkb_attrs(ctypes.addressof(out)),
+                  "insert_mkb_attrs")
+    return int(out[0]), int(out[1])
 
 
 insert_mkb.launches = 0
@@ -1289,38 +1381,24 @@ SWEEP_BAND = float(np.float32(2 + np.float32(1e-2)))
 SWEEP_REACH_2D = float(np.float32(np.float32(math.sqrt(5)) + np.float32(1e-2)))
 
 
-def gather_reach_mkb(a: float) -> float:
-    """HK10's reach (and per-axis prefilter): the blob's radius and the
-    kernels' margin, as float32."""
-    return float(np.float32(np.float32(a) + np.float32(1e-2)))
-
-
 def _gather_plain(vals, c2w, rot, cls, r_u: int, pf: int, f_grid, t_grid,
-                  z0: int, wsl=None, kernel: str = "trilinear",
-                  blob_a: float = DEFAULT_MKB_A, blob_alpha: float = DEFAULT_MKB_ALPHA):
-    """The gather of HK3 / HK10 (3D: rot (B, 3, 3), grids (K, bz, big,
-    big) from plane z0) or HK6 (2D: rot (B, 2, 2), grids (K, big, big))
-    on CPU tensors: every virtual cell within max_radius_pad + REACH
-    takes, for each slice in order, the candidates (vc, vr) of the
-    kernels' range and prefilter (R g within GATHER_STRIP of the cell on
-    every axis), the exact position and cuts of the scatter, and the taps
-    that land on it; face cells then add their virtual cells.  Only
-    pixels with vc^2 + vr^2 < (r_u - 1)^2 enter; ``wsl``: slices of
-    weight zero are skipped.  ``kernel="mkb"`` (HK10, 3D): the reach and
-    the prefilter are the blob's radius ``blob_a`` and the margin, the
-    disc keeps its edge, and a candidate's weight is MKB_FT(|k - p|)
-    where the cell is one of its 4^3 taps and |k - p| < blob_a.  Returns
-    the new grids."""
+                  z0: int, wsl=None):
+    """The gather of HK3 (3D: rot (B, 3, 3), grids (K, bz, big, big) from
+    plane z0) or HK6 (2D: rot (B, 2, 2), grids (K, big, big)) on CPU
+    tensors: every virtual cell within max_radius_pad + REACH takes, for
+    each slice in order, the candidates (vc, vr) of the kernels' range and
+    prefilter (R g within GATHER_STRIP of the cell on every axis), the
+    exact position and cuts of the scatter, and the taps that land on it;
+    face cells then add their virtual cells.  Only pixels with vc^2 + vr^2
+    < (r_u - 1)^2 enter; ``wsl``: slices of weight zero are skipped.
+    Returns the new grids."""
     nd = rot.shape[-1]
     n_cls, big = f_grid.shape[0], f_grid.shape[-1]
     bz = f_grid.shape[1] if nd == 3 else 1
     cb, rr, nk = big // 2, r_u - 1, 2 * r_u - 1
     mrp2 = float((rr * pf) ** 2)
-    blob = kernel == "mkb"
-    vlo, vhi = tap_range(big, float(rr * pf), kernel)
-    reach = (gather_reach_mkb(blob_a) if blob
-             else GATHER_REACH_3D if nd == 3 else GATHER_REACH_2D)
-    strip = reach if blob else GATHER_STRIP
+    vlo, vhi = tap_range(big, float(rr * pf))
+    reach = GATHER_REACH_3D if nd == 3 else GATHER_REACH_2D
     axes = [_virtual_axis(0, big - 1, big, vlo, vhi)] * 2
     if nd == 3:
         axes = [_virtual_axis(z0, z0 + bz - 1, big, vlo, vhi)] + axes
@@ -1354,29 +1432,18 @@ def _gather_plain(vals, c2w, rot, cls, r_u: int, pf: int, f_grid, t_grid,
                 hit = ok & (vr.abs() <= rr) & (vc.abs() <= rr)
                 p = [rs[i, 0] * gx + rs[i, 1] * gy for i in range(nd)]
                 for i in range(nd):     # R g within a cell (and the margin) on each axis
-                    hit = hit & ((p[i] - k[:, i]).abs() < strip)
-                q2 = vc * vc + vr * vr
-                hit = hit & ((q2 <= rr * rr) if blob else (q2 < rr * rr))
+                    hit = hit & ((p[i] - k[:, i]).abs() < GATHER_STRIP)
+                hit = hit & (vc * vc + vr * vr < rr * rr)
                 r2 = p[0] * p[0] + p[1] * p[1]
                 if nd == 3:
                     r2 = r2 + p[2] * p[2]
                 hit = hit & (r2 < mrp2)
-                if blob:
-                    # one of the sample's 4^3 taps, within the blob
-                    d2 = torch.zeros_like(gx)
-                    for i in range(nd):
-                        t = torch.floor(p[i]).to(torch.int64) + cb
-                        hit = hit & (vx[i] >= t - 1) & (vx[i] <= t + 2)
-                        d2 = d2 + ((vx[i] - cb).to(REAL) - p[i]) ** 2
-                    hit = hit & (d2 < blob_a * blob_a)
-                    wt = mkb_ft(torch.sqrt(torch.clamp(d2, min=0.0)), blob_a, blob_alpha)
-                else:
-                    wt = torch.ones_like(gx)
-                    for i in reversed(range(nd)):              # (wz * wy) * wx
-                        fl = torch.floor(p[i])
-                        wi = _axis_weight(fl.to(torch.int64) + cb, vx[i], p[i] - fl)
-                        hit = hit & (wi >= 0)
-                        wt = wt * wi
+                wt = torch.ones_like(gx)
+                for i in reversed(range(nd)):              # (wz * wy) * wx
+                    fl = torch.floor(p[i])
+                    wi = _axis_weight(fl.to(torch.int64) + cb, vx[i], p[i] - fl)
+                    hit = hit & (wi >= 0)
+                    wt = wt * wi
                 if not bool(hit.any()):
                     continue
                 idx = ((torch.clamp(vr, -rr, rr) + rr) * nk
@@ -1405,18 +1472,6 @@ def insert_trilinear_gather_plain(ft, ctf, img_idx, rot, trans, w, r_u: int, pf:
     return f[0], t[0]
 
 
-def insert_mkb_gather_plain(ft, ctf, img_idx, rot, trans, w, r_u: int, pf: int,
-                            size: int, pixel_size: float, f_grid, t_grid, d=None,
-                            a: float = DEFAULT_MKB_A, alpha: float = DEFAULT_MKB_ALPHA):
-    """HK10's gather on the CPU (same arguments and result as
-    :func:`insert_mkb_plain`)."""
-    vals, c2w, _, _ = dense_slice_values(ft, ctf, img_idx, trans, w, r_u, size, pixel_size, d,
-                                         edge=True)
-    f, t = _gather_plain(vals, c2w, rot, None, r_u, pf, f_grid[None], t_grid[None], 0,
-                         w, "mkb", a, alpha)
-    return f[0], t[0]
-
-
 def insert_bilinear_2d_gather_plain(ft, ctf, img_idx, cls, rot, trans, w, r_u: int, pf: int,
                                     size: int, pixel_size: float, f_grid, t_grid):
     """HK6's gather on the CPU (same arguments and result as
@@ -1427,3 +1482,140 @@ def insert_bilinear_2d_gather_plain(ft, ctf, img_idx, cls, rot, trans, w, r_u: i
                                          size, pixel_size)
     return _gather_plain(vals, c2w, rot[order], cls[order], r_u, pf, f_grid, t_grid, 0,
                          w[order])
+
+
+def _mkb_candidates(c0, c1, elo, ehi, rr: int, pf: int) -> list:
+    """HK10's samples (vc, vr) of a plane (R's first two columns c0, c1)
+    that can reach a part whose box widened by the reach is [elo, ehi], in
+    the order its warp queues them: by row vr, then vc.  float32 as the
+    kernel forms them (the margins cover the contraction of its sums and
+    its reciprocal)."""
+    f32 = np.float32
+    fpf = f32(pf)
+    margin = f32(MKB_MARGIN)
+    mid, half = f32(0), f32(0)
+    for i in range(3):
+        mid = f32(mid + f32(f32(c1[i] * f32(0.5)) * f32(elo[i] + ehi[i])))
+        half = f32(half + f32(f32(abs(c1[i]) * f32(0.5)) * f32(ehi[i] - elo[i])))
+    vr_lo = max(-rr, math.ceil(f32(f32(mid - half) / fpf)))
+    vr_hi = min(rr, math.floor(f32(f32(mid + half) / fpf)))
+    out = []
+    for vr in range(vr_lo, vr_hi + 1):
+        m = math.isqrt(rr * rr - vr * vr)
+        lo, hi = -m, m
+        for i in range(3):
+            base, stp = f32(f32(fpf * f32(vr)) * c1[i]), f32(fpf * c0[i])
+            if abs(stp) > f32(1e-6):
+                inv = f32(f32(1) / stp)
+                t0, t1 = f32(f32(elo[i] - base) * inv), f32(f32(ehi[i] - base) * inv)
+                lo = max(lo, math.ceil(f32(min(t0, t1) - margin)))
+                hi = min(hi, math.floor(f32(max(t0, t1) + margin)))
+            elif base < elo[i] or base > ehi[i]:
+                hi = lo - 1
+        out.extend((vc, vr) for vc in range(lo, hi + 1))
+    return out
+
+
+def _mkb_listed(normal_ok: np.ndarray) -> list:
+    """The chunks of planes an HK10 block lists at once, in slice order:
+    it scans MKB_THREADS slices a step and stops a chunk before it could
+    pass MKB_CAP (``normal_ok``: the slices that pass its tests)."""
+    chunks, base, n = [], 0, normal_ok.shape[0]
+    while base < n:
+        chunk = []
+        while base < n and len(chunk) + MKB_THREADS <= MKB_CAP:
+            chunk.extend(np.nonzero(normal_ok[base:base + MKB_THREADS])[0] + base)
+            base += MKB_THREADS
+        chunks.append(chunk)
+    return chunks
+
+
+def _mkb_brick_plain(vals, c2w, rot, wsl, r_u: int, pf: int, f_grid, t_grid, a: float,
+                     alpha: float):
+    """HK10's enumeration (csrc/insert_mkb.cu) on CPU tensors, grids
+    (big^3): each brick of 8^3 cells lists the slices of nonzero
+    weight whose normal passes within its half-diagonal + the reach of its
+    centre (:func:`_mkb_listed`); each of its eight warps takes an eighth
+    of each list, in order, queues those planes' samples that can reach
+    the brick (:func:`_mkb_candidates`) and adds their taps that land in
+    it to sums of its own in the order (queued sample, tap j = 16 z + 4 y
+    + x), taps that meet in a cell one after another; the warps' sums are
+    added in warp order.  Returns the new grids."""
+    f32 = np.float32
+    big = f_grid.shape[-1]
+    cb, rr, nk = big // 2, r_u - 1, 2 * r_u - 1
+    mrp = f32(rr * pf)
+    mrp2 = f32(mrp * mrp)
+    a2, inv_a2, coef = mkb_constants(a, alpha)
+    reach = f32(mkb_reach(a))
+    vlo, vhi = tap_range(big, float(mrp), "mkb")
+    brick = (MKB_BXY, MKB_BXY, MKB_BZ)
+    warps = MKB_THREADS // 32
+    rot = rot.to(REAL).reshape(-1, 3, 3)
+    rn = rot.numpy()
+    upd = torch.stack([vals.real, vals.imag, c2w.to(REAL)], -1).reshape(vals.shape[0], -1, 3)
+    total = torch.zeros((big ** 3, 3), dtype=REAL)
+    d = torch.arange(4)
+    weighted = np.array([float(x) != 0.0 for x in wsl])
+    for b0 in itertools.product(*(range(0, big, e) for e in brick)):
+        b1 = [min(b0[i] + brick[i], big) - 1 for i in range(3)]
+        near = [f32(b0[i] - cb if b0[i] > cb else (cb - b1[i] if b1[i] < cb else 0))
+                for i in range(3)]
+        lim = f32(mrp + reach)
+        if sum(x * x for x in near) >= lim * lim:
+            continue
+        lo = np.array([(min(vlo, 0) if b0[i] == 0 else b0[i]) - cb for i in range(3)], f32)
+        hi = np.array([(max(vhi, big - 1) if b1[i] == big - 1 else b1[i]) - cb
+                       for i in range(3)], f32)
+        bc = f32(0.5) * (lo + hi)
+        half = f32(0.5) * (hi - lo)
+        be = f32(np.sqrt(np.sum(half * half, dtype=f32)))
+        elo, ehi = lo - reach, hi + reach
+        ok = weighted & (np.abs(np.float32(rn[:, 0, 2] * bc[0] + rn[:, 1, 2] * bc[1]
+                                           + rn[:, 2, 2] * bc[2])) < f32(be + reach))
+        planes = [[] for _ in range(warps)]
+        for chunk in _mkb_listed(ok):
+            for w in range(warps):
+                planes[w].extend(chunk[len(chunk) * w // warps:len(chunk) * (w + 1) // warps])
+        for w in range(warps):
+            queue = [(s, vc, vr) for s in planes[w]
+                     for vc, vr in _mkb_candidates(rn[s][:, 0], rn[s][:, 1], elo, ehi, rr, pf)]
+            if not queue:
+                continue
+            sl, vc, vr = torch.tensor(queue).T
+            gx, gy = (vc * pf).to(REAL), (vr * pf).to(REAL)
+            p = [rot[sl, i, 0] * gx + rot[sl, i, 1] * gy for i in range(3)]
+            keep = (p[0] * p[0] + p[1] * p[1]) + p[2] * p[2] < float(mrp2)
+            axes = []
+            for i in range(3):
+                v = torch.floor(p[i]).to(torch.int64)[:, None] - 1 + cb + d
+                real = torch.clamp(v, 0, big - 1)
+                dx = (v - cb).to(REAL) - p[i][:, None]
+                axes.append((real, (real >= b0[i]) & (real <= b1[i]), dx * dx))
+            (rx, ix, sx), (ry, iy, sy), (rz, iz, sz) = axes
+            # (sample, z, y, x) of every tap: the order of the adds
+            cell = (rz[:, :, None, None] * big + ry[:, None, :, None]) * big + rx[:, None, None, :]
+            inside = iz[:, :, None, None] & iy[:, None, :, None] & ix[:, None, None, :]
+            d2 = (sx[:, None, None, :] + sy[:, None, :, None]) + sz[:, :, None, None]
+            sel = torch.nonzero((keep[:, None, None, None] & inside & (d2 < a2)).reshape(-1))[:, 0]
+            n = sel // 64
+            src = upd[sl[n], (vr[n] + rr) * nk + vc[n] + rr]
+            acc = torch.zeros((big ** 3, 3), dtype=REAL)
+            acc.index_add_(0, cell.reshape(-1)[sel],
+                           src * mkb_weight(d2.reshape(-1)[sel], inv_a2, coef)[:, None])
+            total += acc
+    g = torch.stack([f_grid.real.reshape(-1), f_grid.imag.reshape(-1), t_grid.reshape(-1)], -1)
+    hit = (total != 0).any(-1)
+    g[hit] = g[hit] + total[hit]
+    shape = f_grid.shape
+    return torch.complex(g[:, 0], g[:, 1]).reshape(shape), g[:, 2].reshape(shape)
+
+
+def insert_mkb_brick_plain(ft, ctf, img_idx, rot, trans, w, r_u: int, pf: int, size: int,
+                           pixel_size: float, f_grid, t_grid, d=None, a: float = DEFAULT_MKB_A,
+                           alpha: float = DEFAULT_MKB_ALPHA):
+    """HK10's enumeration on the CPU (same arguments and result as
+    :func:`insert_mkb_plain`)."""
+    vals, c2w, _, _ = dense_slice_values(ft, ctf, img_idx, trans, w, r_u, size, pixel_size, d,
+                                         edge=True)
+    return _mkb_brick_plain(vals, c2w, rot, w, r_u, pf, f_grid, t_grid, a, alpha)
