@@ -6,8 +6,11 @@ loudly.
 
 Run from the root of a checkout.  It needs one CUDA device and exits
 non-zero, printing no result, without one (or without the package).
+``python3 chip_smoke.py --plan-effect`` runs phases 5a's and 5b's
+refinements with the table plan and with THUNDER_BRICK=off and prints
+both, round by round (no gate).
 
-Phase 0 builds the seventeen hand-written Hopper kernels (one nvcc per
+Phase 0 builds the eighteen hand-written Hopper kernels (one nvcc per
 source, sm_90a) and times an empty kernel launched the same way, as a
 replayed CUDA graph: the floor under any launch.  Phase 1 holds the 3D
 kernels (HK1-HK4) against their plain PyTorch versions at the 3D path's
@@ -81,7 +84,14 @@ happened; phase 5c resumes the same run with the MKB insertion option
 rounds and the final reconstruction (maps finite, res_A finer at the end
 than at the start, the final map's FSC 0.5 against the phantom finer
 than the start model's, HK10 launched and HK11 not, HK7 once a
-reconstruction, a second run from the seed bit for bit).  Phase 6 runs configs/demo_3D.json's classification (K = 4,
+reconstruction, a second run from the seed bit for bit); phase 5d holds
+HK13 (brick-window projection, thunder_tpu's local-round table plan) to
+its plain version at 5b's phase shape on every rung (1e-5, two calls
+identical, timed beside HK1 on the same table) and runs 5b's data
+resumed with tight clouds through the plan (a rung engaged unforced;
+routed with an eighth of the clouds wide under THUNDER_SPLIT=force;
+HK13 and HK1 launched; res_A finer at the end; a second run bit for
+bit, tags included).  Phase 6 runs configs/demo_3D.json's classification (K = 4,
 C4) for four rounds on 256 images of two sharp C4 species (HK2 once a
 rotation block a hemisphere, HK7 over the 2K grids in one launch, class
 purity above 1.5/K).  Phase 7 runs the post-refinement paths through
@@ -315,6 +325,22 @@ PATH_KERNELS_8A = ("project_slices", "likelihood_block", "insert_sweep", "shell_
 # MKB insertion option (reco_kernel "mkb", through the API), ROUNDS_MKB
 # rounds and the final reconstruction, run twice from its seed
 ROUNDS_MKB = 3
+# phase 5d: HK13 (brick-window projection) against its plain version at
+# the 160 px local rounds' phase shapes (L = 2 x 128 images, R = 125, the
+# ring at the resumed band r = 18: crop 76, 1 mod 3, the case where
+# thunder_tpu's b = nz stride reads its windows a cell off on rung (7, 3)),
+# every rung, with BRICK_PUSHED of the rotations pushed out of their
+# windows; then 5b's data resumed with k = 1e-6 and each image's supports
+# injected within TIGHT_RAD of its pose (tests/test_routing.py
+# _tight_cloud_optimiser), the plan engaged unforced on them; for the run
+# an eighth of the images (WIDE_SHARE) keep their resumed ACG clouds,
+# whose tails no rung holds, so the plan routes (THUNDER_SPLIT=force: at
+# crop 76 the reference routes only tables past 24 MB); ROUNDS_TIGHT
+# rounds, run twice.  Three rounds, not two: res_A in 5b's first two
+# rounds read 5.151 then 5.280 A (an NVIDIA H100 80GB HBM3 at 700.00 W),
+# so a two-round "finer at the end" gate would read chance.
+R_TIGHT, TIGHT_RAD, WIDE_SHARE, ROUNDS_TIGHT, BRICK_PUSHED = 18, 0.01, 8, 3, 4
+BRICK_WHY = ("the same windows and tap order; the sums may contract into FMAs")
 # HK10's operations a sample: the value (as HK3's first pass forms it)
 # and, for each of the ~4/3 pi a^3 = 28.7 cells of the blob's ball at a =
 # 1.9, the distance, the weight (its series' 24 multiply-adds) and three
@@ -2194,6 +2220,7 @@ def run_160(label: str, dev, wrappers: dict, cfg_path: str, profile_round,
     for rec in recs:
         say(f"  {label} round {rec['round']}: r={rec['r']} search {rec['search_type']}->"
             f"{rec['search_type_after']} phases={rec['n_phases']} res={rec['res_A']:.3f} A  "
+            f"table {rec.get('proj_table', 'corner-row')}  "
             f"t_vari={[round(v, 4) for v in rec['t_vari']]}  {rec['elapsed_s']:.3f} s  {N_REFINE / rec['elapsed_s']:.2f} img/s  "
             f"stage_ms={json.dumps(rec.get('stage_ms', 'profiled'))}")
     say(f"  {label} wall {wall:.1f} s, launches {launches}")
@@ -2405,6 +2432,247 @@ def phase_refine_mkb(dev, wrappers):
         say(f"  5c: a second run from the same seed gave the same records and maps bit for bit "
             f"({ROUNDS_MKB} rounds and the final reconstruction)")
     return launches
+
+
+def brick_record(dev) -> dict:
+    """HK13 against its plain version at the 160 px local phase shapes,
+    every rung, from the rounds' quad table and the plain cube: within
+    1e-5 of max, two calls identical; timed beside HK1 on the same (L, R,
+    P) and table."""
+    import torch
+
+    from thunder_tpu_torch.geometry.quaternion import random_quat, rotate3d
+    from thunder_tpu_torch.ops import brick, projector
+    from thunder_tpu_torch.ops.fourier import pack_rings
+    from thunder_tpu_torch.optimiser import BRICK_LADDER, proj_crop_size
+    from thunder_tpu_torch.device import generator
+    from thunder_tpu_torch.pipeline.synthetic import phantom
+    import numpy as np
+
+    gen = generator(13, dev)
+    n_l, n_r = N_REFINE, 125
+    rings = pack_rings(SIZE_R, R_TIGHT, 1, device=dev)
+    n_p = rings.i_col.numel()
+    crop = proj_crop_size(SIZE_R, 2, R_TIGHT)
+    vol = torch.as_tensor(phantom(SIZE_R, np.random.default_rng(13)), device=dev)
+    table = projector.prepare_projectee_3d_cropped(torch.stack([vol, vol * 0.5]), 2,
+                                                   crop).contiguous()
+    if not projector.quad_fits(2, crop):
+        fail(f"5d: the {crop}^3 table of the 160 px local rounds no longer takes the quad "
+             "layout")
+    quads = projector.quad_taps(table)
+    cls = torch.arange(n_l, device=dev) // (n_l // 2)
+    base = random_quat(gen, (n_l,), dev)
+    small = random_quat(gen, (n_l, n_r), dev)
+    shape = f"L={n_l} R={n_r} P={n_p} crop={crop}^3 ({crop} mod 3 = {crop % 3})"
+    errs, out_rung, recs = [], {}, {}
+    for span, stride in BRICK_LADDER:
+        dq = torch.full((1, n_r, 1), 0.4 * brick.spread_margin(span, stride)
+                        / (2 * 2 * R_TIGHT), device=dev)
+        dq[:, ::BRICK_PUSHED] *= 12
+        q = base[:, None] + dq * small
+        rot = rotate3d(q / q.norm(dim=-1, keepdim=True)).contiguous()
+        mrot = rot.mean(1)
+        tail = (rot, mrot, rings.i_col, rings.i_row, 2, span, stride, cls)
+        ref = brick.project_brick_plain(table, *tail)
+        out = brick.project_brick(quads, *tail)
+        label = f"({span}, {stride}) {shape}"
+        zero = float((ref == 0).float().mean())
+        errs.append(max(compare("project_brick", label + " quad table", out, ref, 1e-5,
+                                BRICK_WHY),
+                        compare("project_brick", label + " plain cube",
+                                brick.project_brick(table, *tail), ref, 1e-5, BRICK_WHY)))
+        same_bits("project_brick", label, out, brick.project_brick(quads, *tail))
+        say(f"  project_brick ({span}, {stride}): {zero:.3f} of the samples outside their "
+            f"windows (every {BRICK_PUSHED}th rotation pushed out)")
+        del ref, out
+        hk1 = (rot, rings.i_col, rings.i_row, 2, cls)
+        ms_hk1 = timed(lambda: projector.project_slices(quads, *hk1), 20)
+        n_out = n_l * n_r * n_p
+        cost = (table.numel() * 8 + rot.numel() * 4 + mrot.numel() * 4 + 8 * n_p + 4 * n_l
+                + n_out * 8, n_out * 60)
+        recs[(span, stride)] = record(
+            "project_brick", label + " quad table", errs[-1],
+            timed(lambda: brick.project_brick(quads, *tail), 20),
+            timed(lambda: brick.project_brick_plain(table, *tail), 2, warm=1), *cost,
+            hk1_ms=ms_hk1)
+        say(f"  project_slices (HK1) on the same (L, R, P) and quad table: {ms_hk1:.4f} ms")
+    first = recs[BRICK_LADDER[0]]
+    return dict(first, max_abs_err=max(errs),
+                rungs={f"{k[0]},{k[1]}": dict(ms=r["ms"], plain_ms=r["plain_ms"],
+                                               hk1_ms=r["hk1_ms"], bound_ms=r["bound_ms"])
+                       for k, r in recs.items()})
+
+
+def tight_clouds(q_top, angles, n_r: int):
+    """Each image's n_r supports at angles (2, L) x linspace(0.2, 0.98)
+    about seeded axes around its pose q_top (2, L, 4), the pose first
+    (tests/test_routing.py _tight_cloud_optimiser), float32."""
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.geometry.quaternion import quat_mul
+
+    rng = np.random.default_rng(7)
+    axes = rng.standard_normal(tuple(q_top.shape[:2]) + (n_r, 3))
+    axes /= np.linalg.norm(axes, axis=-1, keepdims=True)
+    ang = angles[..., None] * np.linspace(0.2, 0.98, n_r)
+    pert = np.concatenate([np.cos(ang / 2)[..., None], np.sin(ang / 2)[..., None] * axes], -1)
+    pert = torch.as_tensor(pert, dtype=torch.float32, device=q_top.device)
+    cloud = quat_mul(pert, q_top[:, :, None, :].expand(-1, -1, n_r, 4)).contiguous()
+    cloud[:, :, 0] = q_top
+    return cloud
+
+
+def tight_run(cfg_path: str, dev, wrappers: dict) -> tuple:
+    """5b's data resumed with k = 1e-6 through the CLI's Optimiser: every
+    image's supports injected within TIGHT_RAD of its pose, the plan read
+    unforced; then an eighth of the images (seeded) given back their
+    resumed clouds, and ROUNDS_TIGHT rounds under THUNDER_SPLIT=force,
+    every wrapper's count set to 0 just before and read just after.
+    Returns (the unforced plan, launches, records, references after each
+    round)."""
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.cli.thunder import build_optimiser
+    from thunder_tpu_torch.config import ThunderConfig
+
+    opt, _ = build_optimiser(ThunderConfig.from_json(cfg_path), dev)
+    par = opt.state.par
+    n_l = par.r.shape[1]
+    resumed = par.r.clone()
+    opt.state.par = par._replace(r=tight_clouds(par.r[:, :, 0],
+                                                np.full((2, n_l), TIGHT_RAD), par.r.shape[2]))
+    plan = opt._table_plan(int(opt.model.r))
+    wide = torch.as_tensor(np.stack([np.random.default_rng(h).permutation(n_l)[:n_l // WIDE_SHARE]
+                                     for h in (0, 1)]), device=dev)
+    r = opt.state.par.r.clone()
+    for h in (0, 1):
+        r[h, wide[h]] = resumed[h, wide[h]]
+    opt.state.par = opt.state.par._replace(r=r)
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    recs, refs = [], []
+    os.environ["THUNDER_SPLIT"] = "force"
+    try:
+        for i in range(ROUNDS_TIGHT):
+            recs.append(opt.run_round(i))
+            refs.append(opt.refs_both(report=True))
+    finally:
+        os.environ.pop("THUNDER_SPLIT")
+    torch.cuda.synchronize()
+    return plan, {n: w.launches for n, w in wrappers.items()}, recs, refs
+
+
+def phase_refine_tight(dev, wrappers):
+    """Phase 5d: HK13 at the local phase shapes (brick_record), then the
+    plan on the card: 5b's data resumed with tight clouds engages a rung
+    unforced, and routed (THUNDER_SPLIT=force) with an eighth of the
+    clouds wide runs ROUNDS_TIGHT rounds through HK13 and HK1.  Gates:
+    the unforced plan's rung, round 0 routed with a brick rung, HK13
+    launched, res_A finer at the end than at the first round, maps
+    finite, a second run from the seed equal bit for bit.  Returns (HK13's
+    record, the launches of the first run)."""
+    import numpy as np
+
+    from thunder_tpu_torch.io.thu import read_thu, write_thu
+
+    rec_hk13 = brick_record(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tight_") as tmp:
+        cfg_path, _ = demo_160(tmp, dev, "demo.json", 1, ROUNDS_TIGHT, LOCAL_START_RES_A,
+                               local_resume=True, defocus_factor=DEFOCUS_FACTOR)
+        thu_path = os.path.join(tmp, "particles_local.thu")
+        thu = read_thu(thu_path)
+        thu.k1 = thu.k2 = thu.k3 = np.full(len(thu), 1e-6)
+        write_thu(thu_path, thu)
+        t0 = time.time()
+        plan, launches, recs, refs = tight_run(cfg_path, dev, wrappers)
+        wall = time.time() - t0
+        say(f"  5d: the unforced plan of the tight clouds at r {R_TIGHT}: rung {plan[0]}, "
+            f"{'routed' if plan[1] is not None else 'one rung for all'}")
+        for rec in recs:
+            say(f"  5d round {rec['round']}: r={rec['r']} search {rec['search_type']}->"
+                f"{rec['search_type_after']} phases={rec['n_phases']} res={rec['res_A']:.3f} A "
+                f"(shell {rec['res_shell']}) table {rec.get('proj_table', 'corner-row')}  "
+                f"{rec['elapsed_s']:.3f} s")
+        say(f"  5d wall {wall:.1f} s, launches {launches}")
+        if plan[0] is None:
+            fail("5d: the plan engaged no rung for clouds within "
+                 f"{TIGHT_RAD} rad of their poses")
+        tag = recs[0].get("proj_table", "")
+        if not (tag.startswith("brick") and "+route[" in tag):
+            fail(f"5d: round 0 did not route through a brick rung (table {tag!r})")
+        if launches["project_brick"] <= 0 or launches["project_slices"] <= 0:
+            fail(f"5d: HK13 launched {launches['project_brick']} times and HK1 "
+                 f"{launches['project_slices']}: a routed round launches both")
+        if not all(np.isfinite(r).all() for r in refs):
+            fail("5d: non-finite maps")
+        if not recs[-1]["res_A"] < recs[0]["res_A"]:
+            fail(f"5d: res_A {recs[-1]['res_A']:.3f} at the end is no finer than "
+                 f"{recs[0]['res_A']:.3f} at the first round")
+        _, _, recs2, refs2 = tight_run(cfg_path, dev, wrappers)
+        keys = ("r", "res_A", "res_shell", "n_phases", "search_type_after", "proj_table")
+        if ([[r.get(k) for k in keys] for r in recs] != [[r.get(k) for k in keys]
+                                                        for r in recs2]
+                or not all(np.array_equal(a.view(np.int32), b.view(np.int32))
+                           for a, b in zip(refs, refs2))):
+            fail("5d: a second run from the same seed differs")
+        say(f"  5d: a second run from the same seed gave the same records, tables and maps "
+            f"bit for bit ({ROUNDS_TIGHT} rounds)")
+    return rec_hk13, launches
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    return (smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip()
+            else f"nvidia-smi unavailable: {smi.stderr.strip()}")
+
+
+def plan_effect() -> None:
+    """``python3 chip_smoke.py --plan-effect``: phases 5a's and 5b's runs
+    (the same data and seeds) with the table plan and with
+    THUNDER_BRICK=off, each round's phases, res_A and table printed, and
+    each run's wall and launches: what thunder_tpu's plan changes on
+    these cells.  No gate."""
+    import torch
+
+    from thunder_tpu_torch.model import SEARCH_TYPE_CTF, SEARCH_TYPE_LOCAL
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device visible")
+    dev = torch.device("cuda:0")
+    wrappers = kernel_wrappers()
+
+    def force_ctf(opt, i):
+        if i == CTF_FORCE_ROUND and opt.model.search_type == SEARCH_TYPE_LOCAL:
+            opt.model.search_type = SEARCH_TYPE_CTF
+            opt.model._reset_after_transition()
+
+    say(card_line())
+    for leg in ("5b", "5a"):
+        for mode in ("plan", "off"):
+            if mode == "off":
+                os.environ["THUNDER_BRICK"] = "off"
+            try:
+                with tempfile.TemporaryDirectory(prefix="chip_smoke_plan_") as tmp:
+                    if leg == "5b":
+                        cfg_path, _ = demo_160(tmp, dev, "demo.json", 1, ROUNDS_B,
+                                               LOCAL_START_RES_A, local_resume=True,
+                                               defocus_factor=DEFOCUS_FACTOR)
+                        before = force_ctf
+                    else:
+                        cfg_path, _ = demo_160(tmp, dev, "demo.json", 1, ROUNDS_A,
+                                               INIT_MODEL_RES_A, defocus_factor=DEFOCUS_FACTOR,
+                                               snr=SNR_A, init_res_a=INIT_RES_A)
+                        before = None
+                    run_160(f"{leg} {mode}", dev, wrappers, cfg_path, 0, before)
+            finally:
+                os.environ.pop("THUNDER_BRICK", None)
+    say(card_line())
 
 
 def phase_parity(dev, wrappers):
@@ -2871,12 +3139,14 @@ def kernel_wrappers() -> dict:
     from thunder_tpu_torch.ops.insert import (insert_bilinear_2d, insert_mkb, insert_sweep,
                                               insert_sweep_2d, insert_sweep_slab,
                                               insert_trilinear)
+    from thunder_tpu_torch.ops.brick import project_brick
     from thunder_tpu_torch.ops.likelihood import likelihood_block, likelihood_local_ctf
     from thunder_tpu_torch.ops.projector import project_slices, project_slices_2d
     from thunder_tpu_torch.physics.spectrum import shell_sums
     from thunder_tpu_torch.recon.reconstructor import symmetrize_ft
 
-    return {f.__name__: f for f in (project_slices, likelihood_block, insert_trilinear,
+    return {f.__name__: f for f in (project_slices, project_brick, likelihood_block,
+                                    insert_trilinear,
                                     shell_sums, project_slices_2d, insert_bilinear_2d,
                                     symmetrize_ft, likelihood_local_ctf, insert_mkb,
                                     insert_sweep, insert_sweep_slab, insert_sweep_2d)}
@@ -3627,6 +3897,7 @@ def main() -> None:
         from thunder_tpu_torch.ops import gather
         from thunder_tpu_torch.ops.insert import (insert_mkb, insert_sweep, insert_sweep_2d,
                                                   insert_trilinear)
+        from thunder_tpu_torch.ops.brick import project_brick
         from thunder_tpu_torch.ops.likelihood import likelihood_block, likelihood_local_ctf
         from thunder_tpu_torch.ops.projector import project_slices, project_slices_2d
         from thunder_tpu_torch.physics.spectrum import shell_sums
@@ -3636,10 +3907,7 @@ def main() -> None:
 
     dev = torch.device("cuda:0")
     t_start = time.time()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
-    card = (smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip()
-            else f"nvidia-smi unavailable: {smi.stderr.strip()}")
+    card = card_line()
     say(card)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -3689,7 +3957,7 @@ def main() -> None:
     torch.cuda.synchronize()
 
     wrappers_r = dict(wrappers, symmetrize_ft=symmetrize_ft,
-                      likelihood_local_ctf=likelihood_local_ctf)
+                      likelihood_local_ctf=likelihood_local_ctf, project_brick=project_brick)
     say(f"[{time.time() - t_start:.1f} s] phase 5a: refinement as shipped (configs/demo.json)")
     launches_a, prof_a = phase_refine_a(dev, wrappers_r)
     say(f"[{time.time() - t_start:.1f} s] phase 5b: the same, resumed in local search")
@@ -3697,6 +3965,9 @@ def main() -> None:
     say(f"[{time.time() - t_start:.1f} s] phase 5c: the same resumed run with the MKB "
         "insertion option (reco_kernel mkb, HK10)")
     launches_mkb = phase_refine_mkb(dev, dict(wrappers_r, insert_mkb=insert_mkb))
+    say(f"[{time.time() - t_start:.1f} s] phase 5d: HK13 (brick-window projection) at the local "
+        "phase shapes, and the table plan: 5b's data resumed with tight clouds, routed")
+    rec_hk13, launches_tight = phase_refine_tight(dev, wrappers_r)
     say(f"[{time.time() - t_start:.1f} s] phase 6: 3D classification (configs/demo_3D.json)")
     launches_k4, prof_k4 = phase_classify_3d(dev, wrappers_r)
     torch.cuda.synchronize()
@@ -3716,8 +3987,8 @@ def main() -> None:
     torch.cuda.synchronize()
     profiles = [prof_3d, prof_2d, prof_a, prof_b, prof_k4]
     later = dict(refine_a=launches_a, refine_b=launches_b, refine_mkb=launches_mkb,
-                 classify_3d=launches_k4, post=launches_post, ranks=launches_ranks,
-                 parity=launches_parity)
+                 refine_tight=launches_tight, classify_3d=launches_k4, post=launches_post,
+                 ranks=launches_ranks, parity=launches_parity)
     for name in ("symmetrize_ft", "likelihood_local_ctf"):
         if sum(path.get(name, 0) for path in later.values()) <= 0:
             fail(f"{name} was never launched by phases 5 and 6")
@@ -3731,6 +4002,8 @@ def main() -> None:
                              "thunder_tpu/ops/insert.py:76"),
         "shell_sums": ("HK4", "thunder_tpu_torch/csrc/shell_sums.cu",
                        "thunder_tpu/optimiser.py:379"),
+        "project_brick": ("HK13", "thunder_tpu_torch/csrc/project_brick.cu",
+                          "thunder_tpu/ops/brick.py:131"),
         "project_slices_2d": ("HK5", "thunder_tpu_torch/csrc/project_slices_2d.cu",
                               "thunder_tpu/ops/projector.py:372"),
         "insert_bilinear_2d": ("HK6", "thunder_tpu_torch/csrc/insert_bilinear_2d.cu",
@@ -3775,6 +4048,7 @@ def main() -> None:
                             *(r["max_abs_err"] for r in results_r["insert_trilinear_refine"]))),
         "shell_sums": dict(results["shell_sums"]["pair"], shapes=hk4_shapes,
                            max_abs_err=max(r["max_abs_err"] for r in hk4_shapes.values())),
+        "project_brick": rec_hk13,
         "project_slices_2d": results_2d["project_slices_2d"],
         "insert_bilinear_2d": results_2d["insert_bilinear_2d"],
         "symmetrize_ft": results_r["symmetrize_ft"],
@@ -3837,7 +4111,10 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) > 1 and sys.argv[1] == "--rank":
+    if len(sys.argv) > 1 and sys.argv[1] == "--plan-effect":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        plan_effect()
+    elif len(sys.argv) > 1 and sys.argv[1] == "--rank":
         # one rank of phase 8 (started by run_ranks)
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         rank_entry(sys.argv[2], sys.argv[3], *map(int, sys.argv[4:7]))

@@ -12,7 +12,7 @@ import torch
 from thunder_tpu_torch.device import generator
 from thunder_tpu_torch.geometry.quaternion import (random_quat, rotate2d_from_unit,
                                                    rotate3d)
-from thunder_tpu_torch.ops import gather, insert, likelihood, projector
+from thunder_tpu_torch.ops import brick, gather, insert, likelihood, projector
 from thunder_tpu_torch.ops.fourier import pack_rings
 from thunder_tpu_torch.physics import spectrum
 from thunder_tpu_torch.physics.ctf import ctf_params
@@ -130,6 +130,33 @@ def _lk_both(ops, blocks):
             fn(*ops[:3], pri[:, :, sl], ops[4], w_r[:, sl], ops[6], *acc, col0=b * step)
         outs.append(acc)
     return outs
+
+
+@pytest.mark.parametrize("span,stride", [(4, 1), (5, 2), (7, 3), (8, 2)])
+@pytest.mark.parametrize("quad", [False, True])
+def test_project_brick(dev, span, stride, quad):
+    """HK13 against its plain version, from the plain cube and the quad
+    table, with a quarter of the rotations pushed out of their windows
+    and a crop of 1 mod 3 (34): within 1e-5 (the same windows and tap
+    order, the sums may contract into FMAs), two calls identical, and
+    the samples outside their windows exactly 0."""
+    g = generator(17, dev)
+    tab = torch.randn(2, 34, 34, 34, dtype=torch.complex64, device=dev)
+    table = projector.quad_taps(tab) if quad else tab
+    dq = torch.full((1, 16, 1), 0.4 * brick.spread_margin(span, stride) / (2 * 2 * 7),
+                    device=dev)
+    dq[:, ::4] *= 12
+    q = random_quat(g, (6,), dev)[:, None] + dq * random_quat(g, (6, 16), dev)
+    rot = rotate3d(q / q.norm(dim=-1, keepdim=True))
+    rings = pack_rings(32, 7, 1, device=dev)
+    cls = torch.tensor([0, 1, 1, 0, 1, 0], device=dev)
+    args = (rot, rot.mean(1), rings.i_col, rings.i_row, 2, span, stride, cls)
+    got = brick.project_brick(table, *args)
+    ref = brick.project_brick_plain(tab, *args)
+    assert rel_err(got, ref) < 1e-5
+    again = brick.project_brick(table, *args)
+    assert torch.equal(torch.view_as_real(got), torch.view_as_real(again))
+    assert bool((got[ref == 0] == 0).all()) and bool((ref == 0).any())
 
 
 @pytest.mark.parametrize("per_image", [False, True])

@@ -29,7 +29,7 @@ import subprocess
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("project_slices.cu", "likelihood_block.cu",
+SOURCES = ("project_slices.cu", "project_brick.cu", "likelihood_block.cu",
            "insert_trilinear.cu", "insert_mkb.cu", "shell_sums.cu", "project_slices_2d.cu",
            "insert_bilinear_2d.cu", "symmetrize_ft.cu",
            "likelihood_local_ctf.cu", "gather.cu", "launch_floor.cu")
@@ -47,6 +47,8 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "thunder_project_slices": [_P, _I, _I, _P, _P, _L, _I, _I, _P, _P, _I,
                                _I, _P, _P],
+    "thunder_project_brick": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _P, _P],
     "thunder_likelihood_block": [_P, _I, _I, _I, _I, _P],
     "thunder_insert_trilinear": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                                  _F, _F, _P, _P, _P, _I, _I, _I, _P],
