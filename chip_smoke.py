@@ -48,7 +48,7 @@ events measure the host's call rate under ~0.05 ms) also
 kernel_alone_ms, its launches replayed as a CUDA graph, and HK1's and
 HK5's grid_sample yardstick the same way (library_alone_ms).  Phase 2 writes a 128
 px, 256-image synthetic dataset with the port's generator and runs
-three rounds of the demo-grid K=1 3D refinement through
+ROUNDS rounds of the demo-grid K=1 3D refinement through
 ``thunder_tpu_torch.cli.thunder.main`` from the phantom low-passed to 40
 A.  It checks that the maps and FSC curves are finite, that the output
 files exist, that the resolution ends finer than the 40 A start, that
@@ -86,13 +86,17 @@ than at the start, the final map's FSC 0.5 against the phantom finer
 than the start model's, HK10 launched and HK11 not, HK7 once a
 reconstruction, a second run from the seed bit for bit); phase 5d holds
 HK13 (brick-window projection, thunder_tpu's local-round table plan) to
-its plain version at 5b's phase shape on every rung (1e-5, two calls
-identical, timed beside HK1 on the same table) and runs 5b's data
-resumed with tight clouds through the plan (a rung engaged unforced;
-routed with an eighth of the clouds wide under THUNDER_SPLIT=force;
-HK13 and HK1 launched; res_A finer at the end; a second run bit for
-bit, tags included).  Phase 6 runs configs/demo_3D.json's classification (K = 4,
-C4) for four rounds on 256 images of two sharp C4 species (HK2 once a
+its plain version at 5b's phase shape on every rung, from the quad
+table and the plain cube (1e-5, two calls identical), timed in turns
+beside HK1 on the same table and beside HK13's designs in
+micro/cand/hk13_cand.cu (the first, the kernel with no load, the
+windows staged in shared memory), and runs 5b's data resumed with tight
+clouds through the plan (a rung engaged unforced; routed with an eighth
+of the clouds wide under THUNDER_SPLIT=force; HK13 and HK1 launched;
+res_A finer at the end; a second run bit for bit, tags included).
+Phase 6 runs configs/demo_3D.json's classification (K = 4, C4), in a
+process of its own beside phases 5a and 5b, for ROUNDS_3D rounds on 256
+images of two sharp C4 species (HK2 once a
 rotation block a hemisphere, HK7 over the 2K grids in one launch, class
 purity above 1.5/K).  Phase 7 runs the post-refinement paths through
 their CLIs on 1,024 images of the sharp C4 phantom at 160 px (SNR 8):
@@ -113,13 +117,19 @@ paths' new shapes.  Phase 8 runs ranks that share the card over gloo
 (each a process of this script, ``--rank``, with a timeout; any rank's
 failure fails the script): 8a the CLI with ``--coordinator /
 --num-processes / --process-id`` on 1, 2 (hemi 2 x data 1) and 4 (hemi
-2 x data 2) ranks, configs/demo.json resumed in local search on phase
-7's 1,024 images for two rounds (each rank loads only its rows, rank 0's
-files are read back, each round's FSC-0.143 shell within 3 of the one
-process's; the backend, the rank-to-device map and each collective's
-calls and bytes printed); 8b the slab path (vol_shard_min_mb 0, HK11's
+2 x data 2) ranks at once, configs/demo.json resumed in local search on
+phase 7's 1,024 images for two rounds (each rank loads only its rows,
+rank 0's files are read back, each round's FSC-0.143 shell within 3 of
+the one process's; the backend, the rank-to-device map and each
+collective's calls and bytes printed), then its 2 ranks again beside 8d:
+5d's data and clouds on 2 ranks (hemi 2 x data 1) for ROUNDS_TIGHT
+rounds under THUNDER_SPLIT=force, routed as thunder_tpu routes on its
+mesh (every rank's round-0 tag routes through a brick rung and equals
+5d's, HK13 and HK1 launched on every rank, maps finite, each round's
+shell within 3 of 5d's); 8b the slab path (vol_shard_min_mb 0, HK11's
 slab form into z-slabs, the slab FFTs) of a round's maps from the same data and
-injected draws on 4 ranks against one process; 8c the slab path at a
+injected draws on 4 ranks against one process (its ranks beside 8a's second
+2-rank run and 8d, its one-process work beside those groups); 8c the slab path at a
 320 px box's padded 640^3 grid (512 poses of the sharp C4 phantom,
 r_u 150) on 4 ranks against one process with whole grids (HK11, HK7),
 with each rank's time, peak memory and transpose bytes (8b's and 8c's
@@ -128,10 +138,12 @@ against the one-process reconstruction of the slab form's own (F, T)
 within that or twice that reconstruction's change with its transforms
 composed as the slabs'; the maps against the one-process path's are
 printed, not gated: see SLAB_TOL below); and HK11's slab form against
-its plain version at 8b's and 8c's shapes.  Phase 9 runs thunder_tpu_torch/micro/run_parity.py's
-cases a (configs/demo.json at 32 px: global, local and CTF rounds) and b
-(K = 2 at 24 px) through the CLI on files the generator writes on the
-CPU, held to thunder_tpu's committed record (tests/goldens/run_parity/):
+its plain version at 8b's and 8c's shapes.  Phase 9 runs
+thunder_tpu_torch/micro/run_parity.py's cases a (configs/demo.json at 32
+px: global, local and CTF rounds) and b (K = 2 at 24 px), each in a
+process of its own beside phases 5a and 5b (host-bound runs that time no
+kernel), through the CLI on files the generator writes on the CPU, held
+to thunder_tpu's committed record (tests/goldens/run_parity/):
 as many rounds, each with its r and search type and its FSC-0.143 shell
 within one.  A local round, a CTF round and a K = 4 round run
 under torch.profiler.  The runs split HK4's launches by what called it (the
@@ -150,7 +162,7 @@ fixed-point sums, also held to the bits of their emulation on the card)
 and HK4 (sums in a fixed order) are each called twice on the same inputs
 at every shape they are held at, and must give identical bits (as HK7
 and HK8 in phase 1c); 8a's 2-rank CLI and 8b's 4 ranks run twice and must write the same
-bits.  Phase 2's three rounds, phase 4's first four rounds and phase 5b
+bits.  Phase 2's rounds, phase 4's first four rounds and phase 5b
 up to its first CTF round run again from the same seed into another
 output directory: every round's record (r, res_A), FSC curve, poses,
 classes, defocus factors and maps must be equal bit for bit (2D: and the
@@ -176,7 +188,10 @@ SIZE = 128
 N_IMAGES = 256
 SNR = 3.0          # bench.py's make_dataset
 PIXEL_SIZE = 1.32
-ROUNDS = 3
+# two rounds: the gates (res_A and the final map against the start, every
+# kernel launched, HK2 a block a hemisphere, a rerun bit for bit) read
+# round 0 on, and round 1 is the profiled one (PROFILE_3D)
+ROUNDS = 2
 # The run starts from the phantom low-passed to 40 A.  The phantom's
 # blobs carry almost no signal past ~15 A at 128 px, so a run started
 # from the phantom itself has nothing to improve; from a low-resolution
@@ -219,9 +234,18 @@ INIT_RES_2D = 60.0
 # (b) and the classification keep every shipped value and run at SNR_R.
 SIZE_R, N_REFINE, DEFOCUS_FACTOR, SNR_A, SNR_R = 160, 256, 1.03, 1.5, 8.0
 INIT_RES_A = 20.0
-ROUNDS_A, ROUNDS_B, CTF_FORCE_ROUND = 30, 13, 9
+# leg (b) stops after ROUNDS_B rounds: CTF search from round
+# CTF_FORCE_ROUND at the latest (r reaches 49 by then, the band at which the
+# state machine entered it on its own, at round 7, in the calls measured on
+# an NVIDIA H100 80GB HBM3), so it runs the two CTF rounds its gates read,
+# and its rerun stops after the first; leg (a) shows the state machine's
+# own way into CTF search
+ROUNDS_A, ROUNDS_B, CTF_FORCE_ROUND = 30, 7, 5
 LOCAL_START_RES_A = 12.0     # leg (b)'s start model: the phantom low-passed to here
-K_3D, ROUNDS_3D, PROFILE_K4 = 4, 4, 2
+# three rounds of K = 4 (purity 0.61-0.88 from round 0 on against the 1.5/K
+# gate), round 2 profiled (round 1 runs more phases: 221,147 kernels against
+# 175,878, a profile that took ~13 s longer on an NVIDIA H100 80GB HBM3)
+K_3D, ROUNDS_3D, PROFILE_K4 = 4, 3, 2
 # HK7's cases (label, group, grids, box): the hemisphere pair of a K = 1
 # round at r_u 36, the eight grids of a K = 4 round at the first rounds'
 # r_u 31, one grid at the 160 px box's full band
@@ -340,6 +364,9 @@ ROUNDS_MKB = 3
 # rounds read 5.151 then 5.280 A (an NVIDIA H100 80GB HBM3 at 700.00 W),
 # so a two-round "finer at the end" gate would read chance.
 R_TIGHT, TIGHT_RAD, WIDE_SHARE, ROUNDS_TIGHT, BRICK_PUSHED = 18, 0.01, 8, 3, 4
+# what a 5d round's record must repeat (and 8d prints beside 5d's)
+TIGHT_KEYS = ("round", "r", "res_A", "res_shell", "n_phases", "search_type_after",
+              "proj_table")
 BRICK_WHY = ("the same windows and tap order; the sums may contract into FMAs")
 # HK10's operations a sample: the value (as HK3's first pass forms it)
 # and, for each of the ~4/3 pi a^3 = 28.7 cells of the blob's ball at a =
@@ -354,6 +381,10 @@ SWEEP_TAP_OPS, SWEEP_PAIRS_3D, SWEEP_PAIRS_2D = 20, 16, 4
 # phase 9: whole runs held round by round to thunder_tpu's committed
 # records (thunder_tpu_torch/micro/run_parity.py, tests/goldens/run_parity/)
 PARITY_CASES = ("a", "b")
+# the phases that run in processes of their own beside phases 5a and 5b
+# (start_beside): host-bound runs that time no kernel, each keeping a core
+# of the host busy and the card mostly idle, as 5a and 5b do
+BESIDE_5 = ("6",) + tuple(f"9{c}" for c in PARITY_CASES)
 # an H100 SXM's published peaks (HBM3 rate, FP32 vector rate), for bounds
 HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
 # why the insertion kernels match their twins to float32 rounding only
@@ -2437,22 +2468,28 @@ def phase_refine_mkb(dev, wrappers):
 def brick_record(dev) -> dict:
     """HK13 against its plain version at the 160 px local phase shapes,
     every rung, from the rounds' quad table and the plain cube: within
-    1e-5 of max, two calls identical; timed beside HK1 on the same (L, R,
-    P) and table."""
+    1e-5 of max, two calls identical.  Timed in turns (forwards, then
+    backwards) beside HK1 on the same (L, R, P) and quad table, and
+    beside HK13's designs in micro/cand/hk13_cand.cu: the first design,
+    the kernel with no load (the walk, windows and writes alone), and the
+    windows staged in shared memory (held to the plain version too)."""
+    import numpy as np
     import torch
 
     from thunder_tpu_torch.geometry.quaternion import random_quat, rotate3d
+    from thunder_tpu_torch.micro import hk_candidates as hc
     from thunder_tpu_torch.ops import brick, projector
     from thunder_tpu_torch.ops.fourier import pack_rings
     from thunder_tpu_torch.optimiser import BRICK_LADDER, proj_crop_size
     from thunder_tpu_torch.device import generator
     from thunder_tpu_torch.pipeline.synthetic import phantom
-    import numpy as np
 
+    cand = hc.build_13()
     gen = generator(13, dev)
     n_l, n_r = N_REFINE, 125
     rings = pack_rings(SIZE_R, R_TIGHT, 1, device=dev)
     n_p = rings.i_col.numel()
+    i_col, i_row = (x.to(torch.int32).contiguous() for x in (rings.i_col, rings.i_row))
     crop = proj_crop_size(SIZE_R, 2, R_TIGHT)
     vol = torch.as_tensor(phantom(SIZE_R, np.random.default_rng(13)), device=dev)
     table = projector.prepare_projectee_3d_cropped(torch.stack([vol, vol * 0.5]), 2,
@@ -2461,47 +2498,68 @@ def brick_record(dev) -> dict:
         fail(f"5d: the {crop}^3 table of the 160 px local rounds no longer takes the quad "
              "layout")
     quads = projector.quad_taps(table)
-    cls = torch.arange(n_l, device=dev) // (n_l // 2)
+    cls = (torch.arange(n_l, device=dev) // (n_l // 2)).to(torch.int32)
     base = random_quat(gen, (n_l,), dev)
     small = random_quat(gen, (n_l, n_r), dev)
     shape = f"L={n_l} R={n_r} P={n_p} crop={crop}^3 ({crop} mod 3 = {crop % 3})"
-    errs, out_rung, recs = [], {}, {}
+    errs, recs = [], {}
     for span, stride in BRICK_LADDER:
         dq = torch.full((1, n_r, 1), 0.4 * brick.spread_margin(span, stride)
                         / (2 * 2 * R_TIGHT), device=dev)
         dq[:, ::BRICK_PUSHED] *= 12
         q = base[:, None] + dq * small
         rot = rotate3d(q / q.norm(dim=-1, keepdim=True)).contiguous()
-        mrot = rot.mean(1)
-        tail = (rot, mrot, rings.i_col, rings.i_row, 2, span, stride, cls)
+        mrot = rot.mean(1).contiguous()
+        tail = (rot, mrot, i_col, i_row, 2, span, stride, cls)
         ref = brick.project_brick_plain(table, *tail)
-        out = brick.project_brick(quads, *tail)
+        out, cube = brick.project_brick(quads, *tail), brick.project_brick(table, *tail)
         label = f"({span}, {stride}) {shape}"
         zero = float((ref == 0).float().mean())
+        scratch = torch.empty_like(ref)
+        hc.hk13_launch(cand, 11, table, *tail, scratch)
         errs.append(max(compare("project_brick", label + " quad table", out, ref, 1e-5,
                                 BRICK_WHY),
-                        compare("project_brick", label + " plain cube",
-                                brick.project_brick(table, *tail), ref, 1e-5, BRICK_WHY)))
-        same_bits("project_brick", label, out, brick.project_brick(quads, *tail))
+                        compare("project_brick", label + " plain cube", cube, ref, 1e-5,
+                                BRICK_WHY),
+                        compare("project_brick", label + " windows in shared memory "
+                                "(candidate)", scratch, ref, 1e-5, BRICK_WHY)))
+        same_bits("project_brick", label + " quad table", out,
+                  brick.project_brick(quads, *tail))
+        same_bits("project_brick", label + " plain cube", cube,
+                  brick.project_brick(table, *tail))
         say(f"  project_brick ({span}, {stride}): {zero:.3f} of the samples outside their "
             f"windows (every {BRICK_PUSHED}th rotation pushed out)")
-        del ref, out
-        hk1 = (rot, rings.i_col, rings.i_row, 2, cls)
-        ms_hk1 = timed(lambda: projector.project_slices(quads, *hk1), 20)
+        del ref, out, cube
+        fns = {"quad": lambda: brick.project_brick(quads, *tail),
+               "hk1": lambda: projector.project_slices(quads, rot, i_col, i_row, 2, cls),
+               "cube": lambda: brick.project_brick(table, *tail),
+               "no_load": lambda: hc.hk13_launch(cand, 8, quads, *tail, scratch),
+               "smem": lambda: hc.hk13_launch(cand, 11, table, *tail, scratch),
+               "first": lambda: hc.hk13_launch(cand, 0, quads, *tail, scratch)}
+        ms = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for k in order:
+                ms[k].append(timed(fns[k], 20))
+        ms = {k: sum(v) / len(v) for k, v in ms.items()}
         n_out = n_l * n_r * n_p
         cost = (table.numel() * 8 + rot.numel() * 4 + mrot.numel() * 4 + 8 * n_p + 4 * n_l
                 + n_out * 8, n_out * 60)
         recs[(span, stride)] = record(
-            "project_brick", label + " quad table", errs[-1],
-            timed(lambda: brick.project_brick(quads, *tail), 20),
+            "project_brick", label + " quad table", errs[-1], ms["quad"],
             timed(lambda: brick.project_brick_plain(table, *tail), 2, warm=1), *cost,
-            hk1_ms=ms_hk1)
-        say(f"  project_slices (HK1) on the same (L, R, P) and quad table: {ms_hk1:.4f} ms")
+            hk1_ms=ms["hk1"], plain_cube_ms=ms["cube"], no_load_ms=ms["no_load"],
+            smem_ms=ms["smem"], first_design_ms=ms["first"])
+        say(f"  project_brick ({span}, {stride}) in turns, ms: quad table {ms['quad']:.4f}, "
+            f"plain cube {ms['cube']:.4f}; HK1 on the same (L, R, P) and quad table "
+            f"{ms['hk1']:.4f} (HK13 / HK1 {ms['quad'] / ms['hk1']:.3f}); candidates: no load "
+            f"{ms['no_load']:.4f}, windows in shared memory {ms['smem']:.4f}, the first "
+            f"design {ms['first']:.4f}")
+        del scratch
     first = recs[BRICK_LADDER[0]]
+    keys = ("ms", "plain_ms", "hk1_ms", "plain_cube_ms", "no_load_ms", "smem_ms",
+            "first_design_ms", "bound_ms")
     return dict(first, max_abs_err=max(errs),
-                rungs={f"{k[0]},{k[1]}": dict(ms=r["ms"], plain_ms=r["plain_ms"],
-                                               hk1_ms=r["hk1_ms"], bound_ms=r["bound_ms"])
-                       for k, r in recs.items()})
+                rungs={f"{k[0]},{k[1]}": {n: r[n] for n in keys} for k, r in recs.items()})
 
 
 def tight_clouds(q_top, angles, n_r: int):
@@ -2524,33 +2582,60 @@ def tight_clouds(q_top, angles, n_r: int):
     return cloud
 
 
-def tight_run(cfg_path: str, dev, wrappers: dict) -> tuple:
-    """5b's data resumed with k = 1e-6 through the CLI's Optimiser: every
-    image's supports injected within TIGHT_RAD of its pose, the plan read
-    unforced; then an eighth of the images (seeded) given back their
-    resumed clouds, and ROUNDS_TIGHT rounds under THUNDER_SPLIT=force,
-    every wrapper's count set to 0 just before and read just after.
-    Returns (the unforced plan, launches, records, references after each
-    round)."""
+def tight_data(tmp: str, dev) -> str:
+    """5b's data (resumed in local search), its .thu's k set to 1e-6;
+    returns the config's path."""
     import numpy as np
+
+    from thunder_tpu_torch.io.thu import read_thu, write_thu
+
+    cfg_path, _ = demo_160(tmp, dev, "demo.json", 1, ROUNDS_TIGHT, LOCAL_START_RES_A,
+                           local_resume=True, defocus_factor=DEFOCUS_FACTOR)
+    thu_path = os.path.join(tmp, "particles_local.thu")
+    thu = read_thu(thu_path)
+    thu.k1 = thu.k2 = thu.k3 = np.full(len(thu), 1e-6)
+    write_thu(thu_path, thu)
+    return cfg_path
+
+
+def tight_state(opt):
+    """Every image's supports injected within TIGHT_RAD of its pose and
+    the plan read unforced; then an eighth of each hemisphere's images
+    (seeded) given back their resumed clouds.  The clouds are formed
+    over all images and each rank keeps its rows, so every layout
+    starts from the one-process state.  Returns the unforced plan."""
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.parallel import comm
+
+    lay = opt.layout
+    resumed = comm.all_gather_rows(lay, opt.state.par.r).clone()
+    n_l = resumed.shape[1]
+    cloud = tight_clouds(resumed[:, :, 0], np.full((2, n_l), TIGHT_RAD), resumed.shape[2])
+    opt.state.par = opt.state.par._replace(r=lay.take(cloud).contiguous())
+    plan = opt._table_plan(int(opt.model.r))
+    for h in (0, 1):
+        wide = torch.as_tensor(np.random.default_rng(h).permutation(n_l)[:n_l // WIDE_SHARE],
+                               device=cloud.device)
+        cloud[h, wide] = resumed[h, wide]
+    opt.state.par = opt.state.par._replace(r=lay.take(cloud).contiguous())
+    return plan
+
+
+def tight_run(cfg_path: str, dev, wrappers: dict) -> tuple:
+    """5b's data resumed with k = 1e-6 through the CLI's Optimiser, the
+    clouds of tight_state, and ROUNDS_TIGHT rounds under
+    THUNDER_SPLIT=force, every wrapper's count set to 0 just before and
+    read just after.  Returns (the unforced plan, launches, records,
+    references after each round)."""
     import torch
 
     from thunder_tpu_torch.cli.thunder import build_optimiser
     from thunder_tpu_torch.config import ThunderConfig
 
     opt, _ = build_optimiser(ThunderConfig.from_json(cfg_path), dev)
-    par = opt.state.par
-    n_l = par.r.shape[1]
-    resumed = par.r.clone()
-    opt.state.par = par._replace(r=tight_clouds(par.r[:, :, 0],
-                                                np.full((2, n_l), TIGHT_RAD), par.r.shape[2]))
-    plan = opt._table_plan(int(opt.model.r))
-    wide = torch.as_tensor(np.stack([np.random.default_rng(h).permutation(n_l)[:n_l // WIDE_SHARE]
-                                     for h in (0, 1)]), device=dev)
-    r = opt.state.par.r.clone()
-    for h in (0, 1):
-        r[h, wide[h]] = resumed[h, wide[h]]
-    opt.state.par = opt.state.par._replace(r=r)
+    plan = tight_state(opt)
     torch.cuda.synchronize()
     for w in wrappers.values():
         w.launches = 0
@@ -2574,19 +2659,12 @@ def phase_refine_tight(dev, wrappers):
     the unforced plan's rung, round 0 routed with a brick rung, HK13
     launched, res_A finer at the end than at the first round, maps
     finite, a second run from the seed equal bit for bit.  Returns (HK13's
-    record, the launches of the first run)."""
+    record, the launches and the records of the first run)."""
     import numpy as np
-
-    from thunder_tpu_torch.io.thu import read_thu, write_thu
 
     rec_hk13 = brick_record(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tight_") as tmp:
-        cfg_path, _ = demo_160(tmp, dev, "demo.json", 1, ROUNDS_TIGHT, LOCAL_START_RES_A,
-                               local_resume=True, defocus_factor=DEFOCUS_FACTOR)
-        thu_path = os.path.join(tmp, "particles_local.thu")
-        thu = read_thu(thu_path)
-        thu.k1 = thu.k2 = thu.k3 = np.full(len(thu), 1e-6)
-        write_thu(thu_path, thu)
+        cfg_path = tight_data(tmp, dev)
         t0 = time.time()
         plan, launches, recs, refs = tight_run(cfg_path, dev, wrappers)
         wall = time.time() - t0
@@ -2613,7 +2691,7 @@ def phase_refine_tight(dev, wrappers):
             fail(f"5d: res_A {recs[-1]['res_A']:.3f} at the end is no finer than "
                  f"{recs[0]['res_A']:.3f} at the first round")
         _, _, recs2, refs2 = tight_run(cfg_path, dev, wrappers)
-        keys = ("r", "res_A", "res_shell", "n_phases", "search_type_after", "proj_table")
+        keys = TIGHT_KEYS
         if ([[r.get(k) for k in keys] for r in recs] != [[r.get(k) for k in keys]
                                                         for r in recs2]
                 or not all(np.array_equal(a.view(np.int32), b.view(np.int32))
@@ -2621,7 +2699,7 @@ def phase_refine_tight(dev, wrappers):
             fail("5d: a second run from the same seed differs")
         say(f"  5d: a second run from the same seed gave the same records, tables and maps "
             f"bit for bit ({ROUNDS_TIGHT} rounds)")
-    return rec_hk13, launches
+    return rec_hk13, launches, recs
 
 
 def card_line() -> str:
@@ -2675,7 +2753,7 @@ def plan_effect() -> None:
     say(card_line())
 
 
-def phase_parity(dev, wrappers):
+def phase_parity(dev, wrappers, cases=PARITY_CASES):
     """Phase 9: whole runs of the port on the card held to thunder_tpu's
     committed record on the same files (written by the generator on the
     CPU): as many rounds, each with its r and search type and its
@@ -2686,7 +2764,7 @@ def phase_parity(dev, wrappers):
     from thunder_tpu_torch.micro import run_parity
 
     launches = {n: 0 for n in wrappers}
-    for name in PARITY_CASES:
+    for name in cases:
         torch.cuda.synchronize()
         for w in wrappers.values():
             w.launches = 0
@@ -3157,43 +3235,136 @@ def run_ranks(kind: str, spec: dict, world: int) -> list:
     ``kind`` (rank_entry), joined over a free local port; fails the
     script when any rank fails or RANK_TIMEOUT_S passes (the others are
     stopped).  Returns each rank's report, rank order."""
+    return run_ranks_together([(kind, spec, world)])[0]
+
+
+def run_ranks_together(jobs: list) -> list:
+    """Several jobs (kind, spec, world) of run_ranks at once, each on a
+    port of its own; fails the script when any rank of any job fails or
+    RANK_TIMEOUT_S passes (every other process is stopped).  Returns each
+    job's rank reports."""
+    return join_ranks(start_ranks(jobs))
+
+
+def start_ranks(jobs: list) -> tuple:
+    """Start run_ranks_together's processes; join_ranks waits for them."""
     from thunder_tpu_torch.cli.thunder import free_port
 
-    spec_path = os.path.join(spec["dir"], f"{spec['tag']}.json")
-    with open(spec_path, "w") as f:
-        json.dump(spec, f)
-    port = free_port()
-    logs = [open(os.path.join(spec["dir"], f"{spec['tag']}_rank{r}.log"), "w")
-            for r in range(world)]
     here = os.path.dirname(os.path.abspath(__file__))
-    procs = [subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"), "--rank",
-                               kind, spec_path, str(r), str(world), str(port)],
-                              stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
-    t0, bad = time.time(), None
-    while bad is None and any(p.poll() is None for p in procs):
-        bad = next((r for r, p in enumerate(procs) if p.returncode not in (None, 0)), None)
+    procs, logs = [], []
+    for kind, spec, world in jobs:
+        spec_path = os.path.join(spec["dir"], f"{spec['tag']}.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        port = free_port()
+        for r in range(world):
+            logs.append(open(os.path.join(spec["dir"], f"{spec['tag']}_rank{r}.log"), "w"))
+            procs.append((spec, r, subprocess.Popen(
+                [sys.executable, os.path.join(here, "chip_smoke.py"), "--rank", kind, spec_path,
+                 str(r), str(world), str(port)], stdout=logs[-1], stderr=subprocess.STDOUT)))
+    return jobs, procs, logs, time.time()
+
+
+def join_ranks(started: tuple) -> list:
+    """Wait for start_ranks' processes; see run_ranks_together."""
+    jobs, procs, logs, t0 = started
+    bad = None
+    while bad is None and any(p.poll() is None for _, _, p in procs):
+        bad = next((i for i, (_, _, p) in enumerate(procs) if p.returncode not in (None, 0)),
+                   None)
         if time.time() - t0 > RANK_TIMEOUT_S:
             bad = -1
         time.sleep(0.2)
-    for p in procs:
+    for _, _, p in procs:
         if p.poll() is None:
             p.kill()
         p.wait()
     for f in logs:
         f.close()
-    bad = bad if bad is not None else next((r for r, p in enumerate(procs) if p.returncode), None)
+    bad = bad if bad is not None else next((i for i, (_, _, p) in enumerate(procs)
+                                            if p.returncode), None)
     if bad is not None:
-        r = max(bad, 0)
+        spec, r, p = procs[max(bad, 0)]
         with open(os.path.join(spec["dir"], f"{spec['tag']}_rank{r}.log")) as f:
             tail = f.read()[-4000:]
         fail(f"phase 8 {spec['tag']}: " + (f"ranks still running after {RANK_TIMEOUT_S} s"
-                                           if bad < 0 else f"rank {r} exited "
-                                           f"{procs[r].returncode}") + f"; its log ends:\n{tail}")
+                                           if bad < 0 else f"rank {r} exited {p.returncode}")
+             + f"; its log ends:\n{tail}")
     out = []
-    for r in range(world):
-        with open(os.path.join(spec["dir"], f"{spec['tag']}_rank{r}.json")) as f:
-            out.append(json.load(f))
+    for _, spec, world in jobs:
+        out.append([])
+        for r in range(world):
+            with open(os.path.join(spec["dir"], f"{spec['tag']}_rank{r}.json")) as f:
+                out[-1].append(json.load(f))
     return out
+
+
+def start_beside(names: tuple) -> tuple:
+    """Start each of the phases ``names`` (BESIDE_5) in a process of this
+    script (run with --beside NAME DIR); join_beside waits for them."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    started = []
+    for name in names:
+        tmp = tempfile.mkdtemp(prefix=f"chip_smoke_beside_{name}_")
+        log = open(os.path.join(tmp, "phase.log"), "w")
+        proc = subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"), "--beside",
+                                 name, tmp], stdout=log, stderr=subprocess.STDOUT)
+        started.append((name, proc, log, tmp))
+    return started, time.time()
+
+
+def join_beside(started: tuple) -> dict:
+    """Wait for start_beside's processes (RANK_TIMEOUT_S at most from their
+    start), print their output, fail when one failed; returns each
+    phase's result (beside_entry) by name."""
+    import shutil
+
+    procs, t0 = started
+    results = {}
+    for name, proc, log, tmp in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, RANK_TIMEOUT_S - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = None
+        log.close()
+        with open(os.path.join(tmp, "phase.log")) as f:
+            text = f.read()
+        say(f"  phase {name} (its own process, beside phases 5a and 5b): done "
+            f"{time.time() - t0:.1f} s after its start")
+        for line in text.splitlines():
+            if line.startswith("  "):
+                say(line)
+        if rc != 0:
+            fail(f"phase {name}: its process "
+                 + (f"still ran after {RANK_TIMEOUT_S} s" if rc is None else f"exited {rc}")
+                 + f"; its log ends:\n{text[-4000:]}")
+        with open(os.path.join(tmp, "result.json")) as f:
+            results[name] = json.load(f)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return results
+
+
+def beside_entry(name: str, tmp: str) -> None:
+    """A phase of BESIDE_5 in its own process: phase 6
+    (phase_classify_3d, its launches and profile) or one case of phase 9
+    ("9" and the case: phase_parity, its launches), every kernel's count
+    set to 0 before its run and read after; the result written beside
+    its log."""
+    import torch
+
+    dev = torch.device("cuda:0")
+    wrappers = kernel_wrappers()
+    if name == "6":
+        keep = ("project_slices", "likelihood_block", "insert_sweep", "shell_sums",
+                "symmetrize_ft", "likelihood_local_ctf", "project_brick")
+        launches, prof = phase_classify_3d(dev, {n: wrappers[n] for n in keep})
+        result = dict(launches=launches, profile=prof)
+    else:
+        result = dict(launches=phase_parity(dev, wrappers, (name[1:],)))
+    with open(os.path.join(tmp, "result.json"), "w") as f:
+        json.dump(result, f)
 
 
 def rank_entry(kind: str, spec_path: str, rank: int, world: int, port: int) -> None:
@@ -3328,7 +3499,29 @@ def _slab_big_part(lay, spec) -> dict:
     return dict(insert_s=t_insert, total_s=time.time() - t0, slab=[bz, big, big])
 
 
-RANK_PARTS = {"slab_round": _slab_round_part, "slab_big": _slab_big_part}
+def _tight_part(lay, spec) -> dict:
+    """8d on one rank: 5d's data and clouds (tight_state) through the
+    CLI's Optimiser on this rank's rows, ROUNDS_TIGHT routed rounds under
+    THUNDER_SPLIT=force; each round's record, and whether both
+    hemispheres' maps were finite after it."""
+    import numpy as np
+
+    from thunder_tpu_torch.cli import thunder
+    from thunder_tpu_torch.config import ThunderConfig
+
+    opt, _ = thunder.build_optimiser(ThunderConfig.from_json(spec["cfg"]), lay.device, lay)
+    plan = tight_state(opt)
+    os.environ["THUNDER_SPLIT"] = "force"
+    recs, finite = [], []
+    for i in range(ROUNDS_TIGHT):
+        rec = opt.run_round(i)
+        recs.append({k: rec.get(k) for k in TIGHT_KEYS})
+        finite.append(bool(np.isfinite(opt.refs_both(report=True)).all()))
+    return dict(recs=recs, finite=finite, plan=[plan[0], plan[1] is not None])
+
+
+RANK_PARTS = {"slab_round": _slab_round_part, "slab_big": _slab_big_part,
+              "tight": _tight_part}
 
 
 def _rel_l2(a, b) -> float:
@@ -3425,18 +3618,60 @@ def hk11_slab_record(label: str, dev, vals, c2w, rot, r_u: int, big: int, bz: in
                   npx * mats.shape[0] * SWEEP_PAIRS_3D * SWEEP_TAP_OPS)
 
 
-def phase_ranks(dev, wrappers):
+def tight_ranks(ranks: list, want: list) -> dict:
+    """Phase 8d's gates on its 2 ranks' reports (hemi 2 x data 1; 5d's
+    data and clouds, ROUNDS_TIGHT routed rounds under THUNDER_SPLIT=force,
+    as thunder_tpu routes on its mesh) against the one-process 5d run's
+    records ``want``: every rank's round-0 tag routes through a brick rung
+    and equals 5d's; HK13 and HK1 launched on every rank; maps finite;
+    each round's FSC-0.143 shell within SHELL_GATE_8 of 5d's.  Returns
+    the launches summed over the ranks."""
+    launches = {}
+    _rank_lines("8d", ranks)
+    for r in ranks:
+        for n, c in r["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+        for rec, ok in zip(r["recs"], r["finite"]):
+            say(f"  8d rank {r['rank']} round {rec['round']}: r={rec['r']} phases "
+                f"{rec['n_phases']} res={rec['res_A']:.3f} A (shell {rec['res_shell']}) table "
+                f"{rec.get('proj_table') or 'corner-row'} maps "
+                f"{'finite' if ok else 'NOT finite'}")
+    same = all([[rec.get(k) for k in TIGHT_KEYS] for rec in r["recs"]]
+               == [[rec.get(k) for k in TIGHT_KEYS] for rec in want] for r in ranks)
+    say(f"  8d: the 2 ranks' records {'equal' if same else 'differ from'} the one-process 5d "
+        "run's")
+    tag0 = want[0].get("proj_table", "")
+    for r in ranks:
+        tag = r["recs"][0].get("proj_table") or ""
+        if not (tag.startswith("brick") and "+route[" in tag) or tag != tag0:
+            fail(f"8d: rank {r['rank']}'s round 0 table {tag!r}, the one-process 5d run's "
+                 f"{tag0!r}: both must route through a brick rung, alike")
+        if r["launches"]["project_brick"] <= 0 or r["launches"]["project_slices"] <= 0:
+            fail(f"8d: rank {r['rank']} launched HK13 {r['launches']['project_brick']} times and "
+                 f"HK1 {r['launches']['project_slices']}: a routed round launches both")
+        if not all(r["finite"]):
+            fail(f"8d: rank {r['rank']}'s maps are not finite")
+        for a, b in zip(r["recs"], want):
+            if abs(a["res_shell"] - b["res_shell"]) > SHELL_GATE_8:
+                fail(f"8d: rank {r['rank']}'s round {a['round']} crosses at shell "
+                     f"{a['res_shell']}, the one-process 5d run at {b['res_shell']}")
+    return launches
+
+
+def phase_ranks(dev, wrappers, want_tight: list):
     """Phase 8: ranks on the one card, sharing it over gloo.  8a the CLI
     on 1, 2 and 4 ranks (configs/demo.json resumed in local search on
     phase 7's data, ROUNDS_8 rounds): each rank loads only its rows, rank
     0's files are read back, each round's FSC-0.143 shell within
-    SHELL_GATE_8 of the one-process run's.  8b a round's maps from the
+    SHELL_GATE_8 of the one-process run's.  8d 5d's routed rounds on 2
+    ranks (tight_ranks, against 5d's records ``want_tight``), beside 8a's
+    second 2-rank run and 8b's first.  8b a round's maps from the
     same data and injected draws on 4 ranks through the slab path against
     one process.  8c the slab path at a 320 px box's padded 640^3 grid
     (N_8C poses of the sharp C4 phantom) on 4 ranks against one process
     with whole grids (HK11, HK7).  HK11's slab form against its plain
     version at 8b's and 8c's shapes.  Returns (launches summed over every
-    rank, HK11's slab form's records)."""
+    rank of 8a-8c, HK11's slab form's records, 8d's launches)."""
     import numpy as np
     import torch
 
@@ -3468,51 +3703,35 @@ def phase_ranks(dev, wrappers):
                                local_resume=True, snr=SNR_POST, n=N_POST)
         with open(cfg_path) as f:
             base = json.load(f)
-        res, walls = {}, {}
-        for world in RANKS_8:
-            out = os.path.join(tmp, f"out_{world}")
-            base["Basic"]["Path of Output"] = out + "/"
-            cfg_w = os.path.join(tmp, f"demo_{world}.json")
+        # 8a's CLI runs on 1, 2 and 4 ranks at once; then its 2 ranks again
+        # from the same seed, 8d's 2 ranks and 8b's 4 ranks; then 8b's 4
+        # ranks again: the card's memory holds each group, whose processes
+        # start together, and 8b's one-process work runs beside them
+        jobs = {}
+        for tag, world in [(f"cli{w}", w) for w in RANKS_8] + [("cli2_again", 2)]:
+            base["Basic"]["Path of Output"] = os.path.join(tmp, f"out_{tag[3:]}") + "/"
+            cfg_w = os.path.join(tmp, f"demo_{tag[3:]}.json")
             with open(cfg_w, "w") as f:
                 json.dump(base, f)
-            t0 = time.time()
-            ranks = run_ranks("cli", dict(dir=tmp, tag=f"cli{world}", cfg=cfg_w), world)
-            walls[world] = time.time() - t0
-            add(ranks)
-            _rank_lines(f"8a {world} ranks", ranks)
-            want = N_POST // world if world > 1 else N_POST
-            for r in ranks:
-                if r["loaded"] != want:
-                    fail(f"8a: rank {r['rank']} of {world} loaded {r['loaded']} images, not "
-                         f"its {want} rows")
-                idle = [n for n in PATH_KERNELS_8A if r["launches"][n] <= 0]
-                if idle:
-                    fail(f"8a: rank {r['rank']} of {world} never launched {idle}")
-            check_maps(f"8a {world} ranks", out, ROUNDS_8, 1)
-            if len(read_thu(os.path.join(out, f"Meta_Round_{ROUNDS_8 - 1:03d}.thu"))) != N_POST:
-                fail(f"8a {world} ranks: the last .thu does not hold every image")
-            with open(os.path.join(out, "round_metrics.jsonl")) as f:
-                res[world] = [json.loads(line) for line in f]
-            for rec in res[world]:
-                say(f"  8a {world} ranks round {rec['round']}: res {rec['res_A']:.3f} A (shell "
-                    f"{rec['res_shell']}), phases {rec['n_phases']}, {rec['elapsed_s']:.3f} s")
-            say(f"  8a {world} ranks: wall {walls[world]:.1f} s (processes included)")
-        for world in RANKS_8[1:]:
-            for a, b in zip(res[world], res[1]):
-                if abs(a["res_shell"] - b["res_shell"]) > SHELL_GATE_8:
-                    fail(f"8a: {world} ranks' round {a['round']} crosses at shell "
-                         f"{a['res_shell']}, one process at {b['res_shell']}")
-        # do ranks repeat?  The 2-rank CLI once more from the same seed
-        # into another directory: every output bit for bit
-        base["Basic"]["Path of Output"] = os.path.join(tmp, "out_2_again") + "/"
-        cfg_again = os.path.join(tmp, "demo_2_again.json")
-        with open(cfg_again, "w") as f:
-            json.dump(base, f)
-        add(run_ranks("cli", dict(dir=tmp, tag="cli2_again", cfg=cfg_again), 2))
-        same_runs("8a 2 ranks", os.path.join(tmp, "out_2"), os.path.join(tmp, "out_2_again"),
-                  ROUNDS_8, lambda i: [f"Reference_000_{h}_Round_{i:03d}.mrc" for h in "AB"])
+            jobs[tag] = ("cli", dict(dir=tmp, tag=tag, cfg=cfg_w), world)
+        tight_dir = os.path.join(tmp, "tight")
+        os.makedirs(tight_dir)
+        jobs["tight"] = ("tight", dict(dir=tight_dir, tag="tight",
+                                       cfg=tight_data(tight_dir, dev)), 2)
+        torch.cuda.empty_cache()
+        reports, t_group = {}, time.time()
 
-        # 8b: one process and 4 ranks from the same draws
+        def collect(group, started):
+            for tag, ranks in zip(group, join_ranks(started)):
+                reports[tag] = ranks
+                if tag != "tight":
+                    add(ranks)
+            say(f"  8a/8b/8d: {', '.join(group)} ran together, wall "
+                f"{time.time() - t_group:.1f} s (processes included)")
+
+        group = [f"cli{w}" for w in RANKS_8]
+        started = start_ranks([jobs[t] for t in group])
+        # 8b's draws, beside 8a's ranks
         cfg = ThunderConfig.from_json(cfg_path)
         opt, _ = thunder.build_optimiser(cfg, dev)
         s = opt.state
@@ -3524,6 +3743,15 @@ def phase_ranks(dev, wrappers):
         draws_path = os.path.join(tmp, "draws.npz")
         np.savez(draws_path, **{k: v.cpu().numpy() for k, v in
                                 zip(("quats", "trans", "d", "w"), draws)})
+        jobs.update({tag: ("slab_round", dict(dir=tmp, tag=tag, cfg=cfg_path,
+                                              draws=draws_path), 4)
+                     for tag in ("slab_round", "slab_round_again")})
+        collect(group, started)
+        # 8a's 2 ranks again, 8d and 8b's 4 ranks, beside 8b's one-process
+        # work; then 8b's 4 ranks again from the same draws
+        group, t_group = ["cli2_again", "tight", "slab_round"], time.time()
+        started = start_ranks([jobs[t] for t in group])
+        # 8b: one process and 4 ranks from the same draws
         torch.cuda.synchronize()
         t0 = time.time()
         fsc1, map1, r_u = opt.reconstruct_maps(draws)
@@ -3603,9 +3831,42 @@ def phase_ranks(dev, wrappers):
                     for i, h in pairs]
         maps_slab = [[m.cpu().numpy() for m in maps_slab[i]] for i in (0, 1)]
         del f_slab, t_slab, maps_slab_ulp, maps_slab_fft
-        ranks = run_ranks("slab_round", dict(dir=tmp, tag="slab_round", cfg=cfg_path,
-                                             draws=draws_path), 4)
-        add(ranks)
+        collect(group, started)
+        group, t_group = ["slab_round_again"], time.time()
+        collect(group, start_ranks([jobs["slab_round_again"]]))
+        res = {}
+        for world in RANKS_8:
+            out = os.path.join(tmp, f"out_{world}")
+            ranks = reports[f"cli{world}"]
+            _rank_lines(f"8a {world} ranks", ranks)
+            want = N_POST // world if world > 1 else N_POST
+            for r in ranks:
+                if r["loaded"] != want:
+                    fail(f"8a: rank {r['rank']} of {world} loaded {r['loaded']} images, not "
+                         f"its {want} rows")
+                idle = [n for n in PATH_KERNELS_8A if r["launches"][n] <= 0]
+                if idle:
+                    fail(f"8a: rank {r['rank']} of {world} never launched {idle}")
+            check_maps(f"8a {world} ranks", out, ROUNDS_8, 1)
+            if len(read_thu(os.path.join(out, f"Meta_Round_{ROUNDS_8 - 1:03d}.thu"))) != N_POST:
+                fail(f"8a {world} ranks: the last .thu does not hold every image")
+            with open(os.path.join(out, "round_metrics.jsonl")) as f:
+                res[world] = [json.loads(line) for line in f]
+            for rec in res[world]:
+                say(f"  8a {world} ranks round {rec['round']}: res {rec['res_A']:.3f} A (shell "
+                    f"{rec['res_shell']}), phases {rec['n_phases']}, {rec['elapsed_s']:.3f} s")
+        for world in RANKS_8[1:]:
+            for a, b in zip(res[world], res[1]):
+                if abs(a["res_shell"] - b["res_shell"]) > SHELL_GATE_8:
+                    fail(f"8a: {world} ranks' round {a['round']} crosses at shell "
+                         f"{a['res_shell']}, one process at {b['res_shell']}")
+        # do ranks repeat?  The 2-rank CLI once more from the same seed
+        # into another directory: every output bit for bit
+        same_runs("8a 2 ranks", os.path.join(tmp, "out_2"), os.path.join(tmp, "out_2_again"),
+                  ROUNDS_8, lambda i: [f"Reference_000_{h}_Round_{i:03d}.mrc" for h in "AB"])
+        launches_tight = tight_ranks(reports["tight"], want_tight)
+
+        ranks = reports["slab_round"]
         _rank_lines("8b", ranks)
         errs_b, same_b = [], []
         for h in (0, 1):
@@ -3614,8 +3875,6 @@ def phase_ranks(dev, wrappers):
                        _rel_l2(got["map"], map1[h].cpu().numpy())]
             same_b += [_rel_l2(got["fsc"], maps_slab[0][h]), _rel_l2(got["map"], maps_slab[1][h])]
         # 8b's 4 ranks once more: both hemispheres' maps bit for bit
-        add(run_ranks("slab_round", dict(dir=tmp, tag="slab_round_again", cfg=cfg_path,
-                                         draws=draws_path), 4))
         for h in (0, 1):
             a, b = (np.load(os.path.join(tmp, f"{tag}_h{h}.npz"))
                     for tag in ("slab_round", "slab_round_again"))
@@ -3628,7 +3887,8 @@ def phase_ranks(dev, wrappers):
             f"slab path's maps against one process (A fsc, A map, B fsc, B map): "
             f"{[f'{e:.3e}' for e in errs_b]}; "
             f"balance iterations a rank {[r['comm']['max_data']['calls'] for r in ranks]}; "
-            f"one process {one_ms:.1f} ms, ranks {[round(r['ms'], 1) for r in ranks]} ms")
+            f"one process {one_ms:.1f} ms, ranks {[round(r['ms'], 1) for r in ranks]} ms "
+            "(the ranks ran beside the one-process work)")
         say(f"  8b: the one-process maps move by {[f'{e:.3e}' for e in sens_b]} (A fsc, A "
             "map, B fsc, B map) under an ulp's scaling of (F, T) or the slabs' composition "
             "of the 3D transforms, the larger of the two; the slab form's (F, T) over the "
@@ -3879,8 +4139,9 @@ def phase_ranks(dev, wrappers):
     slabs = [r["launches"]["insert_sweep_slab"] for r in ranks]
     if min(slabs) < 1:
         fail(f"8c: HK11's slab form's launches by rank {slabs}")
-    return launches, dict(rec_b11, shape_8c=rec_c11,
-                          max_abs_err=max(rec_b11["max_abs_err"], rec_c11["max_abs_err"]))
+    return (launches, dict(rec_b11, shape_8c=rec_c11,
+                           max_abs_err=max(rec_b11["max_abs_err"], rec_c11["max_abs_err"])),
+            launches_tight)
 
 
 def main() -> None:
@@ -3958,37 +4219,42 @@ def main() -> None:
 
     wrappers_r = dict(wrappers, symmetrize_ft=symmetrize_ft,
                       likelihood_local_ctf=likelihood_local_ctf, project_brick=project_brick)
+    say(f"[{time.time() - t_start:.1f} s] phase 6 (3D classification, configs/demo_3D.json) "
+        f"and phase 9 (whole runs against thunder_tpu's records, run_parity cases "
+        f"{', '.join(PARITY_CASES)}), each in a process of its own beside phases 5a and 5b")
+    beside = start_beside(BESIDE_5)
     say(f"[{time.time() - t_start:.1f} s] phase 5a: refinement as shipped (configs/demo.json)")
     launches_a, prof_a = phase_refine_a(dev, wrappers_r)
     say(f"[{time.time() - t_start:.1f} s] phase 5b: the same, resumed in local search")
     launches_b, prof_b = phase_refine_b(dev, wrappers_r)
+    beside = join_beside(beside)
+    launches_k4, prof_k4 = beside["6"]["launches"], beside["6"]["profile"]
+    launches_parity = {}
+    for name in BESIDE_5[1:]:
+        for n, c in beside[name]["launches"].items():
+            launches_parity[n] = launches_parity.get(n, 0) + c
     say(f"[{time.time() - t_start:.1f} s] phase 5c: the same resumed run with the MKB "
         "insertion option (reco_kernel mkb, HK10)")
     launches_mkb = phase_refine_mkb(dev, dict(wrappers_r, insert_mkb=insert_mkb))
     say(f"[{time.time() - t_start:.1f} s] phase 5d: HK13 (brick-window projection) at the local "
         "phase shapes, and the table plan: 5b's data resumed with tight clouds, routed")
-    rec_hk13, launches_tight = phase_refine_tight(dev, wrappers_r)
-    say(f"[{time.time() - t_start:.1f} s] phase 6: 3D classification (configs/demo_3D.json)")
-    launches_k4, prof_k4 = phase_classify_3d(dev, wrappers_r)
-    torch.cuda.synchronize()
+    rec_hk13, launches_tight, recs_tight = phase_refine_tight(dev, wrappers_r)
     say(f"[{time.time() - t_start:.1f} s] phase 7: the post-refinement paths (genmask, "
         "subtraction, reconstruct, postprocess, project, tools, STAR)")
     launches_post, results_post, walls_post = phase_post(
         dev, dict(wrappers_r, insert_trilinear=insert_trilinear))
     torch.cuda.synchronize()
     say(f"[{time.time() - t_start:.1f} s] phase 8: ranks sharing the card over gloo (the CLI "
-        "on 1, 2 and 4 ranks; the slab path, HK11's slab form, at the demo's grid and at a "
-        "320 px box's)")
-    launches_ranks, rec_hk11_slab = phase_ranks(dev, kernel_wrappers())
-    torch.cuda.synchronize()
-    say(f"[{time.time() - t_start:.1f} s] phase 9: whole runs against thunder_tpu's records "
-        f"(run_parity cases {', '.join(PARITY_CASES)})")
-    launches_parity = phase_parity(dev, kernel_wrappers())
+        "on 1, 2 and 4 ranks; 5d's routed rounds on 2 ranks, 8d; the slab path, HK11's slab "
+        "form, at the demo's grid and at a 320 px box's)")
+    launches_ranks, rec_hk11_slab, launches_ranks_tight = phase_ranks(
+        dev, kernel_wrappers(), recs_tight)
     torch.cuda.synchronize()
     profiles = [prof_3d, prof_2d, prof_a, prof_b, prof_k4]
     later = dict(refine_a=launches_a, refine_b=launches_b, refine_mkb=launches_mkb,
                  refine_tight=launches_tight, classify_3d=launches_k4, post=launches_post,
-                 ranks=launches_ranks, parity=launches_parity)
+                 ranks=launches_ranks, ranks_tight=launches_ranks_tight,
+                 parity=launches_parity)
     for name in ("symmetrize_ft", "likelihood_local_ctf"):
         if sum(path.get(name, 0) for path in later.values()) <= 0:
             fail(f"{name} was never launched by phases 5 and 6")
@@ -4114,6 +4380,10 @@ if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--plan-effect":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         plan_effect()
+    elif len(sys.argv) > 1 and sys.argv[1] == "--beside":
+        # phase 6 or a case of phase 9 (started by start_beside)
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        beside_entry(sys.argv[2], sys.argv[3])
     elif len(sys.argv) > 1 and sys.argv[1] == "--rank":
         # one rank of phase 8 (started by run_ranks)
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))

@@ -80,6 +80,49 @@ def d_state(seed):
     return s
 
 
+def ctf_float64(cols, i_col, i_row, size: int, pixel_size: float) -> np.ndarray:
+    """ctf_packed's formula in float64 on the float32 parameters and the
+    integer frequencies: (L, p)."""
+    from thunder_tpu_torch.constants import CTF_LAMBDA_A, CTF_LAMBDA_B
+
+    v, du, dv, th, cs, w2, ps = (np.float64(np.float32(c))[:, None] for c in cols)
+    fx, fy = i_col / (pixel_size * size), i_row / (pixel_size * size)
+    f2 = fx * fx + fy * fy
+    lam = CTF_LAMBDA_A / np.sqrt(v * (1 + v * CTF_LAMBDA_B))
+    defocus = -(du + dv + (du - dv) * np.cos(2 * (np.arctan2(i_row, i_col) - th))) / 2
+    chi = np.pi * lam * defocus * f2 + np.pi / 2 * cs * lam ** 3 * f2 ** 2 - ps
+    return -np.sqrt(1 - w2 * w2) * np.sin(chi) + w2 * np.cos(chi)
+
+
+def test_ctf_packed_float32_past_0_3_per_angstrom():
+    """The float32 CTF of the port's ctf_packed and thunder_tpu's, 160 px
+    at 1.32 A, defocus 8,000-20,000 A, every ring to the band's edge
+    (0.376 per angstrom), held to a float64 evaluation of the same
+    formula past 0.3 per angstrom, where chi reaches ~185 rad: the
+    port's largest and root-mean-square distances are thunder_tpu's or
+    smaller, within one float32 ulp of the CTF's unit range (2^-23).
+    Both are ~9e-5 at most (the float32 rounding of chi's products), and
+    the two packages part by up to ~5e-5 (their sin / cos)."""
+    size, px = 160, 1.32
+    rings = jpack_rings(size, size // 2, 1)
+    i_col, i_row = np.asarray(rings.i_col), np.asarray(rings.i_row)
+    cols = ctf_cols(64, 3)
+    want = ctf_float64(cols, i_col.astype(np.float64), i_row.astype(np.float64), size, px)
+    j = np.asarray(jctf.ctf_packed(jctf.ctf_params(*cols), jnp.asarray(i_col),
+                                   jnp.asarray(i_row), size, px))
+    p = tctf.ctf_packed(tctf.ctf_params(*cols), torch.as_tensor(i_col.copy()),
+                        torch.as_tensor(i_row.copy()), size, px).numpy()
+    past = np.hypot(i_col, i_row) / (px * size) > 0.3
+    assert past.sum() > 3000
+    dist = {name: np.abs(x[:, past] - want[:, past]) for name, x in
+            (("thunder_tpu", j), ("port", p))}
+    worst = {k: float(e.max()) for k, e in dist.items()}
+    rms = {k: float(np.sqrt((e ** 2).mean())) for k, e in dist.items()}
+    print(f"past 0.3 / A: max |CTF - float64| {worst}, rms {rms}")
+    assert worst["port"] <= worst["thunder_tpu"] + 2.0 ** -23, worst
+    assert rms["port"] <= rms["thunder_tpu"] + 2.0 ** -23, rms
+
+
 def test_init_d_round_given_normals():
     js, ts = both(d_state(1))
     key = jax.random.PRNGKey(3)

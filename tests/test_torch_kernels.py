@@ -132,24 +132,30 @@ def _lk_both(ops, blocks):
     return outs
 
 
-@pytest.mark.parametrize("span,stride", [(4, 1), (5, 2), (7, 3), (8, 2)])
+@pytest.mark.parametrize("span,stride", [(4, 1), (5, 2), (6, 2), (7, 3), (8, 2)])
 @pytest.mark.parametrize("quad", [False, True])
-def test_project_brick(dev, span, stride, quad):
-    """HK13 against its plain version, from the plain cube and the quad
-    table, with a quarter of the rotations pushed out of their windows
-    and a crop of 1 mod 3 (34): within 1e-5 (the same windows and tap
-    order, the sums may contract into FMAs), two calls identical, and
-    the samples outside their windows exactly 0."""
+@pytest.mark.parametrize("crop,band", [(76, 18), (52, 12), (34, 16)])
+def test_project_brick(dev, span, stride, quad, crop, band):
+    """HK13 against its plain version on every rung, from the plain cube
+    and the quad table, a class per image, a quarter of the rotations
+    pushed out of their windows: at the 160 px local rounds' crop 76 (1
+    mod 3) and band 18, at crop 52 (1 mod 3: thunder_tpu's b = nz stride
+    reads a cell off on (7, 3)), and at crop 34 with band 16, whose
+    samples reach 32 cells from the centre, so windows reach past the
+    cube's faces; random poses fold at kx = 0.  Within 1e-5 (the same
+    windows and tap order, the sums may contract into FMAs), two calls
+    identical, and the samples outside their windows exactly 0."""
     g = generator(17, dev)
-    tab = torch.randn(2, 34, 34, 34, dtype=torch.complex64, device=dev)
+    n_l, n_r = 6, 16
+    tab = torch.randn(n_l, crop, crop, crop, dtype=torch.complex64, device=dev)
     table = projector.quad_taps(tab) if quad else tab
-    dq = torch.full((1, 16, 1), 0.4 * brick.spread_margin(span, stride) / (2 * 2 * 7),
+    dq = torch.full((1, n_r, 1), 0.4 * brick.spread_margin(span, stride) / (2 * 2 * band),
                     device=dev)
     dq[:, ::4] *= 12
-    q = random_quat(g, (6,), dev)[:, None] + dq * random_quat(g, (6, 16), dev)
+    q = random_quat(g, (n_l,), dev)[:, None] + dq * random_quat(g, (n_l, n_r), dev)
     rot = rotate3d(q / q.norm(dim=-1, keepdim=True))
-    rings = pack_rings(32, 7, 1, device=dev)
-    cls = torch.tensor([0, 1, 1, 0, 1, 0], device=dev)
+    rings = pack_rings(160, band, 1, device=dev)
+    cls = torch.tensor([3, 0, 5, 1, 4, 2], device=dev)
     args = (rot, rot.mean(1), rings.i_col, rings.i_row, 2, span, stride, cls)
     got = brick.project_brick(table, *args)
     ref = brick.project_brick_plain(tab, *args)
@@ -157,6 +163,9 @@ def test_project_brick(dev, span, stride, quad):
     again = brick.project_brick(table, *args)
     assert torch.equal(torch.view_as_real(got), torch.view_as_real(again))
     assert bool((got[ref == 0] == 0).all()) and bool((ref == 0).any())
+    # the fold: pixels whose mean point lies at kx < 0 and at kx >= 0
+    mx = rot.mean(1)[:, 0, 0:1] * rings.i_col * 2 + rot.mean(1)[:, 0, 1:2] * rings.i_row * 2
+    assert bool((mx < 0).any()) and bool((mx >= 0).any())
 
 
 @pytest.mark.parametrize("per_image", [False, True])

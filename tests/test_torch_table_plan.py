@@ -380,21 +380,22 @@ def test_routed_round_keeps_shapes(monkeypatch):
     assert np.isfinite(rec["res_A"])
 
 
-def test_no_routing_on_several_ranks(pair, monkeypatch):
-    """Routing runs on one rank: a segment's images lie on every rank,
-    so on a layout of several ranks the bounds are empty and the plan
-    takes one rung for all images (even under THUNDER_SPLIT=force)."""
+def test_routing_on_several_ranks(pair, monkeypatch):
+    """Routing works on several ranks, as thunder_tpu's on its mesh: the
+    bounds are over every rank's images, so on a layout of several ranks
+    they are the one rank's, (16, 24, 28, 32), and the plan routes
+    (tests/test_torch_routed_ranks.py runs it on gloo ranks)."""
     from types import SimpleNamespace
 
     monkeypatch.setenv("THUNDER_SPLIT", "force")
     topt = pair[1]
     assert topt._route_bounds() == (16, 24, 28, 32)
     ranks = SimpleNamespace(layout=SimpleNamespace(world=2), n_img_all=topt.n_img_all)
-    assert to.Optimiser._route_bounds(ranks) == ()
+    assert to.Optimiser._route_bounds(ranks) == (16, 24, 28, 32)
     set_clouds(pair, routed_angles(topt.n_img_all))
-    monkeypatch.setattr(topt, "_route_bounds", lambda: ())
+    monkeypatch.setattr(topt, "_route_bounds", lambda: to.Optimiser._route_bounds(ranks))
     rung, order, segs = topt._table_plan(R_PHASE)
-    assert order is None and segs == () and rung is None
+    assert order is not None and len(segs) > 1 and rung is not None, (rung, segs)
 
 
 def main(argv=None) -> int:

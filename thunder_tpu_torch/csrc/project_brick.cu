@@ -3,8 +3,8 @@
 //
 // Replaces (thunder_tpu): ops/brick.py project_classed_brick (the
 // phase loop's projection when Optimiser._table_plan engages a brick
-// rung), computed from the port's centered float32 cube (or HK1's quad
-// table of it, read one tap a cell) instead of a brick-packed table.
+// rung), computed from the port's centered float32 cube, or HK1's quad
+// table of it, instead of a brick-packed table.
 //
 // out[l, r, p]: the mean rotation mrot[l] puts pixel p at the mean
 // point m = mrot[l] . (pf i_col[p], pf i_row[p], 0); sgn = -1 where m.x
@@ -20,26 +20,45 @@
 // its order: for each x tap, the four (z, y) taps weighted wz wy, then
 // wx.
 //
-// What bounds it on Hopper: the gather of 8 taps a sample from the cube,
-// as for HK1; by its bytes (each input read once, the output written
-// once) it is bound by the output.  Design, simple first: one thread an
-// (image, pixel) pair walks the image's R rotations, so the mean point,
-// the fold, the anchors and the window origin are formed once for all R
-// samples (HK5's rotation walk); pixels run across the lanes, so the
-// writes to HK1's (L, R, P) layout are coalesced, and a warp's threads
-// read the same rotation (one broadcast load).  A rotation's samples of
-// neighbouring pixels lie close, so a warp's taps share the cube's
-// sectors in L2 as HK1's do.
+// What bounds it on Hopper: by its bytes (each input read once, the
+// output written once) the output; in practice the 32-byte sectors its
+// taps pull from L2, as for HK1.  Design:
+// * Taps.  From the quad table a sample reads, of each of its two z
+//   planes, the quad of its window cell (y0, x0): one 32-byte sector
+//   holding the (y0, y1) x (x0, x1) taps (HK1's taps_quad, with its rule
+//   for cells below the cube).  Taps the window zeroes (past the cube,
+//   past the window's last cell) are read as the quad's clipped
+//   neighbours and weighted 0, as the plain version reads them.  From
+//   the plain cube (tables past QUAD_TABLE_MAX_BYTES) a sample reads the
+//   x pair of each of its four (z, y) rows (HK1's taps_plain).  A sample
+//   outside its window reads nothing.
+// * Threads.  A block is TILE pixels (a lane each) of one image times
+//   SPLIT warps; the warps share the image's R rotations (warp w takes
+//   r = w, w + SPLIT, ...).  The mean point, fold and anchors are formed
+//   once a thread; a warp writes 32 neighbouring pixels of one rotation
+//   (coalesced, HK1's (L, R, P) layout); the block's samples are one
+//   image's cloud, so its windows' sectors repeat in the SM's L1.
+//   Measured in turns on an NVIDIA H100 80GB HBM3 at 700 W
+//   (micro/hk_candidates.py --kernels hk13, the 160 px local rounds'
+//   L=256 R=125 P=488 from a 2 x 76^3 quad table): the
+//   first design's loads were ~0.5 of its ~0.7 ms; quads with its walk
+//   (a thread an (image, pixel), 128 pixels a block) ~0.21 ms; four
+//   warps sharing the rotations ~0.15-0.17 ms, 0.69-0.76 of HK1 on the
+//   same samples; two samples a thread in flight, a thread a sample, or
+//   the windows staged in shared memory were slower.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int TILE = 32;    // pixels a block, one a lane
+constexpr int SPLIT = 4;    // warps sharing an image's rotations
+
 // the window's weight of cells j0 and j0 + 1 for offset off (zero past
 // the window), thunder_tpu's _axis_hat: max(0, 1 - |off - j|)
 struct Axis {
-  int i0;        // cube index of cell j0 (less the class's base)
+  int i0;        // cube index of cell j0
   float w0, w1;  // weights of cells j0 and j0 + 1, 0 past the cube or window
 };
 
@@ -62,71 +81,130 @@ __device__ __forceinline__ int anchor(float v, int lo, float half, int stride, i
   return min(max((int)rintf(q), 0), n_a - 1);
 }
 
-__device__ __forceinline__ float2 tap(const float2* vol, int cell, int n, int z, int y,
-                                      int x, float w) {
-  if (w == 0.f) return make_float2(0.f, 0.f);
-  float2 v = __ldg(vol + (long long)cell * ((z * n + y) * n + x));
-  return make_float2(__fmul_rn(v.x, w), __fmul_rn(v.y, w));
+// what a thread keeps of its (image, pixel) for all its samples
+struct Frame {
+  float fx, fy, sgn;
+  float oz, oy, ox;               // window origins, centered
+  int first_z, first_y, first_x;  // the cube's index of each window's cell 0
+};
+
+struct Sample {
+  bool ok;      // inside its window on every axis
+  Axis z, y, x;
+};
+
+__device__ __forceinline__ Sample locate(const float* R, const Frame& f, int span, int n) {
+  float x = __fadd_rn(__fmul_rn(__ldg(R + 0), f.fx), __fmul_rn(__ldg(R + 1), f.fy));
+  float y = __fadd_rn(__fmul_rn(__ldg(R + 3), f.fx), __fmul_rn(__ldg(R + 4), f.fy));
+  float z = __fadd_rn(__fmul_rn(__ldg(R + 6), f.fx), __fmul_rn(__ldg(R + 7), f.fy));
+  Sample s;
+  s.ok = axis(__fsub_rn(z * f.sgn, f.oz), span, f.first_z, n, s.z) &&
+         axis(__fsub_rn(y * f.sgn, f.oy), span, f.first_y, n, s.y) &&
+         axis(__fsub_rn(x * f.sgn, f.ox), span, f.first_x, n, s.x);
+  return s;
 }
 
-__global__ void project_brick_kernel(
-    const float2* __restrict__ table, int cell, int n, const int* __restrict__ cls,
+// a sample's taps, row k = (z0, y0), (z0, y1), (z1, y0), (z1, y1) as
+// float4 (t[x0], t[x1]); indices clipped to the cube
+struct Taps {
+  float4 row[4];
+};
+
+template <bool QUAD>
+__device__ __forceinline__ void fetch(const float2* vol, int n, const Sample& s, Taps& t) {
+  int ix = s.x.i0, iy = s.y.i0;
+  int y0 = min(max(iy, 0), n - 1), x0 = min(max(ix, 0), n - 1);
+  int z0 = min(max(s.z.i0, 0), n - 1), z1 = min(max(s.z.i0 + 1, 0), n - 1);
+  if constexpr (QUAD) {
+    // cell (z, y, x) holds t[y][x], t[y][x+], t[y+][x], t[y+][x+]
+    const float4* q = (const float4*)vol;
+    long long c0 = 2 * (((long long)z0 * n + y0) * n + x0);
+    long long c1 = 2 * (((long long)z1 * n + y0) * n + x0);
+    t.row[0] = __ldg(q + c0);
+    t.row[1] = __ldg(q + c0 + 1);
+    t.row[2] = __ldg(q + c1);
+    t.row[3] = __ldg(q + c1 + 1);
+    // below the cube both taps of that axis are the first cell's
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (iy < 0 && (k & 1)) t.row[k] = t.row[k - 1];
+      if (ix < 0) t.row[k] = make_float4(t.row[k].x, t.row[k].y, t.row[k].x, t.row[k].y);
+    }
+  } else {
+    int y1 = min(max(iy + 1, 0), n - 1), x1 = min(max(ix + 1, 0), n - 1);
+    int rows[4] = {(z0 * n + y0) * n, (z0 * n + y1) * n, (z1 * n + y0) * n,
+                   (z1 * n + y1) * n};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float2 a = __ldg(vol + rows[k] + x0), b = __ldg(vol + rows[k] + x1);
+      t.row[k] = make_float4(a.x, a.y, b.x, b.y);
+    }
+  }
+}
+
+// the plain version's order: for each x tap the four (z, y) taps
+// weighted wz wy, summed, times wx
+__device__ __forceinline__ float2 blend(const Taps& t, const Sample& s, float sgn) {
+  float wzy[4] = {__fmul_rn(s.z.w0, s.y.w0), __fmul_rn(s.z.w0, s.y.w1),
+                  __fmul_rn(s.z.w1, s.y.w0), __fmul_rn(s.z.w1, s.y.w1)};
+  float re = 0.f, im = 0.f;
+#pragma unroll
+  for (int dx = 0; dx < 2; ++dx) {
+    float tr = 0.f, ti = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float vr = dx ? t.row[k].z : t.row[k].x, vi = dx ? t.row[k].w : t.row[k].y;
+      tr = __fadd_rn(tr, __fmul_rn(vr, wzy[k]));
+      ti = __fadd_rn(ti, __fmul_rn(vi, wzy[k]));
+    }
+    float wx = dx ? s.x.w1 : s.x.w0;
+    re = __fadd_rn(re, __fmul_rn(tr, wx));
+    im = __fadd_rn(im, __fmul_rn(ti, wx));
+  }
+  return make_float2(re, im * sgn);
+}
+
+template <bool QUAD>
+__global__ void __launch_bounds__(TILE * SPLIT) project_brick_kernel(
+    const float2* __restrict__ table, int n, const int* __restrict__ cls,
     const float* __restrict__ rot, const float* __restrict__ mrot, int n_rot,
     const int* __restrict__ i_col, const int* __restrict__ i_row, int n_pix, int pf,
     int span, int stride, int g, int nz, int nx, float2* __restrict__ out) {
-  int per_img = (n_pix + blockDim.x - 1) / blockDim.x;
-  int l = blockIdx.x / per_img;
-  int p = (blockIdx.x % per_img) * blockDim.x + threadIdx.x;
+  int tiles = (n_pix + TILE - 1) / TILE;
+  int l = blockIdx.x / tiles;
+  int p = (blockIdx.x % tiles) * TILE + threadIdx.x;
   if (p >= n_pix) return;
   int c = n / 2;
-  float fx = (float)(i_col[p] * pf), fy = (float)(i_row[p] * pf);
+  Frame f;
+  f.fx = (float)(i_col[p] * pf);
+  f.fy = (float)(i_row[p] * pf);
   const float* M = mrot + (long long)l * 9;
-  float mx = __fadd_rn(__fmul_rn(__ldg(M + 0), fx), __fmul_rn(__ldg(M + 1), fy));
-  float my = __fadd_rn(__fmul_rn(__ldg(M + 3), fx), __fmul_rn(__ldg(M + 4), fy));
-  float mz = __fadd_rn(__fmul_rn(__ldg(M + 6), fx), __fmul_rn(__ldg(M + 7), fy));
-  float sgn = mx < 0.f ? -1.f : 1.f;
+  float mx = __fadd_rn(__fmul_rn(__ldg(M + 0), f.fx), __fmul_rn(__ldg(M + 1), f.fy));
+  float my = __fadd_rn(__fmul_rn(__ldg(M + 3), f.fx), __fmul_rn(__ldg(M + 4), f.fy));
+  float mz = __fadd_rn(__fmul_rn(__ldg(M + 6), f.fx), __fmul_rn(__ldg(M + 7), f.fy));
+  f.sgn = mx < 0.f ? -1.f : 1.f;
   float half = 0.5f * (float)(span - 1);
-  int az = anchor(mz * sgn, c, half, stride, nz);
-  int ay = anchor(my * sgn, c, half, stride, nz);
-  int ax = anchor(mx * sgn, g, half, stride, nx);
-  // window origins (centered) and the cube index of each window's cell 0
-  float oz = (float)(az * stride - c), oy = (float)(ay * stride - c);
-  float ox = (float)(ax * stride - g);
-  int first_z = az * stride, first_y = ay * stride, first_x = ax * stride + c - g;
-  const float2* vol = table + (long long)(cls ? cls[l] : 0) * n * n * n * cell;
+  int az = anchor(mz * f.sgn, c, half, stride, nz);
+  int ay = anchor(my * f.sgn, c, half, stride, nz);
+  int ax = anchor(mx * f.sgn, g, half, stride, nx);
+  f.oz = (float)(az * stride - c);
+  f.oy = (float)(ay * stride - c);
+  f.ox = (float)(ax * stride - g);
+  f.first_z = az * stride;
+  f.first_y = ay * stride;
+  f.first_x = ax * stride + c - g;
+  const float2* vol = table + (long long)(cls ? cls[l] : 0) * n * n * n * (QUAD ? 4 : 1);
   const float* R = rot + (long long)l * n_rot * 9;
   float2* o = out + (long long)l * n_rot * n_pix + p;
-  for (int r = 0; r < n_rot; ++r, R += 9, o += n_pix) {
-    float x = __fadd_rn(__fmul_rn(__ldg(R + 0), fx), __fmul_rn(__ldg(R + 1), fy));
-    float y = __fadd_rn(__fmul_rn(__ldg(R + 3), fx), __fmul_rn(__ldg(R + 4), fy));
-    float z = __fadd_rn(__fmul_rn(__ldg(R + 6), fx), __fmul_rn(__ldg(R + 7), fy));
-    Axis az_, ay_, ax_;
-    if (!axis(__fsub_rn(z * sgn, oz), span, first_z, n, az_) ||
-        !axis(__fsub_rn(y * sgn, oy), span, first_y, n, ay_) ||
-        !axis(__fsub_rn(x * sgn, ox), span, first_x, n, ax_)) {
-      *o = make_float2(0.f, 0.f);
-      continue;
+  for (int r = threadIdx.y; r < n_rot; r += SPLIT) {
+    Sample s = locate(R + (long long)r * 9, f, span, n);
+    float2 v = make_float2(0.f, 0.f);
+    if (s.ok) {
+      Taps t;
+      fetch<QUAD>(vol, n, s, t);
+      v = blend(t, s, f.sgn);
     }
-    float wzy[4] = {__fmul_rn(az_.w0, ay_.w0), __fmul_rn(az_.w0, ay_.w1),
-                    __fmul_rn(az_.w1, ay_.w0), __fmul_rn(az_.w1, ay_.w1)};
-    int zs[4] = {az_.i0, az_.i0, az_.i0 + 1, az_.i0 + 1};
-    int ys[4] = {ay_.i0, ay_.i0 + 1, ay_.i0, ay_.i0 + 1};
-    float re = 0.f, im = 0.f;
-#pragma unroll
-    for (int dx = 0; dx < 2; ++dx) {
-      float wx = dx ? ax_.w1 : ax_.w0;
-      if (wx == 0.f) continue;
-      float tr = 0.f, ti = 0.f;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float2 v = tap(vol, cell, n, zs[q], ys[q], ax_.i0 + dx, wzy[q]);
-        tr = __fadd_rn(tr, v.x);
-        ti = __fadd_rn(ti, v.y);
-      }
-      re = __fadd_rn(re, __fmul_rn(tr, wx));
-      im = __fadd_rn(im, __fmul_rn(ti, wx));
-    }
-    *o = make_float2(re, im * sgn);
+    o[(long long)r * n_pix] = v;
   }
 }
 
@@ -139,11 +217,11 @@ extern "C" int thunder_project_brick(
     int n_img, int n_rot, const void* i_col, const void* i_row, int n_pix, int pf, int span,
     int stride, int g, int nz, int nx, void* out, void* stream) {
   if ((long long)n_img * n_rot * n_pix > 0) {
-    const int threads = 128;
-    unsigned blocks = (unsigned)((long long)n_img * ((n_pix + threads - 1) / threads));
-    project_brick_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const float2*)table, cell, n, (const int*)cls, (const float*)rot, (const float*)mrot,
-        n_rot, (const int*)i_col, (const int*)i_row, n_pix, pf, span, stride, g, nz, nx,
+    unsigned blocks = (unsigned)((long long)n_img * ((n_pix + TILE - 1) / TILE));
+    auto kernel = cell == 4 ? project_brick_kernel<true> : project_brick_kernel<false>;
+    kernel<<<blocks, dim3(TILE, SPLIT), 0, (cudaStream_t)stream>>>(
+        (const float2*)table, n, (const int*)cls, (const float*)rot, (const float*)mrot, n_rot,
+        (const int*)i_col, (const int*)i_row, n_pix, pf, span, stride, g, nz, nx,
         (float2*)out);
   }
   return (int)cudaGetLastError();

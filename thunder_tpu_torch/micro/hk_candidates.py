@@ -1,14 +1,14 @@
 """Candidate designs of HK1 ``project_slices``, HK3 ``insert_trilinear``,
 HK4 ``shell_sums``, HK5 ``project_slices_2d``, HK7 ``symmetrize_ft``, HK8
-``likelihood_local_ctf`` and HK10 ``insert_mkb`` timed in turns on the
-card, at the main paths' shapes.
+``likelihood_local_ctf``, HK10 ``insert_mkb`` and HK13 ``project_brick``
+timed in turns on the card, at the main paths' shapes.
 
-    python -m thunder_tpu_torch.micro.hk_candidates [--kernels hk4,hk5|hk7,hk8|hk10] [--big] [--reps N]
+    python -m thunder_tpu_torch.micro.hk_candidates [--kernels hk4,hk5|hk7,hk8|hk10|hk13] [--big] [--reps N]
     python -m thunder_tpu_torch.micro.hk_candidates --lanes [--bricks N]
 
 Builds ``micro/cand/hk1_cand.cu`` and ``hk3_cand.cu``, ``hk4_cand.cu``
-and ``hk5_cand.cu``, ``hk7_cand.cu`` and ``hk8_cand.cu``, or
-``hk10_cand.cu`` (the designs that were measured before the kernels in
+and ``hk5_cand.cu``, ``hk7_cand.cu`` and ``hk8_cand.cu``,
+``hk10_cand.cu`` or ``hk13_cand.cu`` (the designs that were measured before the kernels in
 ``csrc/`` were chosen, and instances of those kernels; they are not part
 of the kernel library),
 checks every variant against the plain version, and times the variants
@@ -39,9 +39,9 @@ import torch
 from thunder_tpu_torch import _native
 from thunder_tpu_torch.device import generator
 from thunder_tpu_torch.geometry.quaternion import random_quat, rotate2d_from_unit, rotate3d
-from thunder_tpu_torch.ops import insert, projector
+from thunder_tpu_torch.ops import brick, insert, projector
 from thunder_tpu_torch.ops.fourier import pack_rings
-from thunder_tpu_torch.optimiser import proj_crop_size, reco_grid_size
+from thunder_tpu_torch.optimiser import BRICK_LADDER, proj_crop_size, reco_grid_size
 from thunder_tpu_torch.physics import spectrum
 from thunder_tpu_torch.physics.ctf import ctf_params
 
@@ -82,6 +82,16 @@ HK5_VARIANTS = {0: "flat, 64-bit index, 4 taps, 8-byte store (first design)",
                 6: "walk, plain plane, 4 pixels", 7: "walk, quads, 4 pixels",
                 8: "as 2, streaming stores", 9: "as 4, streaming stores",
                 10: "as 1, streaming stores"}
+HK13_VARIANTS = {0: "walk, 128 px a block, a tap a cell (first design)",
+                 1: "as 0, no load", 2: "walk, 128 px a block, quads",
+                 3: "as 2, two samples in flight", 4: "32 px x 4 warps, quads (csrc)",
+                 5: "32 px x 4 warps, quads, two samples in flight",
+                 6: "32 px x 8 warps, quads", 7: "32 px x 2 warps, quads, two in flight",
+                 8: "as 4, no load", 9: "as 4, plain cube",
+                 10: "one thread a sample, quads",
+                 11: "windows staged in shared memory (cp.async), plain cube"}
+# the variants that read the plain cube, and those that load nothing
+HK13_PLAIN, HK13_NO_LOAD = (9, 11), (1, 8)
 
 
 def say(msg: str) -> None:
@@ -470,6 +480,95 @@ def build_10() -> ctypes.CDLL:
                                     _P, _P, _P, _I, _I, _I, _P, _I, _F, _F, _F, _P, _F, _F, _P]
     lib.cand_mkb_attrs.argtypes = [_I, _I, _F, _P]
     return lib
+
+
+def build_13() -> ctypes.CDLL:
+    """nvcc micro/cand/hk13_cand.cu (HK13's designs) into its own
+    library."""
+    os.makedirs(_native.BUILD_DIR, exist_ok=True)
+    out = os.path.join(_native.BUILD_DIR, "libhk13_candidates.so")
+    src = os.path.join(CAND_DIR, "hk13_cand.cu")
+    res = subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-shared", "-o", out, src],
+                         capture_output=True, text=True)
+    say(f"build hk13_cand.cu: rc {res.returncode}")
+    for line in (res.stdout + res.stderr).splitlines():
+        if res.returncode != 0 or "registers" in line or "spill" in line or "error" in line:
+            say("  " + line.strip()[:200])
+    if res.returncode != 0:
+        raise RuntimeError("the HK13 candidates did not build")
+    lib = ctypes.CDLL(out)
+    lib.cand_project_brick.argtypes = [_I] + _native._SIGNATURES["thunder_project_brick"]
+    return lib
+
+
+def hk13_launch(lib, v: int, table, rot, mrot, i_col, i_row, pf: int, span: int, stride: int,
+                cls, out) -> None:
+    """HK13's variant ``v`` (HK13_VARIANTS) on the wrapper's operands
+    (int32 pixels and classes, contiguous) into ``out``."""
+    quad = projector.is_quad_table(table)
+    n = table.shape[1]
+    _, g, nz, nx = brick.brick_grid(span, stride, n)
+    _native.check(lib.cand_project_brick(
+        v, table.data_ptr(), 4 if quad else 1, n, None if cls is None else cls.data_ptr(),
+        rot.data_ptr(), mrot.data_ptr(), rot.shape[0], rot.shape[1], i_col.data_ptr(),
+        i_row.data_ptr(), i_col.numel(), pf, span, stride, g, nz, nx, out.data_ptr(),
+        _native.stream_ptr(out)), f"hk13 variant {v}")
+
+
+def hk13_inputs(dev, gen, span: int, stride: int, n_l: int = 256, n_r: int = 125,
+                size: int = 160, r: int = 18, pushed: int = 4):
+    """The 160 px local rounds' phase shape (chip_smoke.py phase 5d): two
+    random classes of crop^3, each image's rotations a cloud within 0.4
+    of the rung's margin, every ``pushed``-th rotation twelve times that
+    (out of its window).  Returns (cube, quads, rot, mrot, i_col, i_row,
+    cls), the pixels and classes int32."""
+    rings = pack_rings(size, r, 1, device=dev)
+    crop = proj_crop_size(size, 2, r)
+    table = torch.randn(2, crop, crop, crop, dtype=torch.complex64, device=dev, generator=gen)
+    dq = torch.full((1, n_r, 1), 0.4 * brick.spread_margin(span, stride) / (2 * 2 * r),
+                    device=dev)
+    dq[:, ::pushed] *= 12
+    q = random_quat(gen, (n_l,), dev)[:, None] + dq * random_quat(gen, (n_l, n_r), dev)
+    rot = rotate3d(q / q.norm(dim=-1, keepdim=True)).contiguous()
+    cls = (torch.arange(n_l, device=dev) // (n_l // 2)).to(torch.int32)
+    return (table, projector.quad_taps(table), rot, rot.mean(1).contiguous(),
+            rings.i_col.to(torch.int32).contiguous(), rings.i_row.to(torch.int32).contiguous(),
+            cls)
+
+
+def main_hk13(dev, gen, reps, results):
+    """HK13's designs in turns at the 5d shape on every rung, beside the
+    library's HK13 (quad table and plain cube) and HK1 on the same (L, R,
+    P) and quad table; each checked against the plain version (the
+    load-free variants excepted)."""
+    lib = build_13()
+    for span, stride in BRICK_LADDER:
+        table, quads, rot, mrot, i_col, i_row, cls = hk13_inputs(dev, gen, span, stride)
+        tail = (rot, mrot, i_col, i_row, 2, span, stride, cls)
+        ref = brick.project_brick_plain(table, *tail)
+        out = torch.empty_like(ref)
+        fns = {"csrc quad": lambda: brick.project_brick(quads, *tail),
+               "csrc plain": lambda: brick.project_brick(table, *tail),
+               "HK1 quad": lambda: projector.project_slices(quads, rot, i_col, i_row, 2, cls)}
+        labels = {"csrc quad": "the library's HK13, quad table",
+                  "csrc plain": "the library's HK13, plain cube",
+                  "HK1 quad": "HK1 on the same (L, R, P) and quad table"}
+        errs = {"csrc quad": rel_err(fns["csrc quad"](), ref),
+                "csrc plain": rel_err(fns["csrc plain"](), ref)}
+        for v, label in HK13_VARIANTS.items():
+            tab = table if v in HK13_PLAIN else quads
+            key = f"v{v}"
+            fns[key] = lambda v=v, tab=tab: hk13_launch(lib, v, tab, *tail, out)
+            labels[key] = label
+            out.zero_()
+            fns[key]()
+            if v not in HK13_NO_LOAD:
+                errs[key] = rel_err(out, ref)
+        zero = float((ref == 0).float().mean())
+        shape = (f"({span}, {stride}) L={rot.shape[0]} R={rot.shape[1]} P={i_col.numel()} "
+                 f"crop={table.shape[1]}^3 K=2, {zero:.3f} of the samples outside their windows")
+        report("HK13", shape, turns(fns, reps), errs, labels, 1e-5, results)
+        del table, quads, ref, out
 
 
 def hk10_shape(lib, dev, gen, rng, name, size, r_u, n_l, slots, reps, results, use_d=False):
@@ -883,7 +982,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--big", action="store_true", help="add the 256 px shapes")
     ap.add_argument("--kernels", default="hk1,hk3",
-                    help="hk1,hk3 (the default) and / or hk4,hk5, hk7,hk8, hk10")
+                    help="hk1,hk3 (the default) and / or hk4,hk5, hk7,hk8, hk10, hk13")
     ap.add_argument("--lanes", action="store_true",
                     help="count HK10's busy lanes from the shapes (no device)")
     ap.add_argument("--bricks", type=int, default=40)
@@ -917,6 +1016,8 @@ def main(argv=None) -> int:
         hk10_shape(lib, dev, gen, rng, "128 px", 128, 36, 128, 48, args.reps, results)
         hk10_shape(lib, dev, gen, rng, "CTF round 160 px", 160, 74, 128, 48, args.reps, results,
                    use_d=True)
+    if "hk13" in kernels:
+        main_hk13(dev, gen, args.reps, results)
     if kernels & {"hk1", "hk3"}:
         main_13(dev, gen, rng, args, results)
     line = json.dumps({"card": card, "results": results})

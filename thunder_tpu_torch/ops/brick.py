@@ -13,7 +13,7 @@ scores as missing signal, not as the value of a closer pose.
 
 The port computes the same function from its own table, the centered
 float32 cube of size ``crop`` (or HK1's quad table of it, whose cell
-holds its own tap first): the brick table is the TPU's storage layout
+holds its (y, x) quad, its own tap first): the brick table is the TPU's storage layout
 and is not built.  Per (image, pixel): the mean rotation's sample point
 folds into kx >= 0 (sgn = -1 where its x is negative; the value returned
 is (re, sgn im)), and each axis' anchor is round((sgn v + lo - (SPAN -
@@ -116,7 +116,11 @@ def project_brick_plain(table: torch.Tensor, rot: torch.Tensor, mrot: torch.Tens
     for v, m, n_a, lo, shift, scale in ((pos[2], mean[2], nz, c, 0, n * n),
                                         (pos[1], mean[1], nz, c, 0, n),
                                         (pos[0], mean[0], nx, g, c - g, 1)):
-        a = torch.clamp(torch.round((m * sgn + lo - half) / stride), 0, n_a - 1)
+        # divided by a tensor: on CUDA tensors PyTorch divides by a Python
+        # scalar as a product with its reciprocal, which at stride 3 moves
+        # the anchors of quotients near a half from the kernel's rint
+        q = m * sgn + lo - half
+        a = torch.clamp(torch.round(q / torch.full_like(q, stride)), 0, n_a - 1)
         off = v * sgn[:, None] - (a * stride - lo)[:, None]
         ok = ok & (off >= 0) & (off <= span - 1)
         j0 = torch.floor(off)
@@ -157,7 +161,8 @@ def project_brick(table: torch.Tensor, rot: torch.Tensor, mrot: torch.Tensor,
     window its mean point mrot[l] . (...) anchors, 0 outside the window.
 
     table (K, n, n, n) complex64 centered, or HK1's (K, n, n, n, 8)
-    float32 quad table (read one tap a cell); rot (L, R, 3, 3) float32;
+    float32 quad table (a sample reads a quad of each of its two z
+    planes); rot (L, R, 3, 3) float32;
     mrot (L, 3, 3) float32, rot.mean(1) formed once by the caller; cls
     (L,) or None; pixels (P,) int32 -> (L, R, P) complex64.  CPU tensors
     take :func:`project_brick_plain`; CUDA tensors launch

@@ -42,7 +42,9 @@ THUNDER_BRICK, THUNDER_SPLIT, THUNDER_PHASE_CHUNK): images whose rotation
 clouds fit a rung project through brick windows (HK13, ops/brick.py),
 where a sample outside its window scores 0, so the plan changes
 results.  The plan's constants are the reference's rules, kept for
-parity; routing runs on one rank (``_route_bounds``).
+parity.  Routing works on every layout as thunder_tpu's works on its
+mesh: the plan reads every rank's spreads, and each routed group's
+images step on the ranks that hold them (``_phases_routed``).
 """
 
 from __future__ import annotations
@@ -743,11 +745,10 @@ class Optimiser:
 
     def _route_bounds(self) -> tuple:
         """Each hemisphere's segment ends for routing, L/2, 3L/4, 7L/8 and
-        L (thunder_tpu _route_bounds); none under 32 images a hemisphere,
-        with THUNDER_SPLIT=0, or on several ranks (a segment's images lie
-        on every rank: routing runs on one)."""
+        L of its images over every rank (thunder_tpu _route_bounds); none
+        under 32 images a hemisphere or with THUNDER_SPLIT=0."""
         n = self.n_img_all
-        if os.environ.get("THUNDER_SPLIT", "1") == "0" or self.layout.world > 1 or n < 32:
+        if os.environ.get("THUNDER_SPLIT", "1") == "0" or n < 32:
             return ()
         return tuple(b for b in sorted({n // 2, 3 * n // 4, 7 * n // 8, n}) if b > 0)
 
@@ -894,11 +895,12 @@ class Optimiser:
         draws cover ``self.draws.running``); returns (par, vari
         (len(hemis), 4), the means over this rank's images).
 
-        A routed round (one rank) passes instead ``sel``, the images'
-        flat indices into the (2 L) grid, ``par`` (1, len(sel), ...),
+        A routed round passes instead ``sel``, the images' flat indices
+        into this rank's (nh L) grid, ``par`` (1, len(sel), ...),
         ``runs`` [(rung, count)] covering them (see
         :func:`project_phase`) and ``sizes``, the counts of its groups in
-        order; vari is then (len(sizes), 4), each group's means."""
+        order; vari is then (len(sizes), 4), each group's means over
+        those images."""
         cfg = self.cfg
         mode, nd = self.mode, self.nd
         is_ctf = ctf is not None
@@ -1011,6 +1013,9 @@ class Optimiser:
         big = float(np.finfo(np.float32).max)
         # each hemisphere's stall state: [phase, n_no_dec, previous variances]
         state = [[0, 0, [big] * 4] for _ in (0, 1)]
+        # the draws of a phase this rank stepped (several ranks): a phase
+        # that steps none of its images replays them
+        self._step_log = None
         par = s.par.map(lambda a: a.contiguous())
         chunk = int(os.environ.get("THUNDER_PHASE_CHUNK", 4 if is_global else 2))
         crop = proj_crop_size(cfg.size, cfg.pf, rings.r_u)
@@ -1067,19 +1072,17 @@ class Optimiser:
     def _phases_batch(self, par, state, max_phase, rings, table, dat_w, sctf2, a_term,
                       pf_small, ctf, min_phase):
         """Phases of every running hemisphere, its images together,
-        until each stalls or reaches ``max_phase``.  It is the driver of
-        rounds that do not route, and the only one on several ranks: a
-        rank holds a block of every hemisphere's rows and draws at the
-        global shape, so the stall means meet over the world a
-        hemisphere at a time (:meth:`_vari_means`) and a rank whose
-        hemispheres have stopped replays the draws of the one running;
-        :meth:`_phases_routed`'s groups have neither.  On one rank the
-        routed driver with one group a hemisphere gives this driver's
-        bits (tests/test_torch_routed_round.py); this one works on views
-        of whole hemispheres where that one gathers and scatters every
-        operand a phase."""
+        until each stalls or reaches ``max_phase``: the phase loop of
+        rounds that do not route.  On several ranks a rank holds a block
+        of every hemisphere's rows and draws at the global shape, so the
+        stall means meet over the world a hemisphere at a time
+        (:meth:`_group_means`) and a rank whose hemispheres have stopped
+        replays the draws of a phase it stepped.  On one rank
+        :meth:`_phases_routed` with one group a hemisphere gives this
+        loop's bits (tests/test_torch_routed_round.py); this one works on
+        views of whole hemispheres where that one gathers and scatters
+        every operand a phase."""
         multi = self.layout.world > 1
-        step_log = None
         while True:
             run = [h for h in (0, 1) if self._running(state[h], max_phase, min_phase)]
             if not run:
@@ -1099,13 +1102,15 @@ class Optimiser:
                     par = par.map(lambda a: a.clone())
                     for fld, new in zip(par, sub):
                         fld[mine] = new
-                step_log = self.draws.log if multi else None
+                if multi:
+                    self._step_log = self.draws.log
             else:
                 # this hemisphere has stopped, the other runs on: draw what
                 # its phase draws, so that the generator stays in step
-                self.draws.replay(step_log)
+                self.draws.replay(self._step_log)
                 vari = None
-            vari = self._vari_means(vari, mine, run)
+            vari = self._group_means(vari, [self.n_img if h in self.hemis else 0 for h in run],
+                                     [self.n_img_all] * len(run))
             for i, h in enumerate(run):
                 self._stall(state[h], vari[i], min_phase)
         if multi:
@@ -1114,22 +1119,31 @@ class Optimiser:
 
     def _phases_routed(self, par, state, max_phase, rings, table, dat_w, sctf2, a_term,
                        pf_small, ctf, min_phase):
-        """Phases of a routed round (one rank): each (hemisphere,
-        segment) group of the routing order runs the stall rule over its
-        own images from its hemisphere's state, until it stalls or
-        reaches ``max_phase``; a phase steps every running group's
-        images at once, projecting them rung by rung.  The images are
-        independent (the reference's loop is per image,
+        """Phases of a routed round: each (hemisphere, segment) group of
+        the routing order (global rows, the same on every rank) runs the
+        stall rule over its own images from its hemisphere's state, until
+        it stalls or reaches ``max_phase``; a phase steps every running
+        group's images at once, projecting them rung by rung.  The images
+        are independent (the reference's loop is per image,
         Optimiser.cpp:1183), so the groups meet only here, where each
         hemisphere's state becomes its groups' merge
         (:func:`merge_segment_states`: a tight group's small variances
-        must not fake a stall in a wide one)."""
-        n_l, order = self.n_img, self._round_order
+        must not fake a stall in a wide one).
+
+        On several ranks (thunder_tpu routes on its mesh, run_routed) a
+        rank steps the members it holds: the phase's draws are made at
+        the running groups' global selection and cut to them
+        (particle.RowDraws.select), a rank holding none replays a phase
+        it stepped, and each group's stall means are its members' sums
+        over the world over its size (:meth:`_group_means`), so every
+        rank runs the same phases."""
+        n_all, order = self.n_img_all, self._round_order
+        multi = self.layout.world > 1
         groups = []
         for h in (0, 1):
             lo = 0
             for n, rung in self._round_segs:
-                groups.append((h, rung, h * n_l + order[h, lo:lo + n],
+                groups.append((h, rung, h * n_all + order[h, lo:lo + n].astype(np.int64),
                                [state[h][0], state[h][1], list(state[h][2])]))
                 lo += n
         same_rung_together = lambda g: (g[1] is None, g[1] or ())
@@ -1139,37 +1153,61 @@ class Optimiser:
                          key=same_rung_together)
             if not run:
                 break
-            sel = torch.as_tensor(np.concatenate([g[2] for g in run]).astype(np.int64),
-                                  device=self.device)
-            runs = []
-            for g in run:
-                if runs and runs[-1][0] == g[1]:
-                    runs[-1][1] += len(g[2])
-                else:
-                    runs.append([g[1], len(g[2])])
-            sub, vari = self.phase_step(par.map(lambda a: flat(a)[sel][None]), None, rings,
-                                        table, dat_w, sctf2, a_term, pf_small, ctf, sel=sel,
-                                        runs=runs, sizes=[len(g[2]) for g in run])
-            par = pt.ParticleState(*[flat(a).index_copy(0, sel, b[0]).reshape(a.shape)
-                                     for a, b in zip(par, sub)])
-            for g, v in zip(run, vari.cpu().numpy()):
+            rows = np.concatenate([g[2] for g in run])
+            sizes = [len(g[2]) for g in run]
+            if multi:
+                held = self.draws.select(rows)
+                counts = [int(m.sum()) for m in np.split(held, np.cumsum(sizes)[:-1])]
+                mine = self.draws.local_rows(rows[held])
+                self.draws.log = [] if len(mine) else None
+            else:
+                counts, mine = sizes, rows
+            vari = None
+            if len(mine):
+                sel = torch.as_tensor(mine, device=self.device)
+                runs = []
+                for g, c in zip(run, counts):
+                    if not c:
+                        continue
+                    if runs and runs[-1][0] == g[1]:
+                        runs[-1][1] += c
+                    else:
+                        runs.append([g[1], c])
+                sub, vari = self.phase_step(
+                    par.map(lambda a: flat(a)[sel][None]), None, rings, table, dat_w, sctf2,
+                    a_term, pf_small, ctf, sel=sel, runs=runs, sizes=[c for c in counts if c])
+                par = pt.ParticleState(*[flat(a).index_copy(0, sel, b[0]).reshape(a.shape)
+                                         for a, b in zip(par, sub)])
+                if multi:
+                    self._step_log = self.draws.log
+            else:
+                self.draws.replay(self._step_log)
+            vari = self._group_means(vari, counts, sizes)
+            for g, v in zip(run, vari):
                 self._stall(g[3], v, min_phase)
+        if multi:
+            self.draws.select(None)
+            self.draws.log = None
         return par, [merge_segment_states([g[3] for g in groups if g[0] == h]) for h in (0, 1)]
 
-    def _vari_means(self, vari, mine: list, run: list) -> np.ndarray:
-        """The stall rule's variances (len(run), 4) of each running
-        hemisphere, averaged over all its images: ``vari`` holds this
-        rank's means (len(mine), 4) over its images (None when none of
-        its hemispheres runs); on several ranks the sums meet over the
-        world, so every rank reads the same values and runs the same
-        phases."""
+    def _group_means(self, vari, counts: list, sizes: list) -> np.ndarray:
+        """The stall rule's variances (len(sizes), 4) of each running
+        group (a hemisphere, or a routed round's (hemisphere, segment)
+        group) over all its images: ``vari`` holds this rank's means over
+        its members, one row a group of non-zero ``counts`` (None where it
+        holds none); on several ranks the float64 sums meet over the
+        world and are divided by the groups' ``sizes``, so every rank
+        reads the same values and runs the same phases."""
         if self.layout.world == 1:
             return vari.cpu().numpy()
-        sums = torch.zeros((2, 4), dtype=torch.float64, device=self.device)
-        for i, li in enumerate(mine):
-            sums[self.hemis[li]] = vari[i].double() * self.n_img
-        sums = comm.sum_world(self.layout, sums) / self.n_img_all
-        return sums.cpu().numpy()[run]
+        sums = torch.zeros((len(sizes), 4), dtype=torch.float64, device=self.device)
+        if vari is not None:
+            have = [i for i, c in enumerate(counts) if c]
+            sums[have] = vari.double() * torch.as_tensor(
+                [counts[i] for i in have], dtype=torch.float64, device=self.device)[:, None]
+        sums = comm.sum_world(self.layout, sums) / torch.as_tensor(
+            sizes, dtype=torch.float64, device=self.device)[:, None]
+        return sums.cpu().numpy()
 
     # -- maximization ---------------------------------------------------
 

@@ -495,14 +495,18 @@ class RowDraws:
     one-process run draws for those rows (the generator, seeded alike
     on every rank, advances by the global shape).
 
-    A draw's shape is (hemispheres of ``running`` this rank holds, its
-    images, ...); the global shape is (len(running), n_img, ...).
-    ``running`` names the hemispheres a draw covers, (0, 1) unless a
-    phase loop runs one of them alone.  ``log`` (a list, when set)
-    records each draw's kind and trailing shape, and :meth:`replay`
-    draws such a record again at the current ``running`` and discards
-    it: a rank whose hemisphere has stopped keeps its generator in step
-    with the other hemisphere's."""
+    A draw covers the hemispheres of ``running``, (0, 1) unless a phase
+    loop runs one of them alone: its global shape is (len(running),
+    n_img, ...), and a rank's part (the hemispheres of ``running`` it
+    holds, its images, ...).  Or, once :meth:`select` has set one, a
+    selection of global rows (a routed round's running groups): its
+    global shape is (1, len(selection), ...), as the one-process routed
+    round draws, and a rank's part (1, the selected rows it holds, ...)
+    in the selection's order.  ``log`` (a list, when set) records each
+    draw's kind and trailing shape, and :meth:`replay` draws such a
+    record again at the current cover and discards it: a rank that holds
+    none of the rows a phase steps keeps its generator in step with the
+    others'."""
 
     def __init__(self, gen: torch.Generator, hemis: tuple, n_img: int, l_sl: slice):
         self.gen = gen
@@ -511,23 +515,50 @@ class RowDraws:
         self.l_sl = l_sl
         self.running = (0, 1)
         self.log = None
+        self._sel = None          # (selection's length, this rank's positions in it)
 
     @property
     def device(self):
         return self.gen.device
 
+    def select(self, rows: np.ndarray | None) -> np.ndarray | None:
+        """Draw for the global rows ``rows`` (flat indices h n_img + l of
+        the (2, n_img) grid) from now on, or for ``running`` again
+        (None).  Returns a boolean mask over ``rows``, the rows this rank
+        holds."""
+        if rows is None:
+            self._sel = None
+            return None
+        h, l = np.divmod(np.asarray(rows, np.int64), self.n_img)
+        held = np.isin(h, self.hemis) & (l >= self.l_sl.start) & (l < self.l_sl.stop)
+        self._sel = (len(h), torch.as_tensor(np.nonzero(held)[0], device=self.device))
+        return held
+
+    def local_rows(self, rows: np.ndarray) -> np.ndarray:
+        """Global rows this rank holds -> flat indices into its own
+        (hemispheres, images) grid."""
+        h, l = np.divmod(np.asarray(rows, np.int64), self.n_img)
+        h_loc = np.searchsorted(np.asarray(self.hemis), h)
+        return h_loc * (self.l_sl.stop - self.l_sl.start) + l - self.l_sl.start
+
     def _full(self, kind: str, tail: tuple, high):
-        return draw(self.gen, kind, (len(self.running), self.n_img) + tail, self.device, high)
+        lead = ((1, self._sel[0]) if self._sel is not None
+                else (len(self.running), self.n_img))
+        return draw(self.gen, kind, lead + tail, self.device, high)
 
     def draw(self, kind: str, shape: tuple, high: int | None = None) -> torch.Tensor:
-        rows = [i for i, h in enumerate(self.running) if h in self.hemis]
-        n_l = self.l_sl.stop - self.l_sl.start
-        if tuple(shape[:2]) != (len(rows), n_l):
-            raise ValueError(f"a draw of shape {shape} is not this rank's rows "
-                             f"({len(rows)} hemispheres x {n_l} images)")
+        if self._sel is not None:
+            want = (1, len(self._sel[1]))
+        else:
+            rows = [i for i, h in enumerate(self.running) if h in self.hemis]
+            want = (len(rows), self.l_sl.stop - self.l_sl.start)
+        if tuple(shape[:2]) != want:
+            raise ValueError(f"a draw of shape {shape} is not this rank's rows {want}")
         if self.log is not None:
             self.log.append((kind, tuple(shape[2:]), high))
         full = self._full(kind, tuple(shape[2:]), high)
+        if self._sel is not None:
+            return full[:, self._sel[1]].contiguous()
         return full[rows, self.l_sl].contiguous()
 
     def replay(self, log: list) -> None:
