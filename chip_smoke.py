@@ -11,8 +11,10 @@ refinements with the table plan and with THUNDER_BRICK=off and prints
 both, round by round (no gate).
 
 Phase 0 builds the eighteen hand-written Hopper kernels (one nvcc per
-source, sm_90a) and times an empty kernel launched the same way, as a
-replayed CUDA graph: the floor under any launch.  Phase 1 holds the 3D
+source, sm_90a) and the host IO library (io/thunder_io.cpp, by the
+host's C++ compiler; no compiler fails the script), and times an empty
+kernel launched the same way, as a replayed CUDA graph: the floor under
+any launch.  Phase 1 holds the 3D
 kernels (HK1-HK4) against their plain PyTorch versions at the 3D path's
 128 px shapes (HK1 from the quad table the rounds use and from the plain
 cube, at the phase loop's and the global search's shapes and where its
@@ -112,15 +114,22 @@ with the auto-mask (78 FSC rows, finer than 10 A, a finite B factor and
 sharpened map, HK4's pair and full-space forms); ``project`` of the
 phantom at 2,000 random poses, then ``reconstruct --no-ctf`` (correlation
 with the phantom above 0.95); the volume tools on the run's maps and the
-STAR converter there and back; then HK1, HK3 and HK4 timed at those
-paths' new shapes.  Phase 8 runs ranks that share the card over gloo
-(each a process of this script, ``--rank``, with a timeout; any rank's
+STAR converter there and back (every MRC stack those CLIs read went
+through the loader's native reader, by its count); 7r the stack readers:
+the native one available, it and the numpy reader giving the same bits
+for the phase's stack (shifted and not) and for a 4,096 x 256^2 float32
+stack (1 GiB, written to the run's temporary directory and removed),
+read_thu_native equal to read_thu on the phase's .thu files, and each
+reader's MB/s printed with the host's CPU and the card; then HK1, HK3
+and HK4 timed at those paths' new shapes.  Phase 8 runs ranks that share
+the card over gloo (each a process of this script, ``--rank``, with a timeout; any rank's
 failure fails the script): 8a the CLI with ``--coordinator /
 --num-processes / --process-id`` on 1, 2 (hemi 2 x data 1) and 4 (hemi
 2 x data 2) ranks at once, configs/demo.json resumed in local search on
 phase 7's 1,024 images for two rounds (each rank loads only its rows,
-rank 0's files are read back, each round's FSC-0.143 shell within 3 of
-the one process's; the backend, the rank-to-device map and each
+rank 0's files are read back, each rank's MRC reads went through the
+native reader, each round's FSC-0.143 shell within 3 of the one
+process's; the backend, the rank-to-device map and each
 collective's calls and bytes printed), then its 2 ranks again beside 8d:
 5d's data and clouds on 2 ranks (hemi 2 x data 1) for ROUNDS_TIGHT
 rounds under THUNDER_SPLIT=force, routed as thunder_tpu routes on its
@@ -298,6 +307,11 @@ SUBTRACT_ADD = 0.08
 # measured spread from call to call; 7c prints T, W and the crossing
 # with W = 1 / T near the edge
 CROSSING_SPREAD = 9
+# 7r, the stack readers (io/native.py, io/mrc.py) on phase 7's stack and
+# on a BIG_STACK stack of float32 (1 GiB) written to the run's temporary
+# directory: equal bits, and each reader's MB/s in turns (numpy, native,
+# native, numpy) from the page cache the writes left warm
+BIG_STACK = (4096, 256, 256)
 # phase 8, ranks sharing the one card over gloo.  8a: the CLI on RANKS_8
 # ranks (1, hemi 2 x data 1, hemi 2 x data 2) on phase 7's 1,024 images,
 # configs/demo.json resumed in local search for ROUNDS_8 rounds; each
@@ -2971,6 +2985,7 @@ def phase_post(dev, wrappers):
     from thunder_tpu_torch.cli import project as cli_project
     from thunder_tpu_torch.cli import reconstruct as cli_reco
     from thunder_tpu_torch.cli import star_convert, thunder, tools
+    from thunder_tpu_torch.io import loader
     from thunder_tpu_torch.io.mrc import MrcFile, read_mrc
     from thunder_tpu_torch.io.thu import read_thu
     from thunder_tpu_torch.optimiser import Optimiser
@@ -3014,6 +3029,8 @@ def phase_post(dev, wrappers):
         for w in wrappers.values():
             w.launches = 0
         shell_sums.shapes.clear()
+        for k in loader.READS:
+            loader.READS[k] = 0
 
         step("a tools genmask", lambda: tools.main(
             ["genmask", "-i", j("init_model.mrc"), "-o", j("mask.mrc")] + dv))
@@ -3201,6 +3218,14 @@ def phase_post(dev, wrappers):
 
         launches = {name: w.launches for name, w in wrappers.items()}
         say(f"  phase 7 launches {launches}; walls {json.dumps(walls, default=float)}")
+        say(f"  phase 7 MRC stacks read through the loader, by reader: {loader.READS}")
+        if loader.READS["numpy"] or not loader.READS["native"]:
+            fail(f"phase 7: the loader's reads did not all go through the native reader: "
+                 f"{loader.READS}")
+        t0 = time.time()
+        reader_check(dev, tmp, j("particles.mrcs"),
+                     [cfg["Basic"][".thu File Storing Paths and CTFs of Images"], meta_path])
+        say(f"  7r: {time.time() - t0:.1f} s")
         for name in ("project_slices", "insert_sweep", "insert_trilinear", "shell_sums",
                      "symmetrize_ft"):
             if launches[name] <= 0:
@@ -3208,6 +3233,111 @@ def phase_post(dev, wrappers):
         say("  phase 7 kernel records at the new shapes")
         recs_post = post_records(dev, tmp, meta_path, fit["mask"])
     return launches, recs_post, walls
+
+def host_cpu() -> str:
+    """The host's CPU (for host-side rates): /proc/cpuinfo's model name,
+    else lscpu's, with its vendor, family and model numbers; and the core
+    counts."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    model = fields.get("model name", "unknown")
+    if model == "unknown":
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+            model = next((line.split(":", 1)[1].strip() for line in out.splitlines()
+                          if line.startswith("Model name")), model)
+        except OSError:
+            pass
+    ids = " ".join(f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model")
+                   if k in fields)
+    return (f"{model} ({ids}), {os.cpu_count()} cores "
+            f"({len(os.sched_getaffinity(0))} usable)")
+
+
+def reader_check(dev, tmp: str, stack: str, thu_paths: list) -> dict:
+    """7r: the native reader must be available; it and the numpy reader
+    give the same bits for ``stack`` (shifted and not) and for a
+    BIG_STACK stack written into ``tmp`` (shifted; removed afterwards);
+    read_thu_native equals read_thu column by column on ``thu_paths``.
+    Prints each reader's MB/s on both stacks with the host's CPU and the
+    card (host numbers: the reads never touch the card).  Returns the
+    rates."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.io import native
+    from thunder_tpu_torch.io.mrc import MrcFile, write_mrc
+    from thunder_tpu_torch.io.thu import ThuTable, read_thu
+
+    if not native.available():
+        fail("7r: no C++ compiler found, so the native stack reader is not available")
+    for path in thu_paths:
+        got, want = native.read_thu_native(path), read_thu(path)
+        for f in dataclasses.fields(ThuTable):
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            same = a == b if isinstance(a, list) else (
+                a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b))
+            if not same:
+                fail(f"7r: read_thu_native and read_thu differ in {f.name} of "
+                     f"{os.path.basename(path)}")
+
+    def same(a, b, label: str, shift: bool) -> None:
+        if a.shape != b.shape or not np.array_equal(a.view(np.uint32), b.view(np.uint32)):
+            fail(f"7r: the native and numpy readers differ on {label} (shift {shift})")
+
+    def rates(path: str, label: str, unshifted: bool) -> dict:
+        """Each reader's MB/s in turns; the bits of the first read of each
+        (shifted), and with ``unshifted`` of a read without the shift."""
+        f = MrcFile(path)
+        idx = list(range(f.nz))
+        mb = f.nz * f.ny * f.nx * f.dtype.itemsize / 1e6
+        if unshifted:
+            same(native.read_mrc_slices_native(path, idx, False), f.read_slices(idx, False),
+                 label, False)
+        read = {"numpy": lambda: f.read_slices(idx),
+                "native": lambda: native.read_mrc_slices_native(path, idx)}
+        secs, first = {"numpy": [], "native": []}, {}
+        for name in ("numpy", "native", "native", "numpy"):
+            t0 = time.perf_counter()
+            out = read[name]()
+            secs[name].append(time.perf_counter() - t0)
+            first.setdefault(name, out)
+            del out
+        same(first["native"], first["numpy"], label, True)
+        del first
+        rec = {"stack": f"{f.nz} x {f.ny} x {f.nx} mode {f.mode}", "mb": mb,
+               **{f"{n}_s": v for n, v in secs.items()},
+               **{f"{n}_mb_s": [mb / t for t in v] for n, v in secs.items()}}
+        say(f"  7r {label} ({rec['stack']}, {mb:.1f} MB, warm page cache): native "
+            f"(8 threads) {', '.join(f'{r:.0f}' for r in rec['native_mb_s'])} MB/s, numpy "
+            f"{', '.join(f'{r:.0f}' for r in rec['numpy_mb_s'])} MB/s; identical bits")
+        return rec
+
+    out = {"host": host_cpu(), "card": card_line(),
+           "phase7": rates(stack, "phase 7's stack", True)}
+    big = os.path.join(tmp, "big_stack.mrcs")
+    t0 = time.time()
+    gen = torch.Generator(device=dev).manual_seed(19)
+    data = torch.randn(BIG_STACK, generator=gen, device=dev).cpu().numpy()
+    write_mrc(big, data, 1.0, shift=False, is_stack=True)
+    del data
+    say(f"  7r: {BIG_STACK} float32 stack written in {time.time() - t0:.1f} s")
+    try:
+        out["big"] = rates(big, "a 1 GiB stack", False)
+    finally:
+        os.remove(big)
+    say(f"  7r host: {out['host']}; card: {out['card']}")
+    say("  7r " + json.dumps({"readers": out}))
+    return out
+
 
 # -- phase 8: ranks ----------------------------------------------------
 
@@ -3388,6 +3518,7 @@ def rank_entry(kind: str, spec_path: str, rank: int, world: int, port: int) -> N
     t0 = time.time()
     if kind == "cli":
         from thunder_tpu_torch.cli import thunder
+        from thunder_tpu_torch.io import loader
 
         lines = []
 
@@ -3404,6 +3535,7 @@ def rank_entry(kind: str, spec_path: str, rank: int, world: int, port: int) -> N
             fail(f"rank {rank}: thunder main returned {rc}")
         loaded = [m for m in lines if m.startswith(("loading ", f"rank {rank} loaded"))]
         report = dict(loaded=int(loaded[0].split()[3 if world > 1 else 1]),
+                      readers=dict(loader.READS),
                       layout=next((m for m in lines if m.startswith(f"rank {rank}/")),
                                   f"rank 0/1 one process, device {torch.cuda.current_device()}"))
     else:
@@ -3533,7 +3665,8 @@ def _rel_l2(a, b) -> float:
 def _rank_lines(label: str, ranks: list) -> None:
     for r in ranks:
         said = {k: v for k, v in r["launches"].items() if v}
-        loaded = f"loaded {r['loaded']} images, " if "loaded" in r else ""
+        loaded = (f"loaded {r['loaded']} images (stacks by reader {r['readers']}), "
+                  if "loaded" in r else "")
         say(f"  {label} {r['layout']}: {loaded}wall {r['wall_s']:.2f} s, peak "
             f"{r['peak_gb']:.3f} GB, launches {said}")
         say(f"  {label} rank {r['rank']} collectives (calls, bytes, staged bytes): "
@@ -3844,6 +3977,9 @@ def phase_ranks(dev, wrappers, want_tight: list):
                 if r["loaded"] != want:
                     fail(f"8a: rank {r['rank']} of {world} loaded {r['loaded']} images, not "
                          f"its {want} rows")
+                if r["readers"]["numpy"] or not r["readers"]["native"]:
+                    fail(f"8a: rank {r['rank']} of {world} read its MRC stacks by reader "
+                         f"{r['readers']}, not all through the native reader")
                 idle = [n for n in PATH_KERNELS_8A if r["launches"][n] <= 0]
                 if idle:
                     fail(f"8a: rank {r['rank']} of {world} never launched {idle}")
@@ -4181,6 +4317,13 @@ def main() -> None:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 say("  ptxas: " + line.strip())
     _native.library()
+    from thunder_tpu_torch.io import native
+
+    t0 = time.time()
+    if not native.available():
+        fail("phase 0: no C++ compiler found for the host IO library (io/thunder_io.cpp)")
+    say(f"  host IO library (io/thunder_io.cpp) built and loaded in {time.time() - t0:.1f} s "
+        f"-> {os.path.relpath(native.library_path(native.compiler()), here)}")
     from thunder_tpu_torch.micro.launch_floor import empty_launch_ms
 
     floor_ms = empty_launch_ms()

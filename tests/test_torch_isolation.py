@@ -7,6 +7,7 @@ import ast
 import dataclasses
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -172,3 +173,29 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
             cli.main(argv)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         postprocess_maps(np.ones((8,) * 3), np.ones((8,) * 3), np.ones((8,) * 3), 1.0)
+
+
+
+# "native/..." as a path, or "native" as a part joined into one
+NATIVE_PATH = re.compile(r"(?<![\w.])native[/\\]|(join|Path)\([^)]*[\"']native[\"']")
+
+
+def test_sources_name_no_path_under_native():
+    """The port keeps its own copy of the host IO source: no file of it
+    (Python, C++, CUDA, chip_smoke.py) names a path under thunder_tpu's
+    native/ directory."""
+    paths = sorted([os.path.join(d, f)
+                    for d, _, fs in os.walk(os.path.join(REPO, "thunder_tpu_torch"))
+                    if "_build" not in os.path.relpath(d, REPO).split(os.sep)
+                    for f in fs if f.endswith((".py", ".cpp", ".cu", ".cuh"))]
+                   + [os.path.join(REPO, "chip_smoke.py")])
+    assert any(p.endswith("thunder_io.cpp") for p in paths)
+    hits = []
+    for path in paths:
+        with open(path) as f:
+            hits += [f"{os.path.relpath(path, REPO)}: {line.strip()}"
+                     for line in f if NATIVE_PATH.search(line)]
+    assert not hits, f"names a path under native/: {hits[:5]}"
+    assert NATIVE_PATH.search('os.path.join(here, "..", "native", "io")')
+    assert NATIVE_PATH.search("make -C native/io")
+    assert not NATIVE_PATH.search('READS = {"native": 0}  # thunder_tpu_torch/_native.py')

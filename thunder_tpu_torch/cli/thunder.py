@@ -14,8 +14,10 @@ in 3D, the stack of K class averages Reference_Round_xxx.mrcs in 2D)
 and the final maps (Reference_Final.mrcs in 2D); in 3D with "Subtract
 Masked Region Reference From Images" and a provided mask, the
 signal-subtracted images Subtract.mrcs and their .thu, Subtract.thu.
-Particles are read by io/loader.py (MRC stacks with the numpy reader,
-8-bit BMP files), so no native library is needed.
+Particles are read by io/loader.py (MRC stacks with the native reader,
+io/native.py, built at first use by the host's C++ compiler, or with
+the numpy reader where there is none; 8-bit BMP files).  The host's
+RSS is logged after every round.
 
 Ranks (thunder_tpu's mesh on torch.distributed, parallel/): with
 ``--num-processes N`` this process is rank ``--process-id`` of N joined
@@ -184,7 +186,7 @@ def main(argv=None) -> int:
     from thunder_tpu_torch.model import SEARCH_TYPE_STOP
     from thunder_tpu_torch.parallel import comm
     from thunder_tpu_torch.parallel.distributed import default_mesh, init_multihost
-    from thunder_tpu_torch.utils.logging import RoundMetrics
+    from thunder_tpu_torch.utils.logging import RoundMetrics, check_memory
 
     world = init_multihost(a.coordinator, a.num_processes, a.process_id, a.device)
     layout = default_mesh(device=a.device) if world > 1 else None
@@ -212,6 +214,7 @@ def main(argv=None) -> int:
                  rec["n_phases"], rec["res_A"], rec["elapsed_s"])
         if lead:
             metrics.write(rec)
+        check_memory(f"round {i}")
         save_round_artifacts(opt, thu, out_dir, i)
         if opt.model.search_type == SEARCH_TYPE_STOP:
             log.info("search finished at round %d", i)

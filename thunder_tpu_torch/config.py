@@ -12,7 +12,7 @@ does not use are ignored.
 from __future__ import annotations
 
 import json
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 
 from thunder_tpu_torch.geometry.symmetry import Symmetry
 
@@ -149,6 +149,12 @@ class ThunderConfig:
                 if key in got:
                     setattr(c, name, got[key])
         return c
+
+    def to_json(self, path: str) -> None:
+        """Every field by its name (thunder_tpu's dump, not the
+        reference's sections: from_json does not read it back)."""
+        with open(path, "w") as f:
+            json.dump(asdict(self), f, indent=2)
 
 
 # section -> {reference key: field}

@@ -34,6 +34,13 @@ def quat_normalize(q: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
                            min=eps)
 
 
+def rotate2d(phi: torch.Tensor) -> torch.Tensor:
+    """(...,) angle -> (..., 2, 2) CCW rotation matrix (Euler.cpp:133-143)."""
+    c, s = torch.cos(phi), torch.sin(phi)
+    return torch.stack([torch.stack([c, -s], dim=-1),
+                        torch.stack([s, c], dim=-1)], dim=-2)
+
+
 def rotate2d_from_unit(v: torch.Tensor) -> torch.Tensor:
     """(..., 2) unit vector (cos, sin) -> (..., 2, 2) in-plane rotation
     (Euler.cpp:125).  A 2D pose is the quaternion (cos phi, sin phi, 0,
@@ -55,6 +62,12 @@ def rotate3d(q: torch.Tensor) -> torch.Tensor:
         torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], -1),
     ]
     return torch.stack(rows, dim=-2)
+
+
+def quat_from_axis_angle(axis: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
+    """Unit axis (..., 3) + angle (...,) -> quaternion (Euler.cpp:102-109)."""
+    half = phi / 2
+    return torch.cat([torch.cos(half)[..., None], torch.sin(half)[..., None] * axis], dim=-1)
 
 
 def quat_from_matrix(m: torch.Tensor) -> torch.Tensor:
@@ -100,6 +113,21 @@ def random_quat(gen: torch.Generator, shape: tuple, device=None
     v = torch.randn(tuple(shape) + (4,), generator=gen, device=device,
                     dtype=REAL)
     return quat_normalize(v)
+
+
+def random_unit2d(gen: torch.Generator, shape: tuple = (), device=None) -> torch.Tensor:
+    """Uniform random points on the unit circle, as (cos, sin) pairs."""
+    phi = torch.rand(tuple(shape), generator=gen, device=device, dtype=REAL) * (2 * math.pi)
+    return torch.stack([torch.cos(phi), torch.sin(phi)], dim=-1)
+
+
+def swing_twist(q: torch.Tensor, axis: torch.Tensor) -> tuple:
+    """Decompose q = swing * twist with twist a rotation about ``axis``
+    (Euler.cpp swingTwist): twist = normalize((w, projection of (x, y, z)
+    on axis)), swing = q * conj(twist)."""
+    proj = torch.sum(q[..., 1:] * axis, dim=-1, keepdim=True) * axis
+    twist = quat_normalize(torch.cat([q[..., :1], proj], dim=-1))
+    return quat_mul(q, quat_conj(twist)), twist
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

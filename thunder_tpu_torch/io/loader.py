@@ -2,17 +2,27 @@
 thunder_tpu.io.loader (Optimiser::initImg's reads, Optimiser.cpp:4608-4680).
 
 Paths are 'NNNN@stack.mrcs' (1-based slice) or plain per-particle
-files; each file is opened once.  MRC stacks go through the numpy
-reader (io/mrc.py, an mmap); 8-bit BMP files through io/bmp.py.  Host
-only.
+files; each file is opened once.  MRC stacks go through the native
+multithreaded reader (io/native.py) when a C++ compiler is found, else
+through the numpy reader (io/mrc.py, an mmap), with the same bits;
+8-bit BMP files through io/bmp.py.  Host only.
 """
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 
+from thunder_tpu_torch.io import native
 from thunder_tpu_torch.io.mrc import MrcFile
 from thunder_tpu_torch.io.thu import ThuTable, parse_stack_ref
+
+log = logging.getLogger("thunder")
+
+# MRC stacks read, by reader: "native" (io/native.py) or "numpy"
+# (io/mrc.py); incremented where a stack is read and nowhere else
+READS = {"native": 0, "numpy": 0}
 
 
 def load_images(thu: ThuTable, prefix: str = "", indices=None) -> np.ndarray:
@@ -31,6 +41,7 @@ def load_images(thu: ThuTable, prefix: str = "", indices=None) -> np.ndarray:
         per_file.setdefault(prefix + fname, []).append(
             (pos, 0 if slc is None else slc - 1))      # @-indexing is 1-based
     out = [None] * sum(len(e) for e in per_file.values())
+    reader = "native" if native.available() else "numpy"
     for path, entries in per_file.items():
         slices = [s for _, s in entries]
         if path.lower().endswith(".bmp"):
@@ -44,7 +55,11 @@ def load_images(thu: ThuTable, prefix: str = "", indices=None) -> np.ndarray:
             img = read_bmp(path)
             imgs = [img] * len(slices)
         else:
-            imgs = MrcFile(path).read_slices(slices)
+            if READS[reader] == 0:
+                log.info("MRC stacks read by the %s reader", reader)
+            imgs = (native.read_mrc_slices_native(path, slices) if reader == "native"
+                    else MrcFile(path).read_slices(slices))
+            READS[reader] += 1
         for (pos, _), img in zip(entries, imgs):
             out[pos] = img
     return np.stack(out)

@@ -64,6 +64,16 @@ class MrcFile:
             return self.cella_x / self.mx
         return 1.0
 
+    @property
+    def n_slices(self) -> int:
+        return self.nz
+
+    def read_slice(self, i: int, shift: bool = True) -> np.ndarray:
+        """Read one image of a stack (reference `path@i` indexing,
+        Optimiser.cpp:4646-4660)."""
+        img = np.asarray(self._data[i], dtype=np.float32)
+        return to_internal(img) if shift else img
+
     def read_slices(self, idx, shift: bool = True) -> np.ndarray:
         imgs = np.asarray(self._data[np.asarray(idx)], dtype=np.float32)
         if shift:

@@ -60,6 +60,10 @@ class ThuTable:
     def __len__(self):
         return len(self.voltage)
 
+    @property
+    def n_groups(self) -> int:
+        return int(self.group_id.max()) if len(self) else 0
+
     def select(self, idx) -> "ThuTable":
         idx = np.asarray(idx)
         return ThuTable(

@@ -187,3 +187,14 @@ def _true_fsc_dev(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor,
 def true_fsc_batch(refs_a, refs_b, mask, gen, n_shells: int) -> torch.Tensor:
     """All classes' true FSC, (K, n, n, n) pairs -> (K, n_shells)."""
     return _true_fsc_dev(refs_a, refs_b, mask, gen, n_shells)
+
+
+def true_fsc(ref_a, ref_b, mask, n_shells: int, gen: torch.Generator) -> np.ndarray:
+    """Randomized-phase-corrected masked FSC ("true FSC",
+    Model.cpp:411-567) of one pair of real-space FFT-layout maps (tensors
+    or numpy, on the generator's device), as (n_shells,) numpy: the
+    plain FSC's 0.8 crossing, phases above it randomised from ``gen``,
+    then (FSC_mask - FSC_rf) / (1 - FSC_rf) beyond crossing + 2."""
+    t = lambda v: torch.as_tensor(v, device=gen.device)
+    return true_fsc_batch(t(ref_a)[None], t(ref_b)[None], t(mask), gen,
+                          n_shells)[0].cpu().numpy()

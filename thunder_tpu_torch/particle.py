@@ -75,6 +75,24 @@ class ParticleState(NamedTuple):
     def map(self, fn) -> "ParticleState":
         return ParticleState(*[fn(f) for f in self])
 
+    @property
+    def n_images(self) -> int:
+        """Images along the last batch axis (a hemisphere's, in a (2, L)
+        state)."""
+        return self.r.shape[-3]
+
+    @property
+    def n_r(self) -> int:
+        return self.r.shape[-2]
+
+    @property
+    def n_t(self) -> int:
+        return self.t.shape[-2]
+
+    @property
+    def n_d(self) -> int:
+        return self.d.shape[-1]
+
 
 def _randn(gen, shape, device):
     return draw(gen, "randn", shape, device)
@@ -431,6 +449,18 @@ def draw_indices(gen: torch.Generator, state: ParticleState, n_draw: int):
     dev = state.r.device
     ri = lambda n: draw(gen, "randint", batch + (n_draw,), dev, n)
     return ri(state.r.shape[-2]), ri(state.t.shape[-2]), ri(state.d.shape[-1])
+
+
+def draw_poses(gen: torch.Generator, state: ParticleState, n_draw: int, draws=None):
+    """``n_draw`` uniform draws from the resampled support for
+    reconstruction insertion (Particle::rand, Particle.cpp:2109-2191),
+    each kept as drawn (draw_poses_compact merges equal ones).
+    ``draws`` injects (ir, it, id).
+
+    Returns quat (*B, n_draw, 4), trans (*B, n_draw, 2), d (*B, n_draw)."""
+    ir, it, idd = draws if draws is not None else draw_indices(gen, state, n_draw)
+    return (_take_rows(state.r, ir.long()), _take_rows(state.t, it.long()),
+            torch.gather(state.d, -1, idd.long()))
 
 
 def draw_poses_compact(gen: torch.Generator, state: ParticleState,

@@ -50,6 +50,20 @@ def wavelength(voltage: torch.Tensor) -> torch.Tensor:
     return CTF_LAMBDA_A / torch.sqrt(voltage * (1 + voltage * CTF_LAMBDA_B))
 
 
+def ctf_1d(f: torch.Tensor, voltage, defocus, cs, amplitude_contrast,
+           phase_shift) -> torch.Tensor:
+    """Isotropic CTF at spatial frequency f [1/angstrom] (CTF.cpp:11-29);
+    the attributes are numbers or tensors that broadcast against f."""
+    t = lambda v: torch.as_tensor(v, dtype=REAL, device=f.device)
+    lam = wavelength(t(voltage))
+    w2 = t(amplitude_contrast)
+    w1 = torch.sqrt(1 - w2 * w2)
+    k1 = np.pi * lam
+    k2 = np.pi / 2 * t(cs) * lam ** 3
+    chi = k1 * t(defocus) * f ** 2 + k2 * f ** 4 - t(phase_shift)
+    return -w1 * torch.sin(chi) + w2 * torch.cos(chi)
+
+
 def ctf_constants(params: CtfParams) -> torch.Tensor:
     """Per-image CTF constants (L, 8): [pi lambda, pi/2 Cs lambda^3, w1,
     w2, defocus_u, defocus_v, defocus_theta, phase_shift], the factors
