@@ -384,6 +384,22 @@ def test_gathers(dev):
         assert torch.equal(fn(*args), plain(*args)), fn.__name__
 
 
+def test_gather_edges(dev):
+    """G1-G4 on the cases that break a vectorised gather
+    (micro/gather.py edge_cases: a tail, index views and outputs off
+    16-byte alignment, indices out of range, G4's lane indices at 0 and
+    127, both sides of each edge of the form rule): the plain version's
+    bits, in two calls, and every form launched."""
+    from thunder_tpu_torch.micro import gather as micro
+
+    seen = micro.check_edges(dev, say=lambda m: None)
+    assert {f for _, f in seen} == set(gather.FORMS) | {""}
+    got = dict(seen)
+    assert got["G2 767 rows of a 512-row table"] == "scalar"
+    assert got["G2 8192 rows of a 512-row table"] == "strip64"
+    assert got[f"G2 1024 rows of a {gather.STRIP_MAX_ROWS + 1}-row table"] == "scalar"
+
+
 def _ctf_fields(dev, n, seed):
     rng = np.random.default_rng(seed)
     defocus = rng.uniform(8000, 20000, n)
@@ -496,10 +512,11 @@ def test_post_refinement_paths(dev):
     the CPU: signal subtraction (HK1 over every pixel of the box from the
     whole padded cube, taps clipped at its faces at the image corners,
     zeroed past the radius) and the B-factor fit (HK4's coordinate form
-    over every cell) of a spectrum with a Gaussian fall-off, B ~ -40 (on
-    white noise the fitted slope is ~0, and the float32 reductions of the
-    fit alone move it by 1e-3 of itself); 1e-4: float32 sums in another
-    order."""
+    over every cell) of a spectrum with a Gaussian fall-off, B ~ -40,
+    within 1e-4 of itself (float32 sums in another order), and of white
+    noise, where B is near 0 and the float32 reductions of the fit alone
+    move it by 1e-3 of itself: within the bound of the fit's own float32
+    error (:func:`_b_factor_tol`)."""
     from thunder_tpu_torch.optimiser import subtract_batch, subtract_table
 
     g = generator(17, dev)
@@ -520,6 +537,35 @@ def test_post_refinement_paths(dev):
     b_dev, b_cpu = (spectrum.b_factor_est(s, 17, 4) for s in (spec, spec.cpu()))
     assert b_cpu < -30
     assert abs(b_dev - b_cpu) <= 1e-4 * abs(b_cpu)
+    # white noise: b near 0, so an absolute tolerance, the fit's own float32 error
+    white = torch.fft.fftshift(torch.fft.fftn(refs[1]))
+    b_dev, b_cpu = (spectrum.b_factor_est(s, 17, 4) for s in (white, white.cpu()))
+    tol = _b_factor_tol(white.cpu(), 17, 4)
+    assert abs(b_cpu) < 1.0 and tol < 0.05
+    assert abs(b_dev - b_cpu) <= tol
+
+
+def _b_factor_tol(ft, r_u: int, r_l: int) -> float:
+    """How far two float32 evaluations of ``spectrum.b_factor_est`` may
+    lie apart, summing in any order: a shell's sum of n positive |F|
+    within (n - 1) u of itself (u = 2^-24), the abs, the mean and the log
+    a few u more, so y_i = log(mean |F|) within d_i = (n_i + 2) u + u |y_i|;
+    the slope S_xy / S_xx moves by sum |w (x - mx)| d_i / S_xx, plus
+    the fit's own sums over N shells, 2 N u sum |w (x - mx) (y - my)|;
+    b = 2 slope, and either side may err by that much."""
+    size = ft.shape[-1]
+    u32 = 2.0 ** -24
+    amp = spectrum.shell_sum(ft.abs(), size, 3, r_u, halfspace=False).double().numpy()
+    cnt = spectrum.shell_count(size, 3, r_u, halfspace=False).double().numpy()
+    y = np.log(np.maximum(amp / np.maximum(cnt, 1.0), 1e-30))
+    x = (np.arange(r_u) / size) ** 2
+    w = (np.arange(r_u) >= r_l).astype(np.float64)
+    mx, my = (w * x).sum() / w.sum(), (w * y).sum() / w.sum()
+    s_xx = (w * (x - mx) ** 2).sum()
+    d = (cnt + 2) * u32 + u32 * np.abs(y)
+    one_side = 2 * ((np.abs(w * (x - mx)) * d).sum()
+                    + 2 * r_u * u32 * np.abs(w * (x - mx) * (y - my)).sum()) / s_xx
+    return float(2 * one_side)
 
 
 @pytest.mark.parametrize("sym,slabs", [("C4", 2), ("C1", 4), ("D2", 3)])

@@ -63,7 +63,7 @@ _SIGNATURES = {
     "thunder_symmetrize_ft": [_P, _I, _I, _I, _P],
     "thunder_likelihood_local_ctf": [_P, _I, _I, _P],
     "thunder_take_flat": [_P, _L, _P, _L, _P, _P],
-    "thunder_take_along": [_P, _I, _P, _P, _L, _I, _I, _P, _P],
+    "thunder_take_along": [_P, _I, _P, _P, _L, _I, _I, _I, _P, _P],
     "thunder_take_rows": [_P, _I, _I, _P, _L, _P, _P],
     "thunder_empty_launch": [_P],
     "thunder_insert_mkb": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P,

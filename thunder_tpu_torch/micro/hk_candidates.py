@@ -1,14 +1,15 @@
 """Candidate designs of HK1 ``project_slices``, HK3 ``insert_trilinear``,
 HK4 ``shell_sums``, HK5 ``project_slices_2d``, HK7 ``symmetrize_ft``, HK8
-``likelihood_local_ctf``, HK10 ``insert_mkb`` and HK13 ``project_brick``
-timed in turns on the card, at the main paths' shapes.
+``likelihood_local_ctf``, HK10 ``insert_mkb``, HK13 ``project_brick`` and
+the gathers G1-G4 timed in turns on the card, at the main paths' shapes.
 
-    python -m thunder_tpu_torch.micro.hk_candidates [--kernels hk4,hk5|hk7,hk8|hk10|hk13] [--big] [--reps N]
+    python -m thunder_tpu_torch.micro.hk_candidates [--kernels hk4,hk5|hk7,hk8|hk10|hk13|gather] [--big] [--reps N]
     python -m thunder_tpu_torch.micro.hk_candidates --lanes [--bricks N]
 
 Builds ``micro/cand/hk1_cand.cu`` and ``hk3_cand.cu``, ``hk4_cand.cu``
 and ``hk5_cand.cu``, ``hk7_cand.cu`` and ``hk8_cand.cu``,
-``hk10_cand.cu`` or ``hk13_cand.cu`` (the designs that were measured before the kernels in
+``hk10_cand.cu``, ``hk13_cand.cu`` or ``gather_cand.cu`` (the designs that
+were measured before the kernels in
 ``csrc/`` were chosen, and instances of those kernels; they are not part
 of the kernel library),
 checks every variant against the plain version, and times the variants
@@ -17,6 +18,10 @@ adds HK1's and HK3's shapes of a 256 px box at its global radius, where
 the tables no longer fit the L2 cache.  HK10's instances print their
 registers and local (spilled) bytes a thread.  Prints one line per
 variant and shape and a last JSON line; needs a CUDA device and nvcc.
+``gather`` times G1-G4's first designs (``gather_cand.cu``) beside each
+form of csrc/gather.cu at micro/gather.py's cases, alone (replayed CUDA
+graphs) in turns, and G2's and G4's forms across batches (G2 also on a
+table of 128 rows) around ``ops/gather.py STRIP_MIN_OUTPUTS``.
 ``--lanes`` needs neither: it counts, from the shapes alone, how busy
 HK10's lanes are and how many samples its warps take at its two shapes
 (random rotations, ``--bricks`` bricks inside the radius and the
@@ -978,11 +983,220 @@ def main_78(dev, gen, reps, results):
     hk8_shape(lib, dev, gen, 78, max(2, reps // 3), results)
 
 
+def build_gather() -> ctypes.CDLL:
+    """nvcc micro/cand/gather_cand.cu (G1-G4's first designs)."""
+    os.makedirs(_native.BUILD_DIR, exist_ok=True)
+    out = os.path.join(_native.BUILD_DIR, "libgather_candidates.so")
+    src = os.path.join(CAND_DIR, "gather_cand.cu")
+    res = subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-shared", "-o", out, src],
+                         capture_output=True, text=True)
+    say(f"build gather_cand.cu: rc {res.returncode}")
+    for line in (res.stdout + res.stderr).splitlines():
+        if res.returncode != 0 or "registers" in line or "spill" in line:
+            say("  " + line.strip()[:200])
+    if res.returncode != 0:
+        raise RuntimeError("the gather candidates did not build")
+    lib = ctypes.CDLL(out)
+    lib.cand_take_flat.argtypes = [_P, _L, _P, _L, _P, _P]
+    lib.cand_take_along.argtypes = [_P, _I, _P, _P, _L, _I, _I, _P, _P]
+    lib.cand_take_flat_variant.argtypes = [_I, _P, _L, _P, _L, _P, _P]
+    lib.cand_take_rows_strip.argtypes = [_I, _I, _I, _P, _I, _P, _L, _I, _P, _P]
+    lib.cand_take_both_cluster.argtypes = [_P, _I, _P, _P, _L, _I, _P, _P]
+    lib.cand_take_flat_cluster.argtypes = [_I, _P, _L, _P, _L, _P, _P]
+    lib.cand_flat_cluster_count.argtypes = [_I]
+    for c in (8, 16):
+        say(f"  G1 clusters of {c} blocks the card holds at once: {lib.cand_flat_cluster_count(c)}")
+    return lib
+
+
+# gather_cand.cu's G1 variants: (tap load, vectors a thread, streaming hints,
+# grid); "policy" = ld.global.nc with an evict-last L2 policy
+FLAT_VARIANTS = {0: "policy, 2 vectors, hints, persistent", 1: "__ldg, 2, hints, persistent",
+                 2: "policy + L1 no_allocate, 2, hints, persistent",
+                 3: "ld.global.cg, 2, hints, persistent", 4: "policy, 1, hints, persistent",
+                 5: "policy, 4, hints, persistent", 6: "policy, 1, hints, a vector a thread",
+                 7: "__ldg, 1, no hints, a vector a thread",
+                 8: "L1 no_allocate, 1, hints, a vector a thread",
+                 9: "policy, 2, no hints, persistent",
+                 10: "policy + L1 no_allocate, 1, hints, a vector a thread",
+                 11: "__ldg, 4, no hints, persistent"}
+# gather_cand.cu's G2 strips: (columns, threads, rows a block)
+STRIP_VARIANTS = ((8, 256, 128), (32, 256, 128), (8, 256, 64), (8, 512, 256))
+
+
+def gather_first(lib, fn):
+    """A call of G1-G4's first design with ``fn``'s arguments."""
+    from thunder_tpu_torch.ops import gather as g
+
+    def flat(t, idx):
+        out = torch.empty(idx.shape, device=t.device)
+        _native.check(lib.cand_take_flat(t.data_ptr(), t.numel(), idx.data_ptr(), idx.numel(),
+                                         out.data_ptr(), _native.stream_ptr(t)), "cand_take_flat")
+        return out
+
+    def along(mode):
+        def call(tab, *idx):
+            ridx = None if mode == 1 else idx[0]
+            lidx = None if mode == 0 else idx[-1]
+            out = torch.empty(idx[0].shape, device=tab.device)
+            _native.check(lib.cand_take_along(
+                tab.data_ptr(), tab.shape[0], None if ridx is None else ridx.data_ptr(),
+                None if lidx is None else lidx.data_ptr(), out.numel(), tab.shape[1], mode,
+                out.data_ptr(), _native.stream_ptr(tab)), "cand_take_along")
+            return out
+        return call
+
+    return {g.take_flat: flat, g.take_along_rows: along(0), g.take_along_lanes: along(1),
+            g.take_along_both: along(2)}[fn]
+
+
+def gather_others(lib, fn) -> dict:
+    """The designs measured beside the redesign (gather_cand.cu), by
+    label, for ``fn``'s arguments."""
+    from thunder_tpu_torch.ops import gather as g
+
+    def flat(v):
+        def call(t, idx):
+            out = torch.empty(idx.shape, device=t.device)
+            _native.check(lib.cand_take_flat_variant(v, t.data_ptr(), t.numel(), idx.data_ptr(),
+                                                     idx.numel(), out.data_ptr(),
+                                                     _native.stream_ptr(t)), "cand_flat")
+            return out
+        return call
+
+    def strip(sw, threads, rows):
+        def call(tab, idx):
+            out = torch.empty(idx.shape, device=tab.device)
+            _native.check(lib.cand_take_rows_strip(
+                sw, threads, rows, tab.data_ptr(), tab.shape[0], idx.data_ptr(), idx.numel(),
+                tab.shape[1], out.data_ptr(), _native.stream_ptr(tab)), "cand_strip")
+            return out
+        return call
+
+    def cluster(tab, ridx, lidx):
+        out = torch.empty(ridx.shape, device=tab.device)
+        _native.check(lib.cand_take_both_cluster(
+            tab.data_ptr(), tab.shape[0], ridx.data_ptr(), lidx.data_ptr(), out.numel(),
+            tab.shape[1], out.data_ptr(), _native.stream_ptr(tab)), "cand_cluster")
+        return out
+
+    def flat_cluster(csize):
+        def call(t, idx):
+            out = torch.empty(idx.shape, device=t.device)
+            _native.check(lib.cand_take_flat_cluster(csize, t.data_ptr(), t.numel(),
+                                                     idx.data_ptr(), idx.numel(), out.data_ptr(),
+                                                     _native.stream_ptr(t)), "cand_flat_cluster")
+            return out
+        return call
+
+    if fn is g.take_flat:
+        return dict({f"v{v}: {d}": flat(v) for v, d in FLAT_VARIANTS.items()},
+                    **{f"clusters of {c}, 128 KiB a block": flat_cluster(c) for c in (8, 16)})
+    if fn is g.take_along_rows:
+        return {f"strip {sw} x {th} threads x {rows} rows": strip(sw, th, rows)
+                for sw, th, rows in STRIP_VARIANTS}
+    if fn is g.take_along_both:
+        return {"cluster of 2, the table in shared memory": cluster}
+    return {}
+
+
+def forced(fn, form: str):
+    """G2-G4's ``fn`` launched in ``form``, in place of along_form's choice."""
+    from thunder_tpu_torch.ops import gather as g
+
+    mode = (g.take_along_rows, g.take_along_lanes, g.take_along_both).index(fn)
+
+    def call(tab, *idx):
+        return g._take_along(fn, mode, tab, None if mode == 1 else idx[0],
+                             None if mode == 0 else idx[-1], form=form)
+    return call
+
+
+def alone_turns(fns: dict, args: list) -> dict:
+    """Each function alone (a replayed CUDA graph of its calls, cycling
+    ``args``), forwards then backwards: name -> [ms, ms]."""
+    from thunder_tpu_torch.micro.launch_floor import graph_ms
+
+    out = {k: [] for k in fns}
+    for keys in (list(fns), list(fns)[::-1]):
+        for k in keys:
+            out[k].append(graph_ms(fns[k], args=args))
+    return out
+
+
+def main_gather(dev, reps, results):
+    """G1-G4: the first designs beside csrc/gather.cu's forms at
+    micro/gather.py's cases (exact against the plain versions; alone and
+    by events, in turns), then G2's and G4's forms across batches."""
+    from thunder_tpu_torch.micro import gather as micro
+    from thunder_tpu_torch.micro.launch_floor import empty_launch_ms
+    from thunder_tpu_torch.ops import gather as g
+
+    lib = build_gather()
+    _native.library()
+    say(f"empty kernel alone {empty_launch_ms():.4f} ms")
+    modes = {g.take_along_rows: 0, g.take_along_lanes: 1, g.take_along_both: 2}
+    for c in micro.build_cases(dev):
+        if c.kernel is g.take_rows:
+            continue
+        fns = {"first design": gather_first(lib, c.kernel)}
+        fns.update(gather_others(lib, c.kernel))
+        if c.kernel is g.take_flat:
+            fns["csrc"] = c.kernel
+        else:
+            tab = c.args[0][0]
+            chosen = g.along_form(modes[c.kernel], tab.shape[0], tab.shape[1],
+                                  c.args[0][-1].numel())
+            for form in g.along_forms(modes[c.kernel], tab.shape[0], tab.shape[1]):
+                fns[form + (" (chosen)" if form == chosen else "")] = forced(c.kernel, form)
+        ref = micro.PLAIN[c.kernel](*c.args[0])
+        for name, fn in fns.items():
+            if not micro.same_bits(fn(*c.args[0]), ref):
+                raise RuntimeError(f"{c.name} {name}: differs from the plain version")
+        del ref
+        bound = sum(x.numel() * x.element_size() for x in c.args[0]) + c.count * 4
+        bound_ms = bound / micro.HBM_BYTES_S * 1e3
+        ms = alone_turns(fns, c.args)
+        ev = turns({k: (lambda f=f: f(*c.args[0])) for k, f in fns.items()}, reps)
+        say(f"{c.name} ({micro.KERNEL_ID[c.kernel]}), bound {bound_ms:.4f} ms: "
+            + "  ".join(f"{k} alone {v[0]:.4f}, {v[1]:.4f} / events {ev[k][0]:.4f}, "
+                        f"{ev[k][1]:.4f}" for k, v in ms.items()))
+        results.append(dict(kernel=micro.KERNEL_ID[c.kernel], shape=c.name, bound_ms=bound_ms,
+                            alone_ms=ms, ms=ev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    for rows in (micro.MOSAIC_ROWS, 128):
+        tab = torch.randn(rows, micro.LANES, generator=gen, device=dev)
+        for b in (1 << 8, 1 << 9, 3 << 8, 1 << 10, 1 << 11, 3 << 10, 1 << 12, 1 << 13, 1 << 14,
+                  1 << 15, 1 << 16, 1 << 17):
+            ri = lambda hi: [micro._ri(gen, 0, hi, (b, micro.LANES), dev) for _ in range(2)]
+            r, l = ri(rows), ri(micro.LANES)
+            sweeps = [(0, g.take_along_rows, [(tab, x) for x in r],
+                       ("scalar", "strip16", "strip64"))]
+            if rows == micro.MOSAIC_ROWS:     # the candidates' shape; G4 has one form
+                sweeps.append((2, g.take_along_both, [(tab, x, y) for x, y in zip(r, l)],
+                               ("row",)))
+            for mode, fn, args, forms in sweeps:
+                fns = {f: forced(fn, f) for f in forms}
+                if rows == micro.MOSAIC_ROWS:
+                    fns.update(gather_others(lib, fn))
+                ref = micro.PLAIN[fn](*args[0])
+                for name, f in fns.items():
+                    if not micro.same_bits(f(*args[0]), ref):
+                        raise RuntimeError(f"G{mode + 2} B={b} {name}: differs from the plain "
+                                           "version")
+                ms = alone_turns(fns, args)
+                say(f"G{mode + 2} {rows} table rows, B={b}: "
+                    + "  ".join(f"{k} alone {v[0]:.4f}, {v[1]:.4f}" for k, v in ms.items()))
+                results.append(dict(kernel=f"G{mode + 2}", shape=f"{rows} rows, B={b}",
+                                    alone_ms=ms))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--big", action="store_true", help="add the 256 px shapes")
     ap.add_argument("--kernels", default="hk1,hk3",
-                    help="hk1,hk3 (the default) and / or hk4,hk5, hk7,hk8, hk10, hk13")
+                    help="hk1,hk3 (the default) and / or hk4,hk5, hk7,hk8, hk10, hk13, gather")
     ap.add_argument("--lanes", action="store_true",
                     help="count HK10's busy lanes from the shapes (no device)")
     ap.add_argument("--bricks", type=int, default=40)
@@ -1018,6 +1232,8 @@ def main(argv=None) -> int:
                    use_d=True)
     if "hk13" in kernels:
         main_hk13(dev, gen, args.reps, results)
+    if "gather" in kernels:
+        main_gather(dev, args.reps, results)
     if kernels & {"hk1", "hk3"}:
         main_13(dev, gen, rng, args, results)
     line = json.dumps({"card": card, "results": results})

@@ -7,10 +7,12 @@ slab form ``insert_sweep_slab`` (at phase 8b's and 8c's shapes) and HK12
 has it, of two checkouts timed in turns on one card, at the shapes
 ``chip_smoke.py`` times.
 
-    python thunder_tpu_torch/micro/kernel_turns.py [--insertion] PARENT_TREE [THIS_TREE]
+    python thunder_tpu_torch/micro/kernel_turns.py [--insertion | --gathers] PARENT_TREE [THIS_TREE]
 
 ``--insertion`` times the insertion kernels alone (HK3, HK10, HK11 and
-its slab form, HK6, HK12).  Runs one process per turn, in the order parent, this, this, parent, each
+its slab form, HK6, HK12); ``--gathers`` G1-G5 alone (replayed CUDA
+graphs) at micro/gather.py's cases, the scripts' shapes and G2-G4 at
+2^17 rows, on inputs made here so that both trees gather the same.  Runs one process per turn, in the order parent, this, this, parent, each
 with its own tree first on the module path (so each builds and loads its
 own kernels), and prints each turn's times and a last JSON line.  A turn
 calls only the kernels' public functions, with the table as that tree's
@@ -184,6 +186,35 @@ def one_turn(insertion_only: bool = False) -> dict:
     return out
 
 
+def turn_gathers() -> dict:
+    """G1-G5 alone at the scripts' shapes and G2-G4 at 2^17 rows, four
+    index sets cycled, through the tree's public wrappers."""
+    import torch
+
+    from thunder_tpu_torch.micro.launch_floor import graph_ms
+    from thunder_tpu_torch.ops import gather as g
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    sets = lambda hi, shape: [torch.randint(0, hi, shape, generator=gen, device=dev,
+                                            dtype=torch.int32) for _ in range(4)]
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    t, tab, src, src_s = randn(1 << 20), randn(512, 128), randn(1024, 128), randn(1 << 17, 128)
+    r, l = sets(512, (1024, 128)), sets(128, (1024, 128))
+    r_s, l_s = sets(512, (1 << 17, 128)), sets(128, (1 << 17, 128))
+    cases = {"G1 f_pallas": (g.take_flat, [(t, i) for i in sets(1 << 20, (1 << 21,))]),
+             "G1 case_d": (g.take_flat, [(tab.reshape(-1), i) for i in sets(1 << 16, (1024, 128))]),
+             "G2 case_a": (g.take_along_rows, [(tab, x) for x in r]),
+             "G3 case_b": (g.take_along_lanes, [(src, x) for x in l]),
+             "G4 case_c": (g.take_along_both, [(tab, x, y) for x, y in zip(r, l)]),
+             "G5 case_e": (g.take_rows, [(tab, x) for x in sets(512, (1024,))]),
+             "G2 2^17 rows": (g.take_along_rows, [(tab, x) for x in r_s]),
+             "G3 2^17 rows": (g.take_along_lanes, [(src_s, x) for x in l_s]),
+             "G4 2^17 rows": (g.take_along_both, [(tab, x, y) for x, y in zip(r_s, l_s)])}
+    return {f"{k} alone": graph_ms(fn, args=args) for k, (fn, args) in cases.items()}
+
+
 def turn_69(dev, gen, rng, timed) -> dict:
     """HK6 and HK12 (the 2D round's 480,000 slices of 10,000 images into
     60 planes at r_u 31, a tenth at r_u 12 and 40) and HK11's slab form
@@ -306,10 +337,11 @@ def turn_78(dev, gen, rng, timed) -> dict:
 
 def main(argv) -> int:
     if argv[1:2] == ["--one"]:
-        print(json.dumps(one_turn(argv[2:] == ["--insertion"])))
+        print(json.dumps(turn_gathers() if argv[2:] == ["--gathers"]
+                         else one_turn(argv[2:] == ["--insertion"])))
         return 0
-    flags = [a for a in argv[1:] if a == "--insertion"]
-    argv = [argv[0]] + [a for a in argv[1:] if a != "--insertion"]
+    flags = [a for a in argv[1:] if a in ("--insertion", "--gathers")][:1]
+    argv = [argv[0]] + [a for a in argv[1:] if a not in ("--insertion", "--gathers")]
     if len(argv) not in (2, 3):
         print(__doc__, file=sys.stderr)
         return 2
