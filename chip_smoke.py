@@ -163,7 +163,26 @@ process of its own beside phases 5a and 5b (host-bound runs that time no
 kernel), through the CLI on files the generator writes on the CPU, held
 to thunder_tpu's committed record (tests/goldens/run_parity/):
 as many rounds, each with its r and search type and its FSC-0.143 shell
-within one.  A local round, a CTF round and a K = 4 round run
+within one.  Phase 10, in a process of its own beside phases 5a and 5b
+(as phases 6 and 9; beside phase 8's groups of rank processes the card's
+memory ran out), drives the host path (the original spectra in
+pinned host memory, optimiser.HostFt, a chunk at a time to the card) and
+the residency plan: 10a runs 5b's data resumed for three rounds
+resident, with one chunk (the resident run bit for bit through the first
+rescale) and with four chunks a hemisphere twice (bit for bit; the
+FSC-0.143 shell within one of the resident run's in every round, res_A
+within 2 A); 10b prints the plan at the card's memory for 100,000 and
+200,000 images of 256 px (the first turns the host path on and fits,
+the second warns) and runs one resumed local round on 1,024 images of
+256 px resident and under a budget just below the resident plan's total
+(the host path on by itself, its device peak at least half the
+originals' stack lower), with the chunk copies' rate.
+``python3 chip_smoke.py --residency-scale [N]`` (not in the default run)
+makes N images of 256 px (default 100,000, fewer where the host's
+memory cannot hold their pinned originals) a chunk at a time as the
+optimiser reads them and runs one resumed local round on the host path
+the plan turns on: its wall time and stages, the device peak against the
+plan's projection and the copies' rate.  A local round, a CTF round and a K = 4 round run
 under torch.profiler.  The runs split HK4's launches by what called it (the
 FSC / FRC, the preprocess spectra, the sigma stage) and the projection
 kernels' by global search, phase loop and sigma pass.  Phases 2 and 4 each run one round (3D round 1, 2D round
@@ -197,9 +216,11 @@ printed.
 
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 SIZE = 128
@@ -375,6 +396,8 @@ SIZE_8C, R_U_8C, N_8C = 320, 150, 512
 # iterations.
 SPREAD_FACTOR_8C = 2
 RANK_TIMEOUT_S = 600
+# MemoryWatch's sampling period, s
+WATCH_S = 0.25
 PATH_KERNELS_8A = ("project_slices", "likelihood_block", "insert_sweep", "shell_sums",
                    "symmetrize_ft")
 # phase 5c: configs/demo.json resumed in local search as in 5b with the
@@ -415,8 +438,25 @@ SWEEP_TAP_OPS, SWEEP_PAIRS_3D, SWEEP_PAIRS_2D = 20, 16, 4
 PARITY_CASES = ("a", "b")
 # the phases that run in processes of their own beside phases 5a and 5b
 # (start_beside): host-bound runs that time no kernel, each keeping a core
-# of the host busy and the card mostly idle, as 5a and 5b do
-BESIDE_5 = ("6",) + tuple(f"9{c}" for c in PARITY_CASES)
+# of the host busy and the card mostly idle, as 5a and 5b do.  Not beside
+# phase 8: its groups of rank processes hold most of the card's memory
+# (phase 10 beside them ran out of it, MemoryWatch)
+BESIDE_5 = ("6",) + tuple(f"9{c}" for c in PARITY_CASES) + ("10",)
+# phase 10, the host path (HostFt) and the residency plan.  10a: 5b's data
+# resumed for ROUNDS_10A rounds resident, with one chunk and with
+# CHUNK_10A images a chunk (four a hemisphere), the last twice; the
+# four-chunk run's FSC-0.143 shell within SHELL_10A of the resident run's
+# in every round (tests/test_torch_host_ft.py's bound) and its final res_A
+# within RES_A_10A (tests/test_host_ft.py:60's bound, an upper limit).
+# 10b: the plan at RESIDENCY_SCALE and twice as many images of SIZE_10B px
+# at the card's memory, then one resumed local round on N_10B synthetic
+# images of SIZE_10B px, resident and with the budget (hbm_gb) just under
+# the resident plan's total
+ROUNDS_10A, CHUNK_10A, SHELL_10A, RES_A_10A = 3, 32, 1, 2.0
+SIZE_10B, N_10B, RESIDENCY_SCALE = 256, 1024, 100_000
+# the records' keys a run must repeat
+RECORD_KEYS_10 = ("round", "r", "search_type", "n_phases", "res_shell", "res_A",
+                  "rot_change_median_deg", "t_vari", "search_type_after", "proj_table")
 # an H100 SXM's published peaks (HBM3 rate, FP32 vector rate), for bounds
 HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
 # why the insertion kernels match their twins to float32 rounding only
@@ -436,8 +476,94 @@ FIXED_CHUNK = 2048
 ALONE_UNDER_MS = 0.15
 
 
+# every process this script starts (start_ranks, start_beside), each the
+# leader of a session of its own: stop_children ends them and whatever
+# they started on every way out of the script (fail, an exception, the
+# end of main, SIGTERM); each child also dies with the script
+# (die_with_parent)
+CHILDREN = []
+
+
+def stop_children() -> None:
+    """SIGKILL every process group the script started and reap its
+    leader."""
+    for p in CHILDREN:
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+        p.wait()
+
+
+def start_child(argv: list, log) -> subprocess.Popen:
+    """Run this script with ``argv`` in a session of its own, its output to
+    ``log``; stop_children ends it."""
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__)] + argv, stdout=log,
+                            stderr=subprocess.STDOUT, start_new_session=True,
+                            env=dict(os.environ, CHIP_SMOKE_PARENT=str(os.getpid())))
+    CHILDREN.append(proc)
+    return proc
+
+
+def die_with_parent() -> None:
+    """In a child of start_child: SIGKILL when the script that started it
+    ends, however it ends (Linux PR_SET_PDEATHSIG); exits at once when the
+    script has ended already."""
+    import ctypes
+
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)
+    if os.getppid() != int(os.environ["CHIP_SMOKE_PARENT"]):
+        sys.exit(1)
+
+
+class MemoryWatch:
+    """The card's memory in use (cudaMemGetInfo: every process's on the
+    card) and the host's MemAvailable, sampled every WATCH_S s on a thread
+    of the script and kept by the phase that was running (``mark``);
+    ``peaks()`` stops it and gives each phase's largest card use and
+    smallest MemAvailable, in GiB."""
+
+    def __init__(self):
+        self.phase, self.by_phase, self.done = "0", {}, threading.Event()
+        self.thread = threading.Thread(target=self.run, daemon=True)
+        self.thread.start()
+
+    def mark(self, phase: str) -> None:
+        self.phase = phase
+
+    def run(self) -> None:
+        import torch
+
+        while not self.done.wait(WATCH_S):
+            free, total = torch.cuda.mem_get_info(0)
+            card, host = self.by_phase.get(self.phase, (0.0, float("inf")))
+            self.by_phase[self.phase] = (max(card, (total - free) / 2 ** 30),
+                                         min(host, meminfo()["MemAvailable"] / 2 ** 30))
+
+    def peaks(self) -> dict:
+        self.done.set()
+        self.thread.join()
+        return {k: dict(card_gib=round(c, 2), host_available_gib=round(h, 2))
+                for k, (c, h) in self.by_phase.items()}
+
+
+# the script's MemoryWatch (main starts it)
+WATCH = None
+
+
+def mark(phase: str) -> None:
+    """The phase that MemoryWatch's next samples fall in."""
+    if WATCH is not None:
+        WATCH.mark(phase)
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    if WATCH is not None:
+        print(f"chip_smoke: the card's memory in use at most, and the host's MemAvailable at "
+              f"least, by phase so far (GiB): {json.dumps(WATCH.peaks())}", file=sys.stderr,
+              flush=True)
+    stop_children()
     sys.exit(1)
 
 
@@ -2903,6 +3029,361 @@ def phase_parity(dev, wrappers, cases=PARITY_CASES):
     return launches
 
 
+def residency_run(cfg_path: str, dev, rounds: int, before=None, **fields) -> dict:
+    """configs/demo.json's resumed run through the CLI's Optimiser with
+    config ``fields`` set (the API: no JSON key names them), ``rounds``
+    rounds (``before(opt)`` called before them): the optimiser, each
+    round's record and both hemispheres' maps, and the wall time."""
+    import torch
+
+    from thunder_tpu_torch.cli.thunder import build_optimiser
+    from thunder_tpu_torch.config import ThunderConfig
+
+    cfg = ThunderConfig.from_json(cfg_path)
+    for k, v in fields.items():
+        setattr(cfg, k, v)
+    t0 = time.time()
+    opt, _ = build_optimiser(cfg, dev)
+    if before is not None:
+        before(opt)
+    recs, maps = [], []
+    for i in range(rounds):
+        recs.append(opt.run_round(i))
+        maps.append(opt.refs_both(report=True))
+    torch.cuda.synchronize()
+    return dict(opt=opt, recs=recs, maps=maps, wall=time.time() - t0)
+
+
+def same_rounds(a: dict, b: dict, rounds) -> bool:
+    """Whether two runs wrote the same records (RECORD_KEYS_10) and maps
+    bit for bit in ``rounds``."""
+    import numpy as np
+
+    return all([a["recs"][i].get(k) for k in RECORD_KEYS_10]
+               == [b["recs"][i].get(k) for k in RECORD_KEYS_10]
+               and np.array_equal(a["maps"][i].view(np.int32), b["maps"][i].view(np.int32))
+               for i in rounds)
+
+
+def plan_at(opt, n_images: int, size: int, **fields) -> dict:
+    """The residency plan of ``opt``'s configuration and layout at another
+    scale: ``n_images`` of ``size`` px over its two hemispheres, without
+    building their stacks."""
+    import copy
+    import dataclasses
+
+    o = copy.copy(opt)
+    o.cfg = dataclasses.replace(opt.cfg, size=size, host_ft_ori=False, **fields)
+    o.n_img = n_images // 2
+    return o._plan_residency()
+
+
+def copy_line(store, wall_s: float) -> str:
+    """A HostFt's copies since its reset: count, GiB, GB/s on the side
+    stream and the share of ``wall_s`` they took."""
+    st = store.copy_stats()
+    gbps = st["bytes"] / max(st["ms"], 1e-9) / 1e6
+    return (f"{st['copies']} copies, {st['bytes'] / 2 ** 30:.3f} GiB in {st['ms']:.1f} ms "
+            f"on the side stream: {gbps:.2f} GB/s, {st['ms'] / 1e3 / wall_s:.4f} of the "
+            f"round's {wall_s:.3f} s")
+
+
+def phase_residency(dev) -> dict:
+    """Phase 10: the host path (HostFt) and the residency plan, in a
+    process of its own beside phases 5a and 5b.  10a: 5b's data
+    resumed for ROUNDS_10A rounds resident, with one chunk and with
+    CHUNK_10A images a chunk, twice.  Gates: the one-chunk run's records
+    and maps are the resident run's bit for bit through the round of the
+    first rescale (round 1: x (1 s) is x s; from the second rescale on
+    (x s1) s2 and x (s1 s2) may part by rounding) and it finishes its
+    rounds; the two four-chunk runs write the same bits; their FSC-0.143
+    shell lies within SHELL_10A of the resident run's in every round and
+    their final res_A within RES_A_10A of it; the originals stayed on the host,
+    pinned.  10b: the plan at the card's memory turns the host path on
+    by itself for RESIDENCY_SCALE images of SIZE_10B px and fits, and
+    warns at twice as many; one resumed local round on N_10B images of
+    SIZE_10B px resident, then with hbm_gb just under the resident plan's
+    total (the plan turns the host path on by itself): the host run's
+    peak device memory lies at least half the originals' stack below the
+    resident run's.  Returns what it printed, for the result file."""
+    import torch
+
+    from thunder_tpu_torch.optimiser import HostFt
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_residency_") as tmp:
+        cfg_path, _ = demo_160(tmp, dev, "demo.json", 1, ROUNDS_10A, LOCAL_START_RES_A,
+                               local_resume=True, defocus_factor=DEFOCUS_FACTOR)
+        host = dict(host_ft_ori=True)
+        runs = {}
+        for label, fields in (("resident", {}), ("one chunk", dict(host, host_ft_chunk=10 ** 6)),
+                              ("four chunks", dict(host, host_ft_chunk=CHUNK_10A)),
+                              ("four chunks again", dict(host, host_ft_chunk=CHUNK_10A))):
+            run = runs[label] = residency_run(cfg_path, dev, ROUNDS_10A, **fields)
+            # each run's optimiser goes once it is checked: the records and
+            # maps are what the gates compare
+            opt = run.pop("opt")
+            chunks = len(opt._ft_chunks())
+            say(f"  10a {label} ({chunks} chunk{'s' if chunks > 1 else ''} a stage, "
+                f"{run['wall']:.1f} s): " + "; ".join(
+                    f"round {r['round']} r={r['r']} phases={r['n_phases']} "
+                    f"res={r['res_A']:.3f} A shell {r['res_shell']}" for r in run["recs"]))
+            store = opt.data.ft_ori
+            if fields and not isinstance(store, HostFt):
+                fail(f"10a {label}: host_ft_ori=True did not put the originals in a HostFt")
+            if fields and (store.data.device.type != "cpu" or not store.data.is_pinned()):
+                fail(f"10a {label}: the HostFt's store lies on {store.data.device}, pinned "
+                     f"{store.data.is_pinned()}: expected pinned host memory")
+            shape = tuple(store.shape)
+            del opt, store
+            torch.cuda.empty_cache()
+        res, one, four = runs["resident"], runs["one chunk"], runs["four chunks"]
+        # round 0 of a resumed run does no norm correction: round 1 is the first rescale
+        if not same_rounds(res, one, range(2)):
+            fail("10a: the one-chunk host run differs from the resident run by round 1")
+        later = same_rounds(res, one, range(2, ROUNDS_10A))
+        say(f"  10a: one chunk = resident bit for bit through round 1 (the first rescale); "
+            f"after the second rescale {'still bit for bit' if later else 'apart by rounding'}")
+        if not same_rounds(four, runs["four chunks again"], range(ROUNDS_10A)):
+            fail("10a: the four-chunk host run differs from its rerun")
+        gap = abs(four["recs"][-1]["res_A"] - res["recs"][-1]["res_A"])
+        shells = [abs(a["res_shell"] - b["res_shell"]) for a, b in zip(four["recs"], res["recs"])]
+        say(f"  10a: the four-chunk run repeats bit for bit; its FSC-0.143 shells "
+            f"{shells} from the resident run's by round (bound {SHELL_10A}); its final res_A "
+            f"{four['recs'][-1]['res_A']:.3f} A against the resident "
+            f"{res['recs'][-1]['res_A']:.3f} A ({gap:.3f} apart, bound {RES_A_10A}); "
+            f"originals pinned on the host ({shape})")
+        if len(shells) != ROUNDS_10A or max(shells) > SHELL_10A:
+            fail(f"10a: the four-chunk run's shells lie {shells} from the resident run's")
+        if not gap <= RES_A_10A:
+            fail(f"10a: the four-chunk run's res_A is {gap:.3f} A from the resident run's")
+        out["10a"] = {k: [(r["res_A"], r["res_shell"]) for r in v["recs"]]
+                      for k, v in runs.items()}
+        runs.clear()
+        del res, one, four
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_residency_b_") as tmp:
+        out["10b"] = residency_round(tmp, dev)
+    return out
+
+
+def residency_round(tmp: str, dev) -> dict:
+    """Phase 10b (see phase_residency)."""
+    import torch
+
+    from thunder_tpu_torch.io.mrc import read_mrc, write_mrc
+    from thunder_tpu_torch.optimiser import HostFt
+    from thunder_tpu_torch.pipeline.synthetic import write_demo
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    write_demo(tmp, n=N_10B, size=SIZE_10B, snr=SNR_R, seed=0, device=dev, k=1, kind="sharp",
+               sym="C4")
+    truth, _ = read_mrc(os.path.join(tmp, "init_model.mrc"))
+    write_mrc(os.path.join(tmp, "start_model.mrc"),
+              low_pass(truth, SIZE_10B * PIXEL_SIZE / LOCAL_START_RES_A), PIXEL_SIZE)
+    with open(os.path.join(here, "configs", "demo.json")) as f:
+        cfg = json.load(f)
+    cfg["Basic"].update({
+        "Size of Image": SIZE_10B, "Global Search": False,
+        "Initial Model": os.path.join(tmp, "start_model.mrc"),
+        ".thu File Storing Paths and CTFs of Images": os.path.join(tmp, "particles_local.thu"),
+        "Path of Particles": tmp + "/", "Path of Output": os.path.join(tmp, "output") + "/"})
+    cfg["Advanced"]["Max Number of Iteration"] = 1
+    cfg_path = os.path.join(tmp, "demo.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f, indent=2)
+    say(f"  10b: {N_10B} x {SIZE_10B} px sharp C4 images written in {time.time() - t0:.1f} s")
+
+    got = {}
+    for label in ("resident", "host"):
+        fields = {} if label == "resident" else dict(hbm_gb=0.999 * got["resident"]["total_gb"])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # the host run's copies are timed from its round on
+        time_copies = None if label == "resident" else (lambda o: o.data.ft_ori.reset_copies())
+        run = residency_run(cfg_path, dev, 1, time_copies, **fields)
+        opt, rec = run["opt"], run["recs"][0]
+        plan = opt.residency_plan
+        got[label] = dict(total_gb=plan["total_gb"],
+                          peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                          ft_ori_gb=plan["per_device_gb"]["ft_ori"], round_s=rec["elapsed_s"],
+                          stage_ms=rec.get("stage_ms"), plan=plan)
+        say(f"  10b {label}: plan {json.dumps(plan)}")
+        say(f"  10b {label}: round 0 r={rec['r']} phases={rec['n_phases']} "
+            f"res={rec['res_A']:.3f} A {rec['elapsed_s']:.3f} s stage_ms={json.dumps(rec.get('stage_ms'))}; "
+            f"projected {plan['total_gb']:.3f} GiB, device peak {got[label]['peak_gb']:.3f} GiB")
+        if label == "resident":
+            if isinstance(opt.data.ft_ori, HostFt) or plan.get("auto"):
+                fail("10b: the resident run's plan turned the host path on")
+            for n, fits in ((RESIDENCY_SCALE, True), (2 * RESIDENCY_SCALE, False)):
+                p = plan_at(opt, n, SIZE_10B)
+                say(f"  10b: the plan at the card's memory for {n} x {SIZE_10B} px: "
+                    f"{json.dumps(p)}")
+                if p.get("auto") != "host_ft_ori" or ("warning" not in p) != fits:
+                    fail(f"10b: the plan for {n} images " + (
+                        "did not turn the host path on or warned" if fits
+                        else "did not warn"))
+                got[f"plan_{n}"] = p
+        else:
+            if plan.get("auto") != "host_ft_ori" or not isinstance(opt.data.ft_ori, HostFt):
+                fail("10b: a budget under the resident plan's total did not turn the host "
+                     "path on")
+            line = copy_line(opt.data.ft_ori, rec["elapsed_s"])
+            got["copies"] = line
+            say(f"  10b host: chunk copies {line}")
+        del run, opt
+    lower = got["resident"]["peak_gb"] - got["host"]["peak_gb"]
+    say(f"  10b: the host run's device peak {got['host']['peak_gb']:.3f} GiB against the "
+        f"resident run's {got['resident']['peak_gb']:.3f} GiB: {lower:.3f} GiB lower, the "
+        f"originals' stack {got['resident']['ft_ori_gb']:.3f} GiB")
+    if not lower >= 0.5 * got["resident"]["ft_ori_gb"]:
+        fail("10b: the host run's peak is not half the originals' stack below the resident "
+             "run's")
+    return got
+
+
+def meminfo() -> dict:
+    """/proc/meminfo's fields in bytes."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            name, rest = line.split(":", 1)
+            out[name] = int(rest.split()[0]) * 1024
+    return out
+
+
+def residency_scale(n_req: int) -> None:
+    """``python3 chip_smoke.py --residency-scale [N]``: N synthetic images
+    of SIZE_10B px (default RESIDENCY_SCALE; fewer where the host cannot
+    hold their pinned originals, said so) made a chunk at a time as the
+    optimiser reads them, one local round resumed from blurred true
+    poses with the plan at the card's memory.  Prints the plan (which
+    must turn the host path on by itself), the set-up's and the round's
+    wall time and stages, the device peak against the plan's projection
+    and the chunk copies' rate; a round past 30 minutes is stopped and
+    the stages it reached printed."""
+    import signal
+    import types
+
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch import optimiser as topt
+    from thunder_tpu_torch.config import ThunderConfig
+    from thunder_tpu_torch.geometry.quaternion import random_quat, rotate3d
+    from thunder_tpu_torch.ops.fourier import ifft2_centered, translate_ft
+    from thunder_tpu_torch.ops.projector import prepare_projectee_3d, project_full_3d
+    from thunder_tpu_torch.physics.ctf import ctf_image, ctf_params
+    from thunder_tpu_torch.pipeline.synthetic import (POSE_BLUR_DEG, TRANS_BLUR, _ctf_columns,
+                                                      blur_poses, phantom)
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device visible")
+    dev = torch.device("cuda:0")
+    say(card_line())
+    size, per_img = SIZE_10B, SIZE_10B ** 2 * 8
+    mem = meminfo()
+    say(f"host memory: MemTotal {mem['MemTotal'] / 2 ** 30:.1f} GiB, MemAvailable "
+        f"{mem['MemAvailable'] / 2 ** 30:.1f} GiB; the pinned originals take "
+        f"{per_img / 2 ** 20:.3f} MiB an image")
+    # the store, and 8 GiB for the process, a chunk's images and the rest
+    n_fit = int((mem["MemAvailable"] - 8 * 2 ** 30) // per_img) // 2 * 2
+    n = min(n_req, n_fit)
+    if n < n_req:
+        say(f"the host holds {n} images' originals, not {n_req}: running {n}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    rng = np.random.default_rng(0)
+    t0 = time.time()
+    vol = phantom(size, rng, "sharp", "C4")
+    quats = random_quat(gen, (n,), dev)
+    trans = torch.as_tensor(rng.uniform(-3.0, 3.0, (n, 2)), dtype=torch.float32, device=dev)
+    ctf = _ctf_columns(n, rng)
+    proj = prepare_projectee_3d(torch.as_tensor(vol, device=dev), 2)
+    ctf_dev = ctf_params(*ctf, device=dev)
+    made = [0, 0.0]
+
+    def loader(ids):
+        """Images ``ids`` (CTF-modulated projections at SNR_R with unit
+        noise), made on the card as the optimiser asks for them."""
+        t1 = time.time()
+        i = torch.as_tensor(np.asarray(ids), device=dev)
+        ft = translate_ft(project_full_3d(proj, rotate3d(quats[i])), trans[i])
+        ft = ft * ctf_image(ctf_dev.map(lambda a: a[i]), size, PIXEL_SIZE)
+        im = ifft2_centered(ft)
+        g = torch.Generator(device=dev)
+        g.manual_seed(int(ids[0]))
+        noise = torch.randn(im.shape, generator=g, device=dev)
+        im = im * (SNR_R / torch.clamp(im.std(dim=(1, 2), keepdim=True), min=1e-9)) + noise
+        made[0] += len(ids)
+        made[1] += time.time() - t1
+        return im.cpu().numpy()
+
+    q, t, conc = blur_poses(quats.cpu().numpy(), trans.cpu().numpy(), POSE_BLUR_DEG,
+                            TRANS_BLUR, rng)
+    resume = types.SimpleNamespace(
+        quat=q, trans=t, std_trans=np.full((n, 2), max(TRANS_BLUR, 0.1)),
+        k1=np.full(n, conc), k2=np.full(n, conc), k3=np.full(n, conc),
+        defocus_factor=np.ones(n), std_defocus_factor=np.zeros(n),
+        class_id=np.zeros(n, np.int64))
+    cfg = ThunderConfig.from_json(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                               "configs", "demo.json"))
+    cfg.size, cfg.g_search = size, False
+    start = low_pass(vol, size * PIXEL_SIZE / LOCAL_START_RES_A)
+    say(f"data: {n} x {size} px poses, CTFs and the phantom in {time.time() - t0:.1f} s")
+    os.environ["THUNDER_STAGE_TIMING"] = "1"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    opt = topt.Optimiser(cfg, None, ctf, np.zeros(n, np.int64), init_refs=start,
+                         resume_thu=resume, device=dev, image_loader=loader)
+    torch.cuda.synchronize()
+    plan = opt.residency_plan
+    say(f"set-up (images made and preprocessed a chunk at a time, the originals to the "
+        f"host): {time.time() - t0:.1f} s, of which making the images {made[1]:.1f} s; "
+        f"device peak {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    say(f"plan: {json.dumps(plan)}")
+    if plan.get("auto") != "host_ft_ori" or not isinstance(opt.data.ft_ori, topt.HostFt):
+        fail("the plan did not turn the host path on by itself")
+    del proj
+    store = opt.data.ft_ori
+    store.reset_copies()
+    begin = topt._Stages.begin
+    t_round = [time.time()]
+
+    def begin_said(self, name):
+        begin(self, name)
+        say(f"  [{time.time() - t_round[0]:.1f} s] stage {name}")
+
+    topt._Stages.begin = begin_said
+
+    def stop(*_):
+        raise TimeoutError("the round ran past 30 minutes")
+
+    signal.signal(signal.SIGALRM, stop)
+    signal.alarm(1800)
+    torch.cuda.reset_peak_memory_stats()
+    t_round[0] = time.time()
+    try:
+        rec = opt.run_round(0)
+    except TimeoutError as e:
+        say(f"stopped: {e}")
+        fail("the round did not finish in 30 minutes")
+    signal.alarm(0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"round 0: {rec['elapsed_s']:.1f} s, r={rec['r']} phases={rec['n_phases']} "
+        f"res={rec['res_A']:.3f} A, stage_ms={json.dumps(rec.get('stage_ms'))}")
+    say(f"device peak in the round {peak:.3f} GiB against the plan's projection "
+        f"{plan['total_gb']:.3f} GiB (budget {plan['budget_gb']:.3f} GiB)")
+    say(f"chunk copies: {copy_line(store, rec['elapsed_s'])}")
+    say(json.dumps({"residency_scale": dict(
+        n=n, n_requested=n_req, plan=plan, round_s=rec["elapsed_s"],
+        stage_ms=rec.get("stage_ms"), peak_gb=peak, copies=store.copy_stats())}))
+
+
 def phase_classify_3d(dev, wrappers):
     """configs/demo_3D.json's classification (K = 4, C4) for ROUNDS_3D
     rounds on two sharp C4 species, round PROFILE_K4 under the profiler."""
@@ -3486,7 +3967,6 @@ def start_ranks(jobs: list) -> tuple:
     """Start run_ranks_together's processes; join_ranks waits for them."""
     from thunder_tpu_torch.cli.thunder import free_port
 
-    here = os.path.dirname(os.path.abspath(__file__))
     procs, logs = [], []
     for kind, spec, world in jobs:
         spec_path = os.path.join(spec["dir"], f"{spec['tag']}.json")
@@ -3495,37 +3975,42 @@ def start_ranks(jobs: list) -> tuple:
         port = free_port()
         for r in range(world):
             logs.append(open(os.path.join(spec["dir"], f"{spec['tag']}_rank{r}.log"), "w"))
-            procs.append((spec, r, subprocess.Popen(
-                [sys.executable, os.path.join(here, "chip_smoke.py"), "--rank", kind, spec_path,
-                 str(r), str(world), str(port)], stdout=logs[-1], stderr=subprocess.STDOUT)))
+            procs.append((spec, r, start_child(["--rank", kind, spec_path, str(r), str(world),
+                                                str(port)], logs[-1])))
     return jobs, procs, logs, time.time()
 
 
 def join_ranks(started: tuple) -> list:
-    """Wait for start_ranks' processes; see run_ranks_together."""
+    """Wait for start_ranks' processes; see run_ranks_together.  Every
+    process is polled each time, so the rank that failed first is named
+    first (its peers then fail in their collectives)."""
     jobs, procs, logs, t0 = started
-    bad = None
-    while bad is None and any(p.poll() is None for _, _, p in procs):
-        bad = next((i for i, (_, _, p) in enumerate(procs) if p.returncode not in (None, 0)),
-                   None)
-        if time.time() - t0 > RANK_TIMEOUT_S:
-            bad = -1
+    failed, late = [], False
+    while not failed and any(p.poll() is None for _, _, p in procs):
+        for i, (_, _, p) in enumerate(procs):
+            if p.poll() not in (None, 0):
+                failed.append(i)
+        late = time.time() - t0 > RANK_TIMEOUT_S
+        if late:
+            break
         time.sleep(0.2)
     for _, _, p in procs:
         if p.poll() is None:
-            p.kill()
+            os.killpg(p.pid, signal.SIGKILL)
         p.wait()
     for f in logs:
         f.close()
-    bad = bad if bad is not None else next((i for i, (_, _, p) in enumerate(procs)
-                                            if p.returncode), None)
-    if bad is not None:
-        spec, r, p = procs[max(bad, 0)]
-        with open(os.path.join(spec["dir"], f"{spec['tag']}_rank{r}.log")) as f:
-            tail = f.read()[-4000:]
-        fail(f"phase 8 {spec['tag']}: " + (f"ranks still running after {RANK_TIMEOUT_S} s"
-                                           if bad < 0 else f"rank {r} exited {p.returncode}")
-             + f"; its log ends:\n{tail}")
+    failed += [i for i, (_, _, p) in enumerate(procs) if p.returncode and i not in failed]
+    if failed or late:
+        say_tails = []
+        for n, i in enumerate(failed or range(len(procs))):
+            spec, r, p = procs[i]
+            with open(os.path.join(spec["dir"], f"{spec['tag']}_rank{r}.log")) as f:
+                tail = f.read()[-(4000 if n == 0 else 1500):]
+            say_tails.append(f"{spec['tag']} rank {r} exited {p.returncode}; its log ends:\n"
+                             f"{tail}")
+        fail(f"phase 8: " + (f"ranks still running after {RANK_TIMEOUT_S} s; "
+                              if late else "") + "\n".join(say_tails[::-1]))
     out = []
     for _, spec, world in jobs:
         out.append([])
@@ -3536,23 +4021,21 @@ def join_ranks(started: tuple) -> list:
 
 
 def start_beside(names: tuple) -> tuple:
-    """Start each of the phases ``names`` (BESIDE_5) in a process of this
-    script (run with --beside NAME DIR); join_beside waits for them."""
-    here = os.path.dirname(os.path.abspath(__file__))
+    """Start each of the phases ``names`` (BESIDE_5) in a
+    process of this script (run with --beside NAME DIR); join_beside
+    waits for them."""
     started = []
     for name in names:
         tmp = tempfile.mkdtemp(prefix=f"chip_smoke_beside_{name}_")
         log = open(os.path.join(tmp, "phase.log"), "w")
-        proc = subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"), "--beside",
-                                 name, tmp], stdout=log, stderr=subprocess.STDOUT)
-        started.append((name, proc, log, tmp))
+        started.append((name, start_child(["--beside", name, tmp], log), log, tmp))
     return started, time.time()
 
 
-def join_beside(started: tuple) -> dict:
+def join_beside(started: tuple, where: str) -> dict:
     """Wait for start_beside's processes (RANK_TIMEOUT_S at most from their
-    start), print their output, fail when one failed; returns each
-    phase's result (beside_entry) by name."""
+    start; they ran beside ``where``), print their output, fail when one
+    failed; returns each phase's result (beside_entry) by name."""
     import shutil
 
     procs, t0 = started
@@ -3561,13 +4044,13 @@ def join_beside(started: tuple) -> dict:
         try:
             rc = proc.wait(timeout=max(1.0, RANK_TIMEOUT_S - (time.time() - t0)))
         except subprocess.TimeoutExpired:
-            proc.kill()
+            os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
             rc = None
         log.close()
         with open(os.path.join(tmp, "phase.log")) as f:
             text = f.read()
-        say(f"  phase {name} (its own process, beside phases 5a and 5b): done "
+        say(f"  phase {name} (its own process, beside {where}): done "
             f"{time.time() - t0:.1f} s after its start")
         for line in text.splitlines():
             if line.startswith("  "):
@@ -3583,11 +4066,11 @@ def join_beside(started: tuple) -> dict:
 
 
 def beside_entry(name: str, tmp: str) -> None:
-    """A phase of BESIDE_5 in its own process: phase 6
-    (phase_classify_3d, its launches and profile) or one case of phase 9
+    """A phase in its own process (start_beside): phase 6
+    (phase_classify_3d, its launches and profile), one case of phase 9
     ("9" and the case: phase_parity, its launches), every kernel's count
-    set to 0 before its run and read after; the result written beside
-    its log."""
+    set to 0 before its run and read after, or phase 10 (phase_residency,
+    what it printed); the result written beside its log."""
     import torch
 
     dev = torch.device("cuda:0")
@@ -3597,6 +4080,8 @@ def beside_entry(name: str, tmp: str) -> None:
                 "symmetrize_ft", "likelihood_local_ctf", "project_brick")
         launches, prof = phase_classify_3d(dev, {n: wrappers[n] for n in keep})
         result = dict(launches=launches, profile=prof)
+    elif name == "10":
+        result = phase_residency(dev)
     else:
         result = dict(launches=phase_parity(dev, wrappers, (name[1:],)))
     with open(os.path.join(tmp, "result.json"), "w") as f:
@@ -3897,7 +4382,7 @@ def tight_ranks(ranks: list, want: list) -> dict:
     return launches
 
 
-def phase_ranks(dev, wrappers, want_tight: list):
+def phase_ranks(dev, wrappers, want_tight: list) -> tuple:
     """Phase 8: ranks on the one card, sharing it over gloo.  8a the CLI
     on 1, 2 and 4 ranks (configs/demo.json resumed in local search on
     phase 7's data, ROUNDS_8 rounds): each rank loads only its rows, rank
@@ -3969,6 +4454,7 @@ def phase_ranks(dev, wrappers, want_tight: list):
                 f"{time.time() - t_group:.1f} s (processes included)")
 
         group = [f"cli{w}" for w in RANKS_8]
+        mark("8 " + "+".join(group))
         started = start_ranks([jobs[t] for t in group])
         # 8b's draws, beside 8a's ranks
         cfg = ThunderConfig.from_json(cfg_path)
@@ -3989,6 +4475,7 @@ def phase_ranks(dev, wrappers, want_tight: list):
         # 8a's 2 ranks again, 8d and 8b's 4 ranks, beside 8b's one-process
         # work; then 8b's 4 ranks again from the same draws
         group, t_group = ["cli2_again", "tight", "slab_round"], time.time()
+        mark("8 " + "+".join(group))
         started = start_ranks([jobs[t] for t in group])
         # 8b: one process and 4 ranks from the same draws
         torch.cuda.synchronize()
@@ -4072,7 +4559,9 @@ def phase_ranks(dev, wrappers, want_tight: list):
         del f_slab, t_slab, maps_slab_ulp, maps_slab_fft
         collect(group, started)
         group, t_group = ["slab_round_again"], time.time()
+        mark("8 slab_round_again")
         collect(group, start_ranks([jobs["slab_round_again"]]))
+        mark("8 after the groups")
         res = {}
         for world in RANKS_8:
             out = os.path.join(tmp, f"out_{world}")
@@ -4410,6 +4899,8 @@ def main() -> None:
 
     dev = torch.device("cuda:0")
     t_start = time.time()
+    global WATCH
+    WATCH = MemoryWatch()
     card = card_line()
     say(card)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -4436,12 +4927,15 @@ def main() -> None:
     say(f"  an empty kernel, launched the same way and replayed as a CUDA graph: "
         f"{floor_ms:.4f} ms a launch (the floor under every kernel_alone_ms below)")
 
+    mark("1")
     say(f"[{time.time() - t_start:.1f} s] phase 1: 3D kernels against their plain versions")
     results = phase_kernels(dev)
     torch.cuda.synchronize()
+    mark("1b")
     say(f"[{time.time() - t_start:.1f} s] phase 1b: 2D kernels against their plain versions")
     results_2d = phase_kernels_2d(dev)
     torch.cuda.synchronize()
+    mark("1c")
     say(f"[{time.time() - t_start:.1f} s] phase 1c: HK7, HK8 and the K = 4 shapes against "
         "their plain versions")
     results_r = phase_kernels_refine(dev)
@@ -4449,10 +4943,12 @@ def main() -> None:
 
     wrappers = {"project_slices": project_slices, "likelihood_block": likelihood_block,
                 "insert_sweep": insert_sweep, "shell_sums": shell_sums}
+    mark("2")
     say(f"[{time.time() - t_start:.1f} s] phase 2: 3D refinement")
     launches, _, prof_3d = phase_slice(dev, wrappers)
     torch.cuda.synchronize()
 
+    mark("3")
     say(f"[{time.time() - t_start:.1f} s] phase 3: gather microbenchmark (G1-G5, exact against plain)")
     g_recs, g_launches = phase_gather(dev, gather.KERNELS)
     zero = [n for n, c in g_launches.items() if c <= 0]
@@ -4462,37 +4958,45 @@ def main() -> None:
     wrappers_2d = {"project_slices_2d": project_slices_2d,
                    "insert_sweep_2d": insert_sweep_2d,
                    "likelihood_block": likelihood_block, "shell_sums": shell_sums}
+    mark("4")
     say(f"[{time.time() - t_start:.1f} s] phase 4: 2D classification")
     launches_2d, _, prof_2d = phase_slice_2d(dev, wrappers_2d)
     torch.cuda.synchronize()
 
     wrappers_r = dict(wrappers, symmetrize_ft=symmetrize_ft,
                       likelihood_local_ctf=likelihood_local_ctf, project_brick=project_brick)
-    say(f"[{time.time() - t_start:.1f} s] phase 6 (3D classification, configs/demo_3D.json) "
-        f"and phase 9 (whole runs against thunder_tpu's records, run_parity cases "
-        f"{', '.join(PARITY_CASES)}), each in a process of its own beside phases 5a and 5b")
+    say(f"[{time.time() - t_start:.1f} s] phase 6 (3D classification, configs/demo_3D.json), "
+        f"phase 9 (whole runs against thunder_tpu's records, run_parity cases "
+        f"{', '.join(PARITY_CASES)}) and phase 10 (the host path and the residency plan), "
+        "each in a process of its own beside phases 5a and 5b")
     beside = start_beside(BESIDE_5)
+    mark("5a")
     say(f"[{time.time() - t_start:.1f} s] phase 5a: refinement as shipped (configs/demo.json)")
     launches_a, prof_a = phase_refine_a(dev, wrappers_r)
+    mark("5b")
     say(f"[{time.time() - t_start:.1f} s] phase 5b: the same, resumed in local search")
     launches_b, prof_b = phase_refine_b(dev, wrappers_r)
-    beside = join_beside(beside)
+    beside = join_beside(beside, "phases 5a and 5b")
     launches_k4, prof_k4 = beside["6"]["launches"], beside["6"]["profile"]
     launches_parity = {}
-    for name in BESIDE_5[1:]:
+    for name in (n for n in BESIDE_5 if n.startswith("9")):
         for n, c in beside[name]["launches"].items():
             launches_parity[n] = launches_parity.get(n, 0) + c
+    mark("5c")
     say(f"[{time.time() - t_start:.1f} s] phase 5c: the same resumed run with the MKB "
         "insertion option (reco_kernel mkb, HK10)")
     launches_mkb = phase_refine_mkb(dev, dict(wrappers_r, insert_mkb=insert_mkb))
+    mark("5d")
     say(f"[{time.time() - t_start:.1f} s] phase 5d: HK13 (brick-window projection) at the local "
         "phase shapes, and the table plan: 5b's data resumed with tight clouds, routed")
     rec_hk13, launches_tight, recs_tight = phase_refine_tight(dev, wrappers_r)
+    mark("7")
     say(f"[{time.time() - t_start:.1f} s] phase 7: the post-refinement paths (genmask, "
         "subtraction, reconstruct, postprocess, project, tools, STAR)")
     launches_post, results_post, walls_post = phase_post(
         dev, dict(wrappers_r, insert_trilinear=insert_trilinear))
     torch.cuda.synchronize()
+    mark("8")
     say(f"[{time.time() - t_start:.1f} s] phase 8: ranks sharing the card over gloo (the CLI "
         "on 1, 2 and 4 ranks; 5d's routed rounds on 2 ranks, 8d; the slab path, HK11's slab "
         "form, at the demo's grid and at a 320 px box's)")
@@ -4617,7 +5121,10 @@ def main() -> None:
                                    library_alone_ms=c["library_alone_ms"],
                                    bound_ms=c["bound_ms"], share=c["share"],
                                    share_events=c["share_events"]) for c in cases}))
+    mark("end")
     say(f"[{time.time() - t_start:.1f} s] done")
+    say(f"  the card's memory in use (every process) at most, and the host's MemAvailable "
+        f"at least, by phase (GiB, sampled every {WATCH_S} s): {json.dumps(WATCH.peaks())}")
     say(card)
     say(json.dumps({"profiles": profiles}))
     say(json.dumps({"kernels": kernels, "empty_launch_ms": floor_ms,
@@ -4634,13 +5141,24 @@ if __name__ == "__main__":
     elif len(sys.argv) > 1 and sys.argv[1] == "--gate-seeds":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         gate_seeds([int(a) for a in sys.argv[2:]] or list(range(6)))
+    elif len(sys.argv) > 1 and sys.argv[1] == "--residency-scale":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        residency_scale(int(sys.argv[2]) if len(sys.argv) > 2 else RESIDENCY_SCALE)
     elif len(sys.argv) > 1 and sys.argv[1] == "--beside":
-        # phase 6 or a case of phase 9 (started by start_beside)
+        # phase 6, a case of phase 9 or phase 10 (started by start_beside)
+        die_with_parent()
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         beside_entry(sys.argv[2], sys.argv[3])
     elif len(sys.argv) > 1 and sys.argv[1] == "--rank":
         # one rank of phase 8 (started by run_ranks)
+        die_with_parent()
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         rank_entry(sys.argv[2], sys.argv[3], *map(int, sys.argv[4:7]))
     else:
-        main()
+        # SIGTERM ends the script through SystemExit, so that the finally
+        # below stops its children
+        signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+        try:
+            main()
+        finally:
+            stop_children()

@@ -50,21 +50,12 @@ _SWEEP = ("HK11, thunder_tpu's TPU shear-sweep insertion and its chunking; the p
 # "module:Name" (a class's entry covers its methods) -> the port's
 # counterpart, or why the port has none
 LEFT_BEHIND = {
-    "optimiser.py:HostFt": "host-resident spectra that bound the TPU's HBM residency "
-                           "(_plan_residency); the card holds the port's spectra (ROADMAP Q2, "
-                           "bring back only if a card profile asks)",
     "optimiser.py:compile_seconds": "JAX jit compile time; the port compiles nothing at run "
                                     "time (its kernels are built once by _native.build)",
     "optimiser.py:json_dumps_bytes": "the checkpoint's model encoder; the port's "
                                      "Optimiser.save_checkpoint encodes its model with json",
     "optimiser.py:translate_phases_view": "thunder_tpu's optimiser keeps its own copy; the "
                                           "port's is ops/fourier.py translate_phases_view",
-    "optimiser.py:Optimiser.norm_correction": "counterpart Optimiser.maximization_stats (the "
-                                              "norm-band median rescale)",
-    "optimiser.py:Optimiser.refresh_sigma": "counterpart Optimiser.maximization_stats (the "
-                                            "closed-form sigma of the rescaled residual)",
-    "optimiser.py:Optimiser.refresh_scale": "counterpart Optimiser.correct_scale (and the "
-                                            "per-group scale of maximization_stats)",
     "ops/projector.py:oct_pack": "a TPU table layout; the port projects from its quad table "
                                  "or the plain cube (Optimiser.proj_table, HK1 project_slices)",
     "ops/projector.py:oct_pack_half": "a TPU table layout; see oct_pack",
@@ -89,10 +80,6 @@ LEFT_BEHIND = {
 }
 # thunder_tpu's config fields the port's ThunderConfig does not have
 CONFIG_LEFT_BEHIND = {
-    "auto_residency": "the TPU's HBM residency plan (HostFt)",
-    "hbm_gb": "the TPU's HBM residency plan (HostFt)",
-    "host_ft_chunk": "the TPU's HBM residency plan (HostFt)",
-    "host_ft_ori": "the TPU's HBM residency plan (HostFt)",
     "group_sig": "read from the JSON, used by no code of thunder_tpu",
     "perturb_factor_l": "read from the JSON, used by no code of thunder_tpu",
     "thres_sclCor_fsc": "read from the JSON, used by no code of thunder_tpu",

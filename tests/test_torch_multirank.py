@@ -9,6 +9,11 @@ against the one-process port.
 * Two 3D rounds on 4 ranks, held statistically as thunder_tpu holds its
   mesh run (test_optimiser_mesh.py:66-): the stall rule reads sums over
   the data group, whose float order differs, so phase counts may too.
+* Two 3D rounds on 4 ranks on the host path (HostFt, two chunks a
+  rank, a local round: the two-pass statistics' sums and median over
+  the ranks), held as the resident 4-rank run is.
+* Two data ranks whose budgets differ agree on the host path and run
+  a global round, a local round and subtraction on it.
 * The CLI through --coordinator / --num-processes / --process-id
   --device cpu on 2, 3 and 4 processes writes the files one process
   writes, from rank 0 alone.
@@ -29,7 +34,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CTF_2D = (300e3, 2000.0, 2000.0, 0.0, 0.0, 0.1, 0.0)
 
 
-def _build(kind: str, n: int, layout=None):
+def _build(kind: str, n: int, layout=None, **cfg_kw):
     from thunder_tpu_torch.config import ThunderConfig
     from thunder_tpu_torch.optimiser import Optimiser
     from thunder_tpu_torch.pipeline.synthetic import make_dataset, make_dataset_2d
@@ -51,7 +56,7 @@ def _build(kind: str, n: int, layout=None):
         mode="3D", k=1, size=size, pixel_size=1.0, mask_radius=10.0, trans_s=1.5,
         init_res=4.0, global_search_res=3.0, sym="C1", m_s=128, m_l_r=12, m_l_t=9,
         m_reco=8, ignore_res=size * 1.0, trans_search_factor=0.25,
-        ref_auto_recentre=False)
+        ref_auto_recentre=False, **cfg_kw)
     ctf = [np.full(n, v) for v in (300e3, 500.0, 500.0, 0.0, 2e7, 0.1, 0.0)]
     return Optimiser(cfg, imgs, ctf, np.zeros(n, np.int64), init_refs=vol, device="cpu",
                      layout=layout), (vol, quats)
@@ -80,6 +85,55 @@ def _round_rank(rank, world, kind, n, rounds, tmp):
     res = _result(opt)
     if rank == 0:
         np.savez(os.path.join(tmp, "ranks.npz"), **{k: np.asarray(v) for k, v in res.items()})
+
+
+def _host_round_rank(rank, world, n, rounds, tmp):
+    from thunder_tpu_torch.model import SEARCH_TYPE_LOCAL
+    from thunder_tpu_torch.optimiser import HostFt
+    from thunder_tpu_torch.parallel.distributed import default_mesh
+
+    opt, _ = _build("3d", n, default_mesh(device="cpu"), host_ft_ori=True, host_ft_chunk=2)
+    assert isinstance(opt.data.ft_ori, HostFt) and len(opt._ft_chunks()) == 2
+    for i in range(rounds):
+        if i == rounds - 1:
+            opt.model.search_type = SEARCH_TYPE_LOCAL
+        opt.run_round(i)
+    res = _result(opt)
+    if rank == 0:
+        np.savez(os.path.join(tmp, "ranks.npz"), **{k: np.asarray(v) for k, v in res.items()})
+
+
+def _budget_rank(rank, world, n, tmp):
+    import torch
+
+    from thunder_tpu_torch.model import SEARCH_TYPE_LOCAL
+    from thunder_tpu_torch.optimiser import HostFt
+    from thunder_tpu_torch.parallel import comm
+    from thunder_tpu_torch.parallel.distributed import default_mesh
+
+    # rank 0 reads a budget its stacks exceed, the others one they fit
+    opt, _ = _build("3d", n, default_mesh(hemi=1, device="cpu"), host_ft_chunk=2,
+                    hbm_gb=1e-4 if rank == 0 else 80.0)
+    plan = opt.residency_plan
+    assert plan["auto"] == ("host_ft_ori" if rank == 0 else "host_ft_ori (another rank's plan)")
+    assert isinstance(opt.data.ft_ori, HostFt) and len(opt._ft_chunks()) == 2, plan
+    for i in range(2):
+        if i == 1:
+            opt.model.search_type = SEARCH_TYPE_LOCAL
+        opt.run_round(i)
+    size = opt.cfg.size
+    rows = opt.save_subtract(np.ones((size,) * 3, np.float32), chunk=3)
+    # a chunk at a time (3 and 1 rows of each rank) against one gather
+    x = torch.arange(opt.nh * opt.n_img * 2, dtype=torch.float32).reshape(opt.nh, opt.n_img, 2)
+    x = x + 100 * rank
+    steps = comm.gather_host_rows_to_lead(opt.layout, x, 3, opt.device)
+    whole = comm.gather_rows_to_lead(opt.layout, x)
+    if rank == 0:
+        assert torch.equal(steps, whole)
+        assert rows.shape == (n, size, size) and np.all(np.isfinite(rows))
+        np.savez(os.path.join(tmp, "ranks.npz"), rows=rows)
+    else:
+        assert rows is None and steps is None
 
 
 @functools.lru_cache(maxsize=None)
@@ -191,3 +245,31 @@ def test_cli_on_ranks_writes_what_one_process_writes(one_process_cli, world):
     a, _ = read_mrc(os.path.join(d1, "Reference_Final.mrcs"))
     b, _ = read_mrc(os.path.join(dn, "Reference_Final.mrcs"))
     np.testing.assert_allclose(b, a, rtol=5e-2, atol=1e-3)
+
+
+def test_3d_host_path_on_four_ranks(tmp_path):
+    """The host path on 4 ranks (hemi 2 x data 2, 4 images a rank, two
+    a chunk): a global round, then a local round (norm
+    correction's median over every rank, sigma's sums over the data
+    group, chunked insertion summed over it), held to the one-process
+    resident run as the resident 4-rank run is."""
+    n = 16
+    run_ranks(_host_round_rank, 4, n, 2, str(tmp_path), tmp=tmp_path)
+    got = np.load(tmp_path / "ranks.npz")
+    want, (vol, quats) = _one_process("3d", n, 2)
+    err_1, err_4 = _pose_err_deg(want["quats"], quats), _pose_err_deg(got["quats"], quats)
+    corr = lambda r: np.corrcoef(r.mean(axis=(0, 1)).ravel(), vol.ravel())[0, 1]
+    assert np.median(err_4) <= np.median(err_1) + 5.0, (np.median(err_4), np.median(err_1))
+    assert corr(got["refs"]) >= corr(want["refs"]) - 0.05
+    assert np.all(np.isfinite(got["refs"]))
+
+
+def test_ranks_with_other_budgets_take_one_path(tmp_path):
+    """Two data ranks whose budgets differ (hbm_gb set per rank: one
+    rank's stacks exceed its budget, the other's fit) agree on the host
+    path, and a global round, a local round (the two-pass statistics'
+    collectives over both ranks) and subtraction (its rows gathered a
+    chunk at a time) run on both."""
+    n = 16
+    run_ranks(_budget_rank, 2, n, str(tmp_path), tmp=tmp_path)
+    assert np.load(tmp_path / "ranks.npz")["rows"].shape[0] == n

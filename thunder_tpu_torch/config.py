@@ -95,6 +95,18 @@ class ThunderConfig:
     # z-slabs over the data axis once one passes this many MB
     # (recon/sharded.py; THUNDER held whole volumes a rank)
     vol_shard_min_mb: int = 512
+    # bounded device residency: keep the original spectra (ft_ori) in
+    # host memory (optimiser.HostFt) and copy host_ft_chunk images at a
+    # time to the card for each stage that reads them (the reference's
+    # host-resident image store, Optimiser::allocPreCal)
+    host_ft_ori: bool = False
+    host_ft_chunk: int = 256
+    # plan the residency at start-up (Optimiser._plan_residency): turn
+    # host_ft_ori on when the projected device bytes exceed the budget
+    auto_residency: bool = True
+    # the budget a rank's card gives, GB; 0: THUNDER_HBM_GB, else the
+    # card's memory (16 on a device that is no card)
+    hbm_gb: float = 0.0
 
     @property
     def mode_2d(self) -> bool:

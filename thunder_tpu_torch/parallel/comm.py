@@ -165,6 +165,29 @@ def gather_rows_to_lead(layout: Layout, x: torch.Tensor) -> torch.Tensor | None:
     return _assemble(layout, blocks, x.shape[1] * layout.data)
 
 
+def gather_host_rows_to_lead(layout: Layout, x: torch.Tensor, step: int,
+                             device) -> torch.Tensor | None:
+    """:func:`gather_rows_to_lead` of a host tensor x (hemispheres, n,
+    ...), ``step`` rows of every rank at a time, into a host tensor on
+    rank 0 (None elsewhere): no rank's whole block lies on a device.
+    Under NCCL each step travels from ``device``."""
+    if layout.world == 1:
+        return x
+    n = x.shape[1]
+    out = (torch.empty((2, n * layout.data) + x.shape[2:], dtype=x.dtype)
+           if layout.rank == 0 else None)
+    for lo in range(0, n, step):
+        sl = slice(lo, min(n, lo + step))
+        part = x[:, sl].to(device) if layout.backend == "nccl" else x[:, sl]
+        got = gather_rows_to_lead(layout, part)
+        if got is not None:
+            # rank j of the data axis sent its rows sl: global rows j n + sl
+            m = sl.stop - sl.start
+            for j in range(layout.data):
+                out[:, j * n + sl.start:j * n + sl.stop] = got[:, j * m:(j + 1) * m].cpu()
+    return out
+
+
 def exchange_hemi(layout: Layout, x: torch.Tensor) -> torch.Tensor:
     """Both hemispheres of a per-hemisphere quantity: x is this rank's
     (hemispheres, ...) block; returns (2, ...) from the hemisphere pair
